@@ -9,22 +9,28 @@ which must pass or the script exits non-zero:
    one nvcc per source, all started together;
 3. kernels: each kernel's wrapper against its plain PyTorch version on
    the card, at the shapes the served path gives it, with each
-   kernel's time beside its plain version's, one library call's and the
-   card's lower bound for the same work;
+   kernel's time beside its plain version's, one library call's (for
+   the whole-stack kernel: the per-layer kernel path's) and the card's
+   lower bound for the same work;
 4. engine: GPT-2 124M at full width (12 layers, seeded random weights),
-   bf16 and int8, the kernel path held against the plain path on the
-   same card, teacher-forced, within the declared tolerance budgets;
-   decode time per token at batch 1 and 8, and one decode step's eager
-   time beside the device's time for it (the step replayed from a CUDA
-   graph), which gives the device's busy share of the eager step;
+   bf16 and int8, the per-layer kernel path ("layer") and the
+   whole-stack kernel path ("mega") each held against the plain path on
+   the same card, teacher-forced, within the declared tolerance
+   budgets, with their launch counts; decode time per token at batch 1
+   and 8, and one decode step's eager time beside the device's time for
+   it (the step replayed from a CUDA graph), which gives the device's
+   busy share of the eager step; a 17-row batch on the mega engine takes
+   the per-layer kernels;
 5. server: ``python -m llm_sharding_demo_tpu_torch.serving`` with
    MODEL_ID=gpt2 INFERENCE_DTYPE=int8 answers /generate (greedy and
    seeded sampling, each twice, each pair equal; greedy equal to an
    in-process engine on the same weights), /healthz reports cuda and the
-   per-layer kernels, and every kernel was launched by that run.
+   whole-stack kernel, launched once per stage per decode step.
 
 The last lines are the card's name and power limit, one JSON object with
-the kernels' numbers, and ``{"ok": true, "device": {...}}``.
+the kernels' numbers (each kernel's launches counted on the path that
+runs it: the server for the whole-stack kernel, the "layer" int8 engine
+run for the per-layer kernels), and ``{"ok": true, "device": {...}}``.
 ``--phases`` runs a subset (the default runs all).
 """
 
@@ -120,6 +126,11 @@ def time_ms(calls, reps: int = 7, rounds: int = 4):
 
 def timed(results_row: dict, key: str, calls) -> None:
     results_row[key], results_row["call_" + key] = time_ms(calls)
+
+
+def bits(t):
+    import torch
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
 
 
 def copies_for(nbytes: int, target: int = 160 << 20, cap: int = 64) -> int:
@@ -314,15 +325,177 @@ def kernel_phase(results: dict) -> None:
               f"({r['bound_by']}); called from Python: kernel "
               f"{r['call_ms']:.4f} ms, plain {r['call_plain_ms']:.4f} ms, "
               f"library {r['call_library_ms']:.4f} ms")
+    megakernel_phase(results)
+
+
+def megakernel_phase(results: dict) -> None:
+    """The whole-stack kernel against its plain version at full GPT-2
+    width: the 12-layer stack and the served stages (SPLIT_AT=1: the
+    1-layer first stage, where layer 0 is also the last, and the 11-layer
+    second), bf16 and int8 weights, B 1/8/16, five offsets, odd rows
+    masked over half or all of their cached positions. The hidden state
+    must meet ``graftnum.STACK_POLICY`` (four bf16 ulps of its largest
+    value at most, and an RMS error per row under 2^-5 of what the stack
+    added to its input), the cache must equal the input outside row
+    ``offset`` (row ``offset`` within four ulps of the plain row), and two
+    launches on the same inputs must be bit-identical."""
+    import torch
+
+    from llm_sharding_demo_tpu_torch.models import gpt2
+    from llm_sharding_demo_tpu_torch.ops import decode_layer as DL
+    from llm_sharding_demo_tpu_torch.ops import quant as Q
+    from llm_sharding_demo_tpu_torch.ops.attention import KVCache
+    from llm_sharding_demo_tpu_torch.utils import graftnum
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4321)
+    cfg = gpt2.CONFIGS["gpt2"]
+
+    def weights(regime):
+        p = gpt2.init_params(cfg, g)["blocks"]
+        # non-trivial LN and bias values (init_params makes 1 and 0)
+        for grp, leaf in (("ln_1", "scale"), ("ln_2", "scale")):
+            p[grp][leaf] = p[grp][leaf] + 0.1 * torch.randn(
+                p[grp][leaf].shape, generator=g, device=dev)
+        for grp in ("attn", "mlp"):
+            for lin in p[grp].values():
+                lin["bias"] = 0.02 * torch.randn(lin["bias"].shape,
+                                                 generator=g, device=dev)
+        if regime == "int8":
+            return Q.quantize_params({"blocks": p})["blocks"]
+        return gpt2.map_params(lambda x: x.to(torch.bfloat16), p)
+
+    def call(blocks, h, kv, off, vf=None):
+        return DL.decode_layers(blocks, h, kv, off, vf, n_head=H, eps=1e-5)
+
+    def plain(blocks, h, kv, off, vf=None):
+        return DL.decode_layers_plain(blocks, h, kv, off, vf, n_head=H,
+                                      eps=1e-5)
+
+    stacks = {"bf16": weights("bf16"), "int8": weights("int8")}
+    worst, worst_rel = 0.0, 0.0
+    for B in (1, 8, 16):
+        KV = randn_bf16(g, L, B, H, NPOS, 2 * HD)
+        for off in (0, 37, 255, 256, 1000):
+            h = randn_bf16(g, B, 1, D)
+            # rows 1, 5, 9, 13 see their second half of cached positions,
+            # rows 3, 7, 11, 15 only the self term
+            vf = torch.tensor([off * (b % 4 + 1) // 4 if b % 2 else 0
+                               for b in range(B)], dtype=torch.int32,
+                              device=dev)
+            for regime, full in stacks.items():
+                for name, layers in (("12-layer stack", slice(0, L)),
+                                     ("1-layer stage", slice(0, 1)),
+                                     ("11-layer stage", slice(1, L))):
+                    blocks = gpt2.map_params(lambda x: x[layers], full)
+                    cache = KV[layers]
+                    ka, kb, kp = cache.clone(), cache.clone(), cache.clone()
+                    out_a, _ = call(blocks, h, ka, off, vf)
+                    out_b, _ = call(blocks, h, kb, off, vf)
+                    out_p, _ = plain(blocks, h, kp, off, vf)
+                    torch.cuda.synchronize()
+                    what = f"decode_layers {regime} {name} B={B} off={off}"
+                    try:
+                        rep = graftnum.compare_stack(out_a, out_p, h)
+                    except graftnum.GraftnumError as e:
+                        raise SmokeError(f"{what}: {e} ({e.report})")
+                    lim = rep["max_abs_limit"]
+                    row_err = (ka[:, :, :, off].float()
+                               - kp[:, :, :, off].float()).abs().max().item()
+                    check(row_err <= lim,
+                          f"{what}: cache row {off} err {row_err} > {lim}")
+                    check(torch.equal(bits(out_a), bits(out_b))
+                          and torch.equal(bits(ka), bits(kb)),
+                          f"{what}: two launches differ")
+                    ka[:, :, :, off] = cache[:, :, :, off]
+                    check(torch.equal(bits(ka), bits(cache)),
+                          f"{what}: the cache changed outside row {off}")
+                    worst = max(worst, rep["max_abs_err"])
+                    worst_rel = max(worst_rel, rep["rel_rms_err"])
+                    print(f"  {what}  max_abs_err={rep['max_abs_err']:.3e} "
+                          f"(limit {lim:.3e}) rel_rms_err="
+                          f"{rep['rel_rms_err']:.3e} (limit "
+                          f"{rep['rel_rms_limit']:.3e}) row_err="
+                          f"{row_err:.3e}  bit-identical  ok")
+                    del ka, kb, kp
+        del KV
+    print(f"  decode_layers: worst max_abs_err {worst:.3e}, worst "
+          f"rel_rms_err {worst_rel:.3e} over the cases above")
+    # timing: B=1 at 255 cached positions, the 12-layer int8 stack first
+    # (the JSON row), then the served stages and bf16
+    runs = []
+    for regime, layers, B in (("int8", slice(0, L), 1),
+                              ("int8", slice(1, L), 1),
+                              ("int8", slice(0, 1), 1),
+                              ("bf16", slice(0, L), 1),
+                              ("int8", slice(0, L), 8)):
+        n_l = layers.stop - layers.start
+        wbytes = weight_bytes(gpt2.map_params(lambda x: x[layers],
+                                              stacks[regime]))
+        off = 255
+        sets = []
+        for _ in range(copies_for(wbytes)):
+            blocks = gpt2.map_params(lambda x: x[layers], weights(regime))
+            sets.append((blocks, gpt2.unstack_blocks(blocks),
+                         randn_bf16(g, B, 1, D),
+                         randn_bf16(g, n_l, B, H, NPOS, 2 * HD)))
+        empty = torch.zeros((0,), dtype=torch.bfloat16, device=dev)
+        kernel = [(lambda s=s: call(s[0], s[2], s[3], off)) for s in sets]
+        plains = [(lambda s=s: plain(s[0], s[2], s[3], off)) for s in sets]
+        layer_path = [(lambda s=s: gpt2.apply_blocks(
+            s[1], s[2], cfg, KVCache(k=s[3], v=empty, length=off),
+            decode_kernel="layer")) for s in sets]
+        nbytes = (wbytes + 2 * B * D * 2                  # weights, h in/out
+                  + n_l * B * H * off * 2 * HD * 2        # cached rows read
+                  + n_l * B * H * 2 * HD * 2)             # the rows written
+        ops = n_l * B * (2 * 12 * D * D + 2 * 2 * H * (off + 1) * HD)
+        bms, by = bound_ms(nbytes, ops, "bfloat16")
+        row = dict(shape=f"{regime} weights, {n_l} layers, B={B} D={D} "
+                   f"H={H} hd={HD} Smax={NPOS} offset={off}",
+                   bound_ms=bms, bound_by=by, weight_bytes=wbytes)
+        timed(row, "ms", kernel)
+        timed(row, "plain_ms", plains)
+        timed(row, "layer_path_ms", layer_path)
+        runs.append(row)
+        print(f"  decode_layers {row['shape']}: device time per call: kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, per-layer "
+              f"kernel path {row['layer_path_ms']:.4f} ms, bound "
+              f"{bms:.4f} ms ({by}, {nbytes / 1e6:.1f} MB); called from "
+              f"Python: kernel {row['call_ms']:.4f} ms, plain "
+              f"{row['call_plain_ms']:.4f} ms, per-layer path "
+              f"{row['call_layer_path_ms']:.4f} ms")
+        del sets
+    results["decode_layers"] = dict(runs[0], max_abs_err=worst,
+                                    rel_rms_err=worst_rel, library_ms=None,
+                                    other_shapes=runs[1:])
+
+
+def randn_bf16(g, *shape):
+    import torch
+    return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+
+
+def weight_bytes(tree) -> int:
+    """Bytes of every tensor of a parameter tree (int8 codes and scales
+    included)."""
+    from llm_sharding_demo_tpu_torch.ops.quant import is_quantized
+    if isinstance(tree, dict):
+        return sum(weight_bytes(v) for v in tree.values())
+    if is_quantized(tree):
+        return weight_bytes(tree.q) + weight_bytes(tree.scale)
+    return tree.numel() * tree.element_size()
 
 
 # -- phase 4: the engine at full GPT-2 width ---------------------------------
 
-def engine_phase() -> None:
+def engine_phase() -> dict:
+    """Returns the launch counts of the int8 "layer" engine's
+    teacher-forced run (the path of the per-layer kernels)."""
     import torch
 
     from llm_sharding_demo_tpu_torch.models import gpt2
     from llm_sharding_demo_tpu_torch.ops import cuda_build
+    from llm_sharding_demo_tpu_torch.ops.decode_layer import MAX_BATCH
     from llm_sharding_demo_tpu_torch.runtime.engine import DecodeEngine
     from llm_sharding_demo_tpu_torch.utils import graftnum
 
@@ -332,48 +505,79 @@ def engine_phase() -> None:
     rng = np.random.default_rng(7)
     prompt = rng.integers(0, cfg.vocab_size, 16).tolist()
     forced = rng.integers(0, cfg.vocab_size, 48).tolist()
+    steps = len(forced) - 1
+    layer_counts = {}
     for regime, path in (("bfloat16", "decode.bf16"), ("int8", "decode.int8")):
-        ker = DecodeEngine(params, cfg, max_seq=NPOS, dtype=regime,
-                           decode_kernel="layer")
-        plain = DecodeEngine(params, cfg, max_seq=NPOS, dtype=regime,
-                             decode_kernel="xla")
-        check(ker.decode_kernel == "layer", "kernel engine did not engage")
-        cuda_build.reset_launch_counts()
-        lk = teacher_forced_logits(ker, prompt, forced)
-        counts = cuda_build.launch_counts()
-        lp = teacher_forced_logits(plain, prompt, forced)
-        check(bool(torch.isfinite(lk).all()), f"{regime}: non-finite logits")
-        check(tuple(lk.shape) == (len(forced), cfg.vocab_size),
-              f"{regime}: logits shape {tuple(lk.shape)}")
-        rep = graftnum.compare(path, lk, lp)
-        steps = len(forced) - 1
-        check(counts["decode_attention"] == steps * L,
-              f"{regime}: decode_attention launches {counts}")
-        if regime == "int8":
-            # every decode step, plus the 16-row prefill (rows <= 16)
-            check(counts["quant_linear"] == (steps + 1) * 4 * L
-                  and counts["quant_head"] == steps + 1,
-                  f"int8: int8 kernel launches {counts}")
-        print(f"  {path}: kernel vs plain over {rep['n_positions']} "
-              f"teacher-forced positions: logit_mse={rep['logit_mse']:.3e} "
-              f"(cap {rep['policy']['logit_mse']:.0e}) top1_agreement="
-              f"{rep['top1_agreement']:.4f} (floor "
-              f"{rep['policy']['top1_agreement']})  launches {counts}")
+        engines = {mode: DecodeEngine(params, cfg, max_seq=NPOS, dtype=regime,
+                                      decode_kernel=mode)
+                   for mode in ("layer", "mega", "xla")}
+        auto = DecodeEngine(params, cfg, max_seq=NPOS, dtype=regime)
+        check(auto.decode_kernel_mode == "mega",
+              f"{regime}: 'auto' resolved to {auto.decode_kernel_mode}")
+        del auto
+        lp = teacher_forced_logits(engines["xla"], prompt, forced)
+        for mode in ("layer", "mega"):
+            eng = engines[mode]
+            check(eng.decode_kernel_mode == mode, f"{mode} did not engage")
+            cuda_build.reset_launch_counts()
+            lk = teacher_forced_logits(eng, prompt, forced)
+            counts = cuda_build.launch_counts()
+            check(bool(torch.isfinite(lk).all()),
+                  f"{regime} {mode}: non-finite logits")
+            check(tuple(lk.shape) == (len(forced), cfg.vocab_size),
+                  f"{regime} {mode}: logits shape {tuple(lk.shape)}")
+            rep = graftnum.compare(path, lk, lp)
+            int8 = regime == "int8"
+            # int8: the 16-row prefill (rows <= 16) takes the int8 linear
+            # and head kernels on either path
+            want = {"decode_attention": steps * L if mode == "layer" else 0,
+                    "quant_linear": (steps + 1 if mode == "layer" else 1)
+                    * 4 * L if int8 else 0,
+                    "quant_head": steps + 1 if int8 else 0,
+                    "decode_layers": steps if mode == "mega" else 0}
+            check(counts == want,
+                  f"{regime} {mode}: launches {counts}, expected {want}")
+            if int8 and mode == "layer":
+                layer_counts = counts
+            print(f"  {path} {mode}: kernel path vs plain path over "
+                  f"{rep['n_positions']} teacher-forced positions: "
+                  f"logit_mse={rep['logit_mse']:.3e} (cap "
+                  f"{rep['policy']['logit_mse']:.0e}) top1_agreement="
+                  f"{rep['top1_agreement']:.4f} (floor "
+                  f"{rep['policy']['top1_agreement']})  launches {counts}")
         for batch in (1, 8):
             ids = rng.integers(0, cfg.vocab_size, (batch, 32))
             times = {}
-            for name, eng in (("kernel", ker), ("plain", plain)):
+            for mode in ("mega", "layer", "xla"):
+                eng = engines[mode]
                 eng.generate(ids, 8)   # warm-up
                 r = eng.generate(ids, 65)
                 eager, device = step_ms(eng, ids)
-                times[name] = (r.per_token_latency * 1e3, eager, device)
+                times[mode] = (r.per_token_latency * 1e3, eager, device)
             print(f"  {regime} decode bs={batch}, 65 new tokens after a "
                   f"32-token prompt: " + "; ".join(
-                      f"{name} path {t:.3f} ms/token, one step {e:.3f} ms "
+                      f"{mode} path {t:.3f} ms/token, one step {e:.3f} ms "
                       f"eager vs {d:.3f} ms device (busy {d / e:.1%})"
-                      for name, (t, e, d) in times.items()))
-        del ker, plain
+                      for mode, (t, e, d) in times.items()))
+        if regime == "int8":
+            # past MAX_BATCH rows the mega engine takes the per-layer kernels
+            ids = rng.integers(0, cfg.vocab_size, (MAX_BATCH + 1, 8))
+            cuda_build.reset_launch_counts()
+            got = engines["mega"].generate(ids, 6).tokens
+            counts = cuda_build.launch_counts()
+            check(counts["decode_layers"] == 0
+                  and counts["decode_attention"] == 5 * L
+                  and counts["quant_linear"] == 0,
+                  f"{MAX_BATCH + 1}-row batch: launches {counts}")
+            check(np.array_equal(got, engines["layer"].generate(ids, 6).tokens),
+                  f"{MAX_BATCH + 1}-row batch: mega engine differs from the "
+                  "layer engine")
+            print(f"  int8 {MAX_BATCH + 1}-row batch on the mega engine: "
+                  f"per-layer kernels, tokens equal to the layer engine's, "
+                  f"launches {counts}")
+        del engines
         torch.cuda.empty_cache()
+    return layer_counts
 
 
 def teacher_forced_logits(eng, prompt, forced):
@@ -488,7 +692,7 @@ def server_phase() -> dict:
                           "server not ready after 300 s")
                     time.sleep(1)
             check(health["device"].startswith("cuda"), f"healthz {health}")
-            check(health["decode_kernel"] == "layer", f"healthz {health}")
+            check(health["decode_kernel"] == "mega", f"healthz {health}")
             before = health["kernel_launches"]
             check(all(v == 0 for v in before.values()),
                   f"launch counts before the requests: {before}")
@@ -517,8 +721,14 @@ def server_phase() -> dict:
     check(g1 == g2, f"greedy replies differ: {g1} vs {g2}")
     check(s1 == s2, f"seeded sample replies differ: {s1} vs {s2}")
     counts = health["kernel_launches"]
-    check(all(v > 0 for v in counts.values()),
-          f"a kernel was not launched by the served path: {counts}")
+    # two stages (SPLIT_AT=1): one whole-stack launch per stage and decode
+    # step, one head launch per decode step (the 41-token prefills exceed
+    # the int8 kernels' 16 rows); the per-layer kernels stay idle
+    check(counts["quant_head"] > 0
+          and counts["decode_layers"] == 2 * counts["quant_head"]
+          and counts["decode_attention"] == 0
+          and counts["quant_linear"] == 0,
+          f"served path launches {counts}")
     # the same weights in this process: the greedy reply must match
     cfg = ServingConfig(model_id="gpt2", inference_dtype="int8",
                         max_seq=NPOS)
@@ -572,23 +782,32 @@ def main() -> int:
     if "kernels" in phases:
         print("[kernels] each kernel against its plain version on the card")
         kernel_phase(results)
-    if "engine" in phases:
-        print("[engine] GPT-2 124M, kernel path vs plain path")
-        engine_phase()
+    # each kernel's launches on the path that runs it
     launches = {k.name: None for k in cuda_build.KERNELS}
+    if "engine" in phases:
+        print("[engine] GPT-2 124M, kernel paths vs plain path")
+        layer_counts = engine_phase()
+        for kernel in ("decode_attention", "quant_linear", "quant_head"):
+            launches[kernel] = layer_counts[kernel]
     if "server" in phases:
         print("[server] python -m llm_sharding_demo_tpu_torch.serving, int8")
-        launches = server_phase()
+        launches["decode_layers"] = server_phase()["decode_layers"]
 
     sources = {"decode_attention": "csrc/decode_attention.cu",
                "quant_linear": "csrc/quant.cu",
-               "quant_head": "csrc/quant.cu"}
+               "quant_head": "csrc/quant.cu",
+               "decode_layers": "csrc/decode_layer.cu"}
     replaces = {
         "decode_attention":
             "llm_sharding_demo_tpu/ops/decode_attention.py:74",
         "quant_linear": "llm_sharding_demo_tpu/ops/quant.py:217",
         "quant_head": "llm_sharding_demo_tpu/ops/quant.py:249",
+        "decode_layers": "llm_sharding_demo_tpu/ops/decode_layer.py:319",
     }
+    paths = {"decode_layers": "server: four 24-token int8 /generate requests",
+             "decode_attention": "engine: int8 'layer' teacher-forced run",
+             "quant_linear": "engine: int8 'layer' teacher-forced run",
+             "quant_head": "engine: int8 'layer' teacher-forced run"}
     rows = []
     for k in cuda_build.KERNELS:
         r = results.get(k.name, {})
@@ -596,11 +815,14 @@ def main() -> int:
             "name": k.name, "route": "cuda",
             "source": "llm_sharding_demo_tpu_torch/" + sources[k.name],
             "replaces": replaces[k.name], "launches": launches[k.name],
+            "launches_on": paths[k.name],
             "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
             "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
             "bound_by": r.get("bound_by"),
             "library_ms": r.get("library_ms"), "shape": r.get("shape"),
-            "call_ms": r.get("call_ms")})
+            "call_ms": r.get("call_ms"),
+            **({"layer_path_ms": r.get("layer_path_ms")}
+               if k.name == "decode_layers" else {})})
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

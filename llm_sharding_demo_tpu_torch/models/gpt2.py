@@ -18,6 +18,8 @@ from ..ops.attention import (KVCache, cached_attention_fused,
                              cached_attention_inplace, causal_attention,
                              merge_heads, split_heads)
 from ..ops.decode_attention import decode_attention
+from ..ops.decode_layer import (MAX_BATCH, decode_layers, mega_downgrade,
+                                mega_requested)
 from ..ops.layers import gelu_new, layer_norm, linear
 from ..ops.quant import QuantizedTensor, embed_rows, head_logits, is_quantized
 
@@ -118,8 +120,11 @@ def unstack_blocks(blocks: Params) -> List[Params]:
 
 def unstack_params(params: Params) -> Params:
     """``params`` with its stacked ``blocks`` replaced by their per-layer
-    list (what ``apply_blocks`` also takes)."""
-    return dict(params, blocks=unstack_blocks(params["blocks"]))
+    list (what ``apply_blocks`` also takes); the stacked tensors stay
+    beside it as ``stacked_blocks`` (views, no copies) for the
+    whole-stack kernel, which takes a pointer and a layer stride."""
+    return dict(params, blocks=unstack_blocks(params["blocks"]),
+                stacked_blocks=params["blocks"])
 
 
 def embed(params: Params, input_ids: torch.Tensor,
@@ -218,6 +223,39 @@ def forward(params: Params, input_ids: torch.Tensor,
     return final_logits(params, h, config.layer_norm_epsilon)
 
 
+def mega_step(blocks: Params, h: torch.Tensor, config: GPT2Config,
+              cache: KVCache, pad: Optional[torch.Tensor],
+              ) -> Optional[Tuple[torch.Tensor, KVCache]]:
+    """All the stacked ``blocks`` for one embedded ``[B, 1, D]`` token in
+    one whole-stack launch (``ops.decode_layer``), the one GPT-2 mega
+    route that ``forward_with_cache`` and the stage runner share. Returns
+    ``(h, cache)``, or ``None`` past ``MAX_BATCH`` rows: the caller then
+    takes the per-layer kernels (``mega_downgrade``)."""
+    if h.shape[0] > MAX_BATCH:
+        return None
+    h, KV = decode_layers(blocks, h, cache.k, cache.length,
+                          k_valid_from=pad, n_head=config.n_head,
+                          eps=config.layer_norm_epsilon)
+    return h, KVCache(k=KV, v=cache.v, length=cache.length + 1)
+
+
+def run_blocks(params: Params, h: torch.Tensor, config: GPT2Config,
+               cache: Optional[KVCache], pad: Optional[torch.Tensor],
+               decode_kernel: Optional[str],
+               ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """The block stack of a forward or a stage: one megakernel launch for
+    a single cached token on a mega engine, else the per-layer loop.
+    ``params`` are plain or from ``unstack_params`` (whose
+    ``stacked_blocks`` the megakernel takes)."""
+    if cache is not None and mega_requested(decode_kernel, h.shape[1]):
+        step = mega_step(params.get("stacked_blocks", params["blocks"]), h,
+                         config, cache, pad)
+        if step is not None:
+            return step
+    return apply_blocks(params["blocks"], h, config, cache, k_valid_from=pad,
+                        decode_kernel=mega_downgrade(decode_kernel))
+
+
 def forward_with_cache(params: Params, input_ids: torch.Tensor,
                        config: GPT2Config, cache: KVCache,
                        pad: Optional[torch.Tensor] = None,
@@ -228,11 +266,12 @@ def forward_with_cache(params: Params, input_ids: torch.Tensor,
 
     ``pad`` ([B] int) enables ragged batches of left-padded prompts: row
     b's first ``pad[b]`` cache slots are pad tokens, so its positions
-    shift down by ``pad[b]`` and those slots are masked as keys."""
+    shift down by ``pad[b]`` and those slots are masked as keys.
+    ``decode_kernel="mega"`` runs single-token inputs (decode steps, a
+    1-token prompt's prefill) through the whole-stack kernel."""
     offset = cache.length if pad is None else cache.length - pad[:, None]
     h = embed(params, input_ids, offset)
-    h, cache = apply_blocks(params["blocks"], h, config, cache,
-                            k_valid_from=pad, decode_kernel=decode_kernel)
+    h, cache = run_blocks(params, h, config, cache, pad, decode_kernel)
     return final_logits(params, h, config.layer_norm_epsilon,
                         kernels=decode_kernel is not None), cache
 

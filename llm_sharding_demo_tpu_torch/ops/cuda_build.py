@@ -54,10 +54,13 @@ class KernelLibrary:
     """One ``csrc`` source, built into its own shared library on demand."""
 
     def __init__(self, source: str, functions: Dict[str, Sequence],
-                 error_fn: str):
+                 error_fn: str, defines: Sequence[str] = ()):
         self.source = os.path.join(CSRC_DIR, source)
         self.functions = dict(functions)
         self.error_fn = error_fn
+        # extra nvcc flags (``-D`` switches of the source), hashed into the
+        # library's name
+        self.flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
         self.build_seconds: Optional[float] = None
         self.build_log = ""
         self._lib = None
@@ -67,7 +70,7 @@ class KernelLibrary:
     def path(self) -> str:
         with open(self.source, "rb") as f:
             digest = hashlib.sha256(f.read())
-        digest.update(" ".join(NVCC_FLAGS).encode())
+        digest.update(" ".join(self.flags).encode())
         stem = os.path.splitext(os.path.basename(self.source))[0]
         return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
 
@@ -82,7 +85,7 @@ class KernelLibrary:
             return None
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{self.path}.tmp{os.getpid()}"
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, self.source]
+        cmd = [find_nvcc(), *self.flags, "-o", tmp, self.source]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         proc.tmp_path = tmp
@@ -152,13 +155,21 @@ QUANT_LIB = KernelLibrary(
     {"quant_linear_launch": (_P, _P, _P, _P, _I, _I, _I, _P),
      "quant_head_launch": (_P, _P, _P, _I, _I, _I, _P)},
     "quant_error")
-LIBRARIES = (DECODE_ATTENTION_LIB, QUANT_LIB)
+DECODE_LAYER_LIB = KernelLibrary(
+    "decode_layer.cu",
+    {"decode_layers_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _F, _P),
+     "decode_layers_workspace_floats": (_I, _I, _I, _I)},
+    "decode_layers_error")
+LIBRARIES = (DECODE_ATTENTION_LIB, QUANT_LIB, DECODE_LAYER_LIB)
 
 DECODE_ATTENTION = Kernel("decode_attention", DECODE_ATTENTION_LIB,
                           "decode_attention_launch")
 QUANT_LINEAR = Kernel("quant_linear", QUANT_LIB, "quant_linear_launch")
 QUANT_HEAD = Kernel("quant_head", QUANT_LIB, "quant_head_launch")
-KERNELS = (DECODE_ATTENTION, QUANT_LINEAR, QUANT_HEAD)
+DECODE_LAYERS = Kernel("decode_layers", DECODE_LAYER_LIB,
+                       "decode_layers_launch")
+KERNELS = (DECODE_ATTENTION, QUANT_LINEAR, QUANT_HEAD, DECODE_LAYERS)
 
 
 def build_all() -> List[KernelLibrary]:

@@ -14,8 +14,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from ..models.gpt2 import (GPT2Config, Params, apply_blocks, embed,
-                           final_logits, layer_params)
+from ..models.gpt2 import (GPT2Config, Params, embed, final_logits,
+                           layer_params, run_blocks)
 from ..ops.attention import KVCache
 
 
@@ -109,13 +109,14 @@ def stage_apply(stage_params: Params, spec: StageSpec, config: GPT2Config,
     ``[B,S,D]`` hidden states; the last returns ``[B,S,vocab]`` f32
     logits. The position offset derives from ``cache.length`` (0 without
     a cache), never from the caller, so the position embedding cannot
-    disagree with the cache-write position."""
+    disagree with the cache-write position. On a mega engine a
+    single-token input runs the stage's blocks in one whole-stack launch
+    (``gpt2.mega_step``)."""
     position_offset = cache.length if cache is not None else 0
     if pad is not None:
         position_offset = position_offset - pad[:, None]
     h = embed(stage_params, x, position_offset) if spec.is_first else x
-    h, cache = apply_blocks(stage_params["blocks"], h, config, cache,
-                            k_valid_from=pad, decode_kernel=decode_kernel)
+    h, cache = run_blocks(stage_params, h, config, cache, pad, decode_kernel)
     if spec.is_last:
         head = {"ln_f": stage_params["ln_f"], "wte": stage_params["wte_out"]}
         h = final_logits(head, h, config.layer_norm_epsilon,

@@ -28,6 +28,7 @@ import torch
 from ..models import family_module
 from ..models.gpt2 import GPT2Config, Params, map_params, unstack_params
 from ..ops.attention import create_fused_cache
+from ..ops import decode_layer as DL
 from ..ops.decode_attention import BLOCK_S, KERNEL_HEAD_DIM, eligible
 from ..ops.quant import quantize_params
 from ..utils.device import DeviceLike, regime_of, resolve_device, torch_dtype
@@ -41,8 +42,7 @@ REF_TOP_K = 40
 EOS_SEGMENT = 32
 _EOS_CAP_MAX = 256
 
-DECODE_KERNEL_MODES = ("auto", "xla", "layer")
-MEGAKERNEL_ITEM = "ROADMAP Queue 2 item 1 (the GPT-2 whole-stack megakernel)"
+DECODE_KERNEL_MODES = ("auto", "xla", "layer", "mega")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,21 +196,69 @@ def _sync(device: torch.device) -> None:
 
 
 def check_decode_kernel(decode_kernel: str) -> None:
-    """Refuse the JAX package's kernel modes that are not ported (the
-    megakernel) or that have no GPU meaning (interpret mode)."""
-    if decode_kernel.startswith("mega"):
-        raise NotImplementedError(
-            f"decode_kernel={decode_kernel!r}: the whole-stack megakernel "
-            f"is not ported yet; it waits for {MEGAKERNEL_ITEM}")
+    """Refuse the JAX package's kernel modes that have no GPU meaning
+    (interpret mode) and unknown names."""
     if decode_kernel.endswith("interpret"):
         raise ValueError(
             f"decode_kernel={decode_kernel!r}: interpret mode runs Pallas "
             "kernels on a TPU-less host; the port's CUDA kernels have their "
             "plain PyTorch versions instead, taken for CPU tensors "
-            "(use 'layer' with device='cpu')")
+            "(use 'layer' or 'mega' with device='cpu')")
     if decode_kernel not in DECODE_KERNEL_MODES:
         raise ValueError(f"decode_kernel={decode_kernel!r} not one of "
                          f"{DECODE_KERNEL_MODES}")
+
+
+def resolve_decode_kernel(decode_kernel: str, config: GPT2Config,
+                          max_seq: int, regime: str, on_cuda: bool,
+                          ) -> Tuple[Optional[str], int]:
+    """``(mode, cache_seq)``: the kernel mode an engine runs ("mega",
+    "layer", or None for the plain path) and its cache length.
+
+    "auto" engages kernels only on CUDA and only for bf16/int8 (fp32 is
+    the kernel-free parity mode), and picks the whole-stack megakernel
+    wherever its geometry rule holds, the per-layer kernels elsewhere.
+    An explicit "layer" or "mega" on an ineligible geometry raises, as
+    does "mega" with fp32 on CUDA (the kernel takes bf16 activations);
+    on the CPU both run the kernels' plain versions. Kernel modes round
+    the cache up to whole 256-slot blocks, capped at ``n_positions``."""
+    check_decode_kernel(decode_kernel)
+    want = decode_kernel in ("layer", "mega") or (
+        decode_kernel == "auto" and on_cuda and regime != "float32")
+    if not want:
+        return None, max_seq
+    rounded = min(-(-max_seq // BLOCK_S) * BLOCK_S, config.n_positions)
+    # the CUDA kernels are built for GPT-2's head_dim only; the megakernel's
+    # rule is the per-layer kernel's plus a 128-aligned width
+    layer_ok = eligible(rounded, config.head_dim, 1) and (
+        not on_cuda or config.head_dim == KERNEL_HEAD_DIM)
+    mega_ok = DL.eligible(config, rounded)
+    if decode_kernel == "mega":
+        if not mega_ok:
+            raise ValueError(
+                f"decode_kernel='mega' requested but the megakernel is "
+                f"ineligible here (n_embd={config.n_embd}, head_dim="
+                f"{config.head_dim}, cache={rounded}): it needs "
+                f"head_dim == {KERNEL_HEAD_DIM}, n_embd % 128 == 0 and a "
+                f"whole-{BLOCK_S}-block cache. Note: even an eligible mega "
+                f"engine takes the per-layer kernels past {DL.MAX_BATCH} "
+                "batch rows")
+        if on_cuda and regime == "float32":
+            raise ValueError(
+                "decode_kernel='mega' with float32 on CUDA: the megakernel "
+                "takes bf16 activations (the bfloat16 and int8 regimes); "
+                "float32 is the kernel-free parity mode ('auto' or 'xla')")
+    if not layer_ok:
+        if decode_kernel == "layer":
+            raise ValueError(
+                f"decode_kernel='layer' requested but the geometry is "
+                f"ineligible (head_dim={config.head_dim}, cache="
+                f"{rounded}): needs 2*head_dim % 128 == 0 (on CUDA, "
+                f"head_dim == {KERNEL_HEAD_DIM}) and a whole-"
+                f"{BLOCK_S}-block cache; use 'auto' or 'xla'")
+        return None, max_seq
+    return ("mega" if mega_ok and decode_kernel != "layer" else "layer",
+            rounded)
 
 
 class DecodeEngine:
@@ -225,11 +273,15 @@ class DecodeEngine:
     ``decode_kernel``: ``"xla"`` is the plain PyTorch path (the name kept
     so configurations carry over); ``"layer"`` runs single-token steps
     through the per-layer kernels (decode attention, and the int8
-    matmuls in the int8 regime); ``"auto"`` picks ``"layer"`` on CUDA for
-    bf16/int8 at the kernel's head_dim (64) and the plain path for fp32
-    (the parity mode) or on the CPU. Kernel mode allocates the fused cache and rounds its length up
-    to a whole number of 256-slot blocks, capped at ``n_positions``, as
-    the JAX engine does. On the CPU the kernels' plain versions run.
+    matmuls in the int8 regime); ``"mega"`` runs them through the
+    whole-stack kernel, one launch per stage and step, and takes the
+    per-layer kernels past 16 batch rows; ``"auto"`` picks ``"mega"`` on
+    CUDA for bf16/int8 where its geometry rule holds, else ``"layer"``,
+    and the plain path for fp32 (the parity mode) or on the CPU
+    (``resolve_decode_kernel``). Kernel modes allocate the fused cache
+    and round its length up to a whole number of 256-slot blocks, capped
+    at ``n_positions``, as the JAX engine does. On the CPU the kernels'
+    plain versions run.
     """
 
     def __init__(self, params: Params, config: GPT2Config, max_seq: int,
@@ -267,30 +319,12 @@ class DecodeEngine:
                                  P.partition_params(params, self.specs)]
             self.params = None
 
-        self._cache_seq = max_seq
-        self.decode_kernel: Optional[str] = None
-        want = decode_kernel == "layer" or (
-            decode_kernel == "auto" and dev.type == "cuda"
-            and self.regime != "float32")
-        if want:
-            rounded = min(-(-max_seq // BLOCK_S) * BLOCK_S,
-                          config.n_positions)
-            # the CUDA kernel is built for GPT-2's head_dim only
-            if eligible(rounded, config.head_dim, 1) and (
-                    dev.type != "cuda" or config.head_dim == KERNEL_HEAD_DIM):
-                self._cache_seq = rounded
-                self.decode_kernel = "layer"
-            elif decode_kernel == "layer":
-                raise ValueError(
-                    f"decode_kernel='layer' requested but the geometry is "
-                    f"ineligible (head_dim={config.head_dim}, cache="
-                    f"{rounded}): needs 2*head_dim % 128 == 0 (on CUDA, "
-                    f"head_dim == {KERNEL_HEAD_DIM}) and a whole-"
-                    f"{BLOCK_S}-block cache; use 'auto' or 'xla'")
+        self.decode_kernel, self._cache_seq = resolve_decode_kernel(
+            decode_kernel, config, max_seq, self.regime, dev.type == "cuda")
 
     @property
     def decode_kernel_mode(self) -> str:
-        """The resolved mode: "layer" or "xla" (the plain path)."""
+        """The resolved mode: "mega", "layer" or "xla" (the plain path)."""
         return self.decode_kernel or "xla"
 
     def _fresh_cache(self, batch: int):

@@ -6,6 +6,10 @@ this slice needs: the ``decode.bf16`` and ``decode.int8`` entries of
 behind them. ``logit_mse`` caps the mean over scored positions of the
 per-position MSE over the vocab (f32 logits); ``top1_agreement`` floors
 the fraction of positions whose argmax matches the exact side.
+
+``STACK_POLICY`` and ``compare_stack`` hold the whole-stack decode
+kernel (``ops.decode_layer``) against its plain version on the same
+inputs.
 """
 
 from __future__ import annotations
@@ -48,4 +52,47 @@ def compare(path: str, approx: torch.Tensor, exact: torch.Tensor) -> dict:
     if agree < policy["top1_agreement"]:
         raise GraftnumError(f"{path}: top1_agreement {agree:.4f} below the "
                             f"floor {policy['top1_agreement']:.4f}", report)
+    return report
+
+
+# The whole-stack kernel against its plain version: both round every
+# activation to bf16 after f32 sums taken in different orders, so a
+# rounding may flip and the flip grows through the layers. ``max_abs``
+# caps the largest error relative to the largest output value (four bf16
+# ulps). The residual stream carries the input h through unchanged and
+# dwarfs one layer's attention branch, so ``rel_rms`` caps, per batch
+# row, the RMS error relative to the RMS of what the stack added to h
+# (out - h): a wrong attention span or mask shows there. On an H100 80GB
+# HBM3 the sound kernel reads up to 1.3% at GPT-2 124M's width, a copy
+# with one span state dropped or the pad mask ignored 70% and more
+# (tests/test_torch_cuda.py, chip_smoke.py).
+STACK_POLICY = {"max_abs": 2.0 ** -5, "rel_rms": 2.0 ** -5}
+
+
+def compare_stack(out: torch.Tensor, ref: torch.Tensor,
+                  h: torch.Tensor) -> dict:
+    """Score a whole-stack output ``out`` against ``ref`` (the plain
+    version's), both ``[B, 1, D]`` from input ``h``, under
+    ``STACK_POLICY``. Returns the report; raises ``GraftnumError`` on a
+    breach or a non-finite output."""
+    o, r, x = (t.float().reshape(t.shape[0], -1).cpu()
+               for t in (out, ref, h))
+    err = o - r
+    added = (r - x).norm(dim=-1)
+    rel = err.norm(dim=-1) / added.clamp_min(torch.finfo(torch.float32).tiny)
+    report = {"max_abs_err": float(err.abs().max()),
+              "max_abs_limit": STACK_POLICY["max_abs"] * float(r.abs().max()),
+              "rel_rms_err": float(rel.max()),
+              "rel_rms_limit": STACK_POLICY["rel_rms"],
+              "policy": dict(STACK_POLICY)}
+    if not bool(torch.isfinite(o).all()):
+        raise GraftnumError("stack: non-finite output", report)
+    if report["max_abs_err"] > report["max_abs_limit"]:
+        raise GraftnumError(
+            f"stack: max abs err {report['max_abs_err']:.3e} exceeds "
+            f"{report['max_abs_limit']:.3e}", report)
+    if report["rel_rms_err"] > STACK_POLICY["rel_rms"]:
+        raise GraftnumError(
+            f"stack: rms err {report['rel_rms_err']:.3e} of the stack's "
+            f"contribution exceeds {STACK_POLICY['rel_rms']:.3e}", report)
     return report

@@ -8,6 +8,8 @@ in a fixture, at run time). On a machine with a card and without JAX:
 (``--noconftest`` skips the repository conftest, which sets up JAX).
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -16,7 +18,10 @@ from llm_sharding_demo_tpu_torch.models import gpt2
 from llm_sharding_demo_tpu_torch.ops import cuda_build, quant
 from llm_sharding_demo_tpu_torch.ops.decode_attention import (
     decode_attention, decode_attention_plain)
+from llm_sharding_demo_tpu_torch.ops.decode_layer import (
+    decode_layers, decode_layers_plain)
 from llm_sharding_demo_tpu_torch.runtime.engine import DecodeEngine
+from llm_sharding_demo_tpu_torch.utils import graftnum
 
 pytestmark = pytest.mark.cuda
 
@@ -74,9 +79,121 @@ def test_layer_engine_matches_plain_engine_greedy(dev):
                               std=0.04)
     prompt = np.asarray([[5, 9, 2, 77, 30]])
     for dtype in ("bfloat16", "int8"):
-        ker = DecodeEngine(params, cfg, max_seq=300, dtype=dtype)
+        ker = DecodeEngine(params, cfg, max_seq=300, dtype=dtype,
+                           decode_kernel="layer")
         plain = DecodeEngine(params, cfg, max_seq=300, dtype=dtype,
                              decode_kernel="xla")
         assert ker.decode_kernel == "layer"
         assert np.array_equal(ker.generate(prompt, 24).tokens,
                               plain.generate(prompt, 24).tokens)
+
+
+@pytest.mark.parametrize("off", [0, 37, 300])
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("regime", ["bfloat16", "int8"])
+@pytest.mark.parametrize("n_layer", [1, 3])
+def test_decode_layers_kernel_matches_plain(dev, n_layer, regime, batch, off):
+    """The whole-stack kernel against its plain version: the hidden state
+    within ``graftnum.STACK_POLICY`` (the two sum in different orders, and
+    a bf16 rounding that flips grows through the layers), the cache equal
+    outside row ``off``, two launches bit-identical. One layer is the case
+    where layer 0 is also the last."""
+    cfg = gpt2.GPT2Config(vocab_size=211, n_positions=512, n_embd=256,
+                          n_layer=n_layer, n_head=4)
+    g = torch.Generator(device=dev).manual_seed(batch * 1000 + off)
+    params = gpt2.init_params(cfg, g, std=0.05)
+    if regime == "int8":
+        blocks = quant.quantize_params(params)["blocks"]
+    else:
+        blocks = gpt2.map_params(lambda x: x.to(torch.bfloat16),
+                                 params["blocks"])
+    KV = torch.randn(n_layer, batch, 4, 512, 128, generator=g,
+                     device=dev).to(torch.bfloat16)
+    h = torch.randn(batch, 1, 256, generator=g, device=dev).to(torch.bfloat16)
+    vf = torch.tensor([b % 3 * (off // 3) for b in range(batch)],
+                      dtype=torch.int32, device=dev)
+    a, b, c = KV.clone(), KV.clone(), KV.clone()
+    n0 = cuda_build.launch_counts()["decode_layers"]
+    out_k, _ = decode_layers(blocks, h, a, off, vf, n_head=4, eps=1e-5)
+    out_k2, _ = decode_layers(blocks, h, b, off, vf, n_head=4, eps=1e-5)
+    out_p, _ = decode_layers_plain(blocks, h, c, off, vf, n_head=4, eps=1e-5)
+    assert cuda_build.launch_counts()["decode_layers"] == n0 + 2
+    assert torch.equal(out_k, out_k2) and torch.equal(a, b)
+    lim = graftnum.compare_stack(out_k, out_p, h)["max_abs_limit"]
+    assert (a[:, :, :, off].float() - c[:, :, :, off].float()).abs().max() \
+        <= lim
+    a[:, :, :, off] = c[:, :, :, off]
+    assert torch.equal(a, c)
+
+
+# faults planted in a copy of the kernel source: (text, replacement)
+PLANTED_FAULTS = {
+    # the output projection's merge skips the last span of cached positions
+    "drop_last_span": (
+        "merge_state(mf, lf, of, st[kHd], st[kHd + 1], st[c - hh * kHd]);",
+        "if (s == 0 || s != n_spans - 1) merge_state(mf, lf, of, st[kHd], "
+        "st[kHd + 1], st[c - hh * kHd]);"),
+    # attention ignores k_valid_from (left-pad rows attend their pads)
+    "ignore_mask": (
+        "const int start = p.valid_from != nullptr ? max(p.valid_from[b], 0) "
+        ": 0;", "const int start = 0;"),
+}
+
+
+@pytest.mark.parametrize("n_layer", [1, 12])
+@pytest.mark.parametrize("fault", sorted(PLANTED_FAULTS))
+def test_stack_check_catches_planted_fault(dev, tmp_path, monkeypatch,
+                                           fault, n_layer):
+    """``graftnum.compare_stack`` passes the kernel and rejects a copy of
+    it with one planted fault, at GPT-2 124M's width with int8 weights,
+    8 rows, 255 cached positions and the odd rows masked over half or all
+    of them (chip_smoke's masks). Prints both readings."""
+    text, planted = PLANTED_FAULTS[fault]
+    src = open(cuda_build.DECODE_LAYER_LIB.source).read()
+    assert src.count(text) == 1
+    path = tmp_path / "decode_layer.cu"
+    path.write_text(src.replace(text, planted))
+    faulty = cuda_build.KernelLibrary(
+        os.fspath(path), cuda_build.DECODE_LAYER_LIB.functions,
+        cuda_build.DECODE_LAYER_LIB.error_fn)
+    cfg = gpt2.CONFIGS["gpt2"]
+    g = torch.Generator(device=dev).manual_seed(7)
+    params = gpt2.init_params(cfg, g)
+    params["blocks"] = gpt2.map_params(lambda x: x[:n_layer],
+                                       params["blocks"])
+    blocks = quant.quantize_params(params)["blocks"]
+    B, off = 8, 255
+    KV = torch.randn(n_layer, B, cfg.n_head, cfg.n_positions, 128,
+                     generator=g, device=dev).to(torch.bfloat16)
+    h = torch.randn(B, 1, cfg.n_embd, generator=g,
+                    device=dev).to(torch.bfloat16)
+    vf = torch.tensor([off * (b % 4 + 1) // 4 if b % 2 else 0
+                       for b in range(B)], dtype=torch.int32, device=dev)
+
+    def run(fn):
+        out, _ = fn(blocks, h, KV.clone(), off, vf, n_head=cfg.n_head,
+                    eps=cfg.layer_norm_epsilon)
+        return out
+
+    ref = run(decode_layers_plain)
+    sound = graftnum.compare_stack(run(decode_layers), ref, h)
+    monkeypatch.setattr(cuda_build.DECODE_LAYERS, "library", faulty)
+    with pytest.raises(graftnum.GraftnumError) as caught:
+        graftnum.compare_stack(run(decode_layers), ref, h)
+    bad = caught.value.report
+    print(f"\n{fault}, {n_layer} layers: sound max_abs_err "
+          f"{sound['max_abs_err']:.3e} rel_rms_err {sound['rel_rms_err']:.3e};"
+          f" faulty max_abs_err {bad['max_abs_err']:.3e} rel_rms_err "
+          f"{bad['rel_rms_err']:.3e}; limits {bad['max_abs_limit']:.3e} / "
+          f"{bad['rel_rms_limit']:.3e}")
+
+
+def test_mega_refuses_fp32_on_cuda(dev):
+    cfg = gpt2.GPT2Config(vocab_size=211, n_positions=512, n_embd=128,
+                          n_layer=2, n_head=2)
+    params = gpt2.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    with pytest.raises(ValueError, match="float32"):
+        DecodeEngine(params, cfg, max_seq=300, dtype="float32",
+                     decode_kernel="mega")
+    eng = DecodeEngine(params, cfg, max_seq=300, dtype="bfloat16")
+    assert eng.decode_kernel_mode == "mega"

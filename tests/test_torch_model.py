@@ -284,11 +284,11 @@ def test_kernel_mode_resolution_and_cache_rounding(weights):
     auto = DecodeEngine(tp, CFG, max_seq=MAX_SEQ, dtype="bfloat16",
                         device="cpu")
     assert auto.decode_kernel is None and auto._cache_seq == MAX_SEQ
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 1"):
-        DecodeEngine(tp, CFG, max_seq=MAX_SEQ, decode_kernel="mega",
-                     device="cpu")
+    mega = DecodeEngine(tp, CFG, max_seq=MAX_SEQ, decode_kernel="mega",
+                        device="cpu")
+    assert (mega.decode_kernel_mode, mega._cache_seq) == ("mega", 512)
     for mode in ("interpret", "layer-interpret", "mega-interpret", "bogus"):
-        with pytest.raises((ValueError, NotImplementedError)):
+        with pytest.raises(ValueError):
             DecodeEngine(tp, CFG, max_seq=MAX_SEQ, decode_kernel=mode,
                          device="cpu")
     tiny = gpt2.CONFIGS["tiny-gpt2"]

@@ -65,7 +65,7 @@ def test_generate_greedy_json_equals_jax(weights, prompt, n):
 @pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
 def test_generate_int8_runs_the_staged_engine(weights, dtype):
     """int8 and bf16 serve through the staged DecodeEngine (the runner
-    whose decode steps take the per-layer kernels on CUDA)."""
+    whose decode steps take the whole-stack kernel on CUDA)."""
     _, tc = clients(weights, "coordinator", inference_dtype=dtype)
     body = {"prompt": "Hi", "max_new_tokens": 6, "mode": "sample",
             "seed": 5}
@@ -76,7 +76,7 @@ def test_generate_int8_runs_the_staged_engine(weights, dtype):
     # "auto" keeps the plain path on the CPU (kernels are for CUDA)
     assert h["decode_kernel"] == "xla"
     assert set(h["kernel_launches"]) == {"decode_attention", "quant_linear",
-                                         "quant_head"}
+                                         "quant_head", "decode_layers"}
 
 
 @pytest.mark.parametrize("role", ["coordinator", "a", "b"])
