@@ -8,30 +8,35 @@ which must pass or the script exits non-zero:
 2. build: every CUDA kernel of ``llm_sharding_demo_tpu_torch/csrc``,
    one nvcc per source, all started together;
 3. kernels: each kernel's wrapper against its plain PyTorch version on
-   the card, at the shapes the served path gives it, with each
-   kernel's time beside its plain version's, one library call's (for
-   the whole-stack kernel: the per-layer kernel path's) and the card's
-   lower bound for the same work;
-4. engine: GPT-2 124M at full width (12 layers, seeded random weights),
-   bf16 and int8, the per-layer kernel path ("layer") and the
-   whole-stack kernel path ("mega") each held against the plain path on
-   the same card, teacher-forced, within the declared tolerance
-   budgets, with their launch counts; decode time per token at batch 1
-   and 8, and one decode step's eager time beside the device's time for
-   it (the step replayed from a CUDA graph), which gives the device's
-   busy share of the eager step; a 17-row batch on the mega engine takes
-   the per-layer kernels;
+   the card, at the shapes the served paths give it (GPT-2 124M and
+   llama-124m: decode attention with one and with three query heads per
+   kv head, the int8 linear at both models' projections and llama's
+   untied head, both whole-stack kernels), with each kernel's time
+   beside its plain version's, one library call's (for a whole-stack
+   kernel: the per-layer kernel path's) and the card's lower bound for
+   the same work;
+4. engine: GPT-2 124M and llama-124m at full width (12 layers, seeded
+   random weights), bf16 and int8, the per-layer kernel path ("layer")
+   and the whole-stack kernel path ("mega") each held against the plain
+   path on the same card, teacher-forced, within the declared tolerance
+   budgets, with their exact launch counts; decode time per token at
+   batch 1 and 8, and one decode step's eager time beside the device's
+   time for it (the step replayed from a CUDA graph), which gives the
+   device's busy share of the eager step; a 17-row GPT-2 batch on the
+   mega engine takes the per-layer kernels;
 5. server: ``python -m llm_sharding_demo_tpu_torch.serving`` with
-   MODEL_ID=gpt2 INFERENCE_DTYPE=int8 answers /generate (greedy and
+   INFERENCE_DTYPE=int8, once with MODEL_ID=gpt2 and once with
+   MODEL_ID=llama-124m MAX_SEQ=4096, answers /generate (greedy and
    seeded sampling, each twice, each pair equal; greedy equal to an
    in-process engine on the same weights), /healthz reports cuda and the
    whole-stack kernel, launched once per stage per decode step.
 
 The last lines are the card's name and power limit, one JSON object with
 the kernels' numbers (each kernel's launches counted on the path that
-runs it: the server for the whole-stack kernel, the "layer" int8 engine
-run for the per-layer kernels), and ``{"ok": true, "device": {...}}``.
-``--phases`` runs a subset (the default runs all).
+runs it: each server for its whole-stack kernel, the GPT-2 "layer" int8
+engine run for the per-layer kernels, with the llama paths' counts
+beside them), and ``{"ok": true, "device": {...}}``. ``--phases`` runs a
+subset (the default runs all).
 """
 
 from __future__ import annotations
@@ -57,8 +62,11 @@ LOG_DIR = os.path.join(ROOT, "build", "chip_smoke")
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 
-# the served model: GPT-2 124M
+# the served models: GPT-2 124M, and llama-124m (the same depth, width and
+# query heads; 4 kv heads, SwiGLU 2048, an untied 32000-row head, RoPE up
+# to 4096 positions)
 L, H, HD, D, V, NPOS = 12, 12, 64, 768, 50257, 1024
+HKV, INTER, LV, LNPOS = 4, 2048, 32000, 4096
 
 
 class SmokeError(Exception):
@@ -129,8 +137,10 @@ def timed(results_row: dict, key: str, calls) -> None:
 
 
 def bits(t):
+    """A float tensor's bits, for exact comparisons."""
     import torch
-    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+    return t.view({torch.bfloat16: torch.int16,
+                   torch.float32: torch.int32}.get(t.dtype, t.dtype))
 
 
 def copies_for(nbytes: int, target: int = 160 << 20, cap: int = 64) -> int:
@@ -145,6 +155,38 @@ def bound_ms(nbytes: float, ops: float, op_type: str):
 
 # -- phase 3: kernels against their plain versions ---------------------------
 
+def check_attention(randn, KV, B, hkv, off, dtype, tol) -> float:
+    """The decode-attention kernel against its plain version on one case
+    (``H`` query heads over the cache's ``hkv`` kv heads, odd rows masked):
+    the output within ``tol``, the cache equal to the input but for the
+    row written at ``off``. Returns the max error."""
+    import torch
+
+    from llm_sharding_demo_tpu_torch.ops import decode_attention as DA
+
+    q = randn(B, H, 1, HD, dtype=dtype)
+    kn = randn(B, hkv, 1, HD, dtype=dtype)
+    vn = randn(B, hkv, 1, HD, dtype=dtype)
+    vf = torch.tensor([(7 * b) % (off + 1) if b % 2 else 0 for b in range(B)],
+                      dtype=torch.int32, device=KV.device)
+    li = off % L
+    kv_k, kv_p = KV.clone(), KV.clone()
+    out_k, _ = DA.decode_attention(q, kn, vn, kv_k, li, off, vf)
+    out_p, _ = DA.decode_attention_plain(q, kn, vn, kv_p, li, off, vf)
+    torch.cuda.synchronize()
+    what = (f"decode_attention {str(dtype)[6:]} B={B} g={H // hkv} "
+            f"Smax={KV.shape[3]} off={off}")
+    err = (out_k.float() - out_p.float()).abs().max().item()
+    check(torch.allclose(out_k.float(), out_p.float(), atol=tol, rtol=tol),
+          f"{what}: max err {err}")
+    want = KV.clone()
+    want[li, :, :, off] = torch.cat([kn, vn], -1)[:, :, 0]
+    check(torch.equal(bits(kv_k), bits(want)),
+          f"{what}: the cache differs from the expected in-place row write")
+    print(f"  {what}  max_abs_err={err:.3e}  ok")
+    return err
+
+
 def kernel_phase(results: dict) -> None:
     import torch
 
@@ -157,78 +199,73 @@ def kernel_phase(results: dict) -> None:
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
 
-    # kernel 1: decode attention at the served shapes
+    # kernel 1: decode attention at the served shapes: GPT-2 (a kv head
+    # per query head, 1024 slots) and llama (g = 3 query heads per kv
+    # head, 4096 slots)
+    attention_shapes = ((H, NPOS, (0, 37, 255, 256, 1000)),
+                        (HKV, LNPOS, (0, 37, 255, 1000, 3000, 4095)))
     tol = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
     worst = 0.0
-    smax = NPOS
     for dtype in (torch.bfloat16, torch.float32):
         for B in (1, 8):
-            KV = randn(L, B, H, smax, 2 * HD, dtype=dtype)
-            for off in (0, 37, 255, 256, 1000):
-                q = randn(B, H, 1, HD, dtype=dtype)
-                kn = randn(B, H, 1, HD, dtype=dtype)
-                vn = randn(B, H, 1, HD, dtype=dtype)
-                vf = torch.tensor([(7 * b) % (off + 1) if b % 2 else 0
-                                   for b in range(B)], dtype=torch.int32,
-                                  device=dev)
-                li = off % L
-                kv_k, kv_p = KV.clone(), KV.clone()
-                out_k, _ = DA.decode_attention(q, kn, vn, kv_k, li, off, vf)
-                out_p, _ = DA.decode_attention_plain(q, kn, vn, kv_p, li, off,
-                                                     vf)
-                torch.cuda.synchronize()
-                err = (out_k.float() - out_p.float()).abs().max().item()
-                check(torch.allclose(out_k.float(), out_p.float(),
-                                     atol=tol[dtype], rtol=tol[dtype]),
-                      f"decode_attention {dtype} B={B} off={off}: max err "
-                      f"{err}")
-                want = KV.clone()
-                want[li, :, :, off] = torch.cat([kn, vn], -1)[:, :, 0]
-                bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
-                check(torch.equal(kv_k.view(bits), want.view(bits)),
-                      f"decode_attention {dtype} B={B} off={off}: the cache "
-                      "differs from the expected in-place row write")
-                worst = max(worst, err)
-                print(f"  decode_attention {str(dtype)[6:]:8s} B={B} "
-                      f"off={off:4d}  max_abs_err={err:.3e}  ok")
-            del KV
-    # timing at the served shape: bf16, B=1, 255 cached positions
-    B, off, dtype = 1, 255, torch.bfloat16
-    kv_bytes = L * B * H * smax * 2 * HD * 2
-    n = copies_for(kv_bytes)
-    sets = [(randn(B, H, 1, HD, dtype=dtype), randn(B, H, 1, HD, dtype=dtype),
-             randn(B, H, 1, HD, dtype=dtype),
-             randn(L, B, H, smax, 2 * HD, dtype=dtype)) for _ in range(n)]
-    calls = [(lambda s=s, li=i % L: DA.decode_attention(
-        s[0], s[1], s[2], s[3], li, off)) for i, s in enumerate(sets)]
-    plain = [(lambda s=s, li=i % L: DA.decode_attention_plain(
-        s[0], s[1], s[2], s[3], li, off)) for i, s in enumerate(sets)]
+            for hkv, slots, offs in attention_shapes:
+                KV = randn(L, B, hkv, slots, 2 * HD, dtype=dtype)
+                for off in offs:
+                    worst = max(worst, check_attention(
+                        randn, KV, B, hkv, off, dtype, tol[dtype]))
+                del KV
 
-    def sdpa(s, li):
-        kv = s[3][li, :, :, :off + 1]
-        return torch.nn.functional.scaled_dot_product_attention(
-            s[0], kv[..., :HD], kv[..., HD:])
-    lib = [(lambda s=s, li=i % L: sdpa(s, li)) for i, s in enumerate(sets)]
-    isz = 2
-    nbytes = (B * H * HD * isz * 3               # q, k_new, v_new
-              + B * H * off * 2 * HD * isz       # cached rows read
-              + B * H * 2 * HD * isz             # the row written
-              + B * H * HD * isz)                # out
-    ops = 2 * 2 * B * H * (off + 1) * HD
-    bms, by = bound_ms(nbytes, ops, "bfloat16")
-    row = results["decode_attention"] = dict(
-        shape=f"bf16 B={B} H={H} hd={HD} Smax={smax} offset={off}",
-        max_abs_err=worst, bound_ms=bms, bound_by=by)
-    timed(row, "ms", calls)
-    timed(row, "plain_ms", plain)
-    timed(row, "library_ms", lib)
-    del sets
+    def attention_timing(hkv, slots, off):
+        """bf16, B=1: kernel, plain and SDPA device times and the bound."""
+        B, dtype = 1, torch.bfloat16
+        n = copies_for(L * B * hkv * slots * 2 * HD * 2)
+        sets = [(randn(B, H, 1, HD, dtype=dtype),
+                 randn(B, hkv, 1, HD, dtype=dtype),
+                 randn(B, hkv, 1, HD, dtype=dtype),
+                 randn(L, B, hkv, slots, 2 * HD, dtype=dtype))
+                for _ in range(n)]
+        calls = [(lambda s=s, li=i % L: DA.decode_attention(
+            s[0], s[1], s[2], s[3], li, off)) for i, s in enumerate(sets)]
+        plain = [(lambda s=s, li=i % L: DA.decode_attention_plain(
+            s[0], s[1], s[2], s[3], li, off)) for i, s in enumerate(sets)]
 
-    # kernel 2: int8 block linear at rows {1, 8, 16} x the four projections
+        def sdpa(s, li):
+            kv = s[3][li, :, :, :off + 1]
+            gqa = {} if hkv == H else {"enable_gqa": True}
+            return torch.nn.functional.scaled_dot_product_attention(
+                s[0], kv[..., :HD], kv[..., HD:], **gqa)
+        lib = [(lambda s=s, li=i % L: sdpa(s, li))
+               for i, s in enumerate(sets)]
+        isz = 2
+        nbytes = (B * H * HD * isz * 2             # q, out
+                  + B * hkv * HD * isz * 2         # k_new, v_new
+                  + B * hkv * off * 2 * HD * isz   # cached rows read
+                  + B * hkv * 2 * HD * isz)        # the row written
+        ops = 2 * 2 * B * H * (off + 1) * HD
+        bms, by = bound_ms(nbytes, ops, "bfloat16")
+        row = dict(shape=f"bf16 B={B} H={H} Hkv={hkv} hd={HD} Smax={slots} "
+                   f"offset={off}", bound_ms=bms, bound_by=by)
+        timed(row, "ms", calls)
+        timed(row, "plain_ms", plain)
+        try:
+            timed(row, "library_ms", lib)
+        except TypeError:    # a PyTorch without SDPA's enable_gqa
+            row["library_ms"] = row["call_library_ms"] = None
+        return row
+
+    results["decode_attention"] = dict(attention_timing(H, NPOS, 255),
+                                       max_abs_err=worst)
+    results["decode_attention"]["other_shapes"] = [
+        attention_timing(HKV, LNPOS, off) for off in (255, 3000)]
+
+    # kernel 2: int8 block linear at rows {1, 8, 16} x GPT-2's four
+    # projections and llama's new shapes (k/v, gate/up, down, the untied
+    # head; its q and o are GPT-2's 768 -> 768)
     shapes = [(D, 3 * D), (D, D), (D, 4 * D), (4 * D, D)]
+    llama_shapes = [(D, HKV * HD), (D, INTER), (INTER, D), (D, LV)]
     worst = 0.0
     for rows in (1, 8, 16):
-        for d, n_out in shapes:
+        for d, n_out in shapes + llama_shapes:
             x = randn(rows, d, dtype=torch.bfloat16)
             qt = Q.quantize_array(randn(d, n_out) * 0.02, torch.bfloat16)
             y_k = Q.quant_linear(x, qt.q, qt.scale)
@@ -243,24 +280,30 @@ def kernel_phase(results: dict) -> None:
             worst = max(worst, err)
             print(f"  quant_linear rows={rows:2d} {d}->{n_out}  "
                   f"max_abs_err={err:.3e}  ok")
-    rows, d, n_out = 1, D, 4 * D
-    n = copies_for(d * n_out)
-    sets = []
-    for _ in range(n):
-        qt = Q.quantize_array(randn(d, n_out) * 0.02, torch.bfloat16)
-        sets.append((randn(rows, d, dtype=torch.bfloat16), qt.q, qt.scale,
-                     Q.dequantize_array(qt, torch.bfloat16)))
-    calls = [(lambda s=s: Q.quant_linear(s[0], s[1], s[2])) for s in sets]
-    plain = [(lambda s=s: Q.linear_plain(s[0], s[1], s[2])) for s in sets]
-    lib = [(lambda s=s: torch.matmul(s[0], s[3])) for s in sets]
-    nbytes = rows * d * 2 + d * n_out + n_out * 2 + rows * n_out * 2
-    bms, by = bound_ms(nbytes, 2 * rows * d * n_out, "bfloat16")
-    row = results["quant_linear"] = dict(
-        shape=f"bf16 rows={rows} {d}->{n_out} int8", max_abs_err=worst,
-        bound_ms=bms, bound_by=by)
-    timed(row, "ms", calls)
-    timed(row, "plain_ms", plain)
-    timed(row, "library_ms", lib)
+
+    def linear_timing(d, n_out, rows=1):
+        sets = []
+        for _ in range(copies_for(d * n_out)):
+            qt = Q.quantize_array(randn(d, n_out) * 0.02, torch.bfloat16)
+            sets.append((randn(rows, d, dtype=torch.bfloat16), qt.q, qt.scale,
+                         Q.dequantize_array(qt, torch.bfloat16)))
+        calls = [(lambda s=s: Q.quant_linear(s[0], s[1], s[2])) for s in sets]
+        plain = [(lambda s=s: Q.linear_plain(s[0], s[1], s[2])) for s in sets]
+        lib = [(lambda s=s: torch.matmul(s[0], s[3])) for s in sets]
+        nbytes = rows * d * 2 + d * n_out + n_out * 2 + rows * n_out * 2
+        bms, by = bound_ms(nbytes, 2 * rows * d * n_out, "bfloat16")
+        row = dict(shape=f"bf16 rows={rows} {d}->{n_out} int8", bound_ms=bms,
+                   bound_by=by)
+        timed(row, "ms", calls)
+        timed(row, "plain_ms", plain)
+        timed(row, "library_ms", lib)
+        return row
+
+    # GPT-2's c_fc (the JSON row), then llama's untied head, on every
+    # llama decode step
+    row = results["quant_linear"] = dict(linear_timing(D, 4 * D),
+                                         max_abs_err=worst)
+    row["other_shapes"] = [linear_timing(D, LV)]
     # one layer's four projections at rows=1, as a decode step calls them
     layer_bytes = sum(d * n_out for d, n_out in shapes)
     sets = []
@@ -318,92 +361,119 @@ def kernel_phase(results: dict) -> None:
     timed(row, "plain_ms", plain)
     timed(row, "library_ms", lib)
     del sets
-    for name, r in results.items():
-        print(f"  {name}: {r['shape']}: device time per call: kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}); called from Python: kernel "
-              f"{r['call_ms']:.4f} ms, plain {r['call_plain_ms']:.4f} ms, "
-              f"library {r['call_library_ms']:.4f} ms")
-    megakernel_phase(results)
+    for name, res in results.items():
+        for r in [res] + res.get("other_shapes", []):
+            print(f"  {name}: {r['shape']}: device time per call: kernel "
+                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+                  f"{fmt_ms(r['library_ms'])} ms, bound {r['bound_ms']:.4f} "
+                  f"ms ({r['bound_by']}); called from Python: kernel "
+                  f"{r['call_ms']:.4f} ms, plain {r['call_plain_ms']:.4f} ms,"
+                  f" library {fmt_ms(r['call_library_ms'])} ms")
+    megakernel_phase(results, "gpt2")
+    megakernel_phase(results, "llama")
 
 
-def megakernel_phase(results: dict) -> None:
-    """The whole-stack kernel against its plain version at full GPT-2
-    width: the 12-layer stack and the served stages (SPLIT_AT=1: the
-    1-layer first stage, where layer 0 is also the last, and the 11-layer
-    second), bf16 and int8 weights, B 1/8/16, five offsets, odd rows
-    masked over half or all of their cached positions. The hidden state
-    must meet ``graftnum.STACK_POLICY`` (four bf16 ulps of its largest
-    value at most, and an RMS error per row under 2^-5 of what the stack
-    added to its input), the cache must equal the input outside row
-    ``offset`` (row ``offset`` within four ulps of the plain row), and two
-    launches on the same inputs must be bit-identical."""
+def fmt_ms(ms) -> str:
+    return "n/a" if ms is None else f"{ms:.4f}"
+
+
+def megakernel_phase(results: dict, family: str) -> None:
+    """A whole-stack kernel against its plain version at its model's full
+    width (``family`` "gpt2": ``decode_layers`` at GPT-2 124M; "llama":
+    ``decode_layers_llama`` at llama-124m, 4 kv heads, a 4096-slot cache):
+    the 12-layer stack and the served stages (SPLIT_AT=1: the 1-layer
+    first stage, where layer 0 is also the last, and the 11-layer second),
+    bf16 and int8 weights, B 1/8/16, five or six offsets (llama's up to
+    4095), odd rows masked over half or all of their cached positions.
+    The hidden state and the written cache rows must meet
+    ``graftnum.STACK_POLICY`` (four bf16 ulps of the largest value at
+    most, and an RMS error per row under 2^-5 of what the stack added to
+    its input), the cache must equal the input outside row ``offset``,
+    and two launches on the same inputs must be bit-identical. Then the
+    kernel's device time beside its bound, its plain version's and the
+    per-layer kernel path's over the same stack."""
     import torch
 
-    from llm_sharding_demo_tpu_torch.models import gpt2
+    from llm_sharding_demo_tpu_torch.models import gpt2, llama
     from llm_sharding_demo_tpu_torch.ops import decode_layer as DL
     from llm_sharding_demo_tpu_torch.ops import quant as Q
     from llm_sharding_demo_tpu_torch.ops.attention import KVCache
+    from llm_sharding_demo_tpu_torch.ops.rope import rope_angles
     from llm_sharding_demo_tpu_torch.utils import graftnum
 
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(4321)
-    cfg = gpt2.CONFIGS["gpt2"]
+    is_llama = family == "llama"
+    g = torch.Generator(device=dev).manual_seed(4322 if is_llama else 4321)
+    model = llama if is_llama else gpt2
+    cfg = llama.CONFIGS["llama-124m"] if is_llama else gpt2.CONFIGS["gpt2"]
+    hkv, npos = (HKV, LNPOS) if is_llama else (H, NPOS)
+    offsets = ((0, 37, 255, 1000, 3000, 4095) if is_llama
+               else (0, 37, 255, 256, 1000))
+    name = "decode_layers_llama" if is_llama else "decode_layers"
+    norms = ("ln_attn", "ln_mlp") if is_llama else ("ln_1", "ln_2")
 
     def weights(regime):
-        p = gpt2.init_params(cfg, g)["blocks"]
-        # non-trivial LN and bias values (init_params makes 1 and 0)
-        for grp, leaf in (("ln_1", "scale"), ("ln_2", "scale")):
-            p[grp][leaf] = p[grp][leaf] + 0.1 * torch.randn(
-                p[grp][leaf].shape, generator=g, device=dev)
+        p = model.init_params(cfg, g)["blocks"]
+        # non-trivial norm scales and biases (init_params makes 1 and 0)
+        for grp in norms:
+            p[grp]["scale"] = p[grp]["scale"] + 0.1 * torch.randn(
+                p[grp]["scale"].shape, generator=g, device=dev)
         for grp in ("attn", "mlp"):
             for lin in p[grp].values():
-                lin["bias"] = 0.02 * torch.randn(lin["bias"].shape,
-                                                 generator=g, device=dev)
+                if "bias" in lin:
+                    lin["bias"] = 0.02 * torch.randn(
+                        lin["bias"].shape, generator=g, device=dev)
         if regime == "int8":
             return Q.quantize_params({"blocks": p})["blocks"]
         return gpt2.map_params(lambda x: x.to(torch.bfloat16), p)
 
-    def call(blocks, h, kv, off, vf=None):
-        return DL.decode_layers(blocks, h, kv, off, vf, n_head=H, eps=1e-5)
+    def angles(B, off, vf):
+        """The step's [B, 64] rotary angles, each row at its own position
+        (its offset less its pad, as the model computes them)."""
+        pos = off if vf is None else torch.clamp(off - vf.long(), min=0)
+        cos, sin = rope_angles(torch.as_tensor(pos, device=dev)
+                               .expand(B).contiguous(), HD)
+        return cos, sin
 
-    def plain(blocks, h, kv, off, vf=None):
-        return DL.decode_layers_plain(blocks, h, kv, off, vf, n_head=H,
-                                      eps=1e-5)
+    def call(fn, blocks, h, kv, off, vf, cs):
+        """One stack call; ``cs`` the step's (cos, sin), for llama."""
+        if is_llama:
+            return fn(blocks, h, kv, off, *cs, vf, n_head=H, eps=1e-5)
+        return fn(blocks, h, kv, off, vf, n_head=H, eps=1e-5)
 
+    kernel_fn, plain_fn = ((DL.decode_layers_llama, DL.decode_layers_llama_plain)
+                           if is_llama else
+                           (DL.decode_layers, DL.decode_layers_plain))
     stacks = {"bf16": weights("bf16"), "int8": weights("int8")}
     worst, worst_rel = 0.0, 0.0
     for B in (1, 8, 16):
-        KV = randn_bf16(g, L, B, H, NPOS, 2 * HD)
-        for off in (0, 37, 255, 256, 1000):
+        KV = randn_bf16(g, L, B, hkv, npos, 2 * HD)
+        for off in offsets:
             h = randn_bf16(g, B, 1, D)
             # rows 1, 5, 9, 13 see their second half of cached positions,
             # rows 3, 7, 11, 15 only the self term
             vf = torch.tensor([off * (b % 4 + 1) // 4 if b % 2 else 0
                                for b in range(B)], dtype=torch.int32,
                               device=dev)
+            cs = angles(B, off, vf)
             for regime, full in stacks.items():
-                for name, layers in (("12-layer stack", slice(0, L)),
-                                     ("1-layer stage", slice(0, 1)),
-                                     ("11-layer stage", slice(1, L))):
+                for stack, layers in (("12-layer stack", slice(0, L)),
+                                      ("1-layer stage", slice(0, 1)),
+                                      ("11-layer stage", slice(1, L))):
                     blocks = gpt2.map_params(lambda x: x[layers], full)
                     cache = KV[layers]
                     ka, kb, kp = cache.clone(), cache.clone(), cache.clone()
-                    out_a, _ = call(blocks, h, ka, off, vf)
-                    out_b, _ = call(blocks, h, kb, off, vf)
-                    out_p, _ = plain(blocks, h, kp, off, vf)
+                    out_a, _ = call(kernel_fn, blocks, h, ka, off, vf, cs)
+                    out_b, _ = call(kernel_fn, blocks, h, kb, off, vf, cs)
+                    out_p, _ = call(plain_fn, blocks, h, kp, off, vf, cs)
                     torch.cuda.synchronize()
-                    what = f"decode_layers {regime} {name} B={B} off={off}"
+                    what = f"{name} {regime} {stack} B={B} off={off}"
                     try:
-                        rep = graftnum.compare_stack(out_a, out_p, h)
+                        rep = graftnum.compare_stack(
+                            out_a, out_p, h, ka[:, :, :, off],
+                            kp[:, :, :, off])
                     except graftnum.GraftnumError as e:
                         raise SmokeError(f"{what}: {e} ({e.report})")
-                    lim = rep["max_abs_limit"]
-                    row_err = (ka[:, :, :, off].float()
-                               - kp[:, :, :, off].float()).abs().max().item()
-                    check(row_err <= lim,
-                          f"{what}: cache row {off} err {row_err} > {lim}")
                     check(torch.equal(bits(out_a), bits(out_b))
                           and torch.equal(bits(ka), bits(kb)),
                           f"{what}: two launches differ")
@@ -413,51 +483,68 @@ def megakernel_phase(results: dict) -> None:
                     worst = max(worst, rep["max_abs_err"])
                     worst_rel = max(worst_rel, rep["rel_rms_err"])
                     print(f"  {what}  max_abs_err={rep['max_abs_err']:.3e} "
-                          f"(limit {lim:.3e}) rel_rms_err="
+                          f"(limit {rep['max_abs_limit']:.3e}) rel_rms_err="
                           f"{rep['rel_rms_err']:.3e} (limit "
                           f"{rep['rel_rms_limit']:.3e}) row_err="
-                          f"{row_err:.3e}  bit-identical  ok")
+                          f"{rep['row_err']:.3e} (limit "
+                          f"{rep['row_limit']:.3e})  bit-identical  ok")
                     del ka, kb, kp
         del KV
-    print(f"  decode_layers: worst max_abs_err {worst:.3e}, worst "
-          f"rel_rms_err {worst_rel:.3e} over the cases above")
+    print(f"  {name}: worst max_abs_err {worst:.3e}, worst rel_rms_err "
+          f"{worst_rel:.3e} over the cases above")
     # timing: B=1 at 255 cached positions, the 12-layer int8 stack first
-    # (the JSON row), then the served stages and bf16
+    # (the JSON row), then the served stages, bf16, B=8 (and llama's long
+    # context)
+    cases = [("int8", slice(0, L), 1, 255), ("int8", slice(1, L), 1, 255),
+             ("int8", slice(0, 1), 1, 255), ("bf16", slice(0, L), 1, 255),
+             ("int8", slice(0, L), 8, 255)]
+    if is_llama:
+        cases.append(("int8", slice(0, L), 1, 3000))
+    kvw, inter = hkv * HD, (INTER if is_llama else 4 * D)
+    # multiply-adds per layer and row of the weight products
+    macs = (2 * D * D + 2 * D * kvw + 3 * D * inter if is_llama
+            else 12 * D * D)
     runs = []
-    for regime, layers, B in (("int8", slice(0, L), 1),
-                              ("int8", slice(1, L), 1),
-                              ("int8", slice(0, 1), 1),
-                              ("bf16", slice(0, L), 1),
-                              ("int8", slice(0, L), 8)):
+    for regime, layers, B, off in cases:
         n_l = layers.stop - layers.start
         wbytes = weight_bytes(gpt2.map_params(lambda x: x[layers],
                                               stacks[regime]))
-        off = 255
         sets = []
         for _ in range(copies_for(wbytes)):
             blocks = gpt2.map_params(lambda x: x[layers], weights(regime))
             sets.append((blocks, gpt2.unstack_blocks(blocks),
                          randn_bf16(g, B, 1, D),
-                         randn_bf16(g, n_l, B, H, NPOS, 2 * HD)))
+                         randn_bf16(g, n_l, B, hkv, npos, 2 * HD)))
         empty = torch.zeros((0,), dtype=torch.bfloat16, device=dev)
-        kernel = [(lambda s=s: call(s[0], s[2], s[3], off)) for s in sets]
-        plains = [(lambda s=s: plain(s[0], s[2], s[3], off)) for s in sets]
-        layer_path = [(lambda s=s: gpt2.apply_blocks(
-            s[1], s[2], cfg, KVCache(k=s[3], v=empty, length=off),
-            decode_kernel="layer")) for s in sets]
+        cs = angles(B, off, None)
+
+        def layer_path(s):
+            cache = KVCache(k=s[3], v=empty, length=off)
+            if is_llama:
+                return llama.apply_blocks(s[1], s[2], cfg, cs[0][:1],
+                                          cs[1][:1], cache,
+                                          decode_kernel="layer")
+            return gpt2.apply_blocks(s[1], s[2], cfg, cache,
+                                     decode_kernel="layer")
+        kernel = [(lambda s=s: call(kernel_fn, s[0], s[2], s[3], off, None,
+                                    cs)) for s in sets]
+        plains = [(lambda s=s: call(plain_fn, s[0], s[2], s[3], off, None,
+                                    cs)) for s in sets]
+        per_layer = [(lambda s=s: layer_path(s)) for s in sets]
         nbytes = (wbytes + 2 * B * D * 2                  # weights, h in/out
-                  + n_l * B * H * off * 2 * HD * 2        # cached rows read
-                  + n_l * B * H * 2 * HD * 2)             # the rows written
-        ops = n_l * B * (2 * 12 * D * D + 2 * 2 * H * (off + 1) * HD)
+                  + n_l * B * hkv * off * 2 * HD * 2      # cached rows read
+                  + n_l * B * hkv * 2 * HD * 2            # the rows written
+                  + (2 * B * HD * 4 if is_llama else 0))  # cos, sin
+        ops = n_l * B * (2 * macs + 2 * 2 * H * (off + 1) * HD)
         bms, by = bound_ms(nbytes, ops, "bfloat16")
         row = dict(shape=f"{regime} weights, {n_l} layers, B={B} D={D} "
-                   f"H={H} hd={HD} Smax={NPOS} offset={off}",
+                   f"H={H} Hkv={hkv} hd={HD} Smax={npos} offset={off}",
                    bound_ms=bms, bound_by=by, weight_bytes=wbytes)
         timed(row, "ms", kernel)
         timed(row, "plain_ms", plains)
-        timed(row, "layer_path_ms", layer_path)
+        timed(row, "layer_path_ms", per_layer)
         runs.append(row)
-        print(f"  decode_layers {row['shape']}: device time per call: kernel "
+        print(f"  {name} {row['shape']}: device time per call: kernel "
               f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, per-layer "
               f"kernel path {row['layer_path_ms']:.4f} ms, bound "
               f"{bms:.4f} ms ({by}, {nbytes / 1e6:.1f} MB); called from "
@@ -465,9 +552,8 @@ def megakernel_phase(results: dict) -> None:
               f"{row['call_plain_ms']:.4f} ms, per-layer path "
               f"{row['call_layer_path_ms']:.4f} ms")
         del sets
-    results["decode_layers"] = dict(runs[0], max_abs_err=worst,
-                                    rel_rms_err=worst_rel, library_ms=None,
-                                    other_shapes=runs[1:])
+    results[name] = dict(runs[0], max_abs_err=worst, rel_rms_err=worst_rel,
+                         library_ms=None, other_shapes=runs[1:])
 
 
 def randn_bf16(g, *shape):
@@ -486,21 +572,32 @@ def weight_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
-# -- phase 4: the engine at full GPT-2 width ---------------------------------
+# -- phase 4: the engines at full width ---------------------------------------
 
-def engine_phase() -> dict:
-    """Returns the launch counts of the int8 "layer" engine's
-    teacher-forced run (the path of the per-layer kernels)."""
+def engine_phase(family: str) -> dict:
+    """GPT-2 124M (``family`` "gpt2") or llama-124m ("llama") at full
+    width: the kernel paths against the plain path, teacher-forced, with
+    exact launch counts, then decode timings. Returns the launch counts of
+    the int8 "layer" engine's teacher-forced run (the path of the
+    per-layer kernels)."""
     import torch
 
-    from llm_sharding_demo_tpu_torch.models import gpt2
+    from llm_sharding_demo_tpu_torch.models import gpt2, llama
     from llm_sharding_demo_tpu_torch.ops import cuda_build
     from llm_sharding_demo_tpu_torch.ops.decode_layer import MAX_BATCH
     from llm_sharding_demo_tpu_torch.runtime.engine import DecodeEngine
     from llm_sharding_demo_tpu_torch.utils import graftnum
 
-    cfg = gpt2.CONFIGS["gpt2"]
-    params = gpt2.init_params(
+    is_llama = family == "llama"
+    model = llama if is_llama else gpt2
+    cfg = llama.CONFIGS["llama-124m"] if is_llama else gpt2.CONFIGS["gpt2"]
+    npos = LNPOS if is_llama else NPOS
+    mega = "decode_layers_llama" if is_llama else "decode_layers"
+    # int8 linear launches of one forward whose rows fit the kernel: GPT-2
+    # has four projections a layer and a tied head (its own kernel); llama
+    # seven and an untied head (the int8 linear)
+    per_forward = 7 * L + 1 if is_llama else 4 * L
+    params = model.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0))
     rng = np.random.default_rng(7)
     prompt = rng.integers(0, cfg.vocab_size, 16).tolist()
@@ -508,12 +605,13 @@ def engine_phase() -> dict:
     steps = len(forced) - 1
     layer_counts = {}
     for regime, path in (("bfloat16", "decode.bf16"), ("int8", "decode.int8")):
-        engines = {mode: DecodeEngine(params, cfg, max_seq=NPOS, dtype=regime,
+        engines = {mode: DecodeEngine(params, cfg, max_seq=npos, dtype=regime,
                                       decode_kernel=mode)
                    for mode in ("layer", "mega", "xla")}
-        auto = DecodeEngine(params, cfg, max_seq=NPOS, dtype=regime)
+        auto = DecodeEngine(params, cfg, max_seq=npos, dtype=regime)
         check(auto.decode_kernel_mode == "mega",
-              f"{regime}: 'auto' resolved to {auto.decode_kernel_mode}")
+              f"{family} {regime}: 'auto' resolved to "
+              f"{auto.decode_kernel_mode}")
         del auto
         lp = teacher_forced_logits(engines["xla"], prompt, forced)
         for mode in ("layer", "mega"):
@@ -523,23 +621,29 @@ def engine_phase() -> dict:
             lk = teacher_forced_logits(eng, prompt, forced)
             counts = cuda_build.launch_counts()
             check(bool(torch.isfinite(lk).all()),
-                  f"{regime} {mode}: non-finite logits")
+                  f"{family} {regime} {mode}: non-finite logits")
             check(tuple(lk.shape) == (len(forced), cfg.vocab_size),
-                  f"{regime} {mode}: logits shape {tuple(lk.shape)}")
+                  f"{family} {regime} {mode}: logits shape "
+                  f"{tuple(lk.shape)}")
             rep = graftnum.compare(path, lk, lp)
             int8 = regime == "int8"
             # int8: the 16-row prefill (rows <= 16) takes the int8 linear
-            # and head kernels on either path
-            want = {"decode_attention": steps * L if mode == "layer" else 0,
-                    "quant_linear": (steps + 1 if mode == "layer" else 1)
-                    * 4 * L if int8 else 0,
-                    "quant_head": steps + 1 if int8 else 0,
-                    "decode_layers": steps if mode == "mega" else 0}
-            check(counts == want,
-                  f"{regime} {mode}: launches {counts}, expected {want}")
+            # kernel on either path, as does llama's head on every step
+            forwards = steps + 1 if mode == "layer" else 1
+            linear = forwards * per_forward
+            if is_llama and mode == "mega":
+                linear += steps
+            want = {k.name: 0 for k in cuda_build.KERNELS}
+            want.update({
+                "decode_attention": steps * L if mode == "layer" else 0,
+                "quant_linear": linear if int8 else 0,
+                "quant_head": steps + 1 if int8 and not is_llama else 0,
+                mega: steps if mode == "mega" else 0})
+            check(counts == want, f"{family} {regime} {mode}: launches "
+                                  f"{counts}, expected {want}")
             if int8 and mode == "layer":
                 layer_counts = counts
-            print(f"  {path} {mode}: kernel path vs plain path over "
+            print(f"  {family} {path} {mode}: kernel path vs plain path over "
                   f"{rep['n_positions']} teacher-forced positions: "
                   f"logit_mse={rep['logit_mse']:.3e} (cap "
                   f"{rep['policy']['logit_mse']:.0e}) top1_agreement="
@@ -554,12 +658,12 @@ def engine_phase() -> dict:
                 r = eng.generate(ids, 65)
                 eager, device = step_ms(eng, ids)
                 times[mode] = (r.per_token_latency * 1e3, eager, device)
-            print(f"  {regime} decode bs={batch}, 65 new tokens after a "
-                  f"32-token prompt: " + "; ".join(
+            print(f"  {family} {regime} decode bs={batch}, 65 new tokens "
+                  f"after a 32-token prompt: " + "; ".join(
                       f"{mode} path {t:.3f} ms/token, one step {e:.3f} ms "
                       f"eager vs {d:.3f} ms device (busy {d / e:.1%})"
                       for mode, (t, e, d) in times.items()))
-        if regime == "int8":
+        if regime == "int8" and not is_llama:
             # past MAX_BATCH rows the mega engine takes the per-layer kernels
             ids = rng.integers(0, cfg.vocab_size, (MAX_BATCH + 1, 8))
             cuda_build.reset_launch_counts()
@@ -660,7 +764,11 @@ def _http(url: str, body=None, timeout: float = 300.0) -> dict:
         return json.loads(resp.read())
 
 
-def server_phase() -> dict:
+def server_phase(model_id: str, npos: int) -> dict:
+    """``python -m llm_sharding_demo_tpu_torch.serving`` with MODEL_ID
+    ``model_id``, int8, MAX_SEQ ``npos``: /generate greedy and seeded
+    sampling, twice each; /healthz before and after. Returns the server's
+    launch counts."""
     import torch
 
     from llm_sharding_demo_tpu_torch.runtime.engine import DecodeEngine
@@ -669,10 +777,10 @@ def server_phase() -> dict:
     from llm_sharding_demo_tpu_torch.utils.config import ServingConfig
 
     port = _free_port()
-    env = dict(os.environ, MODEL_ID="gpt2", INFERENCE_DTYPE="int8",
-               MAX_SEQ=str(NPOS), SHARD_PORT=str(port))
+    env = dict(os.environ, MODEL_ID=model_id, INFERENCE_DTYPE="int8",
+               MAX_SEQ=str(npos), SHARD_PORT=str(port))
     os.makedirs(LOG_DIR, exist_ok=True)
-    log_path = os.path.join(LOG_DIR, "server.log")
+    log_path = os.path.join(LOG_DIR, f"server-{model_id}.log")
     base = f"http://127.0.0.1:{port}"
     with open(log_path, "w") as log:
         proc = subprocess.Popen(
@@ -722,28 +830,32 @@ def server_phase() -> dict:
     check(s1 == s2, f"seeded sample replies differ: {s1} vs {s2}")
     counts = health["kernel_launches"]
     # two stages (SPLIT_AT=1): one whole-stack launch per stage and decode
-    # step, one head launch per decode step (the 41-token prefills exceed
-    # the int8 kernels' 16 rows); the per-layer kernels stay idle
-    check(counts["quant_head"] > 0
-          and counts["decode_layers"] == 2 * counts["quant_head"]
-          and counts["decode_attention"] == 0
-          and counts["quant_linear"] == 0,
+    # step, one head launch per decode step (GPT-2's tied head kernel,
+    # llama's untied head on the int8 linear; the 41-token prefills exceed
+    # the int8 kernels' 16 rows); every other kernel stays idle
+    mega, head = (("decode_layers_llama", "quant_linear")
+                  if model_id.startswith("llama")
+                  else ("decode_layers", "quant_head"))
+    check(counts[head] > 0 and counts[mega] == 2 * counts[head]
+          and all(v == 0 for k, v in counts.items() if k not in (mega, head)),
           f"served path launches {counts}")
     # the same weights in this process: the greedy reply must match
-    cfg = ServingConfig(model_id="gpt2", inference_dtype="int8",
-                        max_seq=NPOS)
+    cfg = ServingConfig(model_id=model_id, inference_dtype="int8",
+                        max_seq=npos)
     config, params = loader.resolve_model(cfg, torch.device("cuda"))
-    eng = DecodeEngine(params, config, max_seq=NPOS, dtype="int8",
+    eng = DecodeEngine(params, config, max_seq=npos, dtype="int8",
                        boundaries=list(cfg.boundaries))
     tok = ByteTokenizer()
     ref = eng.generate(np.asarray(tok.encode(prompt)), 24)
     want = tok.decode([int(t) for t in ref.row_tokens(0)])
     check(g1["generated"] == want,
           "server greedy reply differs from the in-process engine")
-    print(f"  /generate greedy x2 equal, seeded sample x2 equal, greedy "
-          f"equal to the in-process engine; first greedy request "
+    print(f"  {model_id}: /generate greedy x2 equal, seeded sample x2 equal, "
+          f"greedy equal to the in-process engine; first greedy request "
           f"{(t1 - t0) * 1e3:.1f} ms for 24 tokens; server launches "
           f"{counts}")
+    del eng, params
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -755,6 +867,7 @@ def main() -> int:
                         help="comma-separated subset of kernels,engine,server")
     phases = set(parser.parse_args().phases.split(","))
 
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke test "
@@ -782,32 +895,46 @@ def main() -> int:
     if "kernels" in phases:
         print("[kernels] each kernel against its plain version on the card")
         kernel_phase(results)
-    # each kernel's launches on the path that runs it
+    # each kernel's launches on the path that runs it: the GPT-2 server for
+    # its whole-stack kernel, the llama server for llama's, the int8
+    # "layer" GPT-2 engine run for the per-layer kernels (and the llama
+    # paths' counts beside them)
     launches = {k.name: None for k in cuda_build.KERNELS}
+    llama_launches = {}
     if "engine" in phases:
-        print("[engine] GPT-2 124M, kernel paths vs plain path")
-        layer_counts = engine_phase()
+        print("[engine] GPT-2 124M and llama-124m, kernel paths vs plain path")
+        layer_counts = engine_phase("gpt2")
         for kernel in ("decode_attention", "quant_linear", "quant_head"):
             launches[kernel] = layer_counts[kernel]
+        llama_launches["layer engine run"] = engine_phase("llama")
     if "server" in phases:
         print("[server] python -m llm_sharding_demo_tpu_torch.serving, int8")
-        launches["decode_layers"] = server_phase()["decode_layers"]
+        launches["decode_layers"] = server_phase(
+            "gpt2", NPOS)["decode_layers"]
+        counts = server_phase("llama-124m", LNPOS)
+        launches["decode_layers_llama"] = counts["decode_layers_llama"]
+        llama_launches["server"] = counts
 
     sources = {"decode_attention": "csrc/decode_attention.cu",
                "quant_linear": "csrc/quant.cu",
                "quant_head": "csrc/quant.cu",
-               "decode_layers": "csrc/decode_layer.cu"}
+               "decode_layers": "csrc/decode_layer.cu",
+               "decode_layers_llama": "csrc/decode_layer.cu"}
     replaces = {
         "decode_attention":
             "llm_sharding_demo_tpu/ops/decode_attention.py:74",
         "quant_linear": "llm_sharding_demo_tpu/ops/quant.py:217",
         "quant_head": "llm_sharding_demo_tpu/ops/quant.py:249",
         "decode_layers": "llm_sharding_demo_tpu/ops/decode_layer.py:319",
+        "decode_layers_llama":
+            "llm_sharding_demo_tpu/ops/decode_layer.py:534",
     }
-    paths = {"decode_layers": "server: four 24-token int8 /generate requests",
-             "decode_attention": "engine: int8 'layer' teacher-forced run",
-             "quant_linear": "engine: int8 'layer' teacher-forced run",
-             "quant_head": "engine: int8 'layer' teacher-forced run"}
+    requests = "four 24-token int8 /generate requests"
+    paths = {"decode_layers": f"GPT-2 server: {requests}",
+             "decode_layers_llama": f"llama-124m server: {requests}",
+             "decode_attention": "GPT-2 engine: int8 'layer' teacher-forced run",
+             "quant_linear": "GPT-2 engine: int8 'layer' teacher-forced run",
+             "quant_head": "GPT-2 engine: int8 'layer' teacher-forced run"}
     rows = []
     for k in cuda_build.KERNELS:
         r = results.get(k.name, {})
@@ -816,13 +943,16 @@ def main() -> int:
             "source": "llm_sharding_demo_tpu_torch/" + sources[k.name],
             "replaces": replaces[k.name], "launches": launches[k.name],
             "launches_on": paths[k.name],
+            "llama_launches": {where: c[k.name]
+                               for where, c in llama_launches.items()},
             "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
             "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
             "bound_by": r.get("bound_by"),
             "library_ms": r.get("library_ms"), "shape": r.get("shape"),
             "call_ms": r.get("call_ms"),
             **({"layer_path_ms": r.get("layer_path_ms")}
-               if k.name == "decode_layers" else {})})
+               if "layer_path_ms" in r else {})})
+    print(f"[done] {time.perf_counter() - t_start:.1f} s wall")
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,19 +1,36 @@
 """Model families and the family registry.
 
-Only GPT-2 is ported so far; the llama and MoE families of the JAX
-package wait for ROADMAP Queue 1 item 12.
+GPT-2 and the llama family are ported; the JAX package's MoE family
+waits for the MoE half of ROADMAP Queue 1 item 12.
 """
 
 from __future__ import annotations
 
-LLAMA_MOE_ITEM = "ROADMAP Queue 1 item 12 (llama, then MoE)"
+MOE_ITEM = "ROADMAP Queue 1 item 12 (its MoE half: models/moe.py)"
 
 
 def family_module(config):
     """Config dataclass -> the model module implementing it."""
-    from . import gpt2
+    from . import gpt2, llama
+    if isinstance(config, llama.LlamaConfig):
+        return llama
     if isinstance(config, gpt2.GPT2Config):
         return gpt2
     raise NotImplementedError(
         f"model family {type(config).__name__} is not ported to PyTorch "
-        f"yet; it waits for {LLAMA_MOE_ITEM}")
+        f"yet; it waits for {MOE_ITEM}")
+
+
+def is_partitionable(config) -> bool:
+    """Whether the reference's GPT-2 stage-shard wire topology applies
+    (``/forward`` + ``/forward_b``, remote dispatch): dense GPT-2 only,
+    by design."""
+    from . import gpt2
+    return isinstance(config, gpt2.GPT2Config)
+
+
+def is_stage_partitionable(config) -> bool:
+    """Whether ``parallel.partition`` can stage this family's tree (the
+    one staging predicate): GPT-2 and llama."""
+    from . import llama
+    return is_partitionable(config) or isinstance(config, llama.LlamaConfig)

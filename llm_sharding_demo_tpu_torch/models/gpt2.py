@@ -110,12 +110,20 @@ def layer_params(blocks: Params, li) -> Params:
     return map_params(lambda x: x[li], blocks)
 
 
+def n_stacked(blocks: Params) -> int:
+    """The layer count of a stacked block tree (any family): the leading
+    axis of its first leaf."""
+    leaf = blocks
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    return (leaf.q if isinstance(leaf, QuantizedTensor) else leaf).shape[0]
+
+
 def unstack_blocks(blocks: Params) -> List[Params]:
     """The stacked blocks as a list of per-layer views (no copies). A
     long-lived runner builds it once, so a decode step does not re-slice
     every leaf of every layer."""
-    return [layer_params(blocks, li)
-            for li in range(blocks["ln_1"]["scale"].shape[0])]
+    return [layer_params(blocks, li) for li in range(n_stacked(blocks))]
 
 
 def unstack_params(params: Params) -> Params:

@@ -23,8 +23,8 @@ NEG_INF = -1e9  # large-negative additive mask; finite so 0*inf NaNs can't leak
 @dataclasses.dataclass
 class KVCache:
     """Per-layer-group KV cache. ``k``/``v`` are ``[n_layer, batch,
-    n_head, max_seq, head_dim]``; in the FUSED layout ``k`` holds
-    ``[n_layer, batch, n_head, max_seq, 2*head_dim]`` rows ``[K | V]``
+    n_kv_head, max_seq, head_dim]``; in the FUSED layout ``k`` holds
+    ``[n_layer, batch, n_kv_head, max_seq, 2*head_dim]`` rows ``[K | V]``
     and ``v`` is an empty placeholder. ``length`` is the number of
     positions written, a Python int."""
 
@@ -61,14 +61,23 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      k_valid_from: Optional[torch.Tensor] = None,
                      ) -> torch.Tensor:
     """Scaled dot-product attention with causal masking by absolute
-    position. q: [B, H, Sq, hd]; k, v: [B, H, Skv, hd]. ``k_valid_from``
+    position. q: [B, H, Sq, hd]; k, v: [B, Hkv, Skv, hd]. ``k_valid_from``
     ([B] int) makes row b ignore keys at positions ``< k_valid_from[b]``
-    (the left-pad prefix of a ragged batch)."""
+    (the left-pad prefix of a ragged batch).
+
+    Grouped-query attention (the llama family): with ``Hkv < H`` query
+    head ``i`` reads kv head ``i // (H / Hkv)`` (HF ``repeat_kv`` order)
+    through grouped products; K and V are never repeated."""
     b, h, sq, hd = q.shape
-    skv = k.shape[2]
-    if k.shape[1] != h:
-        raise NotImplementedError("grouped-query attention is not ported yet")
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * _scale(hd)
+    h_kv, skv = k.shape[1], k.shape[2]
+    if h % h_kv:
+        raise ValueError(f"q heads {h} not a multiple of kv heads {h_kv}")
+    g = h // h_kv
+    # [B, Hkv, g*Sq, hd] x [B, Hkv, hd, Skv]: the g query heads of a kv
+    # head share its K (a view, no copy of K or V)
+    qg = q.float().reshape(b, h_kv, g * sq, hd)
+    scores = (torch.matmul(qg, k.float().transpose(-1, -2))
+              .reshape(b, h, sq, skv) * _scale(hd))
     dev = q.device
     q_pos = q_offset + torch.arange(sq, device=dev)[:, None]
     k_pos = torch.arange(skv, device=dev)[None, :]
@@ -85,7 +94,8 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # the weights stay f32 through the value product, rounded once at the
     # end, as in the decode-attention kernel (the JAX package's XLA path
     # rounds them to the value dtype first; in fp32 the two agree)
-    return torch.matmul(weights, v.float()).to(v.dtype)
+    out = torch.matmul(weights.reshape(b, h_kv, g * sq, skv), v.float())
+    return out.reshape(b, h, sq, hd).to(v.dtype)
 
 
 def write_kv_layer(K: torch.Tensor, V: torch.Tensor, k_new: torch.Tensor,

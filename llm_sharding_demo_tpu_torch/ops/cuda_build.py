@@ -159,7 +159,10 @@ DECODE_LAYER_LIB = KernelLibrary(
     "decode_layer.cu",
     {"decode_layers_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _I, _F, _P),
-     "decode_layers_workspace_floats": (_I, _I, _I, _I)},
+     "decode_layers_workspace_floats": (_I, _I, _I, _I),
+     "decode_layers_llama_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                    _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+     "decode_layers_llama_workspace_floats": (_I, _I, _I, _I, _I, _I)},
     "decode_layers_error")
 LIBRARIES = (DECODE_ATTENTION_LIB, QUANT_LIB, DECODE_LAYER_LIB)
 
@@ -169,7 +172,10 @@ QUANT_LINEAR = Kernel("quant_linear", QUANT_LIB, "quant_linear_launch")
 QUANT_HEAD = Kernel("quant_head", QUANT_LIB, "quant_head_launch")
 DECODE_LAYERS = Kernel("decode_layers", DECODE_LAYER_LIB,
                        "decode_layers_launch")
-KERNELS = (DECODE_ATTENTION, QUANT_LINEAR, QUANT_HEAD, DECODE_LAYERS)
+DECODE_LAYERS_LLAMA = Kernel("decode_layers_llama", DECODE_LAYER_LIB,
+                             "decode_layers_llama_launch")
+KERNELS = (DECODE_ATTENTION, QUANT_LINEAR, QUANT_HEAD, DECODE_LAYERS,
+           DECODE_LAYERS_LLAMA)
 
 
 def build_all() -> List[KernelLibrary]:

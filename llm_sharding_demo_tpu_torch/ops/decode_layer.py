@@ -1,12 +1,19 @@
-"""Whole-stack GPT-2 decode: one token through every block in one launch.
+"""Whole-stack decode: one token through every block in one launch.
 
-Counterpart of ``llm_sharding_demo_tpu/ops/decode_layer.py`` (the GPT-2
-megakernel; its llama sibling comes with the llama family). The
-hand-written CUDA kernel (``csrc/decode_layer.cu``) replaces the TPU
-kernel ``_kernel`` there: for each of the stacked blocks, LN1, the fused
-QKV projection, cached attention with the new row written into the
-fused cache at ``offset``, the output projection and residual, LN2, the
-MLP and its residual, in one persistent launch.
+Counterpart of ``llm_sharding_demo_tpu/ops/decode_layer.py``. One
+hand-written CUDA source (``csrc/decode_layer.cu``, the model family a
+template parameter) replaces both TPU megakernels there:
+
+- ``decode_layers`` replaces ``_kernel`` (GPT-2): for each of the
+  stacked blocks, LN1, the fused QKV projection, cached attention with
+  the new row written into the fused cache at ``offset``, the output
+  projection and residual, LN2, the MLP and its residual;
+- ``decode_layers_llama`` replaces ``_llama_kernel``: RMSNorm, the q/k/v
+  projections, RoPE on q and k, grouped-query attention (each kv head's
+  cache rows read once for its query heads), the output projection and
+  residual, RMSNorm, SwiGLU and its residual; no biases.
+
+Each runs all of a stage's layers in one persistent launch.
 
 Numerics are the megakernel's, not the per-layer path's: every
 projection is an f32 product of upcast operands, times the int8 scale,
@@ -14,8 +21,14 @@ plus the bias in f32, rounded ONCE to the activation dtype (the
 per-layer path rounds before the bias add); LN statistics and attention
 are f32; gelu_new runs in f32 on the rounded product.
 
-``decode_layers`` runs ``decode_layers_plain`` only for CPU tensors; for
-CUDA tensors it launches the kernel or raises.
+llama: q/k/v are rounded once each, RoPE and attention are f32 (the
+self term uses the f32 rotated k, the cache row stores ``[rope(k) | v]``
+rounded), and the SwiGLU is ``gate * round(sigmoid(gate))`` then
+``* up``, each product rounded (the JAX kernel's bf16 ops).
+
+Each wrapper runs its plain version (``decode_layers_plain``,
+``decode_layers_llama_plain``) only for CPU tensors; for CUDA tensors
+it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -29,8 +42,9 @@ import torch.nn.functional as F
 from . import cuda_build as cb
 from . import decode_attention as DA
 from .decode_attention import KERNEL_HEAD_DIM, decode_attention_plain
-from .layers import layer_norm
+from .layers import layer_norm, rms_norm
 from .quant import is_quantized
+from .rope import rotate_half
 
 # the kernel's batch budget; the model takes the per-layer kernels past it
 MAX_BATCH = 16
@@ -65,15 +79,20 @@ _WEIGHT_ORDER = (("ln_1", "scale"), ("ln_1", "bias"),
                  ("attn", "c_attn"), ("attn", "c_proj"),
                  ("ln_2", "scale"), ("ln_2", "bias"),
                  ("mlp", "c_fc"), ("mlp", "c_proj"))
+# the llama kernel's operand order (the JAX kernel's): RMSNorm scales as
+# tensors, each projection as (weight, scale or None, None)
+_LLAMA_ORDER = (("ln_attn", "scale"), ("attn", "wq"), ("attn", "wk"),
+                ("attn", "wv"), ("attn", "wo"), ("ln_mlp", "scale"),
+                ("mlp", "gate"), ("mlp", "up"), ("mlp", "down"))
 
 
-def _parts(blocks):
-    """The stacked block tree in the kernel's operand order: LN vectors as
-    tensors, each projection as ``(weight, scale or None, bias)``;
-    returns ``(parts, quantized)``. A tree that mixes int8 and float
-    kernels is refused (the kernel would read codes as floats)."""
+def _parts(blocks, order=_WEIGHT_ORDER):
+    """The stacked block tree in a kernel's operand order: norm vectors
+    as tensors, each projection as ``(weight, scale or None, bias or
+    None)``; returns ``(parts, quantized)``. A tree that mixes int8 and
+    float kernels is refused (the kernel would read codes as floats)."""
     parts, kinds = [], set()
-    for group, name in _WEIGHT_ORDER:
+    for group, name in order:
         if name in ("scale", "bias"):
             parts.append(blocks[group][name])
             continue
@@ -81,25 +100,35 @@ def _parts(blocks):
         w = leaf["kernel"]
         kinds.add(is_quantized(w))
         if is_quantized(w):
-            parts.append((w.q, w.scale, leaf["bias"]))
+            parts.append((w.q, w.scale, leaf.get("bias")))
         else:
-            parts.append((w, None, leaf["bias"]))
+            parts.append((w, None, leaf.get("bias")))
     if len(kinds) != 1:
         raise ValueError("mixed quantized/float block kernels")
     return parts, kinds.pop()
 
 
+def _layer(parts, li):
+    """Layer ``li`` of every stacked part."""
+    return [p[li] if isinstance(p, torch.Tensor)
+            else tuple(None if t is None else t[li] for t in p)
+            for p in parts]
+
+
 def _mm(x: torch.Tensor, w: torch.Tensor, scale: Optional[torch.Tensor],
-        bias: torch.Tensor) -> torch.Tensor:
+        bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The megakernel's projection: f32 product of the upcast operands,
-    times the int8 scale, plus the bias, one rounding to x's dtype."""
+    times the int8 scale, plus the bias (llama has none), one rounding to
+    x's dtype."""
     y = torch.matmul(x.float(), w.float())
     if scale is not None:
         y = y * scale.float()
-    return (y + bias.float()).to(x.dtype)
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
 
 
-def _check(h, KV, offset, k_valid_from, n_head):
+def _check(h, KV, offset, k_valid_from, n_head, n_kv_head=None):
     if h.dim() != 3 or h.shape[1] != 1:
         raise ValueError(f"megakernel is single-token only, got h "
                          f"{tuple(h.shape)}")
@@ -107,10 +136,11 @@ def _check(h, KV, offset, k_valid_from, n_head):
     if d % n_head:
         raise ValueError(f"n_embd {d} not divisible by n_head {n_head}")
     hd = d // n_head
-    if KV.dim() != 5 or tuple(KV.shape[1:3]) != (b, n_head) \
+    n_kv = n_head if n_kv_head is None else n_kv_head
+    if KV.dim() != 5 or tuple(KV.shape[1:3]) != (b, n_kv) \
             or KV.shape[-1] != 2 * hd:
         raise ValueError(f"cache {tuple(KV.shape)} is not a fused "
-                         f"[L, {b}, {n_head}, Smax, {2 * hd}] cache")
+                         f"[L, {b}, {n_kv}, Smax, {2 * hd}] cache")
     if not 0 <= offset < KV.shape[3]:
         raise ValueError(f"offset {offset} outside the {KV.shape[3]}-slot "
                          "cache")
@@ -132,10 +162,7 @@ def decode_layers_plain(blocks, h: torch.Tensor, KV: torch.Tensor,
     parts, _ = _parts(blocks)
     x = h.reshape(b, d)
     for li in range(KV.shape[0]):
-        ln1_s, ln1_b, qkv, out, ln2_s, ln2_b, fc, proj = (
-            p[li] if isinstance(p, torch.Tensor)
-            else tuple(None if t is None else t[li] for t in p)
-            for p in parts)
+        ln1_s, ln1_b, qkv, out, ln2_s, ln2_b, fc, proj = _layer(parts, li)
         a = layer_norm(x, ln1_s, ln1_b, eps)
         q, k, v = (t.reshape(b, n_head, 1, hd)
                    for t in _mm(a, *qkv).split(d, dim=-1))
@@ -169,52 +196,15 @@ def decode_layers(blocks, h: torch.Tensor, KV: torch.Tensor, offset: int,
         raise ValueError(f"decode_layers: unsupported device {h.device}")
     b, d, hd = _check(h, KV, offset, k_valid_from, n_head)
     parts, quantized = _parts(blocks)
-    if h.dtype != torch.bfloat16 or KV.dtype != torch.bfloat16:
-        raise ValueError(f"decode_layers kernel takes bfloat16 activations "
-                         f"and cache, got {h.dtype} / {KV.dtype}")
-    if not 1 <= b <= MAX_BATCH or hd != KERNEL_HEAD_DIM or d % _LANE:
-        raise ValueError(f"decode_layers kernel needs 1 <= B <= {MAX_BATCH}, "
-                         f"head_dim {KERNEL_HEAD_DIM} and n_embd % {_LANE} "
-                         f"== 0, got B={b} hd={hd} d={d}")
+    _check_kernel_shape("decode_layers", h, KV, b, hd, (d,))
     n_layer = KV.shape[0]
-    widths = (d, d, 3 * d, d, d, d, 4 * d, d)
-    rows = (None, None, d, d, None, None, d, 4 * d)
+    shapes = (d, d, (d, 3 * d), (d, d), d, d, (d, 4 * d), (4 * d, d))
     tensors = [h, KV]
-    ptrs = []
-    for p, width, k in zip(parts, widths, rows):
-        if isinstance(p, torch.Tensor):
-            _expect(p, (n_layer, width), torch.bfloat16, "LN parameter")
-            tensors.append(p)
-            ptrs.append(p.data_ptr())
-            continue
-        w, scale, bias = p
-        _expect(w, (n_layer, k, width),
-                torch.int8 if quantized else torch.bfloat16, "weight")
-        if scale is not None:
-            _expect(scale, (n_layer, width), torch.bfloat16, "scale")
-        _expect(bias, (n_layer, width), torch.bfloat16, "bias")
-        for t in (w, scale, bias):
-            if t is not None:
-                tensors.append(t)
-        ptrs += [w.data_ptr(), None if scale is None else scale.data_ptr(),
-                 bias.data_ptr()]
-    if k_valid_from is not None:
-        if k_valid_from.dtype != torch.int32:
-            raise ValueError("k_valid_from must be int32")
-        tensors.append(k_valid_from)
-    for t in tensors:
-        if t.device != h.device or not t.is_contiguous():
-            raise ValueError("decode_layers operands must be contiguous and "
-                             "on one CUDA device")
-    h_out = torch.empty_like(h)
-    # the kernel's f32 scratch (split partial sums, softmax states): its
-    # size comes from the kernel source
+    ptrs = _pointers(parts, shapes, quantized, n_layer, True, tensors)
     n_ws = cb.DECODE_LAYERS.library.load().decode_layers_workspace_floats(
         b, d, n_head, KV.shape[3])
-    if n_ws < 0:
-        raise ValueError(f"decode_layers: workspace for B={b} D={d} "
-                         f"Smax={KV.shape[3]} exceeds 2**31 floats")
-    ws = torch.empty(n_ws, dtype=torch.float32, device=h.device)
+    ws = _workspace("decode_layers", n_ws, h, tensors, k_valid_from)
+    h_out = torch.empty_like(h)
     ptr_array = (ctypes.c_void_p * len(ptrs))(*ptrs)
     cb.DECODE_LAYERS.launch(
         h.device, ctypes.addressof(ptr_array), h.data_ptr(), h_out.data_ptr(),
@@ -225,7 +215,189 @@ def decode_layers(blocks, h: torch.Tensor, KV: torch.Tensor, offset: int,
     return h_out, KV
 
 
+# -- the llama family -----------------------------------------------------
+
+# query heads per kv head the llama kernel carries through one attention
+# item (csrc/decode_layer.cu, the llama family's kMaxG)
+LLAMA_MAX_G = 4
+
+
+def llama_eligible(config, max_seq: int) -> bool:
+    """Whether the llama megakernel applies: GPT-2's rule (head_dim 64,
+    a 128-aligned width, a cache of whole 256-slot blocks) plus a
+    128-aligned kv width and SwiGLU hidden size, and at most
+    ``LLAMA_MAX_G`` query heads per kv head."""
+    return (eligible(config, max_seq)
+            and (config.n_kv_head * config.head_dim) % _LANE == 0
+            and config.intermediate_size % _LANE == 0
+            and config.n_head // config.n_kv_head <= LLAMA_MAX_G)
+
+
+def rope_rows(x: torch.Tensor, cos: torch.Tensor,
+              sin: torch.Tensor) -> torch.Tensor:
+    """Rotate f32 rows ``x`` ``[B, heads, hd]`` by per-row angles ``[B,
+    hd]`` (rotate-half, f32)."""
+    return x * cos[:, None] + rotate_half(x) * sin[:, None]
+
+
+def _check_llama(h, KV, offset, cos, sin, k_valid_from, n_head):
+    if KV.dim() != 5 or n_head % KV.shape[2]:
+        raise ValueError(f"cache {tuple(KV.shape)}: its kv heads must "
+                         f"divide n_head {n_head}")
+    b, d, hd = _check(h, KV, offset, k_valid_from, n_head, KV.shape[2])
+    for name, t in (("cos", cos), ("sin", sin)):
+        if tuple(t.shape) != (b, hd) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 [{b}, {hd}], got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    return b, d, hd, KV.shape[2]
+
+
+def decode_layers_llama_plain(blocks, h: torch.Tensor, KV: torch.Tensor,
+                              offset: int, cos: torch.Tensor,
+                              sin: torch.Tensor,
+                              k_valid_from: Optional[torch.Tensor] = None,
+                              *, n_head: int, eps: float,
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the llama kernel (same inputs, same
+    result), op by op as the JAX ``_llama_kernel``: layer by layer,
+    writing only row ``offset`` of each (layer, b, kv head)."""
+    b, d, hd, n_kv = _check_llama(h, KV, offset, cos, sin, k_valid_from,
+                                  n_head)
+    parts, _ = _parts(blocks, _LLAMA_ORDER)
+    x = h.reshape(b, d)
+    for li in range(KV.shape[0]):
+        ln_a, wq, wk, wv, wo, ln_m, wg, wu, wd = _layer(parts, li)
+        a = rms_norm(x, ln_a, eps)
+        q = _mm(a, *wq).float().reshape(b, n_head, hd)
+        k = _mm(a, *wk).float().reshape(b, n_kv, hd)
+        v = _mm(a, *wv).float().reshape(b, n_kv, 1, hd)
+        q = rope_rows(q, cos, sin)
+        k = rope_rows(k, cos, sin)
+        # query head i reads kv head i // g; the row written is
+        # [rope(k) | v], rounded to the cache dtype
+        attn, _ = decode_attention_plain(q[:, :, None], k[:, :, None], v,
+                                         KV, li, offset, k_valid_from)
+        x = x + _mm(attn.reshape(b, d).to(x.dtype), *wo)
+        m = rms_norm(x, ln_m, eps)
+        gate = _mm(m, *wg)
+        t = (gate * torch.sigmoid(gate.float()).to(gate.dtype)) * _mm(m, *wu)
+        x = x + _mm(t, *wd)
+    return x.reshape(b, 1, d), KV
+
+
+def decode_layers_llama(blocks, h: torch.Tensor, KV: torch.Tensor,
+                        offset: int, cos: torch.Tensor, sin: torch.Tensor,
+                        k_valid_from: Optional[torch.Tensor] = None, *,
+                        n_head: int, eps: float,
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run the stacked llama blocks for ONE decode token.
+
+    ``blocks``: the stacked ``[L, ...]`` llama block tree (bf16, or int8
+    ``QuantizedTensor`` kernels with bf16 scales); ``h`` ``[B, 1, D]``;
+    ``KV`` the fused ``[L, B, Hkv, Smax, 2*hd]`` cache, row ``offset``
+    written in place; ``cos``/``sin`` the step's rotary angles ``[B,
+    hd]`` float32 (``ops.rope`` convention); ``k_valid_from`` ([B]
+    int32) masks each row's left-pad prefix. CPU tensors take the plain
+    version; CUDA tensors launch the kernel (bf16 activations, B <= 16,
+    head dim 64, at most ``LLAMA_MAX_G`` query heads per kv head) or
+    raise."""
+    if h.device.type == "cpu":
+        return decode_layers_llama_plain(blocks, h, KV, offset, cos, sin,
+                                         k_valid_from, n_head=n_head,
+                                         eps=eps)
+    if h.device.type != "cuda":
+        raise ValueError(f"decode_layers_llama: unsupported device "
+                         f"{h.device}")
+    b, d, hd, n_kv = _check_llama(h, KV, offset, cos, sin, k_valid_from,
+                                  n_head)
+    parts, quantized = _parts(blocks, _LLAMA_ORDER)
+    kvw = n_kv * hd
+    inter = parts[6][0].shape[-1]
+    _check_kernel_shape("decode_layers_llama", h, KV, b, hd, (d, kvw, inter))
+    if n_head // n_kv > LLAMA_MAX_G:
+        raise ValueError(f"decode_layers_llama kernel carries at most "
+                         f"{LLAMA_MAX_G} query heads per kv head, got "
+                         f"{n_head // n_kv}")
+    n_layer = KV.shape[0]
+    shapes = (d, (d, d), (d, kvw), (d, kvw), (d, d), d, (d, inter),
+              (d, inter), (inter, d))
+    tensors = [h, KV, cos, sin]
+    ptrs = _pointers(parts, shapes, quantized, n_layer, False, tensors)
+    lib = cb.DECODE_LAYERS_LLAMA.library.load()
+    n_ws = lib.decode_layers_llama_workspace_floats(b, d, n_head, n_kv, inter,
+                                                    KV.shape[3])
+    ws = _workspace("decode_layers_llama", n_ws, h, tensors, k_valid_from)
+    h_out = torch.empty_like(h)
+    ptr_array = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    cb.DECODE_LAYERS_LLAMA.launch(
+        h.device, ctypes.addressof(ptr_array), h.data_ptr(), h_out.data_ptr(),
+        KV.data_ptr(),
+        None if k_valid_from is None else k_valid_from.data_ptr(),
+        cos.data_ptr(), sin.data_ptr(), ws.data_ptr(), n_ws, int(quantized),
+        n_layer, b, n_head, n_kv, d, inter, KV.shape[3], offset, eps,
+        cb.stream_handle(h))
+    return h_out, KV
+
+
+# -- operand checks shared by both wrappers --------------------------------
+
+def _check_kernel_shape(name, h, KV, b, hd, widths) -> None:
+    if h.dtype != torch.bfloat16 or KV.dtype != torch.bfloat16:
+        raise ValueError(f"{name} kernel takes bfloat16 activations and "
+                         f"cache, got {h.dtype} / {KV.dtype}")
+    if not 1 <= b <= MAX_BATCH or hd != KERNEL_HEAD_DIM or any(
+            w % _LANE for w in widths):
+        raise ValueError(f"{name} kernel needs 1 <= B <= {MAX_BATCH}, "
+                         f"head_dim {KERNEL_HEAD_DIM} and widths % {_LANE} "
+                         f"== 0, got B={b} hd={hd} widths={widths}")
+
+
+def _pointers(parts, shapes, quantized, n_layer, biased, tensors):
+    """The kernel's operand pointers in ``parts`` order, each operand
+    checked against its stacked shape (a vector's width, a projection's
+    ``(rows, width)``) and appended to ``tensors``: per projection the
+    weight, its scale (null for bf16 weights) and, for GPT-2, its
+    bias."""
+    ptrs = []
+    for p, shape in zip(parts, shapes):
+        if isinstance(p, torch.Tensor):
+            _expect(p, (n_layer, shape), torch.bfloat16, "norm parameter")
+            tensors.append(p)
+            ptrs.append(p.data_ptr())
+            continue
+        (k, width), (w, scale, bias) = shape, p
+        _expect(w, (n_layer, k, width),
+                torch.int8 if quantized else torch.bfloat16, "weight")
+        if scale is not None:
+            _expect(scale, (n_layer, width), torch.bfloat16, "scale")
+        ptrs += [w.data_ptr(), None if scale is None else scale.data_ptr()]
+        if biased:
+            _expect(bias, (n_layer, width), torch.bfloat16, "bias")
+            ptrs.append(bias.data_ptr())
+        elif bias is not None:
+            raise ValueError("the llama kernel takes no biases")
+        tensors += [t for t in (w, scale, bias) if t is not None]
+    return ptrs
+
+
+def _workspace(name, n_ws, h, tensors, k_valid_from) -> torch.Tensor:
+    """Check every operand's device and layout, then allocate the
+    kernel's f32 scratch (split partial sums, softmax states), whose
+    size comes from the kernel source."""
+    if k_valid_from is not None:
+        if k_valid_from.dtype != torch.int32:
+            raise ValueError("k_valid_from must be int32")
+        tensors.append(k_valid_from)
+    for t in tensors:
+        if t.device != h.device or not t.is_contiguous():
+            raise ValueError(f"{name} operands must be contiguous and on "
+                             "one CUDA device")
+    if n_ws < 0:
+        raise ValueError(f"{name}: workspace exceeds 2**31 floats")
+    return torch.empty(n_ws, dtype=torch.float32, device=h.device)
+
+
 def _expect(t: torch.Tensor, shape, dtype, what: str) -> None:
     if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
-        raise ValueError(f"decode_layers: {what} must be {dtype} "
+        raise ValueError(f"megakernel: {what} must be {dtype} "
                          f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)}")

@@ -25,6 +25,17 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                         eps).to(x.dtype)
 
 
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the trailing axis (the llama family's normalizer):
+    statistics in float32, the normalized value cast to the activation
+    dtype BEFORE the scale multiply (HF ``LlamaRMSNorm`` order), so a
+    bf16 activation is rounded twice."""
+    x32 = x.float()
+    y = x32 * torch.rsqrt(x32.pow(2).mean(dim=-1, keepdim=True) + eps)
+    return y.to(x.dtype) * scale.to(x.dtype)
+
+
 def gelu_new(x: torch.Tensor) -> torch.Tensor:
     """GPT-2's tanh-approximated GELU (HF ``gelu_new``):
     0.5 * x * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x^3)))."""

@@ -1,22 +1,25 @@
-"""N-stage pipeline partitioner over the GPT-2 parameter dict.
+"""N-stage pipeline partitioner over a GPT-2 or llama parameter dict.
 
 Counterpart of ``llm_sharding_demo_tpu/parallel/partition.py``: stages
 are contiguous block ranges, validated disjoint and exhaustive before any
 stage exists; stage parameters are slices of the stacked blocks (views,
 no copies); the first stage carries the embeddings, the last the final
-norm and the tied head (``wte_out``).
+norm and the head (GPT-2's tied ``wte_out``, llama's ``lm_head``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from ..models import llama
 from ..models.gpt2 import (GPT2Config, Params, embed, final_logits,
                            layer_params, run_blocks)
 from ..ops.attention import KVCache
+
+Config = Union[GPT2Config, llama.LlamaConfig]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,15 +85,22 @@ def validate_specs(specs: Sequence[StageSpec], n_layer: int) -> None:
 
 def extract_stage_params(params: Params, spec: StageSpec) -> Params:
     """The parameter subset one stage needs: embeddings on the first
-    stage, its blocks, and ln_f plus the tied head on the last."""
+    stage, its blocks, and ln_f plus the head on the last. The family is
+    read from the tree: llama's carries an untied ``lm_head`` and no
+    ``wpe``; GPT-2 ties its head to ``wte``."""
     out: Params = {"blocks": layer_params(params["blocks"],
                                           slice(spec.start, spec.end))}
+    llama_tree = "lm_head" in params
     if spec.is_first:
         out["wte"] = params["wte"]
-        out["wpe"] = params["wpe"]
+        if not llama_tree:
+            out["wpe"] = params["wpe"]
     if spec.is_last:
         out["ln_f"] = params["ln_f"]
-        out["wte_out"] = params["wte"]  # tied LM head
+        if llama_tree:
+            out["lm_head"] = params["lm_head"]
+        else:
+            out["wte_out"] = params["wte"]  # tied LM head
     return out
 
 
@@ -100,7 +110,7 @@ def partition_params(params: Params, specs: Sequence[StageSpec],
     return [extract_stage_params(params, s) for s in specs]
 
 
-def stage_apply(stage_params: Params, spec: StageSpec, config: GPT2Config,
+def stage_apply(stage_params: Params, spec: StageSpec, config: Config,
                 x: torch.Tensor, cache: Optional[KVCache] = None,
                 pad: Optional[torch.Tensor] = None,
                 decode_kernel: Optional[str] = None,
@@ -108,10 +118,13 @@ def stage_apply(stage_params: Params, spec: StageSpec, config: GPT2Config,
     """Run one stage. The first stage takes ``[B,S]`` ids, others
     ``[B,S,D]`` hidden states; the last returns ``[B,S,vocab]`` f32
     logits. The position offset derives from ``cache.length`` (0 without
-    a cache), never from the caller, so the position embedding cannot
-    disagree with the cache-write position. On a mega engine a
-    single-token input runs the stage's blocks in one whole-stack launch
-    (``gpt2.mega_step``)."""
+    a cache), never from the caller, so the position embedding (GPT-2)
+    or the rotary angles (llama) cannot disagree with the cache-write
+    position. On a mega engine a single-token input runs the stage's
+    blocks in one whole-stack launch (the family's ``mega_step``)."""
+    if isinstance(config, llama.LlamaConfig):
+        return _stage_apply_llama(stage_params, spec, config, x, cache, pad,
+                                  decode_kernel)
     position_offset = cache.length if cache is not None else 0
     if pad is not None:
         position_offset = position_offset - pad[:, None]
@@ -124,12 +137,38 @@ def stage_apply(stage_params: Params, spec: StageSpec, config: GPT2Config,
     return h, cache
 
 
-def make_stage_cache(spec: StageSpec, config: GPT2Config, batch: int,
+def _stage_apply_llama(stage_params: Params, spec: StageSpec,
+                       config: llama.LlamaConfig, x: torch.Tensor,
+                       cache: Optional[KVCache], pad: Optional[torch.Tensor],
+                       decode_kernel: Optional[str],
+                       ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """A llama stage: the rotary angles derive from the stage cache's
+    length (the same offset in every stage); embedding on the first
+    stage, RMSNorm and the untied head on the last."""
+    offset = cache.length if cache is not None else 0
+    cos, sin = llama.angles(config, x.shape[1], offset, pad, x.device)
+    h = llama.embed(stage_params, x) if spec.is_first else x
+    h, cache = llama.run_blocks(stage_params, h, config, cos, sin, cache, pad,
+                                decode_kernel)
+    if spec.is_last:
+        h = llama.final_logits(stage_params, h, config,
+                               kernels=decode_kernel is not None)
+    return h, cache
+
+
+def make_stage_cache(spec: StageSpec, config: Config, batch: int,
                      max_seq: int, dtype=torch.float32,
                      device=None) -> KVCache:
-    """A KV cache sized for one stage's block count."""
+    """A KV cache sized for one stage's block count, at kv-head width for
+    a grouped-query family."""
     if max_seq > config.n_positions:
         raise ValueError(
             f"max_seq={max_seq} exceeds n_positions={config.n_positions}")
-    return KVCache.create(spec.n_blocks, batch, config.n_head, max_seq,
+    return KVCache.create(spec.n_blocks, batch, kv_heads(config), max_seq,
                           config.head_dim, dtype, device)
+
+
+def kv_heads(config: Config) -> int:
+    """The KV cache's head count: ``n_kv_head`` where the family has
+    one, else ``n_head``."""
+    return getattr(config, "n_kv_head", config.n_head)

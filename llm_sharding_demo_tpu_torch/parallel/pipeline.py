@@ -13,7 +13,8 @@ from __future__ import annotations
 
 from typing import Sequence
 
-from ..models.gpt2 import GPT2Config, Params
+from ..models.gpt2 import Params
+from .partition import Config
 from ..runtime.engine import DecodeEngine
 from ..utils.device import DeviceLike, regime_of
 
@@ -21,7 +22,7 @@ from ..utils.device import DeviceLike, regime_of
 class PipelineRunner(DecodeEngine):
     """N pipeline stages, composed in order on ``device``."""
 
-    def __init__(self, params: Params, config: GPT2Config,
+    def __init__(self, params: Params, config: Config,
                  boundaries: Sequence[int], max_seq: int,
                  dtype="float32", device: DeviceLike = None):
         if regime_of(dtype) == "int8":

@@ -25,8 +25,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..models import family_module
-from ..models.gpt2 import GPT2Config, Params, map_params, unstack_params
+from ..models import family_module, llama
+from ..models.gpt2 import Params, map_params, unstack_params
 from ..ops.attention import create_fused_cache
 from ..ops import decode_layer as DL
 from ..ops.decode_attention import BLOCK_S, KERNEL_HEAD_DIM, eligible
@@ -209,8 +209,8 @@ def check_decode_kernel(decode_kernel: str) -> None:
                          f"{DECODE_KERNEL_MODES}")
 
 
-def resolve_decode_kernel(decode_kernel: str, config: GPT2Config,
-                          max_seq: int, regime: str, on_cuda: bool,
+def resolve_decode_kernel(decode_kernel: str, config, max_seq: int,
+                          regime: str, on_cuda: bool,
                           ) -> Tuple[Optional[str], int]:
     """``(mode, cache_seq)``: the kernel mode an engine runs ("mega",
     "layer", or None for the plain path) and its cache length.
@@ -221,7 +221,9 @@ def resolve_decode_kernel(decode_kernel: str, config: GPT2Config,
     An explicit "layer" or "mega" on an ineligible geometry raises, as
     does "mega" with fp32 on CUDA (the kernel takes bf16 activations);
     on the CPU both run the kernels' plain versions. Kernel modes round
-    the cache up to whole 256-slot blocks, capped at ``n_positions``."""
+    the cache up to whole 256-slot blocks, capped at ``n_positions``.
+    The megakernel's rule is the family's: ``decode_layer.eligible`` for
+    GPT-2, ``decode_layer.llama_eligible`` for llama."""
     check_decode_kernel(decode_kernel)
     want = decode_kernel in ("layer", "mega") or (
         decode_kernel == "auto" and on_cuda and regime != "float32")
@@ -232,14 +234,17 @@ def resolve_decode_kernel(decode_kernel: str, config: GPT2Config,
     # rule is the per-layer kernel's plus a 128-aligned width
     layer_ok = eligible(rounded, config.head_dim, 1) and (
         not on_cuda or config.head_dim == KERNEL_HEAD_DIM)
-    mega_ok = DL.eligible(config, rounded)
+    mega_ok = (DL.llama_eligible if isinstance(config, llama.LlamaConfig)
+               else DL.eligible)(config, rounded)
     if decode_kernel == "mega":
         if not mega_ok:
             raise ValueError(
                 f"decode_kernel='mega' requested but the megakernel is "
                 f"ineligible here (n_embd={config.n_embd}, head_dim="
                 f"{config.head_dim}, cache={rounded}): it needs "
-                f"head_dim == {KERNEL_HEAD_DIM}, n_embd % 128 == 0 and a "
+                f"head_dim == {KERNEL_HEAD_DIM}, n_embd % 128 == 0 (llama: "
+                f"also kv width and intermediate_size % 128 == 0, at most "
+                f"{DL.LLAMA_MAX_G} query heads per kv head) and a "
                 f"whole-{BLOCK_S}-block cache. Note: even an eligible mega "
                 f"engine takes the per-layer kernels past {DL.MAX_BATCH} "
                 "batch rows")
@@ -262,7 +267,9 @@ def resolve_decode_kernel(decode_kernel: str, config: GPT2Config,
 
 
 class DecodeEngine:
-    """Single-model decode engine.
+    """Single-model decode engine for either ported family (``config`` a
+    ``GPT2Config`` or a ``LlamaConfig``; ``models.family_module`` picks
+    the model functions).
 
     ``dtype`` is the inference regime: ``float32`` (the greedy-parity
     mode), ``bfloat16``, or ``int8`` (weight-only int8 with per-channel
@@ -284,7 +291,7 @@ class DecodeEngine:
     plain versions run.
     """
 
-    def __init__(self, params: Params, config: GPT2Config, max_seq: int,
+    def __init__(self, params: Params, config, max_seq: int,
                  dtype="float32", boundaries: Optional[Sequence[int]] = None,
                  decode_kernel: str = "auto", device: DeviceLike = None):
         if max_seq > config.n_positions:
@@ -328,19 +335,21 @@ class DecodeEngine:
         return self.decode_kernel or "xla"
 
     def _fresh_cache(self, batch: int):
+        from ..parallel import partition as P
         cfg, dev = self.config, self.device
         if self.decode_kernel is not None:
+            # kernel modes: the fused cache, at kv-head width
+            n_kv = P.kv_heads(cfg)
             if self.specs is None:
-                return create_fused_cache(cfg.n_layer, batch, cfg.n_head,
+                return create_fused_cache(cfg.n_layer, batch, n_kv,
                                           self._cache_seq, cfg.head_dim,
                                           self.dtype, dev)
-            return [create_fused_cache(s.n_blocks, batch, cfg.n_head,
+            return [create_fused_cache(s.n_blocks, batch, n_kv,
                                        self._cache_seq, cfg.head_dim,
                                        self.dtype, dev) for s in self.specs]
         if self.specs is None:
             return self._model.make_cache(cfg, batch, self._cache_seq,
                                           self.dtype, dev)
-        from ..parallel import partition as P
         return [P.make_stage_cache(s, cfg, batch, self._cache_seq,
                                    self.dtype, dev) for s in self.specs]
 

@@ -27,6 +27,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..models import is_partitionable
 from ..models.gpt2 import map_params
 from ..ops import cuda_build
 from ..parallel import partition as P_
@@ -105,10 +106,16 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
                                   boundaries=list(cfg.boundaries),
                                   dtype=cfg.inference_dtype, device=dev)
         decode_kernel = runner.decode_kernel_mode
+    # the reference's two-stage wire topology (/forward, /forward_b) is
+    # dense GPT-2 only; other families answer /generate alone
+    partitionable = is_partitionable(config)
+    decline = {"error": "stage endpoints serve dense GPT-2 only; "
+                        f"{type(config).__name__} models generate via "
+                        "/generate"}
     compat_specs = P_.make_stage_specs(n_layer, [cfg.split_at])
     compat_params = {}
     for i, role in enumerate(("a", "b")):
-        if cfg.shard_role == role:
+        if cfg.shard_role == role and partitionable:
             compat_params[role] = P_.extract_stage_params(
                 map_params(lambda x: x.to(dev), params), compat_specs[i])
 
@@ -133,6 +140,8 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
     def forward_a(req: InputIDs):
         if cfg.shard_role != "a":
             return {"error": "This instance is not shard A."}
+        if not partitionable:
+            return decline
         if not req.input_ids or not all(
                 0 <= t < config.vocab_size for t in req.input_ids):
             return 422, {"detail": f"input_ids must be a non-empty list of "
@@ -147,6 +156,8 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
     def forward_b(req: HiddenStates):
         if cfg.shard_role != "b":
             return {"error": "This instance is not shard B."}
+        if not partitionable:
+            return decline
         try:
             arr = np.asarray(req.hidden_states, dtype=np.float32)
         except (ValueError, TypeError):

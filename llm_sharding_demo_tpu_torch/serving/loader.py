@@ -4,7 +4,9 @@ Counterpart of ``llm_sharding_demo_tpu/serving/loader.py``. Checkpoints
 (``CHECKPOINT_DIR``) and Hugging Face downloads are not ported, so the
 server always builds the named architecture with seeded random weights
 and logs loudly that its output is untrained noise. ``MODEL_ID=gpt2``
-gives the full GPT-2 124M width.
+gives the full GPT-2 124M width, ``MODEL_ID=llama-124m`` the llama
+family's 124M geometry (12 layers, 12 query and 4 kv heads, 4096
+positions).
 """
 
 from __future__ import annotations
@@ -14,8 +16,8 @@ from typing import Tuple
 
 import torch
 
-from ..models import LLAMA_MOE_ITEM, gpt2
-from ..models.gpt2 import GPT2Config, Params
+from ..models import family_module, gpt2, llama
+from ..models.gpt2 import Params
 from ..utils.config import ServingConfig
 
 log = logging.getLogger(__name__)
@@ -24,17 +26,14 @@ FALLBACK_CONFIGS = {
     "sshleifer/tiny-gpt2": gpt2.CONFIGS["tiny-gpt2"],
     "gpt2": gpt2.CONFIGS["gpt2"],
     "gpt2-medium": gpt2.CONFIGS["gpt2-medium"],
+    "llama-tiny": llama.CONFIGS["llama-tiny"],
+    "llama-124m": llama.CONFIGS["llama-124m"],
 }
-_UNPORTED = ("llama-tiny", "llama-124m")
 
 
 def resolve_model(cfg: ServingConfig, device: torch.device,
-                  seed: int = 0) -> Tuple[GPT2Config, Params]:
+                  seed: int = 0) -> Tuple[object, Params]:
     """``MODEL_ID`` -> (config, params drawn on ``device`` from ``seed``)."""
-    if cfg.model_id in _UNPORTED:
-        raise NotImplementedError(
-            f"MODEL_ID={cfg.model_id!r}: not ported yet, it waits for "
-            f"{LLAMA_MOE_ITEM}")
     if cfg.model_id not in FALLBACK_CONFIGS:
         raise RuntimeError(
             f"cannot load {cfg.model_id!r}: checkpoints and hub downloads "
@@ -45,4 +44,4 @@ def resolve_model(cfg: ServingConfig, device: torch.device,
                 "(seed %d) — output will be untrained noise",
                 cfg.model_id, config, seed)
     gen = torch.Generator(device=device).manual_seed(seed)
-    return config, gpt2.init_params(config, gen)
+    return config, family_module(config).init_params(config, gen)

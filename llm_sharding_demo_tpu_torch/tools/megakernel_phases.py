@@ -1,10 +1,12 @@
-"""Per-phase device clock of the whole-stack decode kernel.
+"""Per-phase device clock of the whole-stack decode kernels.
 
 Builds ``csrc/decode_layer.cu`` a second time with
 ``-DDECODE_LAYERS_PHASE_CLOCK``, which stamps ``%globaltimer`` at every
-grid barrier (the last block's arrival, block 0's release), and runs it
-at GPT-2 124M's full width (seeded random weights, inputs rotated over
-more than the 50 MB L2 so the weights stream from memory). For each of a
+grid barrier (the last block's arrival, block 0's release), and runs the
+GPT-2 kernel at GPT-2 124M's full width (``--family gpt2``, the default)
+or the llama kernel at llama-124m's (``--family llama``: 4 kv heads,
+SwiGLU 2048, a 4096-slot cache), with seeded random weights and inputs
+rotated over more than the 50 MB L2 so the weights stream from memory. For each of a
 layer's seven phases, summed over the layers, it prints the work (the
 previous barrier's release to the last block's arrival) and the barrier
 (that arrival to the release), each the median over ``--reps`` launches,
@@ -14,6 +16,7 @@ build (``--reps`` launches replayed from a CUDA graph, CUDA events; on
 the same inputs in the same run).
 
     python -m llm_sharding_demo_tpu_torch.tools.megakernel_phases
+    python -m llm_sharding_demo_tpu_torch.tools.megakernel_phases --family llama
 
 Needs a CUDA card and nvcc; the last line is a JSON object of the
 readings.
@@ -30,10 +33,15 @@ import sys
 
 PHASES = ("QKV", "ATT", "OUT", "RES1", "FC", "PROJ", "RES2")
 CLOCK_LAYERS, CLOCK_PHASES = 48, 8     # csrc/decode_layer.cu kClock*
-# (weights, layers, batch rows, cached positions)
-CASES = (("int8", 12, 1, 255), ("int8", 12, 8, 255), ("int8", 12, 16, 255),
-         ("int8", 12, 1, 1000), ("bf16", 12, 1, 255), ("int8", 11, 1, 255),
-         ("int8", 1, 1, 255))
+# (weights, layers, batch rows, cached positions) of each family
+CASES = {
+    "gpt2": (("int8", 12, 1, 255), ("int8", 12, 8, 255),
+             ("int8", 12, 16, 255), ("int8", 12, 1, 1000),
+             ("bf16", 12, 1, 255), ("int8", 11, 1, 255), ("int8", 1, 1, 255)),
+    "llama": (("int8", 12, 1, 255), ("int8", 12, 1, 3000),
+              ("int8", 12, 8, 255), ("bf16", 12, 1, 255),
+              ("int8", 11, 1, 255), ("int8", 1, 1, 255)),
+}
 
 
 def phase_times(stamps, n_layer: int):
@@ -84,16 +92,19 @@ def graph_us(torch, launch, reps: int) -> float:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--reps", type=int, default=20)
-    reps = parser.parse_args(argv).reps
+    parser.add_argument("--family", choices=sorted(CASES), default="gpt2")
+    args = parser.parse_args(argv)
+    reps, family = args.reps, args.family
 
     import torch
     if not torch.cuda.is_available():
         print("FAIL: needs a CUDA device", file=sys.stderr)
         return 1
-    from ..models import gpt2
+    from ..models import gpt2, llama
     from ..ops import cuda_build as cb
     from ..ops import quant as Q
-    from ..ops.decode_layer import decode_layers
+    from ..ops.decode_layer import decode_layers, decode_layers_llama
+    from ..ops.rope import rope_angles
 
     clock = cb.KernelLibrary(
         "decode_layer.cu", dict(cb.DECODE_LAYER_LIB.functions,
@@ -107,40 +118,51 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    cfg = gpt2.CONFIGS["gpt2"]
+    is_llama = family == "llama"
+    model = llama if is_llama else gpt2
+    cfg = llama.CONFIGS["llama-124m"] if is_llama else gpt2.CONFIGS["gpt2"]
+    kernel = cb.DECODE_LAYERS_LLAMA if is_llama else cb.DECODE_LAYERS
+    n_kv = cfg.n_kv_head if is_llama else cfg.n_head
+    eps = cfg.rms_norm_eps if is_llama else cfg.layer_norm_epsilon
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
     print(smi)
     rows = []
-    for regime, n_layer, B, off in CASES:
+    for regime, n_layer, B, off in CASES[family]:
         sets = []
         per_set = 0
         while not sets or (len(sets) * per_set < 160 << 20 and len(sets) < 24):
-            blocks = gpt2.init_params(cfg, g)["blocks"]
+            blocks = model.init_params(cfg, g)["blocks"]
             blocks = gpt2.map_params(lambda x: x[:n_layer], blocks)
             if regime == "int8":
                 blocks = Q.quantize_params({"blocks": blocks})["blocks"]
-                per_set = n_layer * 12 * cfg.n_embd ** 2
             else:
                 blocks = gpt2.map_params(lambda x: x.to(torch.bfloat16),
                                          blocks)
-                per_set = n_layer * 24 * cfg.n_embd ** 2
+            per_set = sum(t.numel() * t.element_size()
+                          for t in _tensors(blocks))
             sets.append((blocks, torch.randn(
                 B, 1, cfg.n_embd, generator=g, device=dev).to(torch.bfloat16),
-                torch.randn(n_layer, B, cfg.n_head, cfg.n_positions, 128,
+                torch.randn(n_layer, B, n_kv, cfg.n_positions, 128,
                             generator=g, device=dev).to(torch.bfloat16)))
+        cos, sin = rope_angles(torch.full((B,), off, device=dev),
+                               cfg.head_dim)
 
         def launch(i):
             s = sets[i % len(sets)]
-            decode_layers(s[0], s[1], s[2], off, n_head=cfg.n_head,
-                          eps=cfg.layer_norm_epsilon)
+            if is_llama:
+                decode_layers_llama(s[0], s[1], s[2], off, cos, sin,
+                                    n_head=cfg.n_head, eps=eps)
+            else:
+                decode_layers(s[0], s[1], s[2], off, n_head=cfg.n_head,
+                              eps=eps)
 
         us = {}
         works, barriers, totals = [], [], []
         for lib in libs:
-            cb.DECODE_LAYERS.library = lib
+            kernel.library = lib
             try:
                 us[lib is clock] = graph_us(torch, launch, reps)
                 if lib is clock:
@@ -157,20 +179,21 @@ def main(argv=None) -> int:
                         barriers.append(b)
                         totals.append(sum(w) + sum(b))
             finally:
-                cb.DECODE_LAYERS.library = cb.DECODE_LAYER_LIB
+                kernel.library = cb.DECODE_LAYER_LIB
         work = [statistics.median(w[k] for w in works) / 1e3
                 for k in range(len(PHASES))]
         barrier = [statistics.median(b[k] for b in barriers) / 1e3
                    for k in range(len(PHASES))]
         n_barriers = 7 * n_layer - 1
-        row = dict(weights=regime, layers=n_layer, B=B, offset=off,
+        row = dict(family=family, weights=regime, layers=n_layer, B=B,
+                   offset=off,
                    device_us=us[False], clock_build_device_us=us[True],
                    clock_total_us=statistics.median(totals) / 1e3,
                    work_us=dict(zip(PHASES, work)),
                    barrier_us=dict(zip(PHASES, barrier)),
                    us_per_barrier=sum(barrier) / n_barriers)
         rows.append(row)
-        print(f"{regime} {n_layer} layers B={B} offset={off}: device "
+        print(f"{family} {regime} {n_layer} layers B={B} offset={off}: device "
               f"{row['device_us']:.1f} us per launch (clock build "
               f"{row['clock_build_device_us']:.1f} us, its clock "
               f"{row['clock_total_us']:.1f} us); over the layers, work / "
@@ -184,6 +207,18 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     print(json.dumps({"device": smi, "reps": reps, "cases": rows}))
     return 0
+
+
+def _tensors(tree):
+    """Every tensor of a parameter tree (int8 codes and scales)."""
+    from ..ops.quant import is_quantized
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif is_quantized(tree):
+        yield from (tree.q, tree.scale)
+    else:
+        yield tree
 
 
 if __name__ == "__main__":

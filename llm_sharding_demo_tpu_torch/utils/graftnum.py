@@ -14,6 +14,8 @@ inputs.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 TOLERANCE_POLICY = {
@@ -69,12 +71,17 @@ def compare(path: str, approx: torch.Tensor, exact: torch.Tensor) -> dict:
 STACK_POLICY = {"max_abs": 2.0 ** -5, "rel_rms": 2.0 ** -5}
 
 
-def compare_stack(out: torch.Tensor, ref: torch.Tensor,
-                  h: torch.Tensor) -> dict:
+def compare_stack(out: torch.Tensor, ref: torch.Tensor, h: torch.Tensor,
+                  row: Optional[torch.Tensor] = None,
+                  row_ref: Optional[torch.Tensor] = None) -> dict:
     """Score a whole-stack output ``out`` against ``ref`` (the plain
     version's), both ``[B, 1, D]`` from input ``h``, under
-    ``STACK_POLICY``. Returns the report; raises ``GraftnumError`` on a
-    breach or a non-finite output."""
+    ``STACK_POLICY``. With ``row``/``row_ref`` (the cache rows each side
+    wrote at the step's offset) the rows are held to the same
+    ``max_abs`` bound, relative to their own largest value: a row written
+    wrong (say, k without its rotation) only shows in later steps'
+    outputs. Returns the report; raises ``GraftnumError`` on a breach or
+    a non-finite output."""
     o, r, x = (t.float().reshape(t.shape[0], -1).cpu()
                for t in (out, ref, h))
     err = o - r
@@ -85,6 +92,10 @@ def compare_stack(out: torch.Tensor, ref: torch.Tensor,
               "rel_rms_err": float(rel.max()),
               "rel_rms_limit": STACK_POLICY["rel_rms"],
               "policy": dict(STACK_POLICY)}
+    if row is not None:
+        rw, rr = row.float().cpu(), row_ref.float().cpu()
+        report["row_err"] = float((rw - rr).abs().max())
+        report["row_limit"] = STACK_POLICY["max_abs"] * float(rr.abs().max())
     if not bool(torch.isfinite(o).all()):
         raise GraftnumError("stack: non-finite output", report)
     if report["max_abs_err"] > report["max_abs_limit"]:
@@ -95,4 +106,8 @@ def compare_stack(out: torch.Tensor, ref: torch.Tensor,
         raise GraftnumError(
             f"stack: rms err {report['rel_rms_err']:.3e} of the stack's "
             f"contribution exceeds {STACK_POLICY['rel_rms']:.3e}", report)
+    if row is not None and not report["row_err"] <= report["row_limit"]:
+        raise GraftnumError(
+            f"stack: written cache row err {report['row_err']:.3e} exceeds "
+            f"{report['row_limit']:.3e}", report)
     return report

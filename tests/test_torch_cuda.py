@@ -14,12 +14,14 @@ import numpy as np
 import pytest
 import torch
 
-from llm_sharding_demo_tpu_torch.models import gpt2
+from llm_sharding_demo_tpu_torch.models import gpt2, llama
 from llm_sharding_demo_tpu_torch.ops import cuda_build, quant
 from llm_sharding_demo_tpu_torch.ops.decode_attention import (
     decode_attention, decode_attention_plain)
 from llm_sharding_demo_tpu_torch.ops.decode_layer import (
-    decode_layers, decode_layers_plain)
+    decode_layers, decode_layers_llama, decode_layers_llama_plain,
+    decode_layers_plain)
+from llm_sharding_demo_tpu_torch.ops.rope import rope_angles
 from llm_sharding_demo_tpu_torch.runtime.engine import DecodeEngine
 from llm_sharding_demo_tpu_torch.utils import graftnum
 
@@ -197,3 +199,139 @@ def test_mega_refuses_fp32_on_cuda(dev):
                      decode_kernel="mega")
     eng = DecodeEngine(params, cfg, max_seq=300, dtype="bfloat16")
     assert eng.decode_kernel_mode == "mega"
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("off", [0, 100, 300])
+def test_decode_attention_kernel_g3_matches_plain(dev, dtype, tol, off):
+    """Grouped-query decode attention at llama-124m's group of 3 query
+    heads per kv head (6 over 2 here): query head h reads kv head h // 3."""
+    g = torch.Generator(device=dev).manual_seed(off + 1)
+    B, H, Hkv, hd, S = 3, 6, 2, 64, 512
+    KV = torch.randn(2, B, Hkv, S, 2 * hd, generator=g, device=dev).to(dtype)
+    q = torch.randn(B, H, 1, hd, generator=g, device=dev).to(dtype)
+    kn, vn = (torch.randn(B, Hkv, 1, hd, generator=g, device=dev).to(dtype)
+              for _ in range(2))
+    vf = torch.tensor([0, 5, off // 2], dtype=torch.int32, device=dev)
+    a, b = KV.clone(), KV.clone()
+    out_k, _ = decode_attention(q, kn, vn, a, 1, off, vf)
+    out_p, _ = decode_attention_plain(q, kn, vn, b, 1, off, vf)
+    torch.testing.assert_close(out_k.float(), out_p.float(), atol=tol,
+                               rtol=tol)
+    assert torch.equal(a, b)
+
+
+# the llama megakernel's test geometry: the smallest the kernel takes with
+# llama-124m's group of 3 query heads per kv head
+LLAMA_DIMS = dict(vocab_size=211, n_positions=512, n_embd=384, n_head=6,
+                  n_kv_head=2, intermediate_size=256)
+
+
+def _llama_inputs(dev, cfg, regime, batch, off, seed):
+    """Stacked llama blocks (non-trivial RMSNorm scales), h, a fused
+    cache, pad starts and the step's per-row angles."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = llama.init_params(cfg, g, std=0.05)
+    for grp in ("ln_attn", "ln_mlp"):
+        sc = params["blocks"][grp]["scale"]
+        params["blocks"][grp]["scale"] = sc + 0.1 * torch.randn(
+            sc.shape, generator=g, device=dev)
+    if regime == "int8":
+        blocks = quant.quantize_params(params)["blocks"]
+    else:
+        blocks = gpt2.map_params(lambda x: x.to(torch.bfloat16),
+                                 params["blocks"])
+    KV = torch.randn(cfg.n_layer, batch, cfg.n_kv_head, cfg.n_positions, 128,
+                     generator=g, device=dev).to(torch.bfloat16)
+    h = torch.randn(batch, 1, cfg.n_embd, generator=g,
+                    device=dev).to(torch.bfloat16)
+    vf = torch.tensor([off * (b % 4 + 1) // 4 if b % 2 else 0
+                       for b in range(batch)], dtype=torch.int32, device=dev)
+    cos, sin = rope_angles(torch.clamp(off - vf.long(), min=0), 64)
+    return blocks, h, KV, vf, cos, sin
+
+
+@pytest.mark.parametrize("off", [0, 37, 300])
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("regime", ["bfloat16", "int8"])
+@pytest.mark.parametrize("n_layer", [1, 3])
+def test_decode_layers_llama_kernel_matches_plain(dev, n_layer, regime,
+                                                  batch, off):
+    """The llama whole-stack kernel against its plain version: the hidden
+    state and the written rows within ``graftnum.STACK_POLICY``, the cache
+    equal outside row ``off``, two launches bit-identical."""
+    cfg = llama.LlamaConfig(n_layer=n_layer, **LLAMA_DIMS)
+    blocks, h, KV, vf, cos, sin = _llama_inputs(dev, cfg, regime, batch, off,
+                                                batch * 1000 + off)
+    a, b, c = KV.clone(), KV.clone(), KV.clone()
+    n0 = cuda_build.launch_counts()["decode_layers_llama"]
+    args = dict(n_head=cfg.n_head, eps=cfg.rms_norm_eps)
+    out_k, _ = decode_layers_llama(blocks, h, a, off, cos, sin, vf, **args)
+    out_k2, _ = decode_layers_llama(blocks, h, b, off, cos, sin, vf, **args)
+    out_p, _ = decode_layers_llama_plain(blocks, h, c, off, cos, sin, vf,
+                                         **args)
+    assert cuda_build.launch_counts()["decode_layers_llama"] == n0 + 2
+    assert torch.equal(out_k, out_k2) and torch.equal(a, b)
+    graftnum.compare_stack(out_k, out_p, h, a[:, :, :, off], c[:, :, :, off])
+    a[:, :, :, off] = c[:, :, :, off]
+    assert torch.equal(a, c)
+
+
+# faults planted in a copy of the llama kernel's source: (text, replacement)
+LLAMA_PLANTED_FAULTS = {
+    # query head h reads kv head h % Hkv instead of h // g
+    "kv_head_mod": (
+        "auto q_head = [&](int kh, int j) { return kh * g + j; };",
+        "auto q_head = [&](int kh, int j) { return j * Hkv + kh; };"),
+    # k is not rotated (the self term and the row written use raw k)
+    "k_rope_skipped": (
+        "rv[j] = __fadd_rn(__fmul_rn(x[d], cs[d]), __fmul_rn(rot, sn[d]));",
+        "rv[j] = r < g ? __fadd_rn(__fmul_rn(x[d], cs[d]), "
+        "__fmul_rn(rot, sn[d])) : x[d];"),
+}
+
+
+@pytest.mark.parametrize("n_layer", [1, 12])
+@pytest.mark.parametrize("fault", sorted(LLAMA_PLANTED_FAULTS))
+def test_llama_stack_check_catches_planted_fault(dev, tmp_path, monkeypatch,
+                                                 fault, n_layer):
+    """``graftnum.compare_stack`` (the output and the written cache rows)
+    passes the llama kernel and rejects a copy of it with one planted
+    fault, at llama-124m's width with int8 weights, 8 rows, 255 cached
+    positions and the odd rows masked over half or all of them. Prints
+    both readings."""
+    text, planted = LLAMA_PLANTED_FAULTS[fault]
+    lib = cuda_build.DECODE_LAYERS_LLAMA.library
+    src = open(lib.source).read()
+    assert src.count(text) == 1
+    path = tmp_path / "decode_layer.cu"
+    path.write_text(src.replace(text, planted))
+    faulty = cuda_build.KernelLibrary(os.fspath(path), lib.functions,
+                                      lib.error_fn)
+    cfg = llama.CONFIGS["llama-124m"]
+    cfg = llama.LlamaConfig(**dict(vars(cfg), n_layer=n_layer,
+                                   n_positions=1024))
+    B, off = 8, 255
+    blocks, h, KV, vf, cos, sin = _llama_inputs(dev, cfg, "int8", B, off, 7)
+    args = dict(n_head=cfg.n_head, eps=cfg.rms_norm_eps)
+
+    def run(fn):
+        kv = KV.clone()
+        out, _ = fn(blocks, h, kv, off, cos, sin, vf, **args)
+        return out, kv[:, :, :, off]
+
+    ref, ref_row = run(decode_layers_llama_plain)
+    out, row = run(decode_layers_llama)
+    sound = graftnum.compare_stack(out, ref, h, row, ref_row)
+    monkeypatch.setattr(cuda_build.DECODE_LAYERS_LLAMA, "library", faulty)
+    with pytest.raises(graftnum.GraftnumError) as caught:
+        out, row = run(decode_layers_llama)
+        graftnum.compare_stack(out, ref, h, row, ref_row)
+    bad = caught.value.report
+    print(f"\n{fault}, {n_layer} layers: sound max_abs_err "
+          f"{sound['max_abs_err']:.3e} rel_rms_err {sound['rel_rms_err']:.3e} "
+          f"row_err {sound['row_err']:.3e}; faulty max_abs_err "
+          f"{bad['max_abs_err']:.3e} rel_rms_err {bad['rel_rms_err']:.3e} "
+          f"row_err {bad['row_err']:.3e}; limits {bad['max_abs_limit']:.3e} "
+          f"/ {bad['rel_rms_limit']:.3e} / {bad['row_limit']:.3e}")

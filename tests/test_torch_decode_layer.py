@@ -22,6 +22,17 @@ round a bf16 activation the other way; one such ulp enters the residual
 stream and grows through the layers. The cache: row
 ``offset`` of every (layer, b, head) within the same tolerance, every
 other byte equal.
+
+The llama megakernel's plain version, ``decode_layers_llama_plain``, is
+held the same way, with the same tolerances, against JAX
+``decode_layers_llama(..., interpret=True)`` (n_embd 256, 4 query heads
+over 2 kv heads, SwiGLU 256, the tree of tests/test_torch_llama.py), both
+fed the same rotary angles. The JAX side is compiled with XLA's
+``xla_allow_excess_precision`` off (``jax_llama_kernel``): left on, XLA's
+CPU compiler drops the bf16 roundings that the JAX kernel writes between
+RMSNorm's normalize and scale and between SwiGLU's products (a mean error
+of about 2**-8.7 of the largest value, past the quarter ulp above);
+off, the two sides agree bit for bit at most inputs.
 """
 
 import jax
@@ -33,7 +44,9 @@ import torch
 from llm_sharding_demo_tpu.models import gpt2 as jgpt2
 from llm_sharding_demo_tpu.ops import quant as jquant
 from llm_sharding_demo_tpu.ops.decode_layer import (
-    decode_layers as jdecode_layers)
+    decode_layers as jdecode_layers,
+    decode_layers_llama as jdecode_layers_llama)
+from llm_sharding_demo_tpu.ops.rope import rope_angles as jrope_angles
 from llm_sharding_demo_tpu.runtime import engine as jengine
 from llm_sharding_demo_tpu_torch.models import gpt2
 from llm_sharding_demo_tpu_torch.models.convert import params_from_numpy
@@ -322,3 +335,101 @@ def test_phase_clock_splits_work_and_barriers():
     work, barrier = MP.phase_times([1000] + arrive + release, 2)
     assert work == [20 * (k + 1) for k in range(len(MP.PHASES))]
     assert barrier == [6] * (len(MP.PHASES) - 1) + [3]
+
+
+# -- the llama megakernel ------------------------------------------------------
+
+def jax_llama_kernel(jb, h, KV, offset, cos, sin, vf, jdt):
+    """JAX ``decode_layers_llama(..., interpret=True)`` on numpy inputs,
+    compiled with every bf16 rounding its source writes kept (XLA's
+    ``xla_allow_excess_precision`` off). Returns ``(h, KV)`` as f32
+    numpy arrays."""
+    def run(jb, h, KV, cos, sin, vf):
+        return jdecode_layers_llama(jb, h, KV, offset, cos, sin, vf, n_head=4,
+                                    eps=1e-5, interpret=True)
+
+    args = (jb, jnp.asarray(h, jdt), jnp.asarray(KV, jdt), jnp.asarray(cos),
+            jnp.asarray(sin), None if vf is None else jnp.asarray(vf))
+    compiled = jax.jit(run).lower(*args).compile(
+        compiler_options={"xla_allow_excess_precision": False})
+    return tuple(np.asarray(t.astype(jnp.float32)) for t in compiled(*args))
+
+
+def llama_case(batch, offset, masked, seed=None):
+    """Inputs of one llama megakernel call at the llama test geometry
+    (2 layers, 2 kv heads, a 512-slot cache): h, the fused cache, the
+    pad starts and the step's angles [B, 64] (rows shifted by their pad,
+    as the model computes them), as numpy arrays."""
+    rng = np.random.default_rng(100 * batch + offset if seed is None
+                                else seed)
+    h = rng.standard_normal((batch, 1, 256)).astype(np.float32)
+    KV = rng.standard_normal((2, batch, 2, 512, 128)).astype(np.float32)
+    vf = np.asarray([0, 3, offset // 2][:batch], np.int32)
+    pos = np.maximum(offset - (vf if masked else 0 * vf), 0)
+    cos, sin = (np.asarray(t) for t in jrope_angles(jnp.asarray(pos), 64))
+    return h, KV, vf, cos, sin
+
+
+@pytest.fixture(scope="module")
+def llama_model():
+    from test_torch_llama import DIMS as LDIMS, _trees
+    return _trees(LDIMS)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("offset", [0, 5, 255])
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("regime", ["float32", "bfloat16", "int8"])
+def test_llama_plain_matches_jax_megakernel(llama_model, regime, batch,
+                                            offset, masked):
+    from test_torch_llama import _llama_blocks
+    if regime == "float32":
+        _, jp, _, tp = llama_model
+        jb, tb, jdt, tdt = jp["blocks"], tp["blocks"], np.float32, \
+            torch.float32
+    else:
+        jb, tb, jdt, tdt = _llama_blocks(llama_model, regime)
+    h, KV, vf, cos, sin = llama_case(batch, offset, masked)
+    want_h, want_kv = jax_llama_kernel(jb, h, KV, offset, cos, sin,
+                                       vf if masked else None, jdt)
+    tKV = torch.tensor(KV).to(tdt)
+    before = launch_counts()["decode_layers_llama"]
+    got_h, got_kv = DL.decode_layers_llama(
+        tb, torch.tensor(h).to(tdt), tKV, offset, torch.tensor(cos),
+        torch.tensor(sin), torch.tensor(vf) if masked else None, n_head=4,
+        eps=1e-5)
+    # a CPU tensor takes the plain version: no kernel launch is counted
+    assert launch_counts()["decode_layers_llama"] == before
+    assert got_kv is tKV and got_h.dtype == tdt
+    got_h, got_kv = got_h.float().numpy(), got_kv.float().numpy()
+    if regime == "float32":
+        tol = dict(atol=1e-5, rtol=1e-5)
+    else:
+        tol = dict(atol=2.0 ** -5 * np.abs(want_h).max(), rtol=0)
+        assert np.abs(got_h - want_h).mean() <= 2.0 ** -9 * np.abs(
+            want_h).max()
+        graftnum.compare_stack(
+            torch.tensor(got_h), torch.tensor(want_h),
+            torch.tensor(h).to(tdt), torch.tensor(got_kv[:, :, :, offset]),
+            torch.tensor(want_kv[:, :, :, offset]))
+    np.testing.assert_allclose(got_h, want_h, **tol)
+    row_tol = tol if regime == "float32" else dict(
+        atol=2.0 ** -5 * np.abs(want_kv[:, :, :, offset]).max(), rtol=0)
+    np.testing.assert_allclose(got_kv[:, :, :, offset],
+                               want_kv[:, :, :, offset], **row_tol)
+    assert np.array_equal(np.delete(got_kv, offset, axis=3),
+                          np.delete(want_kv, offset, axis=3))
+
+
+def test_llama_refusals(llama_model):
+    _, _, cfg, tp = llama_model
+    h, KV, vf, cos, sin = (torch.tensor(x) for x in llama_case(1, 5, False))
+    with pytest.raises(ValueError, match="cos must be float32"):
+        DL.decode_layers_llama(tp["blocks"], h, KV, 5, cos[:, :32], sin,
+                               n_head=4, eps=1e-5)
+    with pytest.raises(ValueError, match="kv heads"):
+        DL.decode_layers_llama(tp["blocks"], h, KV, 5, cos, sin, n_head=3,
+                               eps=1e-5)
+    with pytest.raises(ValueError, match="offset"):
+        DL.decode_layers_llama(tp["blocks"], h, KV, 512, cos, sin, n_head=4,
+                               eps=1e-5)

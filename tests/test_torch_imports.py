@@ -46,7 +46,8 @@ def test_port_imports_with_jax_blocked():
     modules = sorted(m.name for m in pkgutil.walk_packages(
         [PKG], prefix="llm_sharding_demo_tpu_torch."))
     assert "llm_sharding_demo_tpu_torch.serving.app" in modules
-    assert "llm_sharding_demo_tpu_torch.ops.decode_layer" in modules
+    for name in ("ops.decode_layer", "ops.rope", "models.llama"):
+        assert f"llm_sharding_demo_tpu_torch.{name}" in modules
     code = "; ".join([
         "import sys",
         *(f"sys.modules[{name!r}] = None" for name in FORBIDDEN),

@@ -76,7 +76,8 @@ def test_generate_int8_runs_the_staged_engine(weights, dtype):
     # "auto" keeps the plain path on the CPU (kernels are for CUDA)
     assert h["decode_kernel"] == "xla"
     assert set(h["kernel_launches"]) == {"decode_attention", "quant_linear",
-                                         "quant_head", "decode_layers"}
+                                         "quant_head", "decode_layers",
+                                         "decode_layers_llama"}
 
 
 @pytest.mark.parametrize("role", ["coordinator", "a", "b"])
@@ -162,11 +163,18 @@ def test_kept_knobs_and_defaults_parse(monkeypatch):
 
 
 def test_unported_models_refuse(monkeypatch):
+    """llama-tiny resolves (the llama family is ported); the JAX
+    package's MoE family still refuses, naming its ROADMAP item."""
+    from llm_sharding_demo_tpu.models.moe import MoEConfig
+    from llm_sharding_demo_tpu_torch.models import family_module, llama
     from llm_sharding_demo_tpu_torch.serving import loader
     import torch
+    cfg, params = loader.resolve_model(ServingConfig(model_id="llama-tiny"),
+                                       torch.device("cpu"))
+    assert cfg == llama.CONFIGS["llama-tiny"] and "lm_head" in params
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
-        loader.resolve_model(ServingConfig(model_id="llama-tiny"),
-                             torch.device("cpu"))
+        family_module(MoEConfig(vocab_size=64, n_positions=32, n_embd=32,
+                                n_layer=2, n_head=2))
     cfg, params = loader.resolve_model(
         ServingConfig(model_id="sshleifer/tiny-gpt2"), torch.device("cpu"))
     assert cfg.n_embd == 2 and params["wte"].shape == (50257, 2)
