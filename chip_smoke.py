@@ -15,6 +15,11 @@ which must pass or the script exits non-zero:
    beside its plain version's, one library call's (for a whole-stack
    kernel: the per-layer kernel path's) and the card's lower bound for
    the same work;
+3b. flash: the three flash-attention kernels (forward, dQ, dK/dV)
+   against their plain versions (bf16 and f32, B=4 at S=2048, B=1 at
+   S=4096, a ragged S=333), bit-identical across launches, and timed at
+   llama-124m's training shape beside their plain versions, SDPA and
+   their bounds;
 4. engine: GPT-2 124M and llama-124m at full width (12 layers, seeded
    random weights), bf16 and int8, the per-layer kernel path ("layer")
    and the whole-stack kernel path ("mega") each held against the plain
@@ -23,20 +28,29 @@ which must pass or the script exits non-zero:
    batch 1 and 8, and one decode step's eager time beside the device's
    time for it (the step replayed from a CUDA graph), which gives the
    device's busy share of the eager step; a 17-row GPT-2 batch on the
-   mega engine takes the per-layer kernels;
+   mega engine takes the per-layer kernels; a 2048-token prompt into a
+   llama-124m engine with attention_impl="pallas" prefills through the
+   flash forward (12 launches), within ``decode.bf16`` of the plain
+   engine's logits;
 5. server: ``python -m llm_sharding_demo_tpu_torch.serving`` with
    INFERENCE_DTYPE=int8, once with MODEL_ID=gpt2 and once with
    MODEL_ID=llama-124m MAX_SEQ=4096, answers /generate (greedy and
    seeded sampling, each twice, each pair equal; greedy equal to an
    in-process engine on the same weights), /healthz reports cuda and the
-   whole-stack kernel, launched once per stage per decode step.
+   whole-stack kernel, launched once per stage per decode step;
+6. train: 5 llama-124m train steps (bf16, B=4, S=2048, remat, AdamW) on
+   the flash kernels with exact launch counts (24 forwards, 12 dQ and 12
+   dK/dV a step) and a falling loss, the same steps on the plain
+   attention, step ms, tokens/s and peak memory for both; one f32 step
+   of each path from the same weights, loss and gradients held together.
 
 The last lines are the card's name and power limit, one JSON object with
 the kernels' numbers (each kernel's launches counted on the path that
 runs it: each server for its whole-stack kernel, the GPT-2 "layer" int8
 engine run for the per-layer kernels, with the llama paths' counts
-beside them), and ``{"ok": true, "device": {...}}``. ``--phases`` runs a
-subset (the default runs all).
+beside them, the 5 bf16 train steps for the flash kernels), and
+``{"ok": true, "device": {...}}``. ``--phases`` runs a subset (the
+default runs all).
 """
 
 from __future__ import annotations
@@ -572,6 +586,326 @@ def weight_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
+# -- phase 3b: the flash-attention kernels -------------------------------------
+
+FLASH_BH = (4, 12)     # llama-124m training: batch 4, 12 query heads
+FLASH_SEQ = 2048
+
+
+def flash_bounds(B: int, S: int, dtype) -> dict:
+    """Each flash kernel's bound at [B, 12, S, 64]: the bytes it must move
+    (inputs read once, outputs written once) over the memory rate, and
+    the multiply-adds of its products over the causal lower triangle
+    (two per pair and product: QK^T and PV forward; QK^T, dO V^T and dS K
+    for dQ; QK^T, P^T dO, dO V^T and dS^T Q for dK/dV) over the card's
+    peak for the operand type (bf16 tensor cores, or f32 outside them)."""
+    import torch
+    bh, hd = B * H, HD
+    isz = torch.empty((), dtype=dtype).element_size()
+    mat = bh * S * hd * isz          # one [B, H, S, 64] tensor
+    row = bh * S * 4                 # one f32 row statistic (lse, D)
+    pairs = bh * S * (S + 1) // 2
+    op_type = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    out = {}
+    for name, nbytes, products in (("flash_fwd", 4 * mat + row, 2),
+                                   ("flash_bwd_dq", 5 * mat + 2 * row, 3),
+                                   ("flash_bwd_dkv", 6 * mat + 2 * row, 4)):
+        ms, by = bound_ms(nbytes, 2 * products * pairs * hd, op_type)
+        out[name] = dict(bound_ms=ms, bound_by=by, bytes=nbytes,
+                         flop=2 * products * pairs * hd)
+    return out
+
+
+def event_ms(fn, reps: int = 7, inner: int = 4) -> float:
+    """Median device ms of ``fn`` called eagerly ``inner`` times between
+    two CUDA events (for calls that do not capture into a graph)."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def flash_phase(results: dict) -> None:
+    """The three flash kernels against their plain versions on the card
+    (``graftnum.FLASH_POLICY``: out, lse, dq, dk, dv; bf16 and f32; B=4
+    at S=2048, B=1 at S=4096, a ragged S=333), two launches
+    bit-identical; then each kernel's device time at the training shape
+    (bf16 [4, 12, 2048, 64]) beside its plain version's, the library
+    yardstick's (SDPA with is_causal=True forward; its backward through
+    autograd, which computes dq, dk and dv together) and its bound."""
+    import torch
+
+    from llm_sharding_demo_tpu_torch.ops import flash_attention as FA
+    from llm_sharding_demo_tpu_torch.utils import graftnum
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2048)
+
+    def inputs(B, S, dtype):
+        return [torch.randn(B, H, S, HD, generator=g, device=dev).to(dtype)
+                for _ in range(4)]
+
+    def run(q, k, v, do):
+        out, lse = FA.flash_forward(q, k, v)
+        delta = FA.flash_delta(out, do)
+        dq = FA.flash_bwd_dq(q, k, v, do, lse, delta)
+        dk, dv = FA.flash_bwd_dkv(q, k, v, do, lse, delta)
+        return dict(out=out, lse=lse, dq=dq, dk=dk, dv=dv), delta
+
+    worst = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, S in ((4, FLASH_SEQ), (1, 2 * FLASH_SEQ), (2, 333)):
+            q, k, v, do = inputs(B, S, dtype)
+            got, delta = run(q, k, v, do)
+            again, _ = run(q, k, v, do)
+            out_p, lse_p = FA._forward_plain(q, k, v)
+            # the backward's plain versions read the kernel's own lse, so
+            # each kernel is held alone
+            dq_p = FA._bwd_dq_plain(q, k, v, do, got["lse"], delta)
+            dk_p, dv_p = FA._bwd_dkv_plain(q, k, v, do, got["lse"], delta)
+            want = dict(out=out_p, lse=lse_p, dq=dq_p, dk=dk_p, dv=dv_p)
+            torch.cuda.synchronize()
+            what = f"flash {str(dtype)[6:]} B={B} H={H} S={S} hd={HD}"
+            line = []
+            for name in got:
+                check(torch.equal(bits(got[name]), bits(again[name])),
+                      f"{what}: two launches differ in {name}")
+                try:
+                    rep = graftnum.compare_flash(name, got[name], want[name],
+                                                 dtype)
+                except graftnum.GraftnumError as e:
+                    raise SmokeError(f"{what}: {e} ({e.report})")
+                kern = {"out": "flash_fwd", "lse": "flash_fwd",
+                        "dq": "flash_bwd_dq"}.get(name, "flash_bwd_dkv")
+                worst[kern] = max(worst.get(kern, 0.0), rep["max_abs_err"])
+                line.append(f"{name} max {rep['max_rel_err']:.2e} rms "
+                            f"{rep['rms_rel_err']:.2e}")
+            print(f"  {what}: " + ", ".join(line) + " (of the largest value /"
+                  f" the RMS; limits {graftnum.FLASH_POLICY[str(dtype)[6:]]})"
+                  "  bit-identical  ok")
+            del q, k, v, do, got, again, want
+    torch.cuda.empty_cache()
+
+    # timing at the training shape, inputs rotated past the L2
+    B, S, dtype = FLASH_BH[0], FLASH_SEQ, torch.bfloat16
+    bounds = flash_bounds(B, S, dtype)
+    sets = []
+    for _ in range(copies_for(4 * B * H * S * HD * 2)):
+        q, k, v, do = inputs(B, S, dtype)
+        out, lse = FA.flash_forward(q, k, v)
+        sets.append((q, k, v, do, out, lse, FA.flash_delta(out, do)))
+    shape = f"bf16 B={B} H={H} S={S} hd={HD} causal"
+    calls = {
+        "flash_fwd": (
+            [(lambda s=s: FA.flash_forward(s[0], s[1], s[2])) for s in sets],
+            [(lambda s=s: FA._forward_plain(s[0], s[1], s[2]))
+             for s in sets]),
+        "flash_bwd_dq": (
+            [(lambda s=s: FA.flash_bwd_dq(s[0], s[1], s[2], s[3], s[5],
+                                          s[6])) for s in sets],
+            [(lambda s=s: FA._bwd_dq_plain(s[0], s[1], s[2], s[3], s[5],
+                                           s[6])) for s in sets]),
+        "flash_bwd_dkv": (
+            [(lambda s=s: FA.flash_bwd_dkv(s[0], s[1], s[2], s[3], s[5],
+                                           s[6])) for s in sets],
+            [(lambda s=s: FA._bwd_dkv_plain(s[0], s[1], s[2], s[3], s[5],
+                                            s[6])) for s in sets]),
+    }
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_fwd = [(lambda s=s: sdpa(s[0], s[1], s[2], is_causal=True))
+               for s in sets]
+    q, k, v, do = (x.clone().requires_grad_() for x in sets[0][:4])
+    lib_out = sdpa(q, k, v, is_causal=True)
+    lib_bwd = event_ms(lambda: torch.autograd.grad(
+        lib_out, (q, k, v), do.detach(), retain_graph=True))
+    for name, (kernel, plain) in calls.items():
+        row = dict(shape=shape, max_abs_err=worst[name], **bounds[name])
+        timed(row, "ms", kernel)
+        timed(row, "plain_ms", plain)
+        if name == "flash_fwd":
+            timed(row, "library_ms", lib_fwd)
+        else:
+            # SDPA's backward computes dq, dk and dv in one call: the
+            # yardstick of the two backward kernels together
+            row["library_ms"] = row["call_library_ms"] = lib_bwd
+        results[name] = row
+        print(f"  {name}: {shape}: device time per call: kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}, {row['flop'] / 1e9:.1f} GFLOP, "
+              f"{row['bytes'] / 1e6:.1f} MB); called from Python: kernel "
+              f"{row['call_ms']:.4f} ms, plain {row['call_plain_ms']:.4f} ms")
+    del sets, q, k, v, do, lib_out
+    torch.cuda.empty_cache()
+
+
+# -- phase 6: training ----------------------------------------------------------
+
+TRAIN_STEPS = 5
+
+
+def train_phase() -> dict:
+    """llama-124m training on the card: ``LlamaTrainStep(attention_impl=
+    "pallas", adamw(1e-3), remat=True)``, bf16 parameters, B=4, ids
+    [4, 2049] from a numpy seed (S=2048 reaches the flash kernels), 5
+    steps on the same batch with exact launch counts and a falling loss;
+    the same 5 steps on the plain attention ("xla"); step ms, tokens/s
+    and peak device memory for both. Then one f32 step of each path from
+    the same parameters: loss within 1e-5 relative, each gradient's
+    difference within 1e-4 of its norm. Returns the flash path's launch
+    counts over its 5 steps."""
+    import dataclasses
+
+    import torch
+
+    from llm_sharding_demo_tpu_torch.models import gpt2, llama
+    from llm_sharding_demo_tpu_torch.ops import cuda_build
+    from llm_sharding_demo_tpu_torch.training import train
+
+    base = llama.CONFIGS["llama-124m"]
+    cfgs = {impl: dataclasses.replace(base, attention_impl=impl)
+            for impl in ("pallas", "xla")}
+    B = FLASH_BH[0]
+    ids = np.random.default_rng(11).integers(0, base.vocab_size,
+                                             (B, FLASH_SEQ + 1))
+    params = llama.init_params(
+        base, torch.Generator(device="cuda").manual_seed(5))
+    tokens = B * FLASH_SEQ
+    counts = {}
+    for impl, cfg in cfgs.items():
+        step = train.LlamaTrainStep(cfg, train.adamw(1e-3), remat=True)
+        p, state = step.init(gpt2.map_params(
+            lambda x: x.to(torch.bfloat16), params))
+        batch = step.shard_batch(ids)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_build.reset_launch_counts()
+        losses, times = [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            p, state, loss = step(p, state, batch)
+            losses.append(float(loss))   # a sync: the step is done
+            times.append((time.perf_counter() - t0) * 1e3)
+        got = cuda_build.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = {k.name: 0 for k in cuda_build.KERNELS}
+        if impl == "pallas":
+            want.update(flash_fwd=2 * L * TRAIN_STEPS,
+                        flash_bwd_dq=L * TRAIN_STEPS,
+                        flash_bwd_dkv=L * TRAIN_STEPS)
+            counts = got
+        check(got == want, f"train {impl}: launches {got}, expected {want}")
+        check(all(np.isfinite(losses)), f"train {impl}: losses {losses}")
+        check(losses[-1] < losses[0],
+              f"train {impl}: loss did not fall over {TRAIN_STEPS} steps: "
+              f"{losses}")
+        steady = statistics.median(times[1:])
+        print(f"  llama-124m train, attention_impl={impl!r}, bf16, B={B} "
+              f"S={FLASH_SEQ}, remat, adamw(1e-3): losses "
+              f"{[round(x, 4) for x in losses]}; step ms {[round(t, 1) for t in times]}"
+              f" (median of steps 2-{TRAIN_STEPS}: {steady:.1f} ms, "
+              f"{tokens / steady * 1e3:.0f} tokens/s); peak memory "
+              f"{peak:.2f} GiB; launches {got}")
+        del p, state, step
+        torch.cuda.empty_cache()
+
+    # f32: one step of each path from the same parameters
+    grads, losses = {}, {}
+    cuda_build.reset_launch_counts()
+    for impl, cfg in cfgs.items():
+        step = train.LlamaTrainStep(cfg, train.adamw(1e-3), remat=True)
+        p, _ = step.init(params)
+        losses[impl], grads[impl] = step.loss_and_grads(p, ids)
+        del p, step
+    got = cuda_build.launch_counts()
+    check(got["flash_fwd"] == 2 * L and got["flash_bwd_dq"] == L
+          and got["flash_bwd_dkv"] == L, f"train f32: launches {got}")
+    rel_loss = abs(float(losses["pallas"]) - float(losses["xla"])) / abs(
+        float(losses["xla"]))
+    check(rel_loss <= 1e-5, f"train f32: loss {float(losses['pallas'])} vs "
+                            f"{float(losses['xla'])} ({rel_loss:.2e} relative)")
+    worst = 0.0
+    for a, b in zip(grads["pallas"], grads["xla"]):
+        rel = float((a - b).norm() / b.norm().clamp_min(1e-30))
+        worst = max(worst, rel)
+    check(worst <= 1e-4, f"train f32: a gradient differs by {worst:.2e} of "
+                         "its norm")
+    print(f"  llama-124m f32 step, pallas vs xla: loss "
+          f"{float(losses['pallas']):.7f} vs {float(losses['xla']):.7f} "
+          f"({rel_loss:.2e} relative, limit 1e-5); worst gradient "
+          f"difference {worst:.2e} of its norm (limit 1e-4) over "
+          f"{len(grads['xla'])} leaves")
+    del grads
+    torch.cuda.empty_cache()
+    return counts
+
+
+def flash_prefill_check() -> None:
+    """A 2048-token prompt into an unstaged llama-124m bf16 engine at
+    max_seq 4096 with attention_impl="pallas": the prefill runs the flash
+    forward once per layer (12 launches, nothing else), its logits at
+    every position within ``decode.bf16`` of the "xla" engine's; then a
+    short greedy generate goes through the same prefill and the
+    whole-stack kernel."""
+    import dataclasses
+
+    import torch
+
+    from llm_sharding_demo_tpu_torch.models import llama
+    from llm_sharding_demo_tpu_torch.ops import cuda_build
+    from llm_sharding_demo_tpu_torch.runtime.engine import DecodeEngine
+    from llm_sharding_demo_tpu_torch.utils import graftnum
+
+    base = llama.CONFIGS["llama-124m"]
+    params = llama.init_params(
+        base, torch.Generator(device="cuda").manual_seed(6))
+    prompt = np.random.default_rng(12).integers(0, base.vocab_size,
+                                                (1, FLASH_SEQ))
+    logits = {}
+    for impl in ("pallas", "xla"):
+        eng = DecodeEngine(params, dataclasses.replace(
+            base, attention_impl=impl), max_seq=LNPOS, dtype="bfloat16")
+        check(eng._flash_prefill(FLASH_SEQ, None) == (impl == "pallas"),
+              f"flash prefill gate for {impl}")
+        cuda_build.reset_launch_counts()
+        with torch.inference_mode():
+            lg, _ = eng._prefill(eng._ids(prompt), None)
+        got = cuda_build.launch_counts()
+        want = {k.name: 0 for k in cuda_build.KERNELS}
+        if impl == "pallas":
+            want["flash_fwd"] = L
+        check(got == want, f"prefill {impl}: launches {got}, expected {want}")
+        logits[impl] = lg[0].float()
+        if impl == "pallas":
+            cuda_build.reset_launch_counts()
+            out = eng.generate(prompt, 4).tokens
+            got = cuda_build.launch_counts()
+            check(out.shape == (1, FLASH_SEQ + 4) and got["flash_fwd"] == L
+                  and got["decode_layers_llama"] == 3,
+                  f"flash-prefill generate: {out.shape}, launches {got}")
+        del eng
+    check(bool(torch.isfinite(logits["pallas"]).all()),
+          "flash prefill: non-finite logits")
+    rep = graftnum.compare("decode.bf16", logits["pallas"], logits["xla"])
+    print(f"  llama-124m bf16 flash prefill of {FLASH_SEQ} tokens "
+          f"(max_seq {LNPOS}) vs the xla engine's: logit_mse="
+          f"{rep['logit_mse']:.3e} (cap {rep['policy']['logit_mse']:.0e}) "
+          f"top1_agreement={rep['top1_agreement']:.4f} over "
+          f"{rep['n_positions']} positions; flash_fwd launched {L} times; a "
+          f"4-token generate: flash prefill, then decode_layers_llama")
+    del params, logits
+    torch.cuda.empty_cache()
+
+
 # -- phase 4: the engines at full width ---------------------------------------
 
 def engine_phase(family: str) -> dict:
@@ -863,8 +1197,9 @@ def server_phase(model_id: str, npos: int) -> dict:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="kernels,engine,server",
-                        help="comma-separated subset of kernels,engine,server")
+    parser.add_argument("--phases", default="kernels,flash,engine,server,train",
+                        help="comma-separated subset of kernels,flash,engine,"
+                             "server,train")
     phases = set(parser.parse_args().phases.split(","))
 
     t_start = time.perf_counter()
@@ -895,6 +1230,10 @@ def main() -> int:
     if "kernels" in phases:
         print("[kernels] each kernel against its plain version on the card")
         kernel_phase(results)
+    if "flash" in phases:
+        print("[flash] the flash-attention kernels against their plain "
+              "versions")
+        flash_phase(results)
     # each kernel's launches on the path that runs it: the GPT-2 server for
     # its whole-stack kernel, the llama server for llama's, the int8
     # "layer" GPT-2 engine run for the per-layer kernels (and the llama
@@ -907,6 +1246,7 @@ def main() -> int:
         for kernel in ("decode_attention", "quant_linear", "quant_head"):
             launches[kernel] = layer_counts[kernel]
         llama_launches["layer engine run"] = engine_phase("llama")
+        flash_prefill_check()
     if "server" in phases:
         print("[server] python -m llm_sharding_demo_tpu_torch.serving, int8")
         launches["decode_layers"] = server_phase(
@@ -914,12 +1254,21 @@ def main() -> int:
         counts = server_phase("llama-124m", LNPOS)
         launches["decode_layers_llama"] = counts["decode_layers_llama"]
         llama_launches["server"] = counts
+    if "train" in phases:
+        print("[train] llama-124m train steps, flash kernels vs plain "
+              "attention")
+        counts = train_phase()
+        for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            launches[kernel] = counts[kernel]
 
     sources = {"decode_attention": "csrc/decode_attention.cu",
                "quant_linear": "csrc/quant.cu",
                "quant_head": "csrc/quant.cu",
                "decode_layers": "csrc/decode_layer.cu",
-               "decode_layers_llama": "csrc/decode_layer.cu"}
+               "decode_layers_llama": "csrc/decode_layer.cu",
+               "flash_fwd": "csrc/flash_attention.cu",
+               "flash_bwd_dq": "csrc/flash_attention.cu",
+               "flash_bwd_dkv": "csrc/flash_attention.cu"}
     replaces = {
         "decode_attention":
             "llm_sharding_demo_tpu/ops/decode_attention.py:74",
@@ -928,13 +1277,19 @@ def main() -> int:
         "decode_layers": "llm_sharding_demo_tpu/ops/decode_layer.py:319",
         "decode_layers_llama":
             "llm_sharding_demo_tpu/ops/decode_layer.py:534",
+        "flash_fwd": "llm_sharding_demo_tpu/ops/flash_attention.py:117",
+        "flash_bwd_dq": "llm_sharding_demo_tpu/ops/flash_attention.py:216",
+        "flash_bwd_dkv": "llm_sharding_demo_tpu/ops/flash_attention.py:252",
     }
     requests = "four 24-token int8 /generate requests"
     paths = {"decode_layers": f"GPT-2 server: {requests}",
              "decode_layers_llama": f"llama-124m server: {requests}",
              "decode_attention": "GPT-2 engine: int8 'layer' teacher-forced run",
              "quant_linear": "GPT-2 engine: int8 'layer' teacher-forced run",
-             "quant_head": "GPT-2 engine: int8 'layer' teacher-forced run"}
+             "quant_head": "GPT-2 engine: int8 'layer' teacher-forced run",
+             **{k: f"llama-124m train: {TRAIN_STEPS} bf16 steps, B=4, "
+                   f"S={FLASH_SEQ}, remat"
+                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}}
     rows = []
     for k in cuda_build.KERNELS:
         r = results.get(k.name, {})

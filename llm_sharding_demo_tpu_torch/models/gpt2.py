@@ -5,25 +5,47 @@ layout: transformer blocks stacked on a leading ``[L, ...]`` layer axis,
 ``[in, out]`` kernels (HF ``Conv1D`` storage) and the LM head tied to
 ``wte``. The block stack is a Python loop over the layer axis (the JAX
 package's ``lax.scan``). Cached forwards write the KV cache in place.
+
+``GPT2Config.attention_impl`` selects the no-cache forward's attention:
+"xla" is the plain path, "pallas" the flash-attention kernels
+(``ops.flash_attention``) from ``FLASH_MIN_SEQ`` positions on, as in the
+JAX package; "ring" (sequence-parallel, several cards) refuses.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import (KVCache, cached_attention_fused,
-                             cached_attention_inplace, causal_attention,
-                             merge_heads, split_heads)
+                             cached_attention_inplace, merge_heads,
+                             split_heads, write_kv_layer,
+                             write_kv_layer_fused)
 from ..ops.decode_attention import decode_attention
 from ..ops.decode_layer import (MAX_BATCH, decode_layers, mega_downgrade,
                                 mega_requested)
+from ..ops.flash_attention import flash_attention, self_attention
 from ..ops.layers import gelu_new, layer_norm, linear
 from ..ops.quant import QuantizedTensor, embed_rows, head_logits, is_quantized
 
 Params = Dict[str, Any]
+
+RING_ITEM = ("ROADMAP Queue 1 item 13 (multi-device: ring attention over "
+             "torch.distributed)")
+
+
+def check_attention_impl(impl: str) -> None:
+    """Accept "xla" and "pallas"; "ring" refuses, naming its ROADMAP item;
+    anything else is a ValueError (both families' configs call this)."""
+    if impl == "ring":
+        raise NotImplementedError(
+            f"attention_impl='ring' is not ported; it waits for {RING_ITEM}")
+    if impl not in ("xla", "pallas"):
+        raise ValueError(f"attention_impl={impl!r} not xla|pallas|ring")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +58,9 @@ class GPT2Config:
     n_layer: int = 12
     n_head: int = 12
     layer_norm_epsilon: float = 1e-5
+    # "xla": the plain attention; "pallas": the flash-attention kernels
+    # where flash_profitable holds (the no-cache forward, i.e. training)
+    attention_impl: str = "xla"
 
     @property
     def head_dim(self) -> int:
@@ -45,6 +70,7 @@ class GPT2Config:
         if self.n_embd % self.n_head != 0:
             raise ValueError(
                 f"n_embd={self.n_embd} not divisible by n_head={self.n_head}")
+        check_attention_impl(self.attention_impl)
 
 
 # "tiny-gpt2" matches sshleifer/tiny-gpt2 (the reference's default
@@ -155,21 +181,27 @@ def embed(params: Params, input_ids: torch.Tensor,
 def _block(p: Params, h: torch.Tensor, n_head: int, eps: float,
            cache: Optional[KVCache] = None, layer_idx: int = 0,
            offset: int = 0, k_valid_from: Optional[torch.Tensor] = None,
-           decode_kernel: Optional[str] = None) -> torch.Tensor:
+           decode_kernel: Optional[str] = None, attn_impl: str = "xla",
+           flash_prefill: bool = False) -> torch.Tensor:
     """One pre-LN transformer block; with ``cache``, writes this layer's
     K/V at ``offset`` in place and attends over the written prefix.
 
     ``decode_kernel`` ("layer") routes single-token steps on a fused cache
     through the decode-attention kernel and lets the int8 matmuls take
-    their kernels; ``None`` is the plain path."""
+    their kernels; ``None`` is the plain path. ``attn_impl`` picks the
+    no-cache attention (``ops.flash_attention.self_attention``).
+    ``flash_prefill`` (a fresh-cache prefill: offset 0, no pad) writes
+    the cache, then runs the flash kernel over the new K/V alone."""
     kernels = decode_kernel is not None
     a = layer_norm(h, p["ln_1"]["scale"], p["ln_1"]["bias"], eps)
     qkv = linear(a, p["attn"]["c_attn"]["kernel"], p["attn"]["c_attn"]["bias"],
                  kernels)
     q, k, v = (split_heads(x, n_head) for x in qkv.chunk(3, dim=-1))
     if cache is None:
-        attn = causal_attention(q, k, v, q_offset=offset,
-                                k_valid_from=k_valid_from)
+        attn = self_attention(q, k, v, attn_impl, offset, k_valid_from)
+    elif flash_prefill:
+        write_kv(cache, k, v, layer_idx, offset)
+        attn = flash_attention(q, k, v)
     elif cache.fused:
         if kernels and q.shape[2] == 1:
             attn, _ = decode_attention(q.contiguous(), k.contiguous(),
@@ -192,21 +224,48 @@ def _block(p: Params, h: torch.Tensor, n_head: int, eps: float,
     return h + m
 
 
+def write_kv(cache: KVCache, k: torch.Tensor, v: torch.Tensor,
+             layer_idx: int, offset: int) -> None:
+    """Write new K/V into either cache layout, in place."""
+    if cache.fused:
+        write_kv_layer_fused(cache.k, k, v, layer_idx, offset)
+    else:
+        write_kv_layer(cache.k, cache.v, k, v, layer_idx, offset)
+
+
+def run_layers(block_fn, layers: List[Params], h: torch.Tensor,
+               remat: bool) -> torch.Tensor:
+    """``h = block_fn(p, h, li)`` over the layers; ``remat`` recomputes
+    each block's activations in the backward pass instead of keeping
+    them (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``
+    per block)."""
+    for li, p in enumerate(layers):
+        fn = functools.partial(block_fn, p, li=li)
+        h = checkpoint(fn, h, use_reentrant=False) if remat else fn(h)
+    return h
+
+
 def apply_blocks(blocks: Union[Params, List[Params]], h: torch.Tensor,
                  config: GPT2Config, cache: Optional[KVCache] = None,
                  k_valid_from: Optional[torch.Tensor] = None,
-                 decode_kernel: Optional[str] = None,
+                 decode_kernel: Optional[str] = None, remat: bool = False,
+                 flash_prefill: bool = False,
                  ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run a stack of blocks: the stacked dict (leading layer axis) or its
     ``unstack_blocks`` list. With ``cache`` (leading axis matching the
     stack) the new K/V land at ``cache.length`` and the returned cache is
-    one window longer (same buffers)."""
+    one window longer (same buffers). ``remat`` applies to the no-cache
+    path (training)."""
     eps = config.layer_norm_epsilon
     offset = cache.length if cache is not None else 0
     layers = blocks if isinstance(blocks, list) else unstack_blocks(blocks)
-    for li, p in enumerate(layers):
-        h = _block(p, h, config.n_head, eps, cache, li, offset, k_valid_from,
-                   decode_kernel)
+
+    def block(p, h, li):
+        return _block(p, h, config.n_head, eps, cache, li, offset,
+                      k_valid_from, decode_kernel, config.attention_impl,
+                      flash_prefill)
+
+    h = run_layers(block, layers, h, remat and cache is None)
     if cache is None:
         return h, None
     return h, KVCache(k=cache.k, v=cache.v, length=offset + h.shape[1])
@@ -224,10 +283,11 @@ def final_logits(params: Params, h: torch.Tensor, eps: float,
 
 
 def forward(params: Params, input_ids: torch.Tensor,
-            config: GPT2Config) -> torch.Tensor:
-    """Full no-cache forward: [B, S] -> [B, S, vocab] f32 logits."""
+            config: GPT2Config, remat: bool = False) -> torch.Tensor:
+    """Full no-cache forward: [B, S] -> [B, S, vocab] f32 logits.
+    ``remat`` recomputes each block in the backward pass (training)."""
     h = embed(params, input_ids, 0)
-    h, _ = apply_blocks(params["blocks"], h, config)
+    h, _ = apply_blocks(params["blocks"], h, config, remat=remat)
     return final_logits(params, h, config.layer_norm_epsilon)
 
 
@@ -249,7 +309,7 @@ def mega_step(blocks: Params, h: torch.Tensor, config: GPT2Config,
 
 def run_blocks(params: Params, h: torch.Tensor, config: GPT2Config,
                cache: Optional[KVCache], pad: Optional[torch.Tensor],
-               decode_kernel: Optional[str],
+               decode_kernel: Optional[str], flash_prefill: bool = False,
                ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """The block stack of a forward or a stage: one megakernel launch for
     a single cached token on a mega engine, else the per-layer loop.
@@ -261,13 +321,15 @@ def run_blocks(params: Params, h: torch.Tensor, config: GPT2Config,
         if step is not None:
             return step
     return apply_blocks(params["blocks"], h, config, cache, k_valid_from=pad,
-                        decode_kernel=mega_downgrade(decode_kernel))
+                        decode_kernel=mega_downgrade(decode_kernel),
+                        flash_prefill=flash_prefill)
 
 
 def forward_with_cache(params: Params, input_ids: torch.Tensor,
                        config: GPT2Config, cache: KVCache,
                        pad: Optional[torch.Tensor] = None,
                        decode_kernel: Optional[str] = None,
+                       flash_prefill: bool = False,
                        ) -> Tuple[torch.Tensor, KVCache]:
     """Cached forward (prefill when ``cache.length == 0``, a decode step
     otherwise): full-sequence f32 logits and the cache one window longer.
@@ -276,10 +338,13 @@ def forward_with_cache(params: Params, input_ids: torch.Tensor,
     b's first ``pad[b]`` cache slots are pad tokens, so its positions
     shift down by ``pad[b]`` and those slots are masked as keys.
     ``decode_kernel="mega"`` runs single-token inputs (decode steps, a
-    1-token prompt's prefill) through the whole-stack kernel."""
+    1-token prompt's prefill) through the whole-stack kernel.
+    ``flash_prefill`` (the engine's fresh-cache gate) runs each layer's
+    attention through the flash kernel; a padded batch never does."""
     offset = cache.length if pad is None else cache.length - pad[:, None]
     h = embed(params, input_ids, offset)
-    h, cache = run_blocks(params, h, config, cache, pad, decode_kernel)
+    h, cache = run_blocks(params, h, config, cache, pad, decode_kernel,
+                          flash_prefill and pad is None)
     return final_logits(params, h, config.layer_norm_epsilon,
                         kernels=decode_kernel is not None), cache
 

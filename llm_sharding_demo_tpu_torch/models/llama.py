@@ -25,23 +25,18 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.attention import (KVCache, cached_attention_fused,
-                             cached_attention_inplace, causal_attention,
-                             merge_heads, split_heads)
+                             cached_attention_inplace, merge_heads,
+                             split_heads)
 from ..ops.decode_attention import decode_attention
 from ..ops.decode_layer import (MAX_BATCH, decode_layers_llama,
                                 mega_downgrade, mega_requested)
+from ..ops.flash_attention import flash_attention, repeat_kv, self_attention
 from ..ops.layers import linear, rms_norm
 from ..ops.quant import embed_rows, is_quantized
 from ..ops.rope import apply_rope, rope_angles
-from .gpt2 import unstack_blocks
+from .gpt2 import check_attention_impl, run_layers, unstack_blocks, write_kv
 
 Params = Dict[str, Any]
-
-_NOT_PORTED_IMPLS = {
-    "pallas": "ROADMAP Queue 1 item 14 (training, with the flash-attention "
-              "kernels of Queue 2 items 3-4)",
-    "ring": "ROADMAP Queue 1 item 13 (multi-device decode, ring attention)",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,7 +53,8 @@ class LlamaConfig:
     intermediate_size: int = 2048
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
-    # the JAX package's "pallas" and "ring" attention are not ported
+    # "xla" or "pallas" (the flash kernels where flash_profitable holds);
+    # "ring" refuses (gpt2.check_attention_impl)
     attention_impl: str = "xla"
 
     @property
@@ -72,13 +68,7 @@ class LlamaConfig:
         if self.n_head % self.n_kv_head != 0:
             raise ValueError(f"n_head={self.n_head} not a multiple of "
                              f"n_kv_head={self.n_kv_head}")
-        if self.attention_impl in _NOT_PORTED_IMPLS:
-            raise NotImplementedError(
-                f"attention_impl={self.attention_impl!r} is not ported; it "
-                f"waits for {_NOT_PORTED_IMPLS[self.attention_impl]}")
-        if self.attention_impl != "xla":
-            raise ValueError(
-                f"attention_impl={self.attention_impl!r} not xla|pallas|ring")
+        check_attention_impl(self.attention_impl)
 
 
 # "llama-124m" is the GPT-2-124M-comparable geometry; "llama-tiny" a
@@ -136,12 +126,16 @@ def _block(p: Params, h: torch.Tensor, config: LlamaConfig,
            cos: torch.Tensor, sin: torch.Tensor,
            cache: Optional[KVCache] = None, layer_idx: int = 0,
            offset: int = 0, k_valid_from: Optional[torch.Tensor] = None,
-           decode_kernel: Optional[str] = None) -> torch.Tensor:
+           decode_kernel: Optional[str] = None,
+           flash_prefill: bool = False) -> torch.Tensor:
     """One pre-norm llama block; with ``cache``, writes this layer's
     rotated K and V at ``offset`` in place and attends over the written
     prefix. ``decode_kernel`` ("layer") routes single-token steps on a
     fused cache through the decode-attention kernel and the int8
-    matmuls through theirs; ``None`` is the plain path."""
+    matmuls through theirs; ``None`` is the plain path. The no-cache
+    attention follows ``config.attention_impl``; ``flash_prefill`` (a
+    fresh-cache prefill) writes the cache at kv-head width, then runs the
+    flash kernel over the new K/V repeated to the query heads."""
     kernels = decode_kernel is not None
     eps = config.rms_norm_eps
     a = rms_norm(h, p["ln_attn"]["scale"], eps)
@@ -155,8 +149,11 @@ def _block(p: Params, h: torch.Tensor, config: LlamaConfig,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if cache is None:
-        out = causal_attention(q, k, v, q_offset=offset,
-                               k_valid_from=k_valid_from)
+        out = self_attention(q, k, v, config.attention_impl, offset,
+                             k_valid_from)
+    elif flash_prefill:
+        write_kv(cache, k, v, layer_idx, offset)
+        out = flash_attention(q, *repeat_kv(k, v, config.n_head))
     elif cache.fused:
         if kernels and q.shape[2] == 1:
             out, _ = decode_attention(q.contiguous(), k.contiguous(),
@@ -181,17 +178,22 @@ def apply_blocks(blocks: Union[Params, List[Params]], h: torch.Tensor,
                  config: LlamaConfig, cos: torch.Tensor, sin: torch.Tensor,
                  cache: Optional[KVCache] = None,
                  k_valid_from: Optional[torch.Tensor] = None,
-                 decode_kernel: Optional[str] = None,
+                 decode_kernel: Optional[str] = None, remat: bool = False,
+                 flash_prefill: bool = False,
                  ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run a stack of llama blocks (the stacked dict or its
     ``unstack_blocks`` list) at the rotary angles ``cos``/``sin``. With
     ``cache`` the new K/V land at ``cache.length`` and the returned cache
-    is one window longer (same buffers)."""
+    is one window longer (same buffers). ``remat`` (no-cache path)
+    recomputes each block in the backward pass."""
     offset = cache.length if cache is not None else 0
     layers = blocks if isinstance(blocks, list) else unstack_blocks(blocks)
-    for li, p in enumerate(layers):
-        h = _block(p, h, config, cos, sin, cache, li, offset, k_valid_from,
-                   decode_kernel)
+
+    def block(p, h, li):
+        return _block(p, h, config, cos, sin, cache, li, offset,
+                      k_valid_from, decode_kernel, flash_prefill)
+
+    h = run_layers(block, layers, h, remat and cache is None)
     if cache is None:
         return h, None
     return h, KVCache(k=cache.k, v=cache.v, length=offset + h.shape[1])
@@ -230,11 +232,12 @@ def final_logits(params: Params, h: torch.Tensor, config: LlamaConfig,
 
 
 def forward(params: Params, input_ids: torch.Tensor,
-            config: LlamaConfig) -> torch.Tensor:
-    """Full no-cache forward: [B, S] -> [B, S, vocab] f32 logits."""
+            config: LlamaConfig, remat: bool = False) -> torch.Tensor:
+    """Full no-cache forward: [B, S] -> [B, S, vocab] f32 logits.
+    ``remat`` recomputes each block in the backward pass (training)."""
     h = embed(params, input_ids)
     cos, sin = angles(config, input_ids.shape[1], 0, None, h.device)
-    h, _ = apply_blocks(params["blocks"], h, config, cos, sin)
+    h, _ = apply_blocks(params["blocks"], h, config, cos, sin, remat=remat)
     return final_logits(params, h, config)
 
 
@@ -263,7 +266,7 @@ def mega_step(blocks: Params, h: torch.Tensor, config: LlamaConfig,
 def run_blocks(params: Params, h: torch.Tensor, config: LlamaConfig,
                cos: torch.Tensor, sin: torch.Tensor,
                cache: Optional[KVCache], pad: Optional[torch.Tensor],
-               decode_kernel: Optional[str],
+               decode_kernel: Optional[str], flash_prefill: bool = False,
                ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """The block stack of a forward or a stage: one megakernel launch for
     a single cached token on a mega engine, else the per-layer loop.
@@ -275,13 +278,15 @@ def run_blocks(params: Params, h: torch.Tensor, config: LlamaConfig,
             return step
     return apply_blocks(params["blocks"], h, config, cos, sin, cache,
                         k_valid_from=pad,
-                        decode_kernel=mega_downgrade(decode_kernel))
+                        decode_kernel=mega_downgrade(decode_kernel),
+                        flash_prefill=flash_prefill)
 
 
 def forward_with_cache(params: Params, input_ids: torch.Tensor,
                        config: LlamaConfig, cache: KVCache,
                        pad: Optional[torch.Tensor] = None,
                        decode_kernel: Optional[str] = None,
+                       flash_prefill: bool = False,
                        ) -> Tuple[torch.Tensor, KVCache]:
     """Cached forward (prefill when ``cache.length == 0``, a decode step
     otherwise): full-sequence f32 logits and the cache one window longer.
@@ -291,7 +296,7 @@ def forward_with_cache(params: Params, input_ids: torch.Tensor,
     cos, sin = angles(config, input_ids.shape[1], cache.length, pad,
                       h.device)
     h, cache = run_blocks(params, h, config, cos, sin, cache, pad,
-                          decode_kernel)
+                          decode_kernel, flash_prefill and pad is None)
     return final_logits(params, h, config,
                         kernels=decode_kernel is not None), cache
 

@@ -164,7 +164,16 @@ DECODE_LAYER_LIB = KernelLibrary(
                                     _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
      "decode_layers_llama_workspace_floats": (_I, _I, _I, _I, _I, _I)},
     "decode_layers_error")
-LIBRARIES = (DECODE_ATTENTION_LIB, QUANT_LIB, DECODE_LAYER_LIB)
+FLASH_ATTENTION_LIB = KernelLibrary(
+    "flash_attention.cu",
+    {"flash_fwd_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+     "flash_bwd_dq_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                             _P),
+     "flash_bwd_dkv_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _F, _P)},
+    "flash_attention_error")
+LIBRARIES = (DECODE_ATTENTION_LIB, QUANT_LIB, DECODE_LAYER_LIB,
+             FLASH_ATTENTION_LIB)
 
 DECODE_ATTENTION = Kernel("decode_attention", DECODE_ATTENTION_LIB,
                           "decode_attention_launch")
@@ -174,8 +183,13 @@ DECODE_LAYERS = Kernel("decode_layers", DECODE_LAYER_LIB,
                        "decode_layers_launch")
 DECODE_LAYERS_LLAMA = Kernel("decode_layers_llama", DECODE_LAYER_LIB,
                              "decode_layers_llama_launch")
+FLASH_FWD = Kernel("flash_fwd", FLASH_ATTENTION_LIB, "flash_fwd_launch")
+FLASH_BWD_DQ = Kernel("flash_bwd_dq", FLASH_ATTENTION_LIB,
+                      "flash_bwd_dq_launch")
+FLASH_BWD_DKV = Kernel("flash_bwd_dkv", FLASH_ATTENTION_LIB,
+                       "flash_bwd_dkv_launch")
 KERNELS = (DECODE_ATTENTION, QUANT_LINEAR, QUANT_HEAD, DECODE_LAYERS,
-           DECODE_LAYERS_LLAMA)
+           DECODE_LAYERS_LLAMA, FLASH_FWD, FLASH_BWD_DQ, FLASH_BWD_DKV)
 
 
 def build_all() -> List[KernelLibrary]:

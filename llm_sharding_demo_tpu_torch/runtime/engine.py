@@ -30,6 +30,7 @@ from ..models.gpt2 import Params, map_params, unstack_params
 from ..ops.attention import create_fused_cache
 from ..ops import decode_layer as DL
 from ..ops.decode_attention import BLOCK_S, KERNEL_HEAD_DIM, eligible
+from ..ops.flash_attention import flash_eligible, flash_profitable
 from ..ops.quant import quantize_params
 from ..utils.device import DeviceLike, regime_of, resolve_device, torch_dtype
 
@@ -353,12 +354,16 @@ class DecodeEngine:
         return [P.make_stage_cache(s, cfg, batch, self._cache_seq,
                                    self.dtype, dev) for s in self.specs]
 
-    def _forward_cached(self, x: torch.Tensor, cache, pad):
-        """One cached forward: the whole model, or the stages in order."""
+    def _forward_cached(self, x: torch.Tensor, cache, pad,
+                        flash_prefill: bool = False):
+        """One cached forward: the whole model, or the stages in order
+        (the staged path ignores ``flash_prefill``, as the JAX engine's
+        does)."""
         if self.specs is None:
             return self._model.forward_with_cache(
                 self.params, x, self.config, cache, pad,
-                decode_kernel=self.decode_kernel)
+                decode_kernel=self.decode_kernel,
+                flash_prefill=flash_prefill)
         from ..parallel import partition as P
         new_caches = []
         for sp, spec, c in zip(self.stage_params, self.specs, cache):
@@ -366,6 +371,23 @@ class DecodeEngine:
                                  decode_kernel=self.decode_kernel)
             new_caches.append(c)
         return x, new_caches
+
+    def _flash_prefill(self, seq_len: int, pad) -> bool:
+        """The JAX engine's fresh-cache flash-prefill gate: a prefill at
+        offset 0 with no pad is plain causal attention over the new K/V,
+        so with ``attention_impl="pallas"`` the unstaged engine runs it
+        through the flash kernel where the kernel tiles the length and
+        pays (``flash_eligible``, ``flash_profitable``)."""
+        return (self.config.attention_impl == "pallas" and pad is None
+                and seq_len > 1 and self.specs is None
+                and flash_eligible(seq_len) and flash_profitable(seq_len))
+
+    def _prefill(self, ids: torch.Tensor, pad: Optional[torch.Tensor]):
+        """``(logits [B, S, vocab], cache)`` of a prompt into a fresh
+        cache."""
+        cache = self._fresh_cache(ids.shape[0])
+        return self._forward_cached(
+            ids, cache, pad, self._flash_prefill(ids.shape[1], pad))
 
     def _ids(self, ids: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(ids, dtype=np.int64),
@@ -393,8 +415,7 @@ class DecodeEngine:
             pad=pad)
         pad_t = self._pad(pad)
         t0 = time.perf_counter()
-        cache = self._fresh_cache(batch)
-        logits, cache = self._forward_cached(self._ids(ids), cache, pad_t)
+        logits, cache = self._prefill(self._ids(ids), pad_t)
         token = select_token(logits[:, -1], sampling, generator)
         out = torch.empty((batch, max_new_tokens), dtype=torch.int64,
                           device=self.device)

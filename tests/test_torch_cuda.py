@@ -21,6 +21,10 @@ from llm_sharding_demo_tpu_torch.ops.decode_attention import (
 from llm_sharding_demo_tpu_torch.ops.decode_layer import (
     decode_layers, decode_layers_llama, decode_layers_llama_plain,
     decode_layers_plain)
+from llm_sharding_demo_tpu_torch.ops.attention import causal_attention
+from llm_sharding_demo_tpu_torch.ops.flash_attention import (
+    _bwd_dkv_plain, _bwd_dq_plain, _forward_plain, flash_attention,
+    flash_bwd_dkv, flash_bwd_dq, flash_delta, flash_forward)
 from llm_sharding_demo_tpu_torch.ops.rope import rope_angles
 from llm_sharding_demo_tpu_torch.runtime.engine import DecodeEngine
 from llm_sharding_demo_tpu_torch.utils import graftnum
@@ -335,3 +339,132 @@ def test_llama_stack_check_catches_planted_fault(dev, tmp_path, monkeypatch,
           f"{bad['max_abs_err']:.3e} rel_rms_err {bad['rel_rms_err']:.3e} "
           f"row_err {bad['row_err']:.3e}; limits {bad['max_abs_limit']:.3e} "
           f"/ {bad['rel_rms_limit']:.3e} / {bad['row_limit']:.3e}")
+
+
+# -- flash attention ------------------------------------------------------------
+
+def _flash_inputs(dev, B, S, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(B, 12, S, 64, generator=g, device=dev).to(dtype)
+            for _ in range(4)]
+
+
+def _flash_run(q, k, v, do):
+    """Every flash kernel once on one input set: out, lse, dq, dk, dv."""
+    out, lse = flash_forward(q, k, v)
+    delta = flash_delta(out, do)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta)
+    return {"out": out, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+
+
+def _flash_plain(q, k, v, do, got):
+    """The plain versions on the same inputs; the backward reads the
+    kernel's own out and lse, so each kernel is checked alone."""
+    out, lse = _forward_plain(q, k, v)
+    delta = flash_delta(got["out"], do)
+    dq = _bwd_dq_plain(q, k, v, do, got["lse"], delta)
+    dk, dv = _bwd_dkv_plain(q, k, v, do, got["lse"], delta)
+    return {"out": out, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+
+
+def _flash_compare(got, want, dtype):
+    return [graftnum.compare_flash(n, got[n], want[n], dtype) for n in got]
+
+
+@pytest.mark.parametrize("S", [2048, 4096])
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernels_match_plain(dev, dtype, B, S):
+    """The three flash kernels against their plain versions at
+    llama-124m's attention shapes (12 heads of 64) within
+    ``graftnum.FLASH_POLICY``; two launches bit-identical; one launch
+    counted per kernel call."""
+    q, k, v, do = _flash_inputs(dev, B, S, dtype, S + B)
+    n0 = cuda_build.launch_counts()
+    got = _flash_run(q, k, v, do)
+    again = _flash_run(q, k, v, do)
+    n1 = cuda_build.launch_counts()
+    assert all(n1[name] - n0[name] == 2
+               for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+    for name in got:
+        assert torch.equal(got[name], again[name]), name
+    reports = _flash_compare(got, _flash_plain(q, k, v, do, got), dtype)
+    print("\n" + "; ".join(f"{r['name']} max {r['max_rel_err']:.2e} rms "
+                           f"{r['rms_rel_err']:.2e}" for r in reports))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernels_ragged_length(dev, dtype):
+    """A length that is no multiple of the kernels' 64-row tiles: the
+    last tile's rows past S are masked and never written."""
+    q, k, v, do = _flash_inputs(dev, 2, 333, dtype, 5)
+    got = _flash_run(q, k, v, do)
+    _flash_compare(got, _flash_plain(q, k, v, do, got), dtype)
+
+
+def test_flash_attention_function_grads_match_plain(dev):
+    """The autograd Function on the card (forward kernel, D, the two
+    backward kernels) against autograd through the plain causal
+    attention, in f32."""
+    q, k, v, do = _flash_inputs(dev, 1, 512, torch.float32, 9)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = flash_attention(*leaves)
+    grads = torch.autograd.grad(out, leaves, do)
+    ref = [x.clone().requires_grad_() for x in (q, k, v)]
+    ref_out = causal_attention(*ref)
+    ref_grads = torch.autograd.grad(ref_out, ref, do)
+    graftnum.compare_flash("out", out, ref_out, torch.float32)
+    for name, a, b in zip(("dq", "dk", "dv"), grads, ref_grads):
+        graftnum.compare_flash(name, a, b, torch.float32)
+
+
+# faults planted in a copy of the flash source: (text, replacement); every
+# occurrence is replaced
+FLASH_PLANTED_FAULTS = {
+    # the causal mask taken as k < q: the diagonal dropped
+    "diagonal_dropped": [("col <= row[r]", "col < row[r]"),
+                         ("key[r] <= i", "key[r] < i")],
+    # D left out of dS = P * (dP - D)
+    "delta_dropped": [("s[nt][c] = pr * (dp[nt][c] - dd[r]);",
+                       "s[nt][c] = pr * dp[nt][c];"),
+                      ("pt[nt][c] = pt[nt][c] * (dpt[nt][c] - dd_s[ci]);",
+                       "pt[nt][c] = pt[nt][c] * dpt[nt][c];")],
+}
+
+
+@pytest.mark.parametrize("fault", sorted(FLASH_PLANTED_FAULTS))
+def test_flash_check_catches_planted_fault(dev, tmp_path, monkeypatch, fault):
+    """``graftnum.compare_flash`` passes the bf16 kernels and rejects a
+    copy of the source with one planted fault, at B=1, S=2048. Prints
+    both readings."""
+    lib = cuda_build.FLASH_ATTENTION_LIB
+    src = open(lib.source).read()
+    for text, planted in FLASH_PLANTED_FAULTS[fault]:
+        assert src.count(text) >= 1, text
+        src = src.replace(text, planted)
+    path = tmp_path / "flash_attention.cu"
+    path.write_text(src)
+    faulty = cuda_build.KernelLibrary(os.fspath(path), lib.functions,
+                                      lib.error_fn)
+    dtype = torch.bfloat16
+    q, k, v, do = _flash_inputs(dev, 1, 2048, dtype, 11)
+    got = _flash_run(q, k, v, do)
+    want = _flash_plain(q, k, v, do, got)
+    sound = _flash_compare(got, want, dtype)
+    for kern in (cuda_build.FLASH_FWD, cuda_build.FLASH_BWD_DQ,
+                 cuda_build.FLASH_BWD_DKV):
+        monkeypatch.setattr(kern, "library", faulty)
+    bad = _flash_run(q, k, v, do)
+    readings = []
+    for name in bad:
+        try:
+            graftnum.compare_flash(name, bad[name], want[name], dtype)
+        except graftnum.GraftnumError as e:
+            readings.append(e.report)
+    assert readings, f"{fault}: no output outside FLASH_POLICY"
+    print(f"\n{fault}: sound " + "; ".join(
+        f"{r['name']} max {r['max_rel_err']:.2e} rms {r['rms_rel_err']:.2e}"
+        for r in sound) + "; planted " + "; ".join(
+        f"{r['name']} max {r['max_rel_err']:.2e} rms {r['rms_rel_err']:.2e}"
+        for r in readings) + f"; limits {graftnum.FLASH_POLICY['bfloat16']}")

@@ -12,7 +12,7 @@ import llm_sharding_demo_tpu_torch as port
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(port.__file__)
-FORBIDDEN = ("jax", "jaxlib", "llm_sharding_demo_tpu", "pydantic",
+FORBIDDEN = ("jax", "jaxlib", "llm_sharding_demo_tpu", "optax", "pydantic",
              "transformers")
 
 
@@ -46,7 +46,8 @@ def test_port_imports_with_jax_blocked():
     modules = sorted(m.name for m in pkgutil.walk_packages(
         [PKG], prefix="llm_sharding_demo_tpu_torch."))
     assert "llm_sharding_demo_tpu_torch.serving.app" in modules
-    for name in ("ops.decode_layer", "ops.rope", "models.llama"):
+    for name in ("ops.decode_layer", "ops.rope", "models.llama",
+                 "ops.flash_attention", "training.train"):
         assert f"llm_sharding_demo_tpu_torch.{name}" in modules
     code = "; ".join([
         "import sys",

@@ -77,7 +77,8 @@ def test_generate_int8_runs_the_staged_engine(weights, dtype):
     assert h["decode_kernel"] == "xla"
     assert set(h["kernel_launches"]) == {"decode_attention", "quant_linear",
                                          "quant_head", "decode_layers",
-                                         "decode_layers_llama"}
+                                         "decode_layers_llama", "flash_fwd",
+                                         "flash_bwd_dq", "flash_bwd_dkv"}
 
 
 @pytest.mark.parametrize("role", ["coordinator", "a", "b"])
