@@ -6,18 +6,23 @@ which must pass or the script exits non-zero:
 
 1. probe: the card's name, capability and power limit;
 2. build: every CUDA kernel of ``llm_sharding_demo_tpu_torch/csrc``,
-   one nvcc per source, all started together;
+   one nvcc per source, all started together, with each kernel's
+   registers, spills and shared memory; the bf16 flash forward's SASS
+   (``cuobjdump -sass``) must hold wgmma (HGMMA) and TMA loads (UTMALDG)
+   and no thread load from global memory (LDG);
 3. kernels: each kernel's wrapper against its plain PyTorch version on
    the card, at the shapes the served paths give it (GPT-2 124M and
    llama-124m: decode attention with one and with three query heads per
    kv head, the int8 linear at both models' projections and llama's
-   untied head, both whole-stack kernels), with each kernel's time
-   beside its plain version's, one library call's (for a whole-stack
-   kernel: the per-layer kernel path's) and the card's lower bound for
-   the same work;
+   untied head, both whole-stack kernels; decode attention also at the
+   edges of its cluster split, with rows masked past whole spans or
+   entirely, B 1/8/16, two launches bit-identical), with each kernel's
+   time beside its plain version's, one library call's (for a
+   whole-stack kernel: the per-layer kernel path's) and the card's lower
+   bound for the same work (decode attention's cluster size with each);
 3b. flash: the three flash-attention kernels (forward, dQ, dK/dV)
-   against their plain versions (bf16 and f32, B=4 at S=2048, B=1 at
-   S=4096, a ragged S=333), bit-identical across launches, and timed at
+   against their plain versions (bf16 and f32, B=1 and 4 at S=2048 and
+   4096, a ragged S=333), bit-identical across launches, and timed at
    llama-124m's training shape beside their plain versions, SDPA and
    their bounds;
 4. engine: GPT-2 124M and llama-124m at full width (12 layers, seeded
@@ -58,6 +63,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import signal
 import socket
 import statistics
@@ -169,11 +175,25 @@ def bound_ms(nbytes: float, ops: float, op_type: str):
 
 # -- phase 3: kernels against their plain versions ---------------------------
 
+def attention_masks(B, off, span, device):
+    """``valid_from`` rows of the decode-attention cases: "odd" (odd rows
+    masked over part of the cache), "spans" (rows masked past 0-3 whole
+    spans of the kernel's cluster split, row 0 past two) and "all" (every
+    cached position masked: the output is v_new to rounding)."""
+    import torch
+    odd = [(7 * b) % (off + 1) if b % 2 else 0 for b in range(B)]
+    spans = [min(off, ((b + 2) % 4) * span + b % 3) for b in range(B)]
+    return {k: torch.tensor(v, dtype=torch.int32, device=device)
+            for k, v in (("odd", odd), ("spans", spans),
+                         ("all", [off] * B))}
+
+
 def check_attention(randn, KV, B, hkv, off, dtype, tol) -> float:
     """The decode-attention kernel against its plain version on one case
-    (``H`` query heads over the cache's ``hkv`` kv heads, odd rows masked):
-    the output within ``tol``, the cache equal to the input but for the
-    row written at ``off``. Returns the max error."""
+    (``H`` query heads over the cache's ``hkv`` kv heads) under each of
+    ``attention_masks``: the output within ``tol``, the cache equal to
+    the input but for the row written at ``off``, two launches
+    bit-identical. Returns the max error."""
     import torch
 
     from llm_sharding_demo_tpu_torch.ops import decode_attention as DA
@@ -181,24 +201,31 @@ def check_attention(randn, KV, B, hkv, off, dtype, tol) -> float:
     q = randn(B, H, 1, HD, dtype=dtype)
     kn = randn(B, hkv, 1, HD, dtype=dtype)
     vn = randn(B, hkv, 1, HD, dtype=dtype)
-    vf = torch.tensor([(7 * b) % (off + 1) if b % 2 else 0 for b in range(B)],
-                      dtype=torch.int32, device=KV.device)
     li = off % L
-    kv_k, kv_p = KV.clone(), KV.clone()
-    out_k, _ = DA.decode_attention(q, kn, vn, kv_k, li, off, vf)
-    out_p, _ = DA.decode_attention_plain(q, kn, vn, kv_p, li, off, vf)
-    torch.cuda.synchronize()
-    what = (f"decode_attention {str(dtype)[6:]} B={B} g={H // hkv} "
-            f"Smax={KV.shape[3]} off={off}")
-    err = (out_k.float() - out_p.float()).abs().max().item()
-    check(torch.allclose(out_k.float(), out_p.float(), atol=tol, rtol=tol),
-          f"{what}: max err {err}")
+    c, span = DA.cluster_plan(off, B, hkv)
     want = KV.clone()
     want[li, :, :, off] = torch.cat([kn, vn], -1)[:, :, 0]
-    check(torch.equal(bits(kv_k), bits(want)),
-          f"{what}: the cache differs from the expected in-place row write")
-    print(f"  {what}  max_abs_err={err:.3e}  ok")
-    return err
+    what = (f"decode_attention {str(dtype)[6:]} B={B} g={H // hkv} "
+            f"Smax={KV.shape[3]} off={off} C={c} span={span}")
+    worst, line = 0.0, []
+    for kind, vf in attention_masks(B, off, span, KV.device).items():
+        kv_k, kv_p = KV.clone(), KV.clone()
+        out_k, _ = DA.decode_attention(q, kn, vn, kv_k, li, off, vf)
+        again, _ = DA.decode_attention(q, kn, vn, kv_k, li, off, vf)
+        out_p, _ = DA.decode_attention_plain(q, kn, vn, kv_p, li, off, vf)
+        torch.cuda.synchronize()
+        err = (out_k.float() - out_p.float()).abs().max().item()
+        check(torch.allclose(out_k.float(), out_p.float(), atol=tol,
+                             rtol=tol), f"{what} mask {kind}: max err {err}")
+        check(torch.equal(bits(out_k), bits(again)),
+              f"{what} mask {kind}: two launches differ")
+        check(torch.equal(bits(kv_k), bits(want)),
+              f"{what} mask {kind}: the cache differs from the expected "
+              f"in-place row write")
+        worst = max(worst, err)
+        line.append(f"{kind} {err:.1e}")
+    print(f"  {what}  max_abs_err " + " ".join(line) + "  bit-identical  ok")
+    return worst
 
 
 def kernel_phase(results: dict) -> None:
@@ -216,12 +243,17 @@ def kernel_phase(results: dict) -> None:
     # kernel 1: decode attention at the served shapes: GPT-2 (a kv head
     # per query head, 1024 slots) and llama (g = 3 query heads per kv
     # head, 4096 slots)
-    attention_shapes = ((H, NPOS, (0, 37, 255, 256, 1000)),
-                        (HKV, LNPOS, (0, 37, 255, 1000, 3000, 4095)))
+    # head and cache geometry, with offsets at the cluster split's edges
+    # (one span of MIN_SPAN positions and one more, a second span, the
+    # spans of C=16 at 3000 cached) and at the served depths
+    attention_shapes = ((H, NPOS, (0, 1, 37, 63, 64, 65, 127, 128, 129, 255,
+                                   256, 1000, 1023)),
+                        (HKV, LNPOS, (0, 1, 63, 64, 65, 187, 188, 189, 255,
+                                      256, 1000, 3000, 4095)))
     tol = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
     worst = 0.0
     for dtype in (torch.bfloat16, torch.float32):
-        for B in (1, 8):
+        for B in (1, 8, 16):
             for hkv, slots, offs in attention_shapes:
                 KV = randn(L, B, hkv, slots, 2 * HD, dtype=dtype)
                 for off in offs:
@@ -229,9 +261,9 @@ def kernel_phase(results: dict) -> None:
                         randn, KV, B, hkv, off, dtype, tol[dtype]))
                 del KV
 
-    def attention_timing(hkv, slots, off):
-        """bf16, B=1: kernel, plain and SDPA device times and the bound."""
-        B, dtype = 1, torch.bfloat16
+    def attention_timing(hkv, slots, off, B=1):
+        """bf16: kernel, plain and SDPA device times and the bound."""
+        dtype = torch.bfloat16
         n = copies_for(L * B * hkv * slots * 2 * HD * 2)
         sets = [(randn(B, H, 1, HD, dtype=dtype),
                  randn(B, hkv, 1, HD, dtype=dtype),
@@ -257,8 +289,10 @@ def kernel_phase(results: dict) -> None:
                   + B * hkv * 2 * HD * isz)        # the row written
         ops = 2 * 2 * B * H * (off + 1) * HD
         bms, by = bound_ms(nbytes, ops, "bfloat16")
+        c, span = DA.cluster_plan(off, B, hkv)
         row = dict(shape=f"bf16 B={B} H={H} Hkv={hkv} hd={HD} Smax={slots} "
-                   f"offset={off}", bound_ms=bms, bound_by=by)
+                   f"offset={off}", bound_ms=bms, bound_by=by, cluster=c,
+                   span=span)
         timed(row, "ms", calls)
         timed(row, "plain_ms", plain)
         try:
@@ -270,7 +304,8 @@ def kernel_phase(results: dict) -> None:
     results["decode_attention"] = dict(attention_timing(H, NPOS, 255),
                                        max_abs_err=worst)
     results["decode_attention"]["other_shapes"] = [
-        attention_timing(HKV, LNPOS, off) for off in (255, 3000)]
+        attention_timing(HKV, LNPOS, off) for off in (255, 3000, 4095)] + [
+        attention_timing(HKV, LNPOS, 3000, B=8)]
 
     # kernel 2: int8 block linear at rows {1, 8, 16} x GPT-2's four
     # projections and llama's new shapes (k/v, gate/up, down, the untied
@@ -382,7 +417,9 @@ def kernel_phase(results: dict) -> None:
                   f"{fmt_ms(r['library_ms'])} ms, bound {r['bound_ms']:.4f} "
                   f"ms ({r['bound_by']}); called from Python: kernel "
                   f"{r['call_ms']:.4f} ms, plain {r['call_plain_ms']:.4f} ms,"
-                  f" library {fmt_ms(r['call_library_ms'])} ms")
+                  f" library {fmt_ms(r['call_library_ms'])} ms"
+                  + (f"; cluster C={r['cluster']} (span {r['span']})"
+                     if "cluster" in r else ""))
     megakernel_phase(results, "gpt2")
     megakernel_phase(results, "llama")
 
@@ -663,7 +700,8 @@ def flash_phase(results: dict) -> None:
 
     worst = {}
     for dtype in (torch.bfloat16, torch.float32):
-        for B, S in ((4, FLASH_SEQ), (1, 2 * FLASH_SEQ), (2, 333)):
+        for B, S in ((4, FLASH_SEQ), (1, FLASH_SEQ), (1, 2 * FLASH_SEQ),
+                     (4, 2 * FLASH_SEQ), (2, 333)):
             q, k, v, do = inputs(B, S, dtype)
             got, delta = run(q, k, v, do)
             again, _ = run(q, k, v, do)
@@ -742,7 +780,9 @@ def flash_phase(results: dict) -> None:
               f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
               f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
               f"({row['bound_by']}, {row['flop'] / 1e9:.1f} GFLOP, "
-              f"{row['bytes'] / 1e6:.1f} MB); called from Python: kernel "
+              f"{row['bytes'] / 1e6:.1f} MB; the kernel at "
+              f"{row['flop'] / row['ms'] / 1e9:.0f} TFLOP/s); called from "
+              f"Python: kernel "
               f"{row['call_ms']:.4f} ms, plain {row['call_plain_ms']:.4f} ms")
     del sets, q, k, v, do, lib_out
     torch.cuda.empty_cache()
@@ -1195,6 +1235,74 @@ def server_phase(model_id: str, npos: int) -> dict:
 
 # -- main ----------------------------------------------------------------------
 
+def kernel_name(mangled: str) -> str:
+    """The function name (and its first template argument) of a mangled
+    ``_ZN<namespace><name>...`` kernel symbol, for the build report."""
+    names, i = [], mangled.find("_ZN") + 3
+    while i < len(mangled) and mangled[i].isdigit() and len(names) < 3:
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        names.append(mangled[j:j + n])
+        i = j + n
+        if i < len(mangled) and mangled[i] == "I":
+            i += 1
+            if mangled[i] == "f":  # a float template argument
+                names.append("float")
+    # decode attention's query-head group g, an integer template
+    # argument: "Li<n>E"
+    m = re.search(r"Li(\d+)E", mangled)
+    if m and names[1:2] == ["decode_attention_kernel"]:
+        names.append(f"g={m.group(1)}")
+    return "::".join(names[1:]) or mangled
+
+
+def find_cuobjdump() -> str:
+    """The CUDA toolkit's cuobjdump, or the copy Triton ships."""
+    import shutil
+    from llm_sharding_demo_tpu_torch.ops import cuda_build
+    candidates = [os.path.join(os.path.dirname(cuda_build.find_nvcc()),
+                               "cuobjdump"), shutil.which("cuobjdump")]
+    try:
+        import triton
+        candidates.append(os.path.join(os.path.dirname(triton.__file__),
+                                       "backends", "nvidia", "bin",
+                                       "cuobjdump"))
+    except ImportError:
+        pass
+    for c in candidates:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise SmokeError("cuobjdump not found (CUDA toolkit or Triton)")
+
+
+def flash_forward_sass(lib_path: str) -> dict:
+    """Counts of HGMMA (wgmma), UTMALDG (TMA loads) and LDG (thread loads
+    from global memory) in the SASS of the bf16 flash forward
+    (``fwd_bf16``) of the built flash library."""
+    out = subprocess.run([find_cuobjdump(), "-sass", lib_path],
+                         capture_output=True, text=True, timeout=120)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr}")
+    counts = {"HGMMA": 0, "UTMALDG": 0, "LDG": 0}
+    inside = False
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            inside = "fwd_bf16" in line
+        elif inside:
+            # "/*0b50*/  HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], ... ;
+            # /* 0x... */": the instruction between the comments
+            words = re.sub(r"/\*.*?\*/", " ", line).replace(";", " ").split()
+            base = words[0].split(".")[0] if words else ""
+            if words and words[0].startswith("@"):  # a predicated one
+                base = words[1].split(".")[0] if len(words) > 1 else ""
+            if base in counts:
+                counts[base] += 1
+    check(any(counts[k] for k in ("HGMMA", "UTMALDG", "LDG")),
+          f"no fwd_bf16 function in the SASS of {lib_path}")
+    return counts
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default="kernels,flash,engine,server,train",
@@ -1223,8 +1331,20 @@ def main() -> int:
     for lib in libs:
         print(f"  {os.path.basename(lib.path)}: nvcc {lib.build_seconds:.1f} s")
         for line in lib.build_log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Function properties for" in line:
+                print("    kernel", kernel_name(line.split()[-1]))
+            elif "registers" in line or "spill" in line:
                 print("   ", line.strip())
+
+    sass = flash_forward_sass(cuda_build.FLASH_ATTENTION_LIB.path)
+    smem = cuda_build.FLASH_ATTENTION_LIB.load().flash_fwd_smem_bytes()
+    print(f"  flash_fwd (bf16) SASS: {sass['HGMMA']} HGMMA (wgmma), "
+          f"{sass['UTMALDG']} UTMALDG (TMA tile loads), {sass['LDG']} LDG "
+          f"(thread loads from global memory); dynamic shared memory {smem} "
+          f"bytes a CTA")
+    check(sass["HGMMA"] > 0 and sass["UTMALDG"] > 0 and sass["LDG"] == 0,
+          f"the bf16 flash forward must issue wgmma and TMA loads and no "
+          f"thread loads from global memory: {sass}")
 
     results: dict = {}
     if "kernels" in phases:

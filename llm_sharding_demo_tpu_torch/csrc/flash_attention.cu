@@ -26,19 +26,24 @@
 // bf16, far above the 0.008 ms the bytes take at 3.35 TB/s. In f32 the
 // bound is the 67 TFLOP/s of the non-tensor f32 units.
 //
-// Design (simple and right first; wgmma, TMA and warp specialisation are
-// later work):
+// Design:
 //
-// - bf16: one block of 4 warps per (b*h, 64-row tile); each warp owns 16
-//   rows and runs mma.sync m16n8k16 bf16 tiles with f32 accumulators. Q
-//   (and dO) fragments stay in registers for the whole loop; K/V (or Q/dO
-//   for dK/dV) tiles of 64 rows are staged in shared memory with a
-//   144-byte row stride, so every fragment load is free of bank
-//   conflicts. The online-softmax state (m, l) and the output accumulator
-//   live in registers. As in FlashAttention-2, P is rounded to bf16
-//   before the P.V product and dS to bf16 before the dS.K and dS^T.Q
-//   products; l and every sum stay f32. The tests and chip_smoke.py hold
-//   the bf16 kernels to a tolerance that covers these roundings.
+// - bf16 forward (fwd_bf16, below): warp-specialised for Hopper, one
+//   persistent CTA per SM. A producer warpgroup feeds K/V tiles by TMA
+//   into a three-stage ring with mbarriers; two consumer warpgroups run
+//   wgmma (S = Q.K^T from shared memory, O += P.V with P from registers),
+//   the softmax in exp2 with the scale folded into one FMA, the mask on
+//   the diagonal tile only.
+// - bf16 dQ and dK/dV: one block of 4 warps per (b*h, 64-row tile); each
+//   warp owns 16 rows and runs mma.sync m16n8k16 bf16 tiles with f32
+//   accumulators. Q and dO (or K and V) fragments stay in registers for
+//   the whole loop; K/V (or Q/dO) tiles of 64 rows are staged in shared
+//   memory with a 144-byte row stride, so every fragment load is free of
+//   bank conflicts (wgmma and TMA are later work for them).
+// - As in FlashAttention-2, P is rounded to bf16 before the P.V product
+//   and dS to bf16 before the dS.K and dS^T.Q products; l and every sum
+//   stay f32. The tests and chip_smoke.py hold the bf16 kernels to a
+//   tolerance that covers these roundings.
 // - f32: the same tiles with scalar f32 arithmetic (no TF32: the JAX
 //   kernel casts everything to f32), two threads per row, each owning the
 //   even or the odd head dims; dot products are completed with one
@@ -47,12 +52,14 @@
 //   (tile index <= q tile), dK/dV the q tiles from the diagonal to the
 //   end; tiles above the diagonal are never read. The mask j <= i, j < S
 //   inside a tile also covers a ragged last tile (rows past S load as
-//   zeros and are never written), so any S works.
+//   zeros and are never written), so any S works. The bf16 forward's
+//   tiles are 128 rows, the other kernels' 64.
 // - Each output element is written by exactly one thread and summed in a
 //   fixed order: no atomics, so two launches are bit-identical.
 // - Blocks with the most tiles start first (the forward and dQ grids run
 //   the q tiles in reverse, dK/dV the k tiles in order).
 
+#include <cuda.h>  // CUtensorMap and its enums (types only: no libcuda link)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -229,92 +236,6 @@ __device__ __forceinline__ void store_rows(bf16* dst, const float (&c)[8][4],
 
 // -- bf16 kernels ---------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads) fwd_bf16(Args p) {
-  __shared__ __align__(16) Tile Qs, Ks, Vs;
-  const int S = p.S, bh = blockIdx.y;
-  const int qt = gridDim.x - 1 - blockIdx.x, q0 = qt * kTile;
-  const size_t base = (size_t)bh * S * kHd;
-  const bf16* Q = static_cast<const bf16*>(p.q) + base;
-  const bf16* K = static_cast<const bf16*>(p.k) + base;
-  const bf16* V = static_cast<const bf16*>(p.v) + base;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tg = lane & 3, wr = warp * 16;
-
-  load_tile(Qs, Q, q0, S);
-  __syncthreads();
-  uint32_t qa[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) frag_a(qa[kk], Qs, wr, kk * 16, g, tg);
-
-  const int row[2] = {q0 + wr + g, q0 + wr + g + 8};
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float o[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
-
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    load_tile(Ks, K, k0, S);
-    load_tile(Vs, V, k0, S);
-    __syncthreads();
-    float s[8][4];
-    rows_dot_tile(s, qa, Ks, g, tg);
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int r = c >> 1, col = k0 + nt * 8 + 2 * tg + (c & 1);
-        const bool ok = col <= row[r] && col < S;
-        s[nt][c] = ok ? s[nt][c] * p.scale : kNegInf;
-        mx[r] = fmaxf(mx[r], s[nt][c]);
-      }
-    float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], quad_max(mx[r]));
-      // a row with nothing visible yet keeps its max at NEG_INF: shift to
-      // 0 so that exp() underflows to exactly 0 (the JAX kernel's m_safe)
-      const float m_safe = m_new <= kNegInf / 2 ? 0.f : m_new;
-      alpha[r] = expf(m[r] - m_safe);
-      m[r] = m_safe;
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int r = c >> 1, col = k0 + nt * 8 + 2 * tg + (c & 1);
-        const bool ok = col <= row[r] && col < S;
-        s[nt][c] = ok ? expf(s[nt][c] - m[r]) : 0.f;
-        sum[r] += s[nt][c];
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(sum[r]);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      o[nt][0] *= alpha[0];
-      o[nt][1] *= alpha[0];
-      o[nt][2] *= alpha[1];
-      o[nt][3] *= alpha[1];
-    }
-    c_times_tile(o, s, Vs, g, tg);  // P rounded to bf16 here
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] = fmaxf(l[r], 1e-20f);  // causal rows always see themselves
-    if (tg == 0 && row[r] < S)
-      p.lse_out[(size_t)bh * S + row[r]] = m[r] + logf(l[r]);
-  }
-  // out = acc / l, as the JAX kernel divides (not a multiply by 1 / l)
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) o[nt][c] = o[nt][c] / l[c >> 1];
-  store_rows(static_cast<bf16*>(p.out) + base, o, q0 + wr, 1.f, S, g, tg);
-}
-
 __global__ void __launch_bounds__(kThreads) dq_bf16(Args p) {
   __shared__ __align__(16) Tile T0, T1;
   const int S = p.S, bh = blockIdx.y;
@@ -438,6 +359,416 @@ __global__ void __launch_bounds__(kThreads) dkv_bf16(Args p) {
   store_rows(static_cast<bf16*>(p.dk) + base, dk, k0 + wr, p.scale, S, g,
              tg);
   store_rows(static_cast<bf16*>(p.dv) + base, dv, k0 + wr, 1.f, S, g, tg);
+}
+
+// -- bf16 forward: wgmma fed by a TMA ring ---------------------------------------
+//
+// One persistent CTA of three warpgroups per SM, walking (b*h, 128-row q
+// tile) pairs heaviest first. Warpgroup 0 is the producer: one thread
+// loads each tile's Q and its K/V tiles of 128 rows into a ring of
+// kStages stages by TMA (3-D tensor maps over [BH, S, 64], 128-byte
+// swizzle: a 64-wide bf16 row is one swizzle row; rows past S of a head
+// load as zeros), with a full mbarrier per K and per V tile (expect-tx
+// bytes), an empty mbarrier per stage, and a full and an empty one for
+// Q, so the next tile's loads overlap this tile's last products and
+// epilogue. Warpgroups 1 and 2 are the consumers, each owning 64 q rows:
+// S = Q.K^T by wgmma m64n128k16 with both operands in shared memory
+// (K-major), the online softmax on the accumulator fragments (exp2 with
+// scale * log2(e) folded into one FMA; the causal and ragged-S mask only
+// on the diagonal tile, the last one), then O += P.V by wgmma m64n64k16
+// with P, rounded to bf16, as the A operand from registers (the m64nN
+// accumulator layout is the register-A fragment layout) and V from
+// shared memory, MN-major (the transpose bit). Tile i's Q.K^T and
+// softmax run while tile i - 1's P.V is in flight; after a P.V group has
+// completed, each consumer warp releases its stage. setmaxnreg moves
+// registers from the producer to the consumers.
+
+constexpr int kFwdBM = 128;       // q rows of a CTA: two consumer warpgroups
+constexpr int kFwdBN = 128;       // k rows of a ring stage
+constexpr int kStages = 3;
+constexpr int kFwdThreads = 384;  // producer + two consumer warpgroups
+constexpr uint32_t kTileBytes = kFwdBN * kHd * sizeof(bf16);  // 16 KB
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+struct FwdSmem {  // every tile starts on a 1024-byte swizzle period
+  bf16 q[kFwdBM * kHd];
+  bf16 k[kStages][kFwdBN * kHd];
+  bf16 v[kStages][kFwdBN * kHd];
+  uint64_t q_full;
+  uint64_t q_empty;
+  uint64_t k_full[kStages];
+  uint64_t v_full[kStages];
+  uint64_t empty[kStages];
+};
+constexpr int kFwdSmemBytes = sizeof(FwdSmem) + 1024;  // + alignment slack
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar)) : "memory");
+}
+
+// wait until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// rows [row, row + 128) of head bh into shared memory, completing on bar
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int row, int bh) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0),
+      "r"(row), "r"(bh)
+      : "memory");
+}
+
+// a wgmma shared-memory descriptor for a 128-byte-swizzled tile: start
+// address, leading and stride byte offsets (16-byte units), layout 1
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  uint64_t d = (smem_u32(p) & 0x3FFFF) >> 4;
+  d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
+  d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+  return d | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// all but the newest committed group complete
+__device__ __forceinline__ void wgmma_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// keep the compiler from moving accesses of registers that an
+// asynchronous wgmma reads or writes across the fence / wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N, int M>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// d (the 64 x 128 m64n128 accumulator) = (accumulate ? d : 0) + A . B^T
+// over 16 columns: A (64 rows) and B (128 rows) K-major in shared memory
+__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (the 64 x 64 m64n64 accumulator) += A . B over 16 positions: A (P,
+// bf16) from registers, B (V) MN-major in shared memory (transposed)
+__device__ __forceinline__ void wgmma_pv(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// grid: one persistent CTA per SM (at most the tile count); CTA c takes
+// tiles c, c + gridDim.x, ... of the (q tile, b*h) list ordered heaviest
+// first (q tile nq - 1 - t / BH, head t % BH), so each round of the grid
+// runs tiles of nearly equal cost; block kFwdThreads; dynamic shared
+// memory kFwdSmemBytes
+__global__ void __launch_bounds__(kFwdThreads, 1)
+fwd_bf16(const __grid_constant__ CUtensorMap tq,
+         const __grid_constant__ CUtensorMap tk,
+         const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
+         float* __restrict__ lse_out, int S, int BH, float scale) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  FwdSmem& sm = *reinterpret_cast<FwdSmem*>(
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  const int nq = (S + kFwdBM - 1) / kFwdBM;
+  const int n_tiles = nq * BH;
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    mbar_init(&sm.q_empty, 8);  // one arrival per consumer warp
+#pragma unroll
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&sm.k_full[st], 1);
+      mbar_init(&sm.v_full[st], 1);
+      mbar_init(&sm.empty[st], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer warpgroup: one thread issues every copy. The ring's k
+    // tiles are counted across the CTA's q tiles (it), and so are the
+    // stages and their phases.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      int it = 0, round = 0;
+      for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++round) {
+        const int qt = nq - 1 - t / BH, bh = t % BH;
+        // the previous q tile's last Q.K^T has read Q
+        mbar_wait(&sm.q_empty, (round & 1) ^ 1);
+        mbar_expect_tx(&sm.q_full, kTileBytes);
+        tma_load(sm.q, &tq, &sm.q_full, qt * kFwdBM, bh);
+        for (int i = 0; i <= qt; ++i, ++it) {
+          const int st = it % kStages;
+          // the stage's previous round released (the first round passes)
+          mbar_wait(&sm.empty[st], ((it / kStages) & 1) ^ 1);
+          mbar_expect_tx(&sm.k_full[st], kTileBytes);
+          tma_load(sm.k[st], &tk, &sm.k_full[st], i * kFwdBN, bh);
+          mbar_expect_tx(&sm.v_full[st], kTileBytes);
+          tma_load(sm.v[st], &tv, &sm.v_full[st], i * kFwdBN, bh);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int t0 = threadIdx.x - 128;
+    const int cw = t0 >> 7;  // consumer warpgroup: q rows [64 cw, 64 cw + 64)
+    const int warp = (t0 >> 5) & 3, lane = t0 & 31;
+    const int g = lane >> 2, tg = lane & 3;
+    const float sl2 = scale * kLog2e;
+    const uint64_t dq = sw128_desc(sm.q + 64 * cw * kHd, 16, 1024);
+    int it = 0, round = 0;
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++round) {
+      const int qt = nq - 1 - t / BH, bh = t % BH, q0 = qt * kFwdBM;
+      const int n_k = qt + 1;  // k tiles up to the diagonal (kFwdBN == kFwdBM)
+      const int row[2] = {q0 + 64 * cw + 16 * warp + g,
+                          q0 + 64 * cw + 16 * warp + g + 8};
+      // running max of the raw scores, and this thread's part of the
+      // normaliser (its quad's parts are summed at the end)
+      float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+      float o[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[i] = 0.f;
+      // S = Q . K^T of tile i into s (issued, committed, not waited for)
+      auto issue_qk = [&](float (&s)[64], int i) {
+        const int st = (it + i) % kStages;
+        mbar_wait(&sm.k_full[st], ((it + i) / kStages) & 1);
+        const uint64_t dk = sw128_desc(sm.k[st], 16, 1024);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)  // +32 bytes per 16 head dims
+          wgmma_qk(s, dq + 2 * kk, dk + 2 * kk, kk);
+        wgmma_commit();
+      };
+      // O += P . V of tile i (issued and committed)
+      auto issue_pv = [&](const uint32_t (&pa)[8][4], int i) {
+        const int st = (it + i) % kStages;
+        mbar_wait(&sm.v_full[st], ((it + i) / kStages) & 1);
+        const uint64_t dv = sw128_desc(sm.v[st], 1024, 1024);
+        fence_regs(o);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk)  // +2048 bytes per 16 positions
+          wgmma_pv(o, pa[kk], dv + 128 * kk);
+        wgmma_commit();
+      };
+      // the online softmax of tile i's scores: s becomes P (f32), m moves
+      // to the new max, alpha is the factor for l and the output
+      auto softmax = [&](float (&s)[64], float (&alpha)[2], int i) {
+        if (i == n_k - 1) {
+          // the diagonal tile, the only one that can also cross S
+          const int k0 = i * kFwdBN;
+#pragma unroll
+          for (int j = 0; j < 16; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int r = c >> 1, col = k0 + 8 * j + 2 * tg + (c & 1);
+              const bool ok = col <= row[r] && col < S;
+              if (!ok) s[4 * j + c] = -INFINITY;
+            }
+        }
+        float mx[2] = {m[0], m[1]};
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            mx[c >> 1] = fmaxf(mx[c >> 1], s[4 * j + c]);
+        float ms[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float m_new = quad_max(mx[r]);
+          // a row with nothing visible yet keeps its max at NEG_INF:
+          // shift to 0 so that exp underflows to exactly 0 (the JAX
+          // kernel's m_safe)
+          const float m_safe = m_new <= kNegInf / 2 ? 0.f : m_new;
+          alpha[r] = ex2((m[r] - m_safe) * sl2);
+          m[r] = m_safe;
+          ms[r] = m_safe * sl2;
+        }
+        float sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            // exp(scale * (s - m)) = 2^(s * scale * log2(e) - m * ...)
+            const float p = ex2(fmaf(s[4 * j + c], sl2, -ms[c >> 1]));
+            s[4 * j + c] = p;
+            sum[c >> 1] += p;
+          }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
+      };
+      // the output rescaled, and P rounded to bf16 as the next A
+      // operand: 16 positions per k step
+      auto rescale_and_pack = [&](const float (&s)[64],
+                                  const float (&alpha)[2],
+                                  uint32_t (&pa)[8][4]) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) o[4 * j + c] *= alpha[c >> 1];
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          pa[kk][0] = pack(s[8 * kk + 0], s[8 * kk + 1]);
+          pa[kk][1] = pack(s[8 * kk + 2], s[8 * kk + 3]);
+          pa[kk][2] = pack(s[8 * kk + 4], s[8 * kk + 5]);
+          pa[kk][3] = pack(s[8 * kk + 6], s[8 * kk + 7]);
+        }
+      };
+      // hand a barrier's slot back to the producer, once per warp
+      auto arrive = [&](uint64_t* bar) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar);
+      };
+
+      mbar_wait(&sm.q_full, round & 1);
+      float s[64], alpha[2];
+      uint32_t pa[8][4];
+      issue_qk(s, 0);
+      wgmma_wait_all();
+      fence_regs(s);
+      if (n_k == 1) arrive(&sm.q_empty);  // the tile's last read of Q
+      softmax(s, alpha, 0);
+      rescale_and_pack(s, alpha, pa);
+      // tile i's scores and softmax overlap tile i - 1's P.V: the two
+      // groups complete in order, so waiting for all but one is waiting
+      // for S
+      for (int i = 1; i < n_k; ++i) {
+        issue_qk(s, i);
+        issue_pv(pa, i - 1);
+        wgmma_wait_one();
+        fence_regs(s);
+        if (i == n_k - 1) arrive(&sm.q_empty);
+        softmax(s, alpha, i);
+        wgmma_wait_all();
+        fence_regs(o);
+        fence_regs(pa);  // the P.V group read pa until here
+        arrive(&sm.empty[(it + i - 1) % kStages]);
+        rescale_and_pack(s, alpha, pa);
+      }
+      issue_pv(pa, n_k - 1);
+      wgmma_wait_all();
+      fence_regs(o);
+      fence_regs(pa);
+      arrive(&sm.empty[(it + n_k - 1) % kStages]);
+      it += n_k;
+
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] = fmaxf(quad_sum(l[r]), 1e-20f);  // causal rows see themselves
+        // lse = scale * m + ln(l) = ln(2) * (m * scale * log2(e) + log2(l))
+        if (tg == 0 && row[r] < S)
+          lse_out[(size_t)bh * S + row[r]] =
+              kLn2 * (m[r] * sl2 + log2f(l[r]));
+      }
+      // out = acc / l, as the JAX kernel divides (not a multiply by 1 / l)
+      bf16* dst = out + (size_t)bh * S * kHd;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (row[r] >= S) continue;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const __nv_bfloat162 val = __floats2bfloat162_rn(
+              o[4 * j + 2 * r] / l[r], o[4 * j + 2 * r + 1] / l[r]);
+          *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)row[r] * kHd +
+                                             8 * j + 2 * tg) = val;
+        }
+      }
+    }
+  }
 }
 
 // -- f32 kernels ----------------------------------------------------------------
@@ -624,6 +955,75 @@ int check_args(int dtype, int BH, int S, int hd) {
   return 0;
 }
 
+// cuTensorMapEncodeTiled from the driver, reached through the runtime
+// (the library links no libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// a 3-D map over a bf16 [BH, S, 64] tensor, boxes of 128 rows of one head,
+// 128-byte swizzle; rows past S load as zeros
+cudaError_t head_map(CUtensorMap* map, const void* base, int BH, int S) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[3] = {(cuuint64_t)kHd, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {kHd * sizeof(bf16),
+                                 (cuuint64_t)S * kHd * sizeof(bf16)};
+  const cuuint32_t box[3] = {(cuuint32_t)kHd, (cuuint32_t)kFwdBN, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+cudaError_t launch_fwd_bf16(const void* q, const void* k, const void* v,
+                            void* out, void* lse, int BH, int S, float scale,
+                            cudaStream_t stream) {
+  static const cudaError_t allowed = cudaFuncSetAttribute(
+      fwd_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmemBytes);
+  if (allowed != cudaSuccess) return allowed;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err;
+  if ((err = head_map(&tq, q, BH, S)) != cudaSuccess ||
+      (err = head_map(&tk, k, BH, S)) != cudaSuccess ||
+      (err = head_map(&tv, v, BH, S)) != cudaSuccess)
+    return err;
+  int device, sms;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess)
+    return err;
+  const int tiles = (S + kFwdBM - 1) / kFwdBM * BH;
+  fwd_bf16<<<tiles < sms ? tiles : sms, kFwdThreads, kFwdSmemBytes,
+             stream>>>(tq, tk, tv, static_cast<bf16*>(out),
+                       static_cast<float*>(lse), S, BH, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -636,14 +1036,12 @@ int flash_fwd_launch(const void* q, const void* k, const void* v, void* out,
                      void* lse, int dtype, int BH, int S, int hd, float scale,
                      void* stream) {
   if (int e = check_args(dtype, BH, S, hd)) return e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) return (int)launch_fwd_bf16(q, k, v, out, lse, BH, S, scale, s);
   Args a = {q, k, v, nullptr, nullptr, nullptr, out, static_cast<float*>(lse),
             nullptr, nullptr, nullptr, S, scale};
   const dim3 grid((S + kTile - 1) / kTile, BH);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    fwd_bf16<<<grid, kThreads, 0, s>>>(a);
-  else
-    fwd_f32<<<grid, kThreads, 0, s>>>(a);
+  fwd_f32<<<grid, kThreads, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -680,6 +1078,10 @@ int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
     dkv_f32<<<grid, kThreads, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
+
+// the bf16 forward's dynamic shared memory a CTA (its ring, Q and the
+// barriers), for the build report
+int flash_fwd_smem_bytes() { return kFwdSmemBytes; }
 
 const char* flash_attention_error(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -148,7 +148,7 @@ class Kernel:
 DECODE_ATTENTION_LIB = KernelLibrary(
     "decode_attention.cu",
     {"decode_attention_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                 _I, _I, _I, _F, _P)},
+                                 _I, _I, _I, _I, _F, _P)},
     "decode_attention_error")
 QUANT_LIB = KernelLibrary(
     "quant.cu",
@@ -170,7 +170,8 @@ FLASH_ATTENTION_LIB = KernelLibrary(
      "flash_bwd_dq_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                              _P),
      "flash_bwd_dkv_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                              _F, _P)},
+                              _F, _P),
+     "flash_fwd_smem_bytes": ()},
     "flash_attention_error")
 LIBRARIES = (DECODE_ATTENTION_LIB, QUANT_LIB, DECODE_LAYER_LIB,
              FLASH_ATTENTION_LIB)

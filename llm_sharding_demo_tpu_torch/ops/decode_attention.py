@@ -6,6 +6,8 @@ kernel ``_kernel`` there: scores over cached positions ``p`` with
 ``k_valid_from[b] <= p < offset`` plus the self term from ``k_new``,
 f32 softmax and accumulator, output in q's dtype, and the row
 ``[k_new | v_new]`` written into ``KV[layer, :, :, offset]`` in place.
+The kernel splits the cached positions over a thread-block cluster
+(``cluster_plan``) and merges the spans' softmax states on chip.
 
 ``decode_attention`` runs ``decode_attention_plain`` only for CPU tensors;
 for CUDA tensors it launches the kernel or raises.
@@ -31,6 +33,31 @@ def eligible(max_seq: int, head_dim: int, q_len: int) -> bool:
     JAX package's rule, kept so both packages size caches alike)."""
     return (q_len == 1 and (2 * head_dim) % 128 == 0
             and max_seq % BLOCK_S == 0 and max_seq >= BLOCK_S)
+
+
+# The cluster split of the kernel (csrc/decode_attention.cu): C CTAs per
+# (row, kv head), each taking a contiguous span of ceil(off / C) cached
+# positions, merged through distributed shared memory. A CTA holds one
+# SM's registers at g = 3, and a cluster must fit inside one GPC, so the
+# split stops at WAVE_CTAS CTAs in all: on an H100 (80GB HBM3, 700 W;
+# tools/cluster_sweep.py) 8 rows x 4 kv heads take 18 us at C=3 (96 CTAs)
+# and 27 us at C=4 (128 CTAs, a second wave).
+WAVE_CTAS = 96       # CTAs that run as one wave on an H100's 132 SMs
+MIN_SPAN = 64        # the fewest positions worth a CTA of its own
+MAX_CLUSTER = 16     # Hopper's largest (non-portable) cluster
+
+
+def cluster_plan(offset: int, batch: int, kv_heads: int) -> Tuple[int, int]:
+    """``(C, span)`` for a launch over ``offset`` cached positions: the
+    most CTAs per (row, kv head) that keep all ``batch * kv_heads``
+    clusters within ``WAVE_CTAS`` CTAs, no span shorter than
+    ``MIN_SPAN`` and C at most ``MAX_CLUSTER``, never fewer than one. CTA
+    rank ``r`` reads positions ``[r * span, min((r + 1) * span,
+    offset))``, so the spans cover ``[0, offset)`` once each; the grid is
+    ``(C, kv_heads, batch)`` with cluster ``(C, 1, 1)``."""
+    c = min(MAX_CLUSTER, offset // MIN_SPAN, WAVE_CTAS // (batch * kv_heads))
+    c = max(1, c)
+    return c, -(-offset // c)
 
 
 def _q_scale(hd: int) -> float:
@@ -128,5 +155,6 @@ def decode_attention(q: torch.Tensor, k_new: torch.Tensor,
         q.device, q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), KV.data_ptr(),
         None if k_valid_from is None else k_valid_from.data_ptr(),
         out.data_ptr(), cb.dtype_code(q), B, Hkv, H // Hkv, hd, Smax,
-        layer_idx, offset, _q_scale(hd), cb.stream_handle(q))
+        layer_idx, offset, cluster_plan(offset, B, Hkv)[0], _q_scale(hd),
+        cb.stream_handle(q))
     return out, KV

@@ -21,7 +21,8 @@ normaliser is clamped at 1e-20.
 
 ``block_q``/``block_k`` keep the JAX signature: the plain versions tile
 by them as the JAX kernels do (``_pick_block``); the CUDA kernels pick
-Hopper tiles of their own (64 x 64) and mask a ragged edge themselves.
+Hopper tiles of their own (128 x 128 for the bf16 forward, 64 x 64
+else) and mask a ragged edge themselves.
 """
 
 from __future__ import annotations
@@ -219,6 +220,10 @@ def _cuda_operands(q, k, v, *more, stats=()):
     for t in (q, k, v, *more, *stats):
         if not t.is_contiguous():
             raise ValueError("flash kernel operands must be contiguous")
+        if t.data_ptr() % 16:
+            # the bf16 forward's TMA copies need 16-byte aligned tensors
+            raise ValueError("flash kernel operands must start on a "
+                             "16-byte boundary")
     return b * h, s, hd, cb.dtype_code(q)
 
 

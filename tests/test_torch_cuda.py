@@ -17,7 +17,7 @@ import torch
 from llm_sharding_demo_tpu_torch.models import gpt2, llama
 from llm_sharding_demo_tpu_torch.ops import cuda_build, quant
 from llm_sharding_demo_tpu_torch.ops.decode_attention import (
-    decode_attention, decode_attention_plain)
+    cluster_plan, decode_attention, decode_attention_plain)
 from llm_sharding_demo_tpu_torch.ops.decode_layer import (
     decode_layers, decode_layers_llama, decode_layers_llama_plain,
     decode_layers_plain)
@@ -59,6 +59,104 @@ def test_decode_attention_kernel_matches_plain(dev, dtype, tol, off):
     torch.testing.assert_close(out_k.float(), out_p.float(), atol=tol,
                                rtol=tol)
     assert torch.equal(a, b)
+
+
+def _span_masks(B, off, span, dev):
+    """``valid_from`` rows that start past 0-3 whole spans of the cluster
+    split (row 0 past two), or at ``off`` (everything cached masked)."""
+    return {"spans": torch.tensor(
+                [min(off, ((b + 2) % 4) * span + b % 3) for b in range(B)],
+                dtype=torch.int32, device=dev),
+            "all": torch.full((B,), off, dtype=torch.int32, device=dev)}
+
+
+@pytest.mark.parametrize("mask", ["spans", "all"])
+@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("hkv", [12, 4])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2),
+                                       (torch.float32, 1e-5)])
+def test_decode_attention_cluster_split_matches_plain(dev, dtype, tol, hkv, B,
+                                                      mask):
+    """The cluster split at its edges: offsets around one and two spans of
+    ``MIN_SPAN`` positions, at 255/256, at llama's 3000 (16 spans of 188)
+    and at the last slot, with g = 1 (12 kv heads, GPT-2) and g = 3 (4 kv
+    heads, llama-124m); ``valid_from`` past whole spans, or at ``off``
+    (the output is then v_new to rounding). Each case: within ``tol`` of
+    the plain version, the cache byte-equal, two launches bit-identical,
+    one launch counted per call."""
+    g = torch.Generator(device=dev).manual_seed(B * 100 + hkv)
+    H, hd, S = 12, 64, 4096
+    KV = torch.randn(2, B, hkv, S, 2 * hd, generator=g, device=dev).to(dtype)
+    for off in (0, 1, 63, 64, 65, 127, 128, 129, 255, 256, 3000, 4095):
+        q = torch.randn(B, H, 1, hd, generator=g, device=dev).to(dtype)
+        kn, vn = (torch.randn(B, hkv, 1, hd, generator=g,
+                              device=dev).to(dtype) for _ in range(2))
+        vf = _span_masks(B, off, cluster_plan(off, B, hkv)[1], dev)[mask]
+        a, b = KV.clone(), KV.clone()
+        n0 = cuda_build.launch_counts()["decode_attention"]
+        out_k, _ = decode_attention(q, kn, vn, a, 1, off, vf)
+        again, _ = decode_attention(q, kn, vn, a, 1, off, vf)
+        assert cuda_build.launch_counts()["decode_attention"] == n0 + 2
+        out_p, _ = decode_attention_plain(q, kn, vn, b, 1, off, vf)
+        torch.testing.assert_close(out_k.float(), out_p.float(), atol=tol,
+                                   rtol=tol, msg=lambda m: f"off={off}: {m}")
+        assert torch.equal(out_k, again), off
+        assert torch.equal(a, b), off
+        if mask == "all":
+            want = vn.repeat_interleave(H // hkv, dim=1)
+            torch.testing.assert_close(out_k.float(), want.float(), atol=tol,
+                                       rtol=tol)
+
+
+# faults planted in a copy of the decode-attention source: (text,
+# replacement)
+DECODE_ATTENTION_PLANTED_FAULTS = {
+    # the merge leaves out the last rank's span
+    "last_rank_dropped": ("if (r < nranks) {\n          lf += lw;",
+                          "if (r + 1 < nranks) {\n          lf += lw;"),
+    # each rank's state merged without its shift to the common max
+    "rank_max_ignored": ("const float cr = expf(mr - mf);",
+                         "const float cr = lane < nranks ? 1.f : 0.f;"),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(DECODE_ATTENTION_PLANTED_FAULTS))
+def test_decode_attention_check_catches_planted_fault(dev, tmp_path,
+                                                      monkeypatch, fault):
+    """The kernel-vs-plain check passes the sound split merge and rejects
+    a copy of the source with one planted fault, at llama-124m's g = 3
+    with 3000 cached (16 spans): row 0 sees only the last span, row 1
+    all of them. Prints both readings."""
+    text, planted = DECODE_ATTENTION_PLANTED_FAULTS[fault]
+    lib = cuda_build.DECODE_ATTENTION_LIB
+    src = open(lib.source).read()
+    assert src.count(text) == 1
+    path = tmp_path / "decode_attention.cu"
+    path.write_text(src.replace(text, planted))
+    faulty = cuda_build.KernelLibrary(os.fspath(path), lib.functions,
+                                      lib.error_fn)
+    g = torch.Generator(device=dev).manual_seed(3000)
+    B, H, hkv, hd, off, dtype = 2, 12, 4, 64, 3000, torch.bfloat16
+    assert cluster_plan(off, B, hkv)[0] > 1
+    KV = torch.randn(1, B, hkv, 4096, 2 * hd, generator=g,
+                     device=dev).to(dtype)
+    q = torch.randn(B, H, 1, hd, generator=g, device=dev).to(dtype)
+    kn, vn = (torch.randn(B, hkv, 1, hd, generator=g, device=dev).to(dtype)
+              for _ in range(2))
+    vf = torch.tensor([2900, 0], dtype=torch.int32, device=dev)
+    want, _ = decode_attention_plain(q, kn, vn, KV.clone(), 0, off, vf)
+
+    def err():
+        out, _ = decode_attention(q, kn, vn, KV.clone(), 0, off, vf)
+        return (out.float() - want.float()).abs().max().item()
+
+    sound = err()
+    assert sound <= 1e-2
+    monkeypatch.setattr(cuda_build.DECODE_ATTENTION, "library", faulty)
+    bad = err()
+    print(f"\n{fault}: sound max_abs_err {sound:.3e}; planted {bad:.3e}; "
+          f"limit 1e-2")
+    assert bad > 1e-2
 
 
 @pytest.mark.parametrize("rows", [1, 16])
@@ -430,7 +528,47 @@ FLASH_PLANTED_FAULTS = {
                        "s[nt][c] = pr * dp[nt][c];"),
                       ("pt[nt][c] = pt[nt][c] * (dpt[nt][c] - dd_s[ci]);",
                        "pt[nt][c] = pt[nt][c] * dpt[nt][c];")],
+    # the forward's output accumulator not rescaled when the row max grows
+    "rescale_dropped": [("o[4 * j + c] *= alpha[c >> 1];",
+                         "o[4 * j + c] *= 1.f;")],
 }
+# the faults that the bf16 forward (fwd_bf16) holds; delta_dropped is the
+# backward's alone (the forward has no D)
+FLASH_FORWARD_FAULTS = ("diagonal_dropped", "rescale_dropped")
+
+
+def _kernel_body(src, name):
+    """The text of ``__global__`` function ``name`` up to the next one."""
+    parts = src.split("__global__")[1:]
+    (body,) = [p for p in parts if f"{name}(" in p.split("{", 1)[0]]
+    return body
+
+
+def _planted_cases():
+    return ([("decode_layer.cu", f, [t]) for f, t in PLANTED_FAULTS.items()]
+            + [("decode_layer.cu", f, [t])
+               for f, t in LLAMA_PLANTED_FAULTS.items()]
+            + [("decode_attention.cu", f, [t])
+               for f, t in DECODE_ATTENTION_PLANTED_FAULTS.items()]
+            + [("flash_attention.cu", f, t)
+               for f, t in FLASH_PLANTED_FAULTS.items()])
+
+
+@pytest.mark.parametrize("source,fault,edits", _planted_cases(),
+                         ids=lambda x: x if isinstance(x, str) else "")
+def test_planted_fault_text_occurs_in_source(source, fault, edits):
+    """Runs without a card: every planted fault's text still occurs in the
+    current kernel source (once where the card test replaces it once), so
+    a rewrite of a kernel cannot leave its planted-fault test vacuous;
+    the forward's faults reach the bf16 forward's own body."""
+    src = open(os.path.join(cuda_build.CSRC_DIR, source)).read()
+    for text, _ in edits:
+        assert src.count(text) >= 1, (fault, text)
+        if source != "flash_attention.cu":
+            assert src.count(text) == 1, (fault, text)
+    if fault in FLASH_FORWARD_FAULTS:
+        body = _kernel_body(src, "fwd_bf16")
+        assert any(text in body for text, _ in edits), fault
 
 
 @pytest.mark.parametrize("fault", sorted(FLASH_PLANTED_FAULTS))

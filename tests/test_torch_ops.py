@@ -23,7 +23,8 @@ from llm_sharding_demo_tpu.ops.decode_attention import (
 from llm_sharding_demo_tpu_torch.ops import attention, layers, quant
 from llm_sharding_demo_tpu_torch.ops.cuda_build import launch_counts
 from llm_sharding_demo_tpu_torch.ops.decode_attention import (
-    decode_attention, decode_attention_plain)
+    MAX_CLUSTER, MIN_SPAN, WAVE_CTAS, cluster_plan, decode_attention,
+    decode_attention_plain)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -129,6 +130,83 @@ def test_decode_attention_plain_self_term_only_at_offset_zero():
     out, KV = decode_attention_plain(q, kn, vn, KV, 0, 0)
     assert torch.equal(out, vn)
     assert torch.equal(KV[0, :, :, 0], torch.cat([kn, vn], -1)[:, :, 0])
+
+
+@pytest.mark.parametrize("batch", [1, 8, 16])
+@pytest.mark.parametrize("off", [0, 1, 63, 64, 255, 3000, 4095])
+def test_cluster_plan_spans_cover_the_cache_once(off, batch):
+    """The decode-attention kernel's cluster split: 1 <= C <= 16, the
+    grid (C, Hkv, B) divides by its cluster (C, 1, 1), and the ranks'
+    spans hold every position of [0, off) exactly once; a split into
+    more than one span keeps every span at least MIN_SPAN long and all
+    clusters within one wave of WAVE_CTAS CTAs."""
+    for hkv in (4, 12):
+        c, span = cluster_plan(off, batch, hkv)
+        assert 1 <= c <= MAX_CLUSTER
+        assert (c, hkv, batch)[0] % c == 0
+        held = [p for r in range(c)
+                for p in range(r * span, min((r + 1) * span, off))]
+        assert held == list(range(off))
+        if c > 1:
+            assert off - (c - 1) * span >= 1  # the last rank has a span
+            assert span >= MIN_SPAN
+            assert c * batch * hkv <= WAVE_CTAS
+
+
+def _split_merge(q, kn, vn, layer, off, vf, c, span):
+    """The kernel's arithmetic, rank by rank, in f32: each span's
+    (m, l, acc) over its visible positions (an empty span keeps m =
+    -1e30, l = 0, acc = 0), then the ranks merged in order with the self
+    term, as rank 0 merges them through distributed shared memory."""
+    B, H, _, hd = q.shape
+    hkv = kn.shape[1]
+    g = H // hkv
+    out = torch.empty(B, H, 1, hd)
+    scale = float(np.float32(1.0 / hd ** 0.5))
+    for b in range(B):
+        for h in range(H):
+            qs = q[b, h, 0] * scale
+            kvh = h // g
+            states = []
+            for r in range(c):
+                lo = max(r * span, int(vf[b]) if vf is not None else 0)
+                hi = min((r + 1) * span, off)
+                rows = layer[b, kvh, lo:max(lo, hi)]
+                s = rows[:, :hd] @ qs
+                m = s.max() if len(s) else torch.tensor(-1e30)
+                p = torch.exp(s - m)
+                states.append((m, p.sum(), p @ rows[:, hd:]))
+            s_self = kn[b, kvh, 0] @ qs
+            mf = torch.stack([s_self] + [m for m, _, _ in states]).max()
+            lf, acc = torch.tensor(0.0), torch.zeros(hd)
+            for m, l, a in states:
+                w = torch.exp(m - mf)
+                lf, acc = lf + l * w, acc + a * w
+            ps = torch.exp(s_self - mf)
+            out[b, h, 0] = (acc + ps * vn[b, kvh, 0]) / (lf + ps)
+    return out
+
+
+@pytest.mark.parametrize("mask", ["none", "spans", "all"])
+@pytest.mark.parametrize("off", [0, 1, 64, 129, 255, 700, 1023])
+def test_cluster_split_merge_matches_plain(off, mask):
+    """The split-merge arithmetic of the cluster kernel, emulated on the
+    CPU with ``cluster_plan``'s spans, equals the plain version in f32:
+    empty spans (below ``valid_from``, or every position masked) merge
+    with weight 0, and the spans together are the whole cache."""
+    B, H, hkv, hd, S = 2, 6, 2, 64, 1024
+    rng = np.random.default_rng(off + len(mask))
+    KV = _t(_rand(rng, 1, B, hkv, S, 2 * hd))
+    q = _t(_rand(rng, B, H, 1, hd))
+    kn, vn = _t(_rand(rng, B, hkv, 1, hd)), _t(_rand(rng, B, hkv, 1, hd))
+    c, span = cluster_plan(off, 1, hkv)
+    vf = {"none": None,
+          "spans": torch.tensor([min(off, 2 * span), min(off, span + 1)],
+                                dtype=torch.int32),
+          "all": torch.full((B,), off, dtype=torch.int32)}[mask]
+    got = _split_merge(q, kn, vn, KV[0], off, vf, c, span)
+    want, _ = decode_attention_plain(q, kn, vn, KV.clone(), 0, off, vf)
+    torch.testing.assert_close(got, want, **TOL)
 
 
 @pytest.mark.parametrize("compute", ["float32", "bfloat16"])
