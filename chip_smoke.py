@@ -14,7 +14,9 @@ which must pass or the script exits non-zero:
    the card, at the shapes the served paths give it (GPT-2 124M and
    llama-124m: decode attention with one and with three query heads per
    kv head, the int8 linear at both models' projections and llama's
-   untied head, both whole-stack kernels; decode attention also at the
+   untied head at rows 1..16, two launches bit-identical, each timed
+   shape printed with its ``linear_plan`` (column tile, split, CTAs) and
+   registers a thread, both whole-stack kernels; decode attention also at the
    edges of its cluster split, with rows masked past whole spans or
    entirely, B 1/8/16, two launches bit-identical), with each kernel's
    time beside its plain version's, one library call's (for a
@@ -307,17 +309,20 @@ def kernel_phase(results: dict) -> None:
         attention_timing(HKV, LNPOS, off) for off in (255, 3000, 4095)] + [
         attention_timing(HKV, LNPOS, 3000, B=8)]
 
-    # kernel 2: int8 block linear at rows {1, 8, 16} x GPT-2's four
+    # kernel 2: int8 block linear at rows 1..16 x GPT-2's four
     # projections and llama's new shapes (k/v, gate/up, down, the untied
-    # head; its q and o are GPT-2's 768 -> 768)
+    # head; its q and o are GPT-2's 768 -> 768), each at the plan
+    # Q.linear_plan gives it; two launches bit-identical
     shapes = [(D, 3 * D), (D, D), (D, 4 * D), (4 * D, D)]
     llama_shapes = [(D, HKV * HD), (D, INTER), (INTER, D), (D, LV)]
     worst = 0.0
-    for rows in (1, 8, 16):
-        for d, n_out in shapes + llama_shapes:
+    for d, n_out in shapes + llama_shapes:
+        qt = Q.quantize_array(randn(d, n_out) * 0.02, torch.bfloat16)
+        shape_worst = 0.0
+        for rows in range(1, Q.MAX_KERNEL_ROWS + 1):
             x = randn(rows, d, dtype=torch.bfloat16)
-            qt = Q.quantize_array(randn(d, n_out) * 0.02, torch.bfloat16)
             y_k = Q.quant_linear(x, qt.q, qt.scale)
+            again = Q.quant_linear(x, qt.q, qt.scale)
             y_p = Q.linear_plain(x, qt.q, qt.scale)
             torch.cuda.synchronize()
             err = (y_k.float() - y_p.float()).abs().max().item()
@@ -326,9 +331,15 @@ def kernel_phase(results: dict) -> None:
             lim = 2.0 ** -7 * y_p.float().abs().max().item()
             check(err <= lim, f"quant_linear rows={rows} {d}->{n_out}: max "
                               f"err {err} > {lim}")
+            check(torch.equal(bits(y_k), bits(again)),
+                  f"quant_linear rows={rows} {d}->{n_out}: two launches "
+                  f"differ")
+            shape_worst = max(shape_worst, err / lim)
             worst = max(worst, err)
-            print(f"  quant_linear rows={rows:2d} {d}->{n_out}  "
-                  f"max_abs_err={err:.3e}  ok")
+        bn, split = Q.linear_plan(1, d, n_out)
+        print(f"  quant_linear {d}->{n_out} (bn={bn} split={split}) rows "
+              f"1..16: worst max_abs_err {shape_worst:.3f} of its limit "
+              f"(2^-7 of the largest output)  bit-identical  ok")
 
     def linear_timing(d, n_out, rows=1):
         sets = []
@@ -341,18 +352,26 @@ def kernel_phase(results: dict) -> None:
         lib = [(lambda s=s: torch.matmul(s[0], s[3])) for s in sets]
         nbytes = rows * d * 2 + d * n_out + n_out * 2 + rows * n_out * 2
         bms, by = bound_ms(nbytes, 2 * rows * d * n_out, "bfloat16")
+        bn, split = Q.linear_plan(rows, d, n_out)
         row = dict(shape=f"bf16 rows={rows} {d}->{n_out} int8", bound_ms=bms,
-                   bound_by=by)
+                   bound_by=by, bn=bn, split=split,
+                   ctas=n_out // bn * split,
+                   registers=linear_registers.get((bn, 1 if rows <= 8
+                                                   else 2)))
         timed(row, "ms", calls)
         timed(row, "plain_ms", plain)
         timed(row, "library_ms", lib)
         return row
 
     # GPT-2's c_fc (the JSON row), then llama's untied head, on every
-    # llama decode step
+    # llama decode step, at 1 and 8 rows (the mega path at B=8), and the
+    # projections whose output is 768 or 256 wide at one row
+    linear_registers = quant_linear_registers()
     row = results["quant_linear"] = dict(linear_timing(D, 4 * D),
                                          max_abs_err=worst)
-    row["other_shapes"] = [linear_timing(D, LV)]
+    row["other_shapes"] = [linear_timing(D, LV), linear_timing(D, LV, rows=8),
+                           linear_timing(4 * D, D), linear_timing(INTER, D),
+                           linear_timing(D, HKV * HD)]
     # one layer's four projections at rows=1, as a decode step calls them
     layer_bytes = sum(d * n_out for d, n_out in shapes)
     sets = []
@@ -419,7 +438,10 @@ def kernel_phase(results: dict) -> None:
                   f"{r['call_ms']:.4f} ms, plain {r['call_plain_ms']:.4f} ms,"
                   f" library {fmt_ms(r['call_library_ms'])} ms"
                   + (f"; cluster C={r['cluster']} (span {r['span']})"
-                     if "cluster" in r else ""))
+                     if "cluster" in r else "")
+                  + (f"; plan bn={r['bn']} split={r['split']} CTAs="
+                     f"{r['ctas']}, {r['registers']} registers a thread"
+                     if "bn" in r else ""))
     megakernel_phase(results, "gpt2")
     megakernel_phase(results, "llama")
 
@@ -1255,7 +1277,31 @@ def kernel_name(mangled: str) -> str:
     m = re.search(r"Li(\d+)E", mangled)
     if m and names[1:2] == ["decode_attention_kernel"]:
         names.append(f"g={m.group(1)}")
+    # the int8 linear's column tile and n8 tiles of activation rows
+    ints = re.findall(r"Li(\d+)E", mangled)
+    if names[1:2] == ["quant_linear_kernel"] and len(ints) == 2:
+        names += [f"bn={ints[0]}", f"row_tiles={ints[1]}"]
     return "::".join(names[1:]) or mangled
+
+
+def quant_linear_registers() -> dict:
+    """Registers a thread of each ``quant_linear_kernel`` instantiation,
+    ``{(bn, n8 tiles of activation rows): registers}``, from the quant
+    library's ``-Xptxas -v`` log (empty when the library was built by an
+    earlier process)."""
+    from llm_sharding_demo_tpu_torch.ops import cuda_build
+    regs, key = {}, None
+    for line in cuda_build.QUANT_LIB.build_log.splitlines():
+        if "Function properties for" in line:
+            name = line.split()[-1]
+            m = re.search(r"quant_linear_kernelILi(\d+)ELi(\d+)E", name)
+            key = (int(m.group(1)), int(m.group(2))) if m else None
+        elif key is not None and "registers" in line:
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                regs[key] = int(m.group(1))
+            key = None
+    return regs
 
 
 def find_cuobjdump() -> str:

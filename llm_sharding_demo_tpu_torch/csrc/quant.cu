@@ -20,20 +20,32 @@
 // once, with enough loads in flight to cover the memory latency, and
 // never materialising a dequantised copy (the JAX package measured that
 // a convert-then-dot form writes and re-reads the widened weights). Both
-// kernels read each weight byte once with 16-byte loads, convert in
-// registers, and keep the activations (<= 16 rows) in shared memory as
-// f32:
+// kernels read each weight byte once and convert it in registers:
 //
-// - linear: a block owns 128 output columns and one slice of the
-//   contraction; each thread loads 16 consecutive int8 columns of a
-//   weight row (8 threads cover a 128-byte row, 32 rows per pass, passes
-//   unrolled so several loads are in flight). The contraction is split
-//   over a thread-block cluster of up to 8 blocks (a Hopper feature):
-//   each block reduces its partial sums through shared memory, and the
-//   cluster's first block adds the others' partials straight from their
-//   shared memory (distributed shared memory), scales and rounds once.
-//   Splitting the contraction puts out/128 * split blocks to work (96
-//   for a 768-wide output) instead of out/128.
+// - linear: at llama's untied head (768 -> 32000) it must stream 24.6 MB,
+//   7.4 us at 3.35 TB/s. At 16 rows its 786 MFLOP would take ~12 us on
+//   the f32 CUDA cores, above that bound, so the products run on the
+//   tensor cores. The launch plan is ops/quant.py::linear_plan's: a CTA
+//   owns bn output columns (128, or 64 where that puts more CTAs to
+//   work) and one of `split` equal slices of the contraction, and the
+//   split CTAs of a column tile form one cluster (grid (split, n / bn),
+//   cluster (split, 1, 1), up to 16 CTAs, non-portable above 8). split
+//   is 1 where the column tiles already fill the card (the head);
+//   elsewhere it grows until the grid reaches one wave of CTAs. Each
+//   weight byte is read once for all rows. A producer warp streams the
+//   CTA's slice by TMA in boxes of 16 rows by bn columns (one mma step,
+//   swizzled across the box row) into a ring of 16 stages, so 32 KB a
+//   CTA (at bn = 128) are in flight whatever the registers; four
+//   consumer warps take the steps in turn, each stage read by one warp
+//   into registers and released at once. The codes become bf16 in registers (exact: |code| <= 127)
+//   and enter mma.sync m16n8k16 as its A operand, the activations, staged
+//   once in shared memory, as B (one n8 tile for rows <= 8, two for up
+//   to 16; rows past `rows` are zero). The f32 sums of the warps meet in
+//   shared memory (the ring, swizzled, free of bank conflicts) and are
+//   added in warp order. With split > 1 each rank then adds, for its
+//   1/split of the tile's elements, every rank's partial sums in rank
+//   order through distributed shared memory, and scales and rounds once.
+//   No atomics: two launches give identical bits.
 // - head: a group of 16 lanes per vocab row; the grid holds as many
 //   blocks as are resident at once and the groups stride over the rows,
 //   so every SM streams to the end (a grid of whole 128-row tiles left a
@@ -42,13 +54,15 @@
 //   sums with 4 shuffles per activation row. It streams at about a third
 //   of the card's memory rate; staging four rows' loads in registers
 //   before using them measured slower (181 registers halved the resident
-//   warps), so what holds it back is still open.
+//   warps), so what holds it back is still open. It keeps the
+//   activations (<= 16 rows) in shared memory as f32.
 //
 // Both convert int8 codes to floats with a byte permute and one add in
 // place of the quarter-rate integer-to-float conversion. The activations
 // are bf16 only: the int8 regime runs its activations in bf16.
 
 #include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap and its enums (types only: no libcuda link)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,15 +73,11 @@ namespace {
 
 constexpr int kMaxRows = 16;
 
-constexpr int kLinThreads = 256;
-constexpr int kLinCols = 128;                             // per block
-constexpr int kColsPerThread = 16;                        // one 16-byte load
-constexpr int kThreadsPerRow = kLinCols / kColsPerThread;  // 8
-constexpr int kRowsPerPass = kLinThreads / kThreadsPerRow; // 32
-constexpr int kRowGroup = 4;       // activation rows per register pass
-constexpr int kMaxSplit = 8;       // portable cluster size
-constexpr int kLinStaticSmem =
-    (kLinThreads / 32) * kRowGroup * kLinCols * 4 + kMaxRows * kLinCols * 4;
+constexpr int kLinWarps = 4;                     // consumer warps
+constexpr int kLinThreads = (kLinWarps + 1) * 32;  // and one producer warp
+constexpr int kStep = 16;      // contraction rows of one mma step and box
+constexpr int kStages = 16;    // boxes in flight a CTA (32 KB at 128 columns)
+constexpr int kMaxSplit = 16;  // Hopper's largest (non-portable) cluster
 
 constexpr int kHeadThreads = 256;
 constexpr int kHeadLanes = 16;         // lanes sharing one vocab row
@@ -92,103 +102,325 @@ __device__ __forceinline__ void unpack16(const int4& raw, float* out) {
   }
 }
 
-// grid (n / kLinCols, split), cluster (1, split, 1), block kLinThreads;
-// dynamic shared memory rows * kchunk floats. Block y handles contraction
-// rows [y * kchunk, (y + 1) * kchunk).
-__global__ void __launch_bounds__(kLinThreads)
-quant_linear_kernel(const bf16* __restrict__ x,     // [rows, d]
-                    const int8_t* __restrict__ w,   // [d, n]
-                    const bf16* __restrict__ scale, // [n]
-                    bf16* __restrict__ y,           // [rows, n]
-                    int rows, int d, int n, int kchunk) {
-  extern __shared__ __align__(16) float xs[];               // [rows][kchunk]
-  __shared__ float red[kLinThreads / 32][kRowGroup][kLinCols];
-  __shared__ float part[kMaxRows][kLinCols];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int col0 = blockIdx.x * kLinCols;
-  const int k0 = blockIdx.y * kchunk;
-  const int cseg = (tid % kThreadsPerRow) * kColsPerThread;
-  const int krow = tid / kThreadsPerRow;
+// -- the linear ---------------------------------------------------------------
 
-  for (int i = tid; i < rows * kchunk; i += kLinThreads) {
-    const int r = i / kchunk;
-    xs[i] = __bfloat162float(x[(size_t)r * d + k0 + (i - r * kchunk)]);
+// byte J % 4 of u (codes with their sign bits flipped, as in unpack16)
+// as an exact float
+template <int J>
+__device__ __forceinline__ float code_at(unsigned u) {
+  return __int_as_float(__byte_perm(u, 0x4B000000u, 0x7440u + (J & 3))) -
+         8388736.0f;
+}
+
+// two floats that bf16 holds exactly, as one bf16x2 register (lo in the
+// low half): their high halves
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632u);
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], unsigned a0, unsigned a1,
+                                    unsigned a2, unsigned a3, unsigned b0,
+                                    unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar)) : "memory");
+}
+
+// wait until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// the [kStep rows, bn columns] int8 box at (column col, row row) of the
+// weights into shared memory, completing on bar
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col),
+      "r"(row)
+      : "memory");
+}
+
+// One lane's share of a warp step: the products of the step's 16
+// contraction rows by the lane's kLC = bn / 8 columns. Lane (g, t)
+// (g = lane / 4, t = lane % 4) holds rows 2t, 2t+1, 2t+8, 2t+9 (i = 0..3)
+// of columns kLC*g .. kLC*g + kLC-1 of the tile as words, sign bits
+// flipped: u[i][c / 4] byte c % 4 is (row i, column kLC*g + c). Those are
+// its A fragments of the kLC / 2 m16 tiles j (rows m = g and g + 8 <->
+// columns kLC*g + j and kLC*g + kLC/2 + j); its B fragments are
+// activation row g (+ 8 per n8 tile) at the same contraction rows:
+// xb[nt][0] = (2t, 2t+1), xb[nt][1] = (2t+8, 2t+9).
+template <int kLC, int kNT, int J>
+__device__ __forceinline__ void mma_tile(float (&acc)[kLC / 2][kNT][4],
+                                         const unsigned (&u)[4][kLC / 4],
+                                         const uint32_t (&xb)[kNT][2]) {
+  constexpr int lo = J, hi = kLC / 2 + J;
+  const unsigned a0 = pack_bf16(code_at<lo>(u[0][lo / 4]),
+                                code_at<lo>(u[1][lo / 4]));
+  const unsigned a1 = pack_bf16(code_at<hi>(u[0][hi / 4]),
+                                code_at<hi>(u[1][hi / 4]));
+  const unsigned a2 = pack_bf16(code_at<lo>(u[2][lo / 4]),
+                                code_at<lo>(u[3][lo / 4]));
+  const unsigned a3 = pack_bf16(code_at<hi>(u[2][hi / 4]),
+                                code_at<hi>(u[3][hi / 4]));
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt)
+    mma(acc[J][nt], a0, a1, a2, a3, xb[nt][0], xb[nt][1]);
+  if constexpr (J + 1 < kLC / 2) mma_tile<kLC, kNT, J + 1>(acc, u, xb);
+}
+
+// Shared-memory index of partial sum (r, c) of a [rows][kBn] tile. The
+// XOR moves c inside its group of kBn / 8 columns (the columns one lane
+// holds), so that the 32 lanes of one accumulator store (columns
+// kLC*g + const, rows 2t + const) and 32 consecutive columns of one row
+// each fall in 32 different banks.
+template <int kBn>
+__device__ __forceinline__ int red_index(int r, int c) {
+  constexpr int kShift = kBn == 128 ? 2 : 1;  // log2(kBn / 32)
+  return r * kBn + (c ^ ((c >> 5) | (((r >> 1) & 3) << kShift)));
+}
+
+// Dynamic shared memory of a launch: the ring of kStages weight boxes
+// (reused for the warps' partial sums once the products are done), the
+// activations [8 * kNT rows][xstride] bf16 (rows past `rows` zero) and
+// the ring's full and empty barriers.
+__host__ __device__ constexpr int ring_bytes(int bn) {
+  return kStages * kStep * bn;
+}
+__host__ __device__ inline int x_stride(int kchunk) {
+  // kchunk + pad == 8 (mod 64) elements: a row is 16 bytes past a
+  // multiple of 128, so the B-fragment reads (rows g, words t) hit 32
+  // different banks
+  return kchunk + (((8 - kchunk) % 64) + 64) % 64;
+}
+__host__ __device__ inline int linear_smem_bytes(int bn, int kchunk,
+                                                 int nt) {
+  return 1024 + ring_bytes(bn) + 8 * nt * x_stride(kchunk) * 2 +
+         2 * kStages * 8;
+}
+
+// grid (split, n / kBn), cluster (split, 1, 1), kLinThreads threads
+// (kLinWarps consumer warps, then the producer warp), dynamic shared
+// memory linear_smem_bytes(kBn, kchunk, kNT). CTA rank r of a cluster
+// handles contraction rows [r * kchunk, (r + 1) * kchunk) of columns
+// [blockIdx.y * kBn, + kBn); kNT n8 tiles of activation rows.
+template <int kBn, int kNT>
+__global__ void __launch_bounds__(kLinThreads)
+quant_linear_kernel(const __grid_constant__ CUtensorMap wmap,  // [d, n]
+                    const bf16* __restrict__ x,      // [rows, d]
+                    const bf16* __restrict__ scale,  // [n]
+                    bf16* __restrict__ y,            // [rows, n]
+                    int rows, int d, int kchunk) {
+  constexpr int kLC = kBn / 8;           // columns a lane holds
+  constexpr int kBox = kStep * kBn;      // bytes of one stage
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int xstride = x_stride(kchunk);
+  bf16* xs = reinterpret_cast<bf16*>(ring + ring_bytes(kBn));
+  uint64_t* full = reinterpret_cast<uint64_t*>(xs + 8 * kNT * xstride);
+  uint64_t* empty = full + kStages;
+  float* red = reinterpret_cast<float*>(ring);  // [kLinWarps][rows][kBn]
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int split = gridDim.x;
+  const int rank = blockIdx.x;
+  const int n = (int)gridDim.y * kBn;
+  const int col0 = blockIdx.y * kBn;
+  const int k0 = rank * kchunk;
+  const int steps = kchunk / kStep;
+  const int tile = rows * kBn;
+  // the elements this rank merges: [lo, hi) of its tile, consumer thread
+  // i taking lo + i, lo + i + kLinWarps * 32, ... (one column each)
+  const int lo = rank * tile / split, hi = (rank + 1) * tile / split;
+  const bool producer = warp == kLinWarps;
+
+  if (producer && lane == 0) {
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                     reinterpret_cast<uint64_t>(&wmap)) : "memory");
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 1);  // the one warp that takes the stage
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int s = 0; s < steps && s < kStages; ++s) {
+      mbar_expect_tx(&full[s], kBox);
+      tma_load(ring + s * kBox, &wmap, &full[s], col0, k0 + kStep * s);
+    }
+  }
+  float sc = 0.f;
+  if (!producer) {
+    sc = __bfloat162float(scale[col0 + (lo + threadIdx.x) % kBn]);
+    // the activations of this slice, 16 bytes a copy
+    const int vecs = kchunk / 8;
+    for (int i = threadIdx.x; i < 8 * kNT * vecs; i += kLinWarps * 32) {
+      const int r = i / vecs, v = i - r * vecs;
+      const uint4 val =
+          r < rows ? __ldg(reinterpret_cast<const uint4*>(
+                         x + (size_t)r * d + k0 + 8 * v))
+                   : make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(xs + r * xstride + 8 * v) = val;
+    }
   }
   __syncthreads();
 
-  const int8_t* wcol = w + (size_t)k0 * n + col0 + cseg;
-  for (int r0 = 0; r0 < rows; r0 += kRowGroup) {
-    float acc[kRowGroup][kColsPerThread];
+  float acc[kLC / 2][kNT][4];
 #pragma unroll
-    for (int r = 0; r < kRowGroup; ++r)
+  for (int j = 0; j < kLC / 2; ++j)
 #pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j) acc[r][j] = 0.f;
-#pragma unroll 4
-    for (int kk = krow; kk < kchunk; kk += kRowsPerPass) {
-      const int4 raw = __ldg(reinterpret_cast<const int4*>(
-          wcol + (size_t)kk * n));
-      float wf[kColsPerThread];
-      unpack16(raw, wf);
+    for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
-      for (int r = 0; r < kRowGroup; ++r) {
-        if (r0 + r < rows) {
-          const float xv = xs[(r0 + r) * kchunk + kk];
+      for (int e = 0; e < 4; ++e) acc[j][nt][e] = 0.f;
+
+  if (producer) {
+    // the rest of the steps, each into the stage its step - kStages left
+    if (lane == 0)
+      for (int s = kStages; s < steps; ++s) {
+        const int st = s % kStages;
+        mbar_wait(&empty[st], ((s / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[st], kBox);
+        tma_load(ring + st * kBox, &wmap, &full[st], col0, k0 + kStep * s);
+      }
+  } else {
+    // warp w takes steps w, w + kLinWarps, ...: stage s % kStages, which
+    // only warp w reads. The lane reads rows 2t + (i & 1) + 8 (i >> 1) of
+    // its kLC columns through the box's swizzle (16-byte chunk c of row r
+    // stored at chunk c ^ (r % 8) for 128-byte rows, c ^ (r / 2 % 4) for
+    // 64-byte rows): at 128 columns the 8 lanes of each quarter warp hit
+    // 8 different chunks; at 64 the 8-byte reads conflict two ways.
+    for (int s = warp; s < steps; s += kLinWarps) {
+      const int st = s % kStages;
+      mbar_wait(&full[st], (s / kStages) & 1);
+      const uint8_t* stage = ring + st * kBox;
+      unsigned u[4][kLC / 4];
 #pragma unroll
-          for (int j = 0; j < kColsPerThread; ++j) acc[r][j] += xv * wf[j];
+      for (int i = 0; i < 4; ++i) {
+        const int r = 2 * t + (i & 1) + 8 * (i >> 1);
+        if constexpr (kBn == 128) {
+          const uint4 v = *reinterpret_cast<const uint4*>(
+              stage + r * kBn + 16 * (g ^ (r & 7)));
+          u[i][0] = v.x ^ 0x80808080u;
+          u[i][1] = v.y ^ 0x80808080u;
+          u[i][2] = v.z ^ 0x80808080u;
+          u[i][3] = v.w ^ 0x80808080u;
+        } else {
+          const uint2 v = *reinterpret_cast<const uint2*>(
+              stage + r * kBn + 16 * ((g >> 1) ^ ((r >> 1) & 3)) +
+              8 * (g & 1));
+          u[i][0] = v.x ^ 0x80808080u;
+          u[i][1] = v.y ^ 0x80808080u;
         }
       }
-    }
-    // lanes l, l^8, l^16, l^24 hold the same columns for 4 contraction rows
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);  // the stage is in registers
+      uint32_t xb[kNT][2];
 #pragma unroll
-    for (int r = 0; r < kRowGroup; ++r)
-#pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j) {
-        float v = acc[r][j];
-        v += __shfl_xor_sync(0xffffffffu, v, 8);
-        v += __shfl_xor_sync(0xffffffffu, v, 16);
-        acc[r][j] = v;
+      for (int nt = 0; nt < kNT; ++nt) {
+        const bf16* xr = xs + (8 * nt + g) * xstride + kStep * s + 2 * t;
+        xb[nt][0] = *reinterpret_cast<const uint32_t*>(xr);
+        xb[nt][1] = *reinterpret_cast<const uint32_t*>(xr + 8);
       }
-    if (lane < kThreadsPerRow) {
-#pragma unroll
-      for (int r = 0; r < kRowGroup; ++r)
-#pragma unroll
-        for (int j = 0; j < kColsPerThread; ++j)
-          red[warp][r][cseg + j] = acc[r][j];
+      mma_tile<kLC, kNT, 0>(acc, u, xb);
     }
-    __syncthreads();
-    for (int i = tid; i < kRowGroup * kLinCols; i += kLinThreads) {
-      const int r = i / kLinCols;
-      const int c = i - r * kLinCols;
-      if (r0 + r < rows) {
-        float s = 0.f;
+  }
+  __syncthreads();  // every stage read: the ring takes the partial sums
+
+  // the warp's partial tile: c0, c1 are (column m = g, activation rows
+  // 2t, 2t+1), c2, c3 the same rows of column m = g + 8
+  if (!producer) {
+    float* mine = red + warp * tile;
 #pragma unroll
-        for (int wi = 0; wi < kLinThreads / 32; ++wi) s += red[wi][r][c];
-        part[r0 + r][c] = s;
+    for (int j = 0; j < kLC / 2; ++j)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 8 * nt + 2 * t + (e & 1);
+          const int c = kLC * g + (e >> 1) * (kLC / 2) + j;
+          if (r < rows) mine[red_index<kBn>(r, c)] = acc[j][nt][e];
+        }
+  }
+  __syncthreads();
+
+  if (split == 1) {
+    if (!producer)
+      for (int i = threadIdx.x; i < tile; i += kLinWarps * 32) {
+        const int r = i / kBn, c = i - r * kBn;
+        const int k = red_index<kBn>(r, c);
+        float s = red[k];
+#pragma unroll
+        for (int wi = 1; wi < kLinWarps; ++wi) s += red[wi * tile + k];
+        y[(size_t)r * n + col0 + c] = __float2bfloat16_rn(s * sc);
       }
-    }
-    __syncthreads();
+    return;
   }
 
-  // the cluster's first block adds every block's partial sums, read from
-  // their shared memory, then scales and rounds once
-  cluster.sync();
-  if (cluster.block_rank() == 0) {
-    const int nb = (int)cluster.num_blocks();
-    for (int i = tid; i < rows * kLinCols; i += kLinThreads) {
-      const int r = i / kLinCols;
-      const int c = i - r * kLinCols;
-      float s = 0.f;
-      for (int b = 0; b < nb; ++b)
-        s += cluster.map_shared_rank(&part[0][0], b)[r * kLinCols + c];
-      y[(size_t)r * n + col0 + c] =
-          __float2bfloat16_rn(s * __bfloat162float(scale[col0 + c]));
+  // the rank's partial sums, in warp order, into warp 0's slot
+  if (!producer)
+    for (int i = threadIdx.x; i < tile; i += kLinWarps * 32) {
+      const int r = i / kBn, c = i - r * kBn;
+      const int k = red_index<kBn>(r, c);
+      float s = red[k];
+#pragma unroll
+      for (int wi = 1; wi < kLinWarps; ++wi) s += red[wi * tile + k];
+      red[k] = s;
     }
-  }
-  cluster.sync();  // keep every block's shared memory alive until read
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  // this rank's 1/split of the tile: every rank's partial sums read from
+  // its shared memory (all reads issued before the first add, so the
+  // ranks cost one remote latency, not split), added in rank order,
+  // scaled, rounded once
+  if (!producer)
+    for (int i = lo + threadIdx.x; i < hi; i += kLinWarps * 32) {
+      const int r = i / kBn, c = i - r * kBn;
+      const int k = red_index<kBn>(r, c);
+      float v[kMaxSplit];
+#pragma unroll
+      for (int b = 0; b < kMaxSplit; ++b)
+        if (b < split) v[b] = cluster.map_shared_rank(red, b)[k];
+      float s = v[0];
+#pragma unroll
+      for (int b = 1; b < kMaxSplit; ++b)
+        if (b < split) s += v[b];
+      y[(size_t)r * n + col0 + c] = __float2bfloat16_rn(s * sc);
+    }
+  cluster.sync();  // keep every CTA's shared memory alive until read
 }
+
+// -- the tied head -----------------------------------------------------------
 
 // block kHeadThreads, dynamic shared memory rows * d floats; the grid is
 // what fits on the card at once, and the lane groups stride over the
@@ -258,41 +490,103 @@ cudaError_t ensure_smem(const void* kernel, size_t dynamic, size_t fixed) {
                               (int)dynamic);
 }
 
-int pick_split(int d) {
-  int split = kMaxSplit;
-  while (split > 1 && (d % (kRowsPerPass * split) != 0 || d / split < 64))
-    split /= 2;
-  return split;
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
+// query (the library links no libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
 }
 
-cudaError_t launch_linear(const void* x, const void* w, const void* scale,
-                          void* y, int rows, int d, int n,
-                          cudaStream_t stream) {
-  const int split = pick_split(d);
+template <int kBn, int kNT>
+cudaError_t launch_linear_t(const CUtensorMap& wmap, const void* x,
+                            const void* scale, void* y, int rows, int d,
+                            int n, int split, cudaStream_t stream) {
+  auto kernel = quant_linear_kernel<kBn, kNT>;
+  // clusters above 8 CTAs are non-portable, and the ring takes more than
+  // the default 48 KB of dynamic shared memory: both allowed once
+  static const cudaError_t allowed = [&] {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
+    return e;
+  }();
+  if (allowed != cudaSuccess) return allowed;
   const int kchunk = d / split;
-  const size_t smem = (size_t)rows * kchunk * sizeof(float);
-  cudaError_t err = ensure_smem((const void*)quant_linear_kernel, smem,
-                                kLinStaticSmem);
-  if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n / kLinCols, split, 1);
+  cfg.gridDim = dim3(split, n / kBn, 1);
   cfg.blockDim = dim3(kLinThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
+  cfg.dynamicSmemBytes = linear_smem_bytes(kBn, kchunk, kNT);
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = split;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, quant_linear_kernel,
-                           static_cast<const bf16*>(x),
-                           static_cast<const int8_t*>(w),
-                           static_cast<const bf16*>(scale),
-                           static_cast<bf16*>(y), rows, d, n, kchunk);
+  cfg.numAttrs = split > 1 ? 1 : 0;
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, wmap, static_cast<const bf16*>(x),
+      static_cast<const bf16*>(scale), static_cast<bf16*>(y), rows, d,
+      kchunk);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// a 2-D map over the int8 [d, n] weights: boxes of kStep rows by bn
+// columns, swizzled across the box row (128 or 64 bytes)
+cudaError_t weight_map(CUtensorMap* map, const void* w, int d, int n,
+                       int bn) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[2] = {(cuuint64_t)n, (cuuint64_t)d};
+  const cuuint64_t strides[1] = {(cuuint64_t)n};
+  const cuuint32_t box[2] = {(cuuint32_t)bn, (cuuint32_t)kStep};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(w), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      bn == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+cudaError_t launch_linear(const void* x, const void* w, const void* scale,
+                          void* y, int rows, int d, int n, int bn, int split,
+                          cudaStream_t stream) {
+  CUtensorMap wmap;
+  const cudaError_t err = weight_map(&wmap, w, d, n, bn);
+  if (err != cudaSuccess) return err;
+  if (bn == 128)
+    return rows <= 8 ? launch_linear_t<128, 1>(wmap, x, scale, y, rows, d,
+                                               n, split, stream)
+                     : launch_linear_t<128, 2>(wmap, x, scale, y, rows, d,
+                                               n, split, stream);
+  return rows <= 8 ? launch_linear_t<64, 1>(wmap, x, scale, y, rows, d, n,
+                                            split, stream)
+                   : launch_linear_t<64, 2>(wmap, x, scale, y, rows, d, n,
+                                            split, stream);
 }
 
 cudaError_t launch_head(const void* x, const void* q, void* out, int rows,
@@ -323,14 +617,22 @@ cudaError_t launch_head(const void* x, const void* q, void* out, int rows,
 
 extern "C" {
 
-// x, scale and y are bfloat16. Requires 1 <= rows <= 16, n % 128 == 0
-// and d % 32 == 0. Returns the cudaError_t of the launch (0 on success);
-// allocates nothing.
+// x, scale and y are bfloat16. The plan (bn, split) is
+// ops/quant.py::linear_plan's. Requires 1 <= rows <= 16, bn 64 or 128
+// with n % bn == 0, 1 <= split <= 16 dividing d into slices of a whole number
+// of 16-row steps, the slice's activations within a block's shared
+// memory, and x and w aligned to 16 bytes. Returns the cudaError_t of the
+// launch or of the weights' tensor-map encode (0 on success); allocates
+// nothing.
 int quant_linear_launch(const void* x, const void* w, const void* scale,
-                        void* y, int rows, int d, int n, void* stream) {
-  if (rows < 1 || rows > kMaxRows || n % kLinCols != 0 || d % 32 != 0)
+                        void* y, int rows, int d, int n, int bn, int split,
+                        void* stream) {
+  if (rows < 1 || rows > kMaxRows || (bn != 64 && bn != 128) || n % bn ||
+      split < 1 || split > kMaxSplit || d % split || (d / split) % kStep ||
+      linear_smem_bytes(bn, d / split, rows <= 8 ? 1 : 2) > 227 * 1024 ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)) % 16)
     return (int)cudaErrorInvalidValue;
-  return (int)launch_linear(x, w, scale, y, rows, d, n,
+  return (int)launch_linear(x, w, scale, y, rows, d, n, bn, split,
                             static_cast<cudaStream_t>(stream));
 }
 

@@ -152,7 +152,7 @@ DECODE_ATTENTION_LIB = KernelLibrary(
     "decode_attention_error")
 QUANT_LIB = KernelLibrary(
     "quant.cu",
-    {"quant_linear_launch": (_P, _P, _P, _P, _I, _I, _I, _P),
+    {"quant_linear_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
      "quant_head_launch": (_P, _P, _P, _I, _I, _I, _P)},
     "quant_error")
 DECODE_LAYER_LIB = KernelLibrary(

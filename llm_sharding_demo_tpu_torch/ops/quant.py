@@ -11,7 +11,8 @@ multiple of 2048 for the head kernel; ``rows`` keeps the real count.
 Two hand-written CUDA kernels (``csrc/quant.cu``) stream the int8
 weights at decode shapes (<= 16 activation rows):
 
-- ``quant_linear`` replaces the TPU kernel ``_linear_kernel``;
+- ``quant_linear`` replaces the TPU kernel ``_linear_kernel``; its grid
+  comes from ``linear_plan``;
 - ``quant_head`` replaces the TPU kernel ``_head_kernel``.
 
 Each wrapper runs its plain PyTorch version (``linear_plain`` /
@@ -22,7 +23,8 @@ dequantize-then-matmul form, as the JAX package leaves them to XLA.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import functools
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -116,6 +118,47 @@ def kernel_eligible(d: int, out: int, rows: int) -> bool:
 
 # -- kernel 2: block linear ---------------------------------------------------
 
+# The launch plan of the linear kernel (csrc/quant.cu): a CTA owns ``bn``
+# output columns and one of ``split`` equal slices of the contraction, and
+# the ``split`` CTAs of a column tile form one cluster that adds their
+# partial sums through distributed shared memory. A second wave of CTAs
+# cost more than it gave in the decode-attention sweep
+# (tools/cluster_sweep.py), so a split grid stays within one CTA per SM.
+LINEAR_SMS = 132          # an H100's SMs
+LINEAR_TILES = (128, 64)  # column tiles, the wider first
+LINEAR_STEP = 16          # contraction rows of one tensor-core step
+LINEAR_MIN_CHUNK = 64     # the fewest contraction rows a rank takes
+LINEAR_MAX_SPLIT = 16     # Hopper's largest (non-portable) cluster
+
+
+@functools.lru_cache(maxsize=None)  # called every launch; a model has few shapes
+def linear_plan(rows: int, d: int, n: int) -> Tuple[int, int]:
+    """``(bn, split)`` for ``[rows, d] x int8 [d, n]``: split 1 with
+    128-column tiles where the tiles alone fill the card (llama's untied
+    head); otherwise the tile width and split that put the most CTAs to
+    work within ``LINEAR_SMS``, the wider tile and the smaller split on a
+    tie, each rank taking ``d / split`` contraction rows, a whole number
+    of ``LINEAR_STEP``-row steps and at least ``LINEAR_MIN_CHUNK``.
+    ``rows`` leaves the plan as it is: the tensor cores take up to 16
+    rows at the cost of one, so every row count streams the same tiles."""
+    del rows
+    best, best_ctas = (LINEAR_TILES[0], 1), n // LINEAR_TILES[0]
+    if best_ctas >= LINEAR_SMS:
+        return best
+    for bn in LINEAR_TILES:
+        if n % bn:
+            continue
+        for split in range(2, LINEAR_MAX_SPLIT + 1):
+            chunk = d // split
+            if (d % split or chunk % LINEAR_STEP
+                    or chunk < LINEAR_MIN_CHUNK):
+                continue
+            ctas = n // bn * split
+            if best_ctas < ctas <= LINEAR_SMS:
+                best, best_ctas = (bn, split), ctas
+    return best
+
+
 def linear_plain(x: torch.Tensor, q: torch.Tensor,
                  scale: torch.Tensor) -> torch.Tensor:
     """Plain version of ``quant_linear``: f32 accumulation, one rounding
@@ -141,15 +184,20 @@ def quant_linear(x: torch.Tensor, q: torch.Tensor,
     if scale.shape != (out,) or scale.dtype != x.dtype:
         raise ValueError(f"quant_linear: scale must be [{out}] in "
                          f"{x.dtype}, got {scale.dtype} {tuple(scale.shape)}")
-    if not 1 <= rows <= MAX_KERNEL_ROWS or out % 128 or d % 32:
+    if not 1 <= rows <= MAX_KERNEL_ROWS or out % 128 or d % LINEAR_STEP:
         raise ValueError(f"quant_linear: needs 1 <= rows <= "
-                         f"{MAX_KERNEL_ROWS}, out % 128 == 0 and d % 32 == 0, "
-                         f"got rows={rows} d={d} out={out}")
+                         f"{MAX_KERNEL_ROWS}, out % 128 == 0 and d % "
+                         f"{LINEAR_STEP} == 0, got rows={rows} d={d} "
+                         f"out={out}")
     _check_same_cuda(x, q, scale)
+    if (x.data_ptr() | q.data_ptr()) % 16:
+        raise ValueError("quant_linear: x and q must start on a 16-byte "
+                         "boundary (the kernel's vector loads)")
     y = torch.empty((rows, out), dtype=x.dtype, device=x.device)
+    bn, split = linear_plan(rows, d, out)
     cb.QUANT_LINEAR.launch(x.device, x.data_ptr(), q.data_ptr(),
-                           scale.data_ptr(), y.data_ptr(), rows, d, out,
-                           cb.stream_handle(x))
+                           scale.data_ptr(), y.data_ptr(), rows, d, out, bn,
+                           split, cb.stream_handle(x))
     return y
 
 

@@ -176,6 +176,97 @@ def test_int8_kernels_match_plain(dev, rows):
                                rtol=1e-5)
 
 
+# (d, n) of every projection the served models give the int8 linear:
+# llama's untied head, GPT-2's c_fc and c_attn, llama's gate/up, the
+# 768-wide q/o/attention c_proj, GPT-2's mlp c_proj, llama's down and k/v
+QUANT_LINEAR_SHAPES = [(768, 32000), (768, 3072), (768, 2304), (768, 2048),
+                       (768, 768), (3072, 768), (2048, 768), (768, 256)]
+
+
+def _quant_linear_inputs(dev, d, n, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qt = quant.quantize_array(torch.randn(d, n, generator=g, device=dev)
+                              * 0.02)
+    xs = [torch.randn(rows, d, generator=g, device=dev).to(torch.bfloat16)
+          for rows in range(1, quant.MAX_KERNEL_ROWS + 1)]
+    return qt, xs
+
+
+def _linear_err(y_k, y_p):
+    """Max error and its limit: two bf16 ulps of the largest output (the
+    f32 sums differ from the plain version's in order only, then round
+    once)."""
+    return ((y_k.float() - y_p.float()).abs().max().item(),
+            2.0 ** -7 * y_p.float().abs().max().item())
+
+
+@pytest.mark.parametrize("d,n", QUANT_LINEAR_SHAPES)
+def test_quant_linear_kernel_matches_plain_every_row_count(dev, d, n):
+    """The int8 linear at each served shape (its ``linear_plan``: split
+    or not) and rows 1..16 (one and two n8 tiles of activation rows)
+    within two bf16 ulps of the largest output, one launch counted per
+    call."""
+    qt, xs = _quant_linear_inputs(dev, d, n, d + n)
+    for x in xs:
+        n0 = cuda_build.launch_counts()["quant_linear"]
+        y_k = quant.quant_linear(x, qt.q, qt.scale)
+        assert cuda_build.launch_counts()["quant_linear"] == n0 + 1
+        err, lim = _linear_err(y_k, quant.linear_plain(x, qt.q, qt.scale))
+        assert err <= lim, (x.shape[0], err, lim)
+
+
+@pytest.mark.parametrize("d,n", QUANT_LINEAR_SHAPES)
+def test_quant_linear_two_launches_bit_identical(dev, d, n):
+    """No atomics: the cluster ranks' partial sums are added in rank
+    order, so two launches on the same inputs give the same bits."""
+    qt, xs = _quant_linear_inputs(dev, d, n, 7 * d + n)
+    for x in xs:
+        a = quant.quant_linear(x, qt.q, qt.scale)
+        b = quant.quant_linear(x, qt.q, qt.scale)
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16)), \
+            x.shape[0]
+
+
+# faults planted in a copy of the int8 source: (text, replacement)
+QUANT_PLANTED_FAULTS = {
+    # the cluster merge leaves out the last rank's partial sums
+    "last_rank_dropped": ("if (b < split) s += v[b];",
+                          "if (b + 1 < split) s += v[b];"),
+    # every step reads the ring's first stage
+    "stage_reused": ("const uint8_t* stage = ring + st * kBox;",
+                     "const uint8_t* stage = ring;"),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(QUANT_PLANTED_FAULTS))
+def test_quant_linear_check_catches_planted_fault(dev, tmp_path, monkeypatch,
+                                                  fault):
+    """The kernel-vs-plain check passes the int8 linear and rejects a copy
+    of its source with one planted fault, at GPT-2's c_fc (768->3072:
+    a 4-way split, 12 steps a CTA in 12 ring stages) and 16 rows. Prints
+    both readings."""
+    text, planted = QUANT_PLANTED_FAULTS[fault]
+    lib = cuda_build.QUANT_LIB
+    src = open(lib.source).read()
+    assert src.count(text) == 1
+    path = tmp_path / "quant.cu"
+    path.write_text(src.replace(text, planted))
+    faulty = cuda_build.KernelLibrary(os.fspath(path), lib.functions,
+                                      lib.error_fn)
+    d, n = 768, 3072
+    assert quant.linear_plan(16, d, n) == (128, 4)
+    qt, xs = _quant_linear_inputs(dev, d, n, 11)
+    x = xs[-1]
+    want = quant.linear_plain(x, qt.q, qt.scale)
+    sound, lim = _linear_err(quant.quant_linear(x, qt.q, qt.scale), want)
+    assert sound <= lim
+    monkeypatch.setattr(cuda_build.QUANT_LINEAR, "library", faulty)
+    bad, _ = _linear_err(quant.quant_linear(x, qt.q, qt.scale), want)
+    print(f"\n{fault}: sound max_abs_err {sound:.3e}; planted {bad:.3e}; "
+          f"limit {lim:.3e}")
+    assert bad > lim
+
+
 def test_layer_engine_matches_plain_engine_greedy(dev):
     cfg = gpt2.GPT2Config(vocab_size=211, n_positions=512, n_embd=128,
                           n_layer=2, n_head=2)
@@ -550,6 +641,7 @@ def _planted_cases():
                for f, t in LLAMA_PLANTED_FAULTS.items()]
             + [("decode_attention.cu", f, [t])
                for f, t in DECODE_ATTENTION_PLANTED_FAULTS.items()]
+            + [("quant.cu", f, [t]) for f, t in QUANT_PLANTED_FAULTS.items()]
             + [("flash_attention.cu", f, t)
                for f, t in FLASH_PLANTED_FAULTS.items()])
 
