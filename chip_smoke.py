@@ -16,7 +16,9 @@ which must pass or the script exits non-zero:
    kv head, the int8 linear at both models' projections and llama's
    untied head at rows 1..16, two launches bit-identical, each timed
    shape printed with its ``linear_plan`` (column tile, split, CTAs) and
-   registers a thread, both whole-stack kernels; decode attention also at the
+   registers a thread, the int8 tied head at GPT-2's table at rows 1..16,
+   bit-identical, timed at rows 1, 8 and 16 with its ``head_plan`` (CTAs,
+   span) and registers, both whole-stack kernels; decode attention also at the
    edges of its cluster split, with rows masked past whole spans or
    entirely, B 1/8/16, two launches bit-identical), with each kernel's
    time beside its plain version's, one library call's (for a
@@ -25,8 +27,9 @@ which must pass or the script exits non-zero:
 3b. flash: the three flash-attention kernels (forward, dQ, dK/dV)
    against their plain versions (bf16 and f32, B=1 and 4 at S=2048 and
    4096, a ragged S=333), bit-identical across launches, and timed at
-   llama-124m's training shape beside their plain versions, SDPA and
-   their bounds;
+   llama-124m's training shape beside their plain versions, SDPA (its
+   backward captured in a CUDA graph and replayed, as the kernels are
+   timed) and their bounds;
 4. engine: GPT-2 124M and llama-124m at full width (12 layers, seeded
    random weights), bf16 and int8, the per-layer kernel path ("layer")
    and the whole-stack kernel path ("mega") each held against the plain
@@ -366,7 +369,7 @@ def kernel_phase(results: dict) -> None:
     # GPT-2's c_fc (the JSON row), then llama's untied head, on every
     # llama decode step, at 1 and 8 rows (the mega path at B=8), and the
     # projections whose output is 768 or 256 wide at one row
-    linear_registers = quant_linear_registers()
+    linear_registers = quant_registers("quant_linear_kernel")
     row = results["quant_linear"] = dict(linear_timing(D, 4 * D),
                                          max_abs_err=worst)
     row["other_shapes"] = [linear_timing(D, LV), linear_timing(D, LV, rows=8),
@@ -395,40 +398,51 @@ def kernel_phase(results: dict) -> None:
           f" ms, bound {row['layer_bound_ms']:.4f} ms")
     del sets
 
-    # kernel 3: int8 tied head at rows {1, 8} x 51200 x 768
+    # kernel 3: int8 tied head at rows 1..16 x GPT-2's table (51200 x
+    # 768), two launches bit-identical; timed at rows 1, 8 and 16 with its
+    # head_plan (CTAs, the longest span of m16 tiles)
     v_pad = Q.round_up_vocab(V)
+    qt = Q.quantize_params({"wte": randn(V, D) * 0.02})["wte"]
     worst = 0.0
-    for rows in (1, 8):
+    for rows in range(1, Q.MAX_KERNEL_ROWS + 1):
         x = randn(rows, D, dtype=torch.bfloat16)
-        qt = Q.quantize_params({"wte": randn(V, D) * 0.02})["wte"]
         o_k = Q.quant_head(x, qt.q)
+        again = Q.quant_head(x, qt.q)
         o_p = Q.head_plain(x, qt.q)
         torch.cuda.synchronize()
         err = (o_k - o_p).abs().max().item()
         check(torch.allclose(o_k, o_p, atol=1e-3, rtol=1e-5),
               f"quant_head rows={rows}: max err {err}")
+        check(torch.equal(bits(o_k), bits(again)),
+              f"quant_head rows={rows}: two launches differ")
         worst = max(worst, err)
-        print(f"  quant_head rows={rows} {v_pad}x{D}  max_abs_err="
-              f"{err:.3e}  ok")
-    rows = 1
-    n = copies_for(v_pad * D)
-    sets = []
-    for _ in range(n):
-        qt = Q.quantize_params({"wte": randn(V, D) * 0.02})["wte"]
-        sets.append((randn(rows, D, dtype=torch.bfloat16), qt.q,
-                     qt.q.to(torch.bfloat16)))
-    calls = [(lambda s=s: Q.quant_head(s[0], s[1])) for s in sets]
-    plain = [(lambda s=s: Q.head_plain(s[0], s[1])) for s in sets]
-    lib = [(lambda s=s: torch.matmul(s[0], s[2].t())) for s in sets]
-    nbytes = rows * D * 2 + v_pad * D + rows * v_pad * 4
-    bms, by = bound_ms(nbytes, 2 * rows * D * v_pad, "bfloat16")
-    row = results["quant_head"] = dict(
-        shape=f"bf16 rows={rows} {v_pad}x{D} int8", max_abs_err=worst,
-        bound_ms=bms, bound_by=by)
-    timed(row, "ms", calls)
-    timed(row, "plain_ms", plain)
-    timed(row, "library_ms", lib)
-    del sets
+    print(f"  quant_head {v_pad}x{D} rows 1..16: worst max_abs_err "
+          f"{worst:.3e} (atol 1e-3, rtol 1e-5)  bit-identical  ok")
+    del qt
+    head_registers = quant_registers("quant_head_kernel")
+
+    def head_timing(rows):
+        sets = []
+        for _ in range(copies_for(v_pad * D)):
+            qt = Q.quantize_params({"wte": randn(V, D) * 0.02})["wte"]
+            sets.append((randn(rows, D, dtype=torch.bfloat16), qt.q,
+                         qt.q.to(torch.bfloat16)))
+        calls = [(lambda s=s: Q.quant_head(s[0], s[1])) for s in sets]
+        plain = [(lambda s=s: Q.head_plain(s[0], s[1])) for s in sets]
+        lib = [(lambda s=s: torch.matmul(s[0], s[2].t())) for s in sets]
+        nbytes = rows * D * 2 + v_pad * D + rows * v_pad * 4
+        bms, by = bound_ms(nbytes, 2 * rows * D * v_pad, "bfloat16")
+        ctas, span = Q.head_plan(rows, v_pad, D)
+        row = dict(shape=f"bf16 rows={rows} {v_pad}x{D} int8", bound_ms=bms,
+                   bound_by=by, ctas=ctas, tile_span=span,
+                   registers=head_registers.get((1 if rows <= 8 else 2,)))
+        timed(row, "ms", calls)
+        timed(row, "plain_ms", plain)
+        timed(row, "library_ms", lib)
+        return row
+
+    row = results["quant_head"] = dict(head_timing(1), max_abs_err=worst)
+    row["other_shapes"] = [head_timing(8), head_timing(16)]
     for name, res in results.items():
         for r in [res] + res.get("other_shapes", []):
             print(f"  {name}: {r['shape']}: device time per call: kernel "
@@ -441,7 +455,10 @@ def kernel_phase(results: dict) -> None:
                      if "cluster" in r else "")
                   + (f"; plan bn={r['bn']} split={r['split']} CTAs="
                      f"{r['ctas']}, {r['registers']} registers a thread"
-                     if "bn" in r else ""))
+                     if "bn" in r else "")
+                  + (f"; plan CTAs={r['ctas']} span {r['tile_span']} m16 "
+                     f"tiles, {r['registers']} registers a thread"
+                     if "tile_span" in r else ""))
     megakernel_phase(results, "gpt2")
     megakernel_phase(results, "llama")
 
@@ -675,22 +692,43 @@ def flash_bounds(B: int, S: int, dtype) -> dict:
     return out
 
 
-def event_ms(fn, reps: int = 7, inner: int = 4) -> float:
-    """Median device ms of ``fn`` called eagerly ``inner`` times between
-    two CUDA events (for calls that do not capture into a graph)."""
+def sdpa_backward_ms(sets, reps: int = 7, rounds: int = 4):
+    """SDPA's backward (``is_causal=True``; dq, dk and dv in one call),
+    timed as the kernels are: a forward of each input set ``(q, k, v,
+    do, ...)`` on a side stream, then the backward of every set captured
+    in one CUDA graph (``rounds`` passes) and replayed between CUDA
+    events. Returns the median device ms per backward over ``reps``
+    replays and the replays' ``(min, max)``."""
     import torch
-    fn()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        forwards = []
+        for s in sets:
+            leaves = tuple(x.detach().clone().requires_grad_() for x in s[:3])
+            forwards.append((sdpa(*leaves, is_causal=True), leaves, s[3]))
+
+        def backward():
+            for out, leaves, do in forwards:
+                torch.autograd.grad(out, leaves, do, retain_graph=True)
+        backward()  # warm-up, on the stream the backward will run on
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(rounds):
+            backward()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(inner):
-            fn()
+        graph.replay()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return statistics.median(times)
+        times.append(start.elapsed_time(end) / (rounds * len(sets)))
+    del graph, forwards
+    return statistics.median(times), (min(times), max(times))
 
 
 def flash_phase(results: dict) -> None:
@@ -700,7 +738,8 @@ def flash_phase(results: dict) -> None:
     bit-identical; then each kernel's device time at the training shape
     (bf16 [4, 12, 2048, 64]) beside its plain version's, the library
     yardstick's (SDPA with is_causal=True forward; its backward through
-    autograd, which computes dq, dk and dv together) and its bound."""
+    autograd, which computes dq, dk and dv together, ``sdpa_backward_ms``)
+    and its bound."""
     import torch
 
     from llm_sharding_demo_tpu_torch.ops import flash_attention as FA
@@ -783,10 +822,10 @@ def flash_phase(results: dict) -> None:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_fwd = [(lambda s=s: sdpa(s[0], s[1], s[2], is_causal=True))
                for s in sets]
-    q, k, v, do = (x.clone().requires_grad_() for x in sets[0][:4])
-    lib_out = sdpa(q, k, v, is_causal=True)
-    lib_bwd = event_ms(lambda: torch.autograd.grad(
-        lib_out, (q, k, v), do.detach(), retain_graph=True))
+    lib_bwd, (bwd_lo, bwd_hi) = sdpa_backward_ms(sets)
+    print(f"  SDPA backward (is_causal, dq, dk and dv in one call; CUDA-graph "
+          f"replay over {len(sets)} input sets): {lib_bwd:.4f} ms, replays "
+          f"{bwd_lo:.4f}-{bwd_hi:.4f} ms")
     for name, (kernel, plain) in calls.items():
         row = dict(shape=shape, max_abs_err=worst[name], **bounds[name])
         timed(row, "ms", kernel)
@@ -806,7 +845,7 @@ def flash_phase(results: dict) -> None:
               f"{row['flop'] / row['ms'] / 1e9:.0f} TFLOP/s); called from "
               f"Python: kernel "
               f"{row['call_ms']:.4f} ms, plain {row['call_plain_ms']:.4f} ms")
-    del sets, q, k, v, do, lib_out
+    del sets
     torch.cuda.empty_cache()
 
 
@@ -1281,21 +1320,25 @@ def kernel_name(mangled: str) -> str:
     ints = re.findall(r"Li(\d+)E", mangled)
     if names[1:2] == ["quant_linear_kernel"] and len(ints) == 2:
         names += [f"bn={ints[0]}", f"row_tiles={ints[1]}"]
+    if names[1:2] == ["quant_head_kernel"] and len(ints) == 1:
+        names.append(f"row_tiles={ints[0]}")
     return "::".join(names[1:]) or mangled
 
 
-def quant_linear_registers() -> dict:
-    """Registers a thread of each ``quant_linear_kernel`` instantiation,
-    ``{(bn, n8 tiles of activation rows): registers}``, from the quant
-    library's ``-Xptxas -v`` log (empty when the library was built by an
-    earlier process)."""
+def quant_registers(kernel: str) -> dict:
+    """Registers a thread of each instantiation of ``kernel``
+    (``quant_linear_kernel``: ``{(bn, n8 tiles of activation rows):
+    registers}``; ``quant_head_kernel``: ``{(n8 tiles,): registers}``),
+    from the quant library's ``-Xptxas -v`` log (empty when the library
+    was built by an earlier process)."""
     from llm_sharding_demo_tpu_torch.ops import cuda_build
     regs, key = {}, None
     for line in cuda_build.QUANT_LIB.build_log.splitlines():
         if "Function properties for" in line:
             name = line.split()[-1]
-            m = re.search(r"quant_linear_kernelILi(\d+)ELi(\d+)E", name)
-            key = (int(m.group(1)), int(m.group(2))) if m else None
+            m = re.search(kernel + r"((?:ILi\d+E|Li\d+E)+)", name)
+            key = (tuple(int(i) for i in re.findall(r"Li(\d+)E", m.group(1)))
+                   if m else None)
         elif key is not None and "registers" in line:
             m = re.search(r"Used (\d+) registers", line)
             if m:

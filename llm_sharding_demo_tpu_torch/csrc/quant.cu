@@ -46,16 +46,41 @@
 //   1/split of the tile's elements, every rank's partial sums in rank
 //   order through distributed shared memory, and scales and rounds once.
 //   No atomics: two launches give identical bits.
-// - head: a group of 16 lanes per vocab row; the grid holds as many
-//   blocks as are resident at once and the groups stride over the rows,
-//   so every SM streams to the end (a grid of whole 128-row tiles left a
-//   partial second wave). The group reads its row 256 contiguous bytes
-//   per load instruction, two rows' loads in flight, and adds its partial
-//   sums with 4 shuffles per activation row. It streams at about a third
-//   of the card's memory rate; staging four rows' loads in registers
-//   before using them measured slower (181 registers halved the resident
-//   warps), so what holds it back is still open. It keeps the
-//   activations (<= 16 rows) in shared memory as f32.
+// - head: at GPT-2's table (51200 x 768) it must stream 39.3 MB, 11.8 us
+//   at 3.35 TB/s; at 16 rows its 1.26 GFLOP would take ~19 us on the f32
+//   CUDA cores, so it too runs on the tensor cores. The table [V_pad, d]
+//   is mma.sync's row-major A operand as it lies (16 vocab rows by 16
+//   codes of the contraction), the activations the column-major B, so no
+//   byte transpose is needed. The grid is ops/quant.py::head_plan's: two
+//   CTAs on each SM (264; one per m16 tile of a smaller table), each
+//   taking a contiguous span of m16 tiles balanced to within one tile,
+//   all resident at once (the launch is refused otherwise), so the table
+//   streams in one wave with no tail of idle SMs. In each CTA a producer
+//   warp streams the span by TMA (the linear's tensor-map encode and ring
+//   helpers) in boxes of 16 vocab rows by 128 codes, swizzled over 128
+//   bytes (a row is 768 bytes, so unswizzled the 8 row groups of a
+//   fragment read would share banks), into 32 stages: 64 KB in flight a
+//   CTA, well above the ~24 KB an SM that 3.35 TB/s over ~1 us of latency
+//   asks. One CTA an SM measured 1.5x slower: its one producer thread
+//   could not issue the boxes fast enough (tools/head_sweep.py). Eight
+//   consumer warps each own whole tiles (warp w tiles w, w + 8, ... of
+//   the span) and four stages of their own (a stage is refilled only for
+//   the warp that released it, so no wait can pass on the parity of an
+//   earlier fill still in flight); the producer issues a round of eight
+//   tiles box column by box column, and each warp reads a box into
+//   registers and releases its stage at once. A lane reads 32 contiguous
+//   codes of vocab rows g and g + 8 and the 32 activations of the same
+//   contraction indices (the mma's k order is free as long as A and B
+//   agree), staged once in shared memory as bf16 and swizzled so those
+//   reads are conflict-free; each B fragment is read once per box, not
+//   once per vocab row. The 48 mmas of a tile accumulate in one f32 chain
+//   (the tensor cores' own f32 sums): within atol 1e-3, rtol 1e-5 of the
+//   f32 product, and faster than adding each mma's sum from a zero C
+//   with an ordinary add. The f32 logits are stored from the accumulator
+//   fragments (8 consecutive vocab rows a lane group, one 32-byte
+//   sector). It streams ~2.2 TB/s; what holds it there is not measured
+//   (more producers helped, a deeper ring or more warps did not). No
+//   atomics: two launches give identical bits.
 //
 // Both convert int8 codes to floats with a byte permute and one add in
 // place of the quarter-rate integer-to-float conversion. The activations
@@ -79,33 +104,23 @@ constexpr int kStep = 16;      // contraction rows of one mma step and box
 constexpr int kStages = 16;    // boxes in flight a CTA (32 KB at 128 columns)
 constexpr int kMaxSplit = 16;  // Hopper's largest (non-portable) cluster
 
-constexpr int kHeadThreads = 256;
-constexpr int kHeadLanes = 16;         // lanes sharing one vocab row
+constexpr int kHeadWarps = 8;                        // consumer warps
+constexpr int kHeadThreads = (kHeadWarps + 1) * 32;  // and one producer warp
+constexpr int kHeadTile = 16;    // vocab rows of an m16 tile and of a box
+constexpr int kHeadBoxK = 128;   // codes of the contraction in a box
+constexpr int kHeadBox = kHeadTile * kHeadBoxK;  // bytes of one stage
+constexpr int kHeadStages = 32;  // boxes in flight a CTA (64 KB)
+constexpr int kHeadWarpStages = kHeadStages / kHeadWarps;  // a warp's own
 
 using bf16 = __nv_bfloat16;
 
-// 16 int8 codes -> exact floats without the (quarter-rate) integer-to-
-// float conversion: flipping each byte's sign bit gives b + 128 as an
+// -- shared by both kernels ---------------------------------------------------
+
+// byte J % 4 of u as an exact float, u holding four int8 codes with
+// their sign bits flipped (w ^ 0x80808080), so without the (quarter-rate)
+// integer-to-float conversion: byte b of the word reads b + 128 as an
 // unsigned byte u, placed as the low mantissa byte of 2^23 (0x4B000000)
 // it reads as 2^23 + u, and subtracting 2^23 + 128 leaves b.
-__device__ __forceinline__ void unpack16(const int4& raw, float* out) {
-  const unsigned w[4] = {(unsigned)raw.x, (unsigned)raw.y, (unsigned)raw.z,
-                         (unsigned)raw.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const unsigned u = w[i] ^ 0x80808080u;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      out[4 * i + j] =
-          __int_as_float(__byte_perm(u, 0x4B000000u, 0x7440u + j)) -
-          8388736.0f;
-  }
-}
-
-// -- the linear ---------------------------------------------------------------
-
-// byte J % 4 of u (codes with their sign bits flipped, as in unpack16)
-// as an exact float
 template <int J>
 __device__ __forceinline__ float code_at(unsigned u) {
   return __int_as_float(__byte_perm(u, 0x4B000000u, 0x7440u + (J & 3))) -
@@ -160,8 +175,10 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
-// the [kStep rows, bn columns] int8 box at (column col, row row) of the
-// weights into shared memory, completing on bar
+// the int8 box at (column col, row row) of a 2-D tensor map (weight_map:
+// kStep rows by bn columns of the linear's [d, n], kHeadTile vocab rows
+// by kHeadBoxK codes of the head's [V_pad, d]) into shared memory,
+// completing on bar
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
                                          uint64_t* bar, int col, int row) {
   asm volatile(
@@ -171,6 +188,8 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "r"(row)
       : "memory");
 }
+
+// -- the linear ---------------------------------------------------------------
 
 // One lane's share of a warp step: the products of the step's 16
 // contraction rows by the lane's kLC = bn / 8 columns. Lane (g, t)
@@ -422,72 +441,192 @@ quant_linear_kernel(const __grid_constant__ CUtensorMap wmap,  // [d, n]
 
 // -- the tied head -----------------------------------------------------------
 
-// block kHeadThreads, dynamic shared memory rows * d floats; the grid is
-// what fits on the card at once, and the lane groups stride over the
-// vocab rows. A group of kHeadLanes lanes shares one vocab row at a time:
-// its lanes read consecutive 16-byte pieces of the row (256 contiguous
-// bytes per load instruction), then add their partial sums with
-// shuffles.
-__global__ void __launch_bounds__(kHeadThreads)
-quant_head_kernel(const bf16* __restrict__ x,    // [rows, d]
-                  const int8_t* __restrict__ q,  // [v, d]
-                  float* __restrict__ out,       // [rows, v]
-                  int rows, int d, int v) {
-  extern __shared__ __align__(16) float xs[];  // [rows][d]
-  for (int i = threadIdx.x; i < rows * d; i += kHeadThreads)
-    xs[i] = __bfloat162float(x[i]);
-  __syncthreads();
-  const int sub = threadIdx.x % kHeadLanes;
-  constexpr int kGroups = kHeadThreads / kHeadLanes;
-  const int groups = gridDim.x * kGroups;
-  const int group = blockIdx.x * kGroups + threadIdx.x / kHeadLanes;
-  const int iters = (v + groups - 1) / groups;
-#pragma unroll 2
-  for (int it = 0; it < iters; ++it) {
-    const int vr = group + it * groups;
-    // every lane runs every iteration (the shuffles below need the whole
-    // warp); a row past the table is read clamped and not written
-    const int8_t* qrow = q + (size_t)min(vr, v - 1) * d;
-    float acc[kMaxRows];
-#pragma unroll
-    for (int r = 0; r < kMaxRows; ++r) acc[r] = 0.f;
-#pragma unroll 4
-    for (int k = sub * 16; k < d; k += kHeadLanes * 16) {
-      float wf[16];
-      unpack16(__ldg(reinterpret_cast<const int4*>(qrow + k)), wf);
-#pragma unroll
-      for (int r = 0; r < kMaxRows; ++r) {
-        if (r < rows) {
-          const float4* xr = reinterpret_cast<const float4*>(xs + r * d + k);
-          float s = 0.f;
-#pragma unroll
-          for (int t = 0; t < 4; ++t) {
-            const float4 xv = xr[t];
-            s += xv.x * wf[4 * t] + xv.y * wf[4 * t + 1] +
-                 xv.z * wf[4 * t + 2] + xv.w * wf[4 * t + 3];
-          }
-          acc[r] += s;
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kMaxRows; ++r) {
-      if (r < rows) {
-        float s = acc[r];
-#pragma unroll
-        for (int o = kHeadLanes / 2; o > 0; o >>= 1)
-          s += __shfl_xor_sync(0xffffffffu, s, o);
-        if (sub == 0 && vr < v) out[(size_t)r * v + vr] = s;
-      }
-    }
-  }
+// Dynamic shared memory of a head launch: the ring of kHeadStages boxes,
+// the activations [8 * kNT rows][d] bf16 (rows past `rows` zero,
+// swizzled by head_x_chunk) and the ring's full and empty barriers.
+__host__ __device__ inline int head_smem_bytes(int d, int nt) {
+  return 1024 + kHeadStages * kHeadBox + 8 * nt * d * 2 +
+         2 * kHeadStages * 8;
 }
 
-cudaError_t ensure_smem(const void* kernel, size_t dynamic, size_t fixed) {
-  if (dynamic + fixed <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)dynamic);
+// Where 16-byte chunk c (0..15) of a 128-code block of activation row n
+// is stored within the block. A lane (g, t) reads chunks 4t..4t+3 of row
+// g: in each quarter warp (rows 2p, 2p+1, t = 0..3) the XORs spread one
+// read over the 8 chunk positions of 128 bytes, so no two lanes share a
+// bank.
+__device__ __forceinline__ int head_x_chunk(int n, int c) {
+  return c ^ ((c >> 3) << 1) ^ (n & 1);
+}
+
+// grid head_plan's CTAs (one wave), kHeadThreads threads (kHeadWarps
+// consumer warps, then the producer warp), dynamic shared memory
+// head_smem_bytes(d, kNT); the launch bounds keep the registers low
+// enough for head_plan's two CTAs an SM (HEAD_CTAS_PER_SM). CTA i owns
+// m16 tiles [i * tiles / ctas, (i + 1) * tiles / ctas) of the table
+// (ops/quant.py::head_span); kNT n8 tiles of activation rows.
+template <int kNT>
+__global__ void __launch_bounds__(kHeadThreads, 2)
+quant_head_kernel(const __grid_constant__ CUtensorMap qmap,  // [v, d]
+                  const bf16* __restrict__ x,  // [rows, d]
+                  float* __restrict__ out,     // [rows, v]
+                  int rows, int d, int v) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* xs = reinterpret_cast<bf16*>(ring + kHeadStages * kHeadBox);
+  uint64_t* full = reinterpret_cast<uint64_t*>(xs + 8 * kNT * d);
+  uint64_t* empty = full + kHeadStages;
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int kcs = d / kHeadBoxK;  // boxes a tile
+  const int tiles = v / kHeadTile;
+  const int lo = (int)((long long)blockIdx.x * tiles / gridDim.x);
+  const int hi = (int)((long long)(blockIdx.x + 1) * tiles / gridDim.x);
+  const int span = hi - lo;
+  const bool producer = warp == kHeadWarps;
+  const int boxes = span * kcs;
+
+  // The ring is kHeadWarps rings of kHeadWarpStages stages, one per
+  // consumer warp, so a stage is always refilled for the warp that has
+  // just released it (a warp's wait on its stage's next fill then cannot
+  // pass on the parity of a fill not yet landed). Warp w takes tile w of
+  // each round of kHeadWarps tiles of the span (the last round may hold
+  // fewer); its i-th box (round r, box column kc: i = r * kcs + kc) goes
+  // to its stage i % kHeadWarpStages. The producer issues a round's boxes
+  // box column by box column, so every warp has its next boxes in
+  // flight. issue() loads the box at the producer's position (round pr,
+  // column pkc, warp pw) and steps it on.
+  int pr = 0, pkc = 0, pw = 0, pnw = min(kHeadWarps, span);
+  auto issue = [&]() {
+    const int i = pr * kcs + pkc;
+    const int st = pw * kHeadWarpStages + i % kHeadWarpStages;
+    if (i >= kHeadWarpStages)
+      mbar_wait(&empty[st], ((i / kHeadWarpStages) & 1) ^ 1);
+    mbar_expect_tx(&full[st], kHeadBox);
+    tma_load(ring + st * kHeadBox, &qmap, &full[st], pkc * kHeadBoxK,
+             (lo + pr * kHeadWarps + pw) * kHeadTile);
+    if (++pw == pnw) {
+      pw = 0;
+      if (++pkc == kcs) {
+        pkc = 0;
+        ++pr;
+        pnw = min(kHeadWarps, span - pr * kHeadWarps);
+      }
+    }
+  };
+  int issued = 0;
+  if (producer) {
+    if (lane == 0) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&qmap)) : "memory");
+      for (int st = 0; st < kHeadStages; ++st) {
+        mbar_init(&full[st], 1);
+        mbar_init(&empty[st], 1);  // the warp that owns the stage
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      // the boxes that fill an empty stage are in flight while the
+      // activations are staged
+      for (; issued < boxes && pr * kcs + pkc < kHeadWarpStages; ++issued)
+        issue();
+    }
+  } else {
+    // the activations, 16 bytes a copy, into their swizzled chunks
+    const int vecs = d / 8;
+    for (int i = threadIdx.x; i < 8 * kNT * vecs; i += kHeadWarps * 32) {
+      const int r = i / vecs, q = i - r * vecs;
+      const uint4 val =
+          r < rows ? __ldg(reinterpret_cast<const uint4*>(x + (size_t)r * d +
+                                                          8 * q))
+                   : make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(xs + r * d + (q >> 4) * kHeadBoxK +
+                                8 * head_x_chunk(r, q & 15)) = val;
+    }
+  }
+  __syncthreads();
+
+  if (producer) {
+    // the rest, each once its warp has released the stage's last box
+    if (lane == 0)
+      for (; issued < boxes; ++issued) issue();
+    return;
+  }
+
+  for (int r = 0; r * kHeadWarps + warp < span; ++r) {
+    const int tile = lo + r * kHeadWarps + warp;
+    float acc[kNT][4];
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+    for (int kc = 0; kc < kcs; ++kc) {
+      const int ib = r * kcs + kc;  // this warp's ib-th box
+      const int st = warp * kHeadWarpStages + ib % kHeadWarpStages;
+      // B: activation row 8 nt + g at contraction 128 kc + 32 t + m, m =
+      // 0..31, as 16 bf16 pairs (word i holds m = 2i, 2i + 1)
+      uint32_t xb[kNT][16];
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        const int n = 8 * nt + g;
+        const bf16* xr = xs + n * d + kc * kHeadBoxK;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint4 val = *reinterpret_cast<const uint4*>(
+              xr + 8 * head_x_chunk(n, 4 * t + i));
+          xb[nt][4 * i] = val.x;
+          xb[nt][4 * i + 1] = val.y;
+          xb[nt][4 * i + 2] = val.z;
+          xb[nt][4 * i + 3] = val.w;
+        }
+      }
+      // A: codes 32 t + m of vocab rows g (h = 0) and g + 8 (h = 1) of
+      // the box, chunks 2t and 2t + 1 of the row through the swizzle
+      // (16-byte chunk c of row r stored at chunk c ^ (r % 8))
+      mbar_wait(&full[st], (ib / kHeadWarpStages) & 1);
+      const uint8_t* box = ring + st * kHeadBox;
+      unsigned u[2][8];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int row = g + 8 * h;
+          const uint4 val = *reinterpret_cast<const uint4*>(
+              box + row * kHeadBoxK + 16 * ((2 * t + c) ^ (row & 7)));
+          u[h][4 * c] = val.x ^ 0x80808080u;
+          u[h][4 * c + 1] = val.y ^ 0x80808080u;
+          u[h][4 * c + 2] = val.z ^ 0x80808080u;
+          u[h][4 * c + 3] = val.w ^ 0x80808080u;
+        }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);  // the box is in registers
+      // step j: the mma's k = 2t, 2t+1, 2t+8, 2t+9 are m = 4j .. 4j+3
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const unsigned a0 =
+            pack_bf16(code_at<0>(u[0][j]), code_at<1>(u[0][j]));
+        const unsigned a1 =
+            pack_bf16(code_at<0>(u[1][j]), code_at<1>(u[1][j]));
+        const unsigned a2 =
+            pack_bf16(code_at<2>(u[0][j]), code_at<3>(u[0][j]));
+        const unsigned a3 =
+            pack_bf16(code_at<2>(u[1][j]), code_at<3>(u[1][j]));
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt)
+          mma(acc[nt], a0, a1, a2, a3, xb[nt][2 * j], xb[nt][2 * j + 1]);
+      }
+    }
+    // c0, c1: vocab row g, activation rows 2t, 2t+1; c2, c3: vocab row
+    // g + 8
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = 8 * nt + 2 * t + (e & 1);
+        if (row < rows)
+          out[(size_t)row * v + tile * kHeadTile + g + 8 * (e >> 1)] =
+              acc[nt][e];
+      }
+  }
 }
 
 // cuTensorMapEncodeTiled, looked up through the runtime's entry-point
@@ -554,8 +693,10 @@ cudaError_t launch_linear_t(const CUtensorMap& wmap, const void* x,
   return cudaGetLastError();
 }
 
-// a 2-D map over the int8 [d, n] weights: boxes of kStep rows by bn
-// columns, swizzled across the box row (128 or 64 bytes)
+// a 2-D map over an int8 [d, n] matrix (the linear's weights, or the
+// head's [V_pad, d] table with d = V_pad and n = d): boxes of kStep rows
+// by bn columns, swizzled across the box row (128 or 64 bytes)
+static_assert(kStep == kHeadTile, "the head's boxes are weight_map's");
 cudaError_t weight_map(CUtensorMap* map, const void* w, int d, int n,
                        int bn) {
   const EncodeTiled encode = encode_tiled();
@@ -589,28 +730,40 @@ cudaError_t launch_linear(const void* x, const void* w, const void* scale,
                                             split, stream);
 }
 
-cudaError_t launch_head(const void* x, const void* q, void* out, int rows,
-                        int d, int v, cudaStream_t stream) {
-  const size_t smem = (size_t)rows * d * sizeof(float);
-  cudaError_t err = ensure_smem((const void*)quant_head_kernel, smem, 0);
-  if (err != cudaSuccess) return err;
-  // as many blocks as are resident at once (the rows are strided over
-  // them), so no partial second wave leaves most SMs idle
+template <int kNT>
+cudaError_t launch_head_t(const CUtensorMap& qmap, const void* x, void* out,
+                          int rows, int d, int v, int ctas,
+                          cudaStream_t stream) {
+  auto kernel = quant_head_kernel<kNT>;
+  static const cudaError_t allowed = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
+  if (allowed != cudaSuccess) return allowed;
+  const int smem = head_smem_bytes(d, kNT);
+  // the plan is one wave: every CTA resident at once, or the launch is
+  // refused
   int device = 0, sms = 0, per_sm = 0;
-  err = cudaGetDevice(&device);
+  cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, quant_head_kernel, kHeadThreads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kHeadThreads, smem);
   if (err != cudaSuccess) return err;
-  const int groups_per_block = kHeadThreads / kHeadLanes;
-  const int one_pass = (v + groups_per_block - 1) / groups_per_block;
-  const int blocks = max(1, min(sms * max(per_sm, 1), one_pass));
-  quant_head_kernel<<<blocks, kHeadThreads, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const int8_t*>(q),
-      static_cast<float*>(out), rows, d, v);
+  if (ctas > sms * per_sm) return cudaErrorInvalidConfiguration;
+  kernel<<<ctas, kHeadThreads, smem, stream>>>(
+      qmap, static_cast<const bf16*>(x), static_cast<float*>(out), rows, d,
+      v);
   return cudaGetLastError();
+}
+
+cudaError_t launch_head(const void* x, const void* q, void* out, int rows,
+                        int d, int v, int ctas, cudaStream_t stream) {
+  CUtensorMap qmap;
+  const cudaError_t err = weight_map(&qmap, q, v, d, kHeadBoxK);
+  if (err != cudaSuccess) return err;
+  return rows <= 8
+             ? launch_head_t<1>(qmap, x, out, rows, d, v, ctas, stream)
+             : launch_head_t<2>(qmap, x, out, rows, d, v, ctas, stream);
 }
 
 }  // namespace
@@ -636,13 +789,20 @@ int quant_linear_launch(const void* x, const void* w, const void* scale,
                             static_cast<cudaStream_t>(stream));
 }
 
-// x is bfloat16; out is float32 [rows, v]. Requires 1 <= rows <= 16 and
-// d % 16 == 0. Returns the cudaError_t.
+// x is bfloat16; out is float32 [rows, v]. ctas is
+// ops/quant.py::head_plan's. Requires 1 <= rows <= 16, d % 128 == 0,
+// v % 16 == 0, 1 <= ctas <= v / 16 all resident at once, the activations
+// within a block's shared memory, and x and q aligned to 16 bytes.
+// Returns the cudaError_t of the launch or of the table's tensor-map
+// encode (0 on success); allocates nothing.
 int quant_head_launch(const void* x, const void* q, void* out, int rows,
-                      int d, int v, void* stream) {
-  if (rows < 1 || rows > kMaxRows || d % 16 != 0)
+                      int d, int v, int ctas, void* stream) {
+  if (rows < 1 || rows > kMaxRows || d < kHeadBoxK || d % kHeadBoxK ||
+      v < kHeadTile || v % kHeadTile || ctas < 1 || ctas > v / kHeadTile ||
+      head_smem_bytes(d, rows <= 8 ? 1 : 2) > 227 * 1024 ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(q)) % 16)
     return (int)cudaErrorInvalidValue;
-  return (int)launch_head(x, q, out, rows, d, v,
+  return (int)launch_head(x, q, out, rows, d, v, ctas,
                           static_cast<cudaStream_t>(stream));
 }
 

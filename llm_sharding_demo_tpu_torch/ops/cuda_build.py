@@ -153,7 +153,7 @@ DECODE_ATTENTION_LIB = KernelLibrary(
 QUANT_LIB = KernelLibrary(
     "quant.cu",
     {"quant_linear_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-     "quant_head_launch": (_P, _P, _P, _I, _I, _I, _P)},
+     "quant_head_launch": (_P, _P, _P, _I, _I, _I, _I, _P)},
     "quant_error")
 DECODE_LAYER_LIB = KernelLibrary(
     "decode_layer.cu",

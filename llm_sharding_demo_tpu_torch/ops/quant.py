@@ -13,7 +13,8 @@ weights at decode shapes (<= 16 activation rows):
 
 - ``quant_linear`` replaces the TPU kernel ``_linear_kernel``; its grid
   comes from ``linear_plan``;
-- ``quant_head`` replaces the TPU kernel ``_head_kernel``.
+- ``quant_head`` replaces the TPU kernel ``_head_kernel``; its grid
+  comes from ``head_plan``.
 
 Each wrapper runs its plain PyTorch version (``linear_plain`` /
 ``head_plain``) only for CPU tensors; for a CUDA tensor it launches the
@@ -217,6 +218,39 @@ def quant_matmul(x: torch.Tensor, qleaf: QuantizedTensor,
 
 # -- kernel 3: tied LM head ---------------------------------------------------
 
+# The launch plan of the head kernel (csrc/quant.cu): the table's [V_pad,
+# d] rows go in m16 tiles of HEAD_TILE vocab rows, and each CTA streams a
+# contiguous span of them. HEAD_CTAS_PER_SM CTAs an SM, all resident at
+# once (the launch refuses a grid that is not), so the table streams in
+# one wave and no SM idles through a tail. Two CTAs an SM give each SM two
+# producer warps issuing boxes: one could not issue them fast enough
+# (tools/head_sweep.py).
+HEAD_TILE = 16         # vocab rows of a tensor-core tile and of a TMA box
+HEAD_BOX_K = 128       # contraction codes of a box (one 128-byte swizzle row)
+HEAD_CTAS_PER_SM = 2
+
+
+@functools.lru_cache(maxsize=None)  # called every launch; a model has few shapes
+def head_plan(rows: int, v: int, d: int) -> Tuple[int, int]:
+    """``(ctas, span)`` for ``[rows, d] x int8 [v, d]^T``:
+    ``HEAD_CTAS_PER_SM`` CTAs on each of ``LINEAR_SMS`` SMs, or one per
+    m16 tile of a table with fewer tiles; CTA i takes ``head_span(i, v //
+    HEAD_TILE, ctas)``, so the spans differ by at most one tile, and
+    ``span`` is the longest. ``rows`` and ``d`` leave the plan as it is:
+    the tensor cores take up to 16 rows at the cost of one, and every
+    tile streams all of d."""
+    del rows, d
+    tiles = v // HEAD_TILE
+    ctas = min(HEAD_CTAS_PER_SM * LINEAR_SMS, tiles)
+    return ctas, -(-tiles // ctas)
+
+
+def head_span(cta: int, tiles: int, ctas: int) -> Tuple[int, int]:
+    """The m16 tiles ``[lo, hi)`` that CTA ``cta`` of ``ctas`` takes, as
+    the kernel computes them."""
+    return cta * tiles // ctas, (cta + 1) * tiles // ctas
+
+
 def head_plain(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """Plain version of ``quant_head``: f32 ``x . q^T``."""
     return torch.matmul(x.float(), q.float().t())
@@ -224,7 +258,8 @@ def head_plain(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 
 def quant_head(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """[rows, d] x int8 [V_pad, d] (contract d) -> [rows, V_pad] f32. CPU
-    tensors take ``head_plain``; CUDA tensors (bf16) launch the kernel."""
+    tensors take ``head_plain``; CUDA tensors (bf16) launch the kernel
+    (``csrc/quant.cu``) on ``head_plan``'s grid."""
     if x.device.type == "cpu":
         return head_plain(x, q)
     if x.device.type != "cuda":
@@ -233,18 +268,21 @@ def quant_head(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     if q.dtype != torch.int8 or q.dim() != 2 or q.shape[1] != d:
         raise ValueError(f"quant_head: q must be int8 [V, {d}], got "
                          f"{q.dtype} {tuple(q.shape)}")
-    if not 1 <= rows <= MAX_KERNEL_ROWS or d % 16:
-        raise ValueError(f"quant_head: needs 1 <= rows <= "
-                         f"{MAX_KERNEL_ROWS} and d % 16 == 0, got rows="
-                         f"{rows} d={d}")
-    if rows * d * 4 > 227 * 1024:
-        raise ValueError(f"quant_head: {rows} x {d} f32 activations exceed "
-                         "a block's shared memory")
-    _check_same_cuda(x, q)
     v = q.shape[0]
+    if (not 1 <= rows <= MAX_KERNEL_ROWS or d % HEAD_BOX_K
+            or v % HEAD_TILE or not v):
+        raise ValueError(f"quant_head: needs 1 <= rows <= "
+                         f"{MAX_KERNEL_ROWS}, d % {HEAD_BOX_K} == 0 and V % "
+                         f"{HEAD_TILE} == 0, got rows={rows} d={d} V={v}")
+    _check_same_cuda(x, q)
+    if (x.data_ptr() | q.data_ptr()) % 16:
+        raise ValueError("quant_head: x and q must start on a 16-byte "
+                         "boundary (the kernel's vector and TMA loads)")
     out = torch.empty((rows, v), dtype=torch.float32, device=x.device)
+    ctas, _ = head_plan(rows, v, d)
     cb.QUANT_HEAD.launch(x.device, x.data_ptr(), q.data_ptr(),
-                         out.data_ptr(), rows, d, v, cb.stream_handle(x))
+                         out.data_ptr(), rows, d, v, ctas,
+                         cb.stream_handle(x))
     return out
 
 

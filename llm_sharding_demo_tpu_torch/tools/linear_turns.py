@@ -1,14 +1,15 @@
-"""Device time of the int8 linear kernel, alone or in turns with another tree.
+"""Device time of the int8 kernels, alone or in turns with another tree.
 
 Times ``quant_linear`` (``csrc/quant.cu``) at the projection shapes the
 served models give it, at one row and, for llama's untied head and
-GPT-2's c_fc, at 8 and 16 rows, beside the bf16 matmul on the
-dequantised weights (the yardstick; the port never calls it) and the
-card's bound for the same work (bytes over 3.35 TB/s or operations over
-989 TFLOP/s, the larger). Each time is the median device ms per call of
-calls captured in one CUDA graph and replayed between CUDA events, the
-inputs rotated over more than the 50 MB L2 so the weights stream from
-memory.
+GPT-2's c_fc, at 8 and 16 rows, and ``quant_head`` at GPT-2's tied head
+(the 51200 x 768 table) at 1, 8 and 16 rows, each beside the bf16
+matmul on the dequantised weights (the yardstick; the port never calls
+it) and the card's bound for the same work (bytes over 3.35 TB/s or
+operations over 989 TFLOP/s, the larger). Each time is the median
+device ms per call of calls captured in one CUDA graph and replayed
+between CUDA events, the inputs rotated over more than the 50 MB L2 so
+the weights stream from memory.
 
     python -m llm_sharding_demo_tpu_torch.tools.linear_turns
     python -m llm_sharding_demo_tpu_torch.tools.linear_turns --turns DIR
@@ -39,6 +40,8 @@ SHAPES = ((1, 768, 32000), (8, 768, 32000), (16, 768, 32000),
           (1, 768, 3072), (8, 768, 3072), (16, 768, 3072), (1, 768, 2304),
           (1, 768, 2048), (1, 768, 768), (1, 3072, 768), (1, 2048, 768),
           (1, 768, 256))
+# (rows, V_pad, d): GPT-2's tied head, its 50257 rows padded to 51200
+HEAD_SHAPES = ((1, 51200, 768), (8, 51200, 768), (16, 51200, 768))
 HBM_BYTES_PER_S, BF16_OPS_PER_S = 3.35e12, 989e12
 
 
@@ -111,6 +114,33 @@ def time_tree(tree: str) -> dict:
                  if plan is not None else ""), flush=True)
         del sets
         torch.cuda.empty_cache()
+    head_plan = getattr(Q, "head_plan", None)
+    for rows, v, d in HEAD_SHAPES:
+        sets = []
+        for _ in range(max(1, min(64, -(-(160 << 20) // (v * d))))):
+            q = torch.randint(-127, 128, (v, d), generator=g, device=dev,
+                              dtype=torch.int8)
+            sets.append((torch.randn(rows, d, generator=g, device=dev)
+                         .to(torch.bfloat16), q, q.to(torch.bfloat16)))
+        nbytes = rows * d * 2 + v * d + rows * v * 4
+        row = dict(kernel="quant_head", rows=rows, d=d, n=v,
+                   ms=device_ms([lambda s=s: Q.quant_head(s[0], s[1])
+                                 for s in sets]),
+                   matmul_ms=device_ms([lambda s=s: torch.matmul(s[0],
+                                                                 s[2].t())
+                                        for s in sets]),
+                   bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                                2 * rows * d * v / BF16_OPS_PER_S) * 1e3)
+        if head_plan is not None:
+            row["ctas"], row["span"] = head_plan(rows, v, d)
+        out.append(row)
+        print(f"{rows:2d} x head {v}x{d}: kernel {row['ms']:.4f} ms, bf16 "
+              f"matmul {row['matmul_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms"
+              + (f"; CTAs={row['ctas']} span={row['span']}"
+                 if head_plan is not None else ""), flush=True)
+        del sets
+        torch.cuda.empty_cache()
     return dict(tree=tree, shapes=out)
 
 
@@ -137,10 +167,14 @@ def turns(other: str) -> dict:
           "this plan")
     for k, row in enumerate(runs[1]["shapes"]):
         times = " / ".join(f"{r['shapes'][k]['ms']:.4f}" for r in runs)
-        print(f"{row['rows']:2d} x {row['d']}->{row['n']}: {times}; "
-              f"{row['matmul_ms']:.4f}; {row['bound_ms']:.4f}; "
-              f"bn={row.get('bn')} split={row.get('split')} "
-              f"CTAs={row.get('ctas')}")
+        head = row.get("kernel") == "quant_head"
+        print(f"{row['rows']:2d} x "
+              + (f"head {row['n']}x{row['d']}" if head
+                 else f"{row['d']}->{row['n']}")
+              + f": {times}; {row['matmul_ms']:.4f}; {row['bound_ms']:.4f}; "
+              + (f"CTAs={row.get('ctas')} span={row.get('span')}" if head
+                 else f"bn={row.get('bn')} split={row.get('split')} "
+                      f"CTAs={row.get('ctas')}"))
     return dict(turns=[r["tree"] for r in runs], runs=runs)
 
 

@@ -267,6 +267,93 @@ def test_quant_linear_check_catches_planted_fault(dev, tmp_path, monkeypatch,
     assert bad > lim
 
 
+def _quant_head_inputs(dev, seed):
+    """GPT-2's int8 tied head: the 50257 x 768 table padded to 51200 rows
+    (``head_plan``: 264 CTAs, spans of 12 and 13 m16 tiles), and
+    activations of rows 1..16."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    table = quant.quantize_params(
+        {"wte": torch.randn(50257, 768, generator=g, device=dev) * 0.02})
+    xs = [torch.randn(rows, 768, generator=g, device=dev).to(torch.bfloat16)
+          for rows in range(1, quant.MAX_KERNEL_ROWS + 1)]
+    return table["wte"].q, xs
+
+
+def test_quant_head_kernel_matches_plain_every_row_count(dev):
+    """The head at GPT-2's table and rows 1..16 (one and two n8 tiles of
+    activation rows) within atol 1e-3, rtol 1e-5 of the plain f32
+    product, one launch counted per call."""
+    q, xs = _quant_head_inputs(dev, 50257)
+    assert quant.head_plan(1, q.shape[0], 768) == (264, 13)
+    for x in xs:
+        n0 = cuda_build.launch_counts()["quant_head"]
+        got = quant.quant_head(x, q)
+        assert cuda_build.launch_counts()["quant_head"] == n0 + 1
+        torch.testing.assert_close(got, quant.head_plain(x, q), atol=1e-3,
+                                   rtol=1e-5, msg=lambda m: f"rows="
+                                   f"{x.shape[0]}: {m}")
+
+
+def test_quant_head_two_launches_bit_identical(dev):
+    """No atomics: each logit is one warp's sum in a fixed order, so two
+    launches on the same inputs give the same bits."""
+    q, xs = _quant_head_inputs(dev, 51200)
+    for x in xs:
+        a = quant.quant_head(x, q)
+        b = quant.quant_head(x, q)
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), \
+            x.shape[0]
+
+
+# faults planted in a copy of the int8 source's head kernel: (text,
+# replacement)
+QUANT_HEAD_PLANTED_FAULTS = {
+    # each CTA leaves out the last m16 tile of its span
+    "last_tile_dropped": ("const int span = hi - lo;",
+                          "const int span = hi - lo - 1;"),
+    # every box read from the ring's first stage
+    "box_stage_reused": ("const uint8_t* box = ring + st * kHeadBox;",
+                         "const uint8_t* box = ring;"),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(QUANT_HEAD_PLANTED_FAULTS))
+def test_quant_head_check_catches_planted_fault(dev, tmp_path, monkeypatch,
+                                                fault):
+    """The kernel-vs-plain check (atol 1e-3, rtol 1e-5) passes the head
+    and rejects a copy of its source with one planted fault, at GPT-2's
+    table and 16 rows. The sound output stays alive while the planted
+    kernel runs, so no unwritten logit can read it back. Prints the
+    largest error beyond the tolerance of each."""
+    text, planted = QUANT_HEAD_PLANTED_FAULTS[fault]
+    lib = cuda_build.QUANT_LIB
+    src = open(lib.source).read()
+    assert src.count(text) == 1
+    path = tmp_path / "quant.cu"
+    path.write_text(src.replace(text, planted))
+    faulty = cuda_build.KernelLibrary(os.fspath(path), lib.functions,
+                                      lib.error_fn)
+    q, xs = _quant_head_inputs(dev, 13)
+    x = xs[-1]
+    want = quant.head_plain(x, q)
+
+    def excess(got):
+        """The largest |got - want| beyond atol + rtol |want| (NaN counts
+        as infinite)."""
+        over = (got - want).abs() - (1e-3 + 1e-5 * want.abs())
+        return over.nan_to_num(nan=float("inf")).max().item()
+
+    sound_out = quant.quant_head(x, q)
+    sound = excess(sound_out)
+    assert sound <= 0
+    monkeypatch.setattr(cuda_build.QUANT_HEAD, "library", faulty)
+    bad = excess(quant.quant_head(x, q))
+    print(f"\n{fault}: largest error beyond the tolerance: sound {sound:.3e};"
+          f" planted {bad:.3e}")
+    assert bad > 0
+    del sound_out
+
+
 def test_layer_engine_matches_plain_engine_greedy(dev):
     cfg = gpt2.GPT2Config(vocab_size=211, n_positions=512, n_embd=128,
                           n_layer=2, n_head=2)
@@ -642,6 +729,8 @@ def _planted_cases():
             + [("decode_attention.cu", f, [t])
                for f, t in DECODE_ATTENTION_PLANTED_FAULTS.items()]
             + [("quant.cu", f, [t]) for f, t in QUANT_PLANTED_FAULTS.items()]
+            + [("quant.cu", f, [t])
+               for f, t in QUANT_HEAD_PLANTED_FAULTS.items()]
             + [("flash_attention.cu", f, t)
                for f, t in FLASH_PLANTED_FAULTS.items()])
 

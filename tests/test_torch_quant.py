@@ -1,12 +1,15 @@
-"""The int8 linear kernel's launch plan and summation order, on the CPU.
+"""The int8 kernels' launch plans and summation orders, on the CPU.
 
-``linear_plan`` gives the CUDA kernel (``csrc/quant.cu``) its grid; the
-kernel itself runs only on the card (``tests/test_torch_cuda.py``).
-Here the plan's rules are held at the eight projection shapes the two
-served models give the kernel, and the kernel's order of f32 sums
-(16-row steps per warp, warps in order, cluster ranks in order, one
-scale and rounding) is emulated and held against ``linear_plain`` and
-the JAX package's ``_pallas_linear`` (interpret mode) at 1e-5.
+``linear_plan`` and ``head_plan`` give the CUDA kernels (``csrc/quant.cu``)
+their grids; the kernels themselves run only on the card
+(``tests/test_torch_cuda.py``). Here the plans' rules are held at the
+shapes the two served models give the kernels (the linear's eight
+projections; the head's padded GPT-2 table and smaller ones), and each
+kernel's order of f32 sums is emulated and held against its plain
+version and the JAX package's Pallas kernel (interpret mode) at 1e-5:
+the linear's 16-row steps per warp, warps in order, cluster ranks in
+order, one scale and rounding; the head's 16-code tensor-core steps,
+each added into the running sum in turn.
 """
 
 import jax.numpy as jnp
@@ -126,3 +129,79 @@ def test_wrapper_refuses_what_the_kernel_cannot_take():
                        quant.linear_plain(x, q, s))
     with pytest.raises(ValueError, match="unsupported device"):
         quant.quant_linear(x.to("meta"), q.to("meta"), s.to("meta"))
+
+
+# -- the tied head --------------------------------------------------------------
+
+@pytest.mark.parametrize("rows", [1, 8, 16])
+@pytest.mark.parametrize("d", [128, 768])
+@pytest.mark.parametrize("v", [2048, 32768, 51200])
+def test_head_plan_rules(v, d, rows):
+    """Every m16 tile of the table lies in exactly one CTA's span, the
+    spans differ by at most one tile, and the grid is one wave: at most
+    ``HEAD_CTAS_PER_SM`` CTAs on each SM (the launch refuses a grid whose
+    CTAs are not all resident at once)."""
+    ctas, span = quant.head_plan(rows, v, d)
+    tiles = v // quant.HEAD_TILE
+    assert 1 <= ctas <= quant.HEAD_CTAS_PER_SM * quant.LINEAR_SMS
+    assert ctas <= tiles
+    covered = np.zeros(tiles, np.int64)
+    lengths = []
+    for cta in range(ctas):
+        lo, hi = quant.head_span(cta, tiles, ctas)
+        covered[lo:hi] += 1
+        lengths.append(hi - lo)
+    assert (covered == 1).all()
+    assert max(lengths) - min(lengths) <= 1 and min(lengths) >= 1
+    assert span == max(lengths)
+
+
+def test_head_plan_at_gpt2s_table():
+    """GPT-2's 50257 rows pad to 51200: 3200 m16 tiles over two CTAs on
+    each of 132 SMs, spans of 12 and 13 tiles (a grid of whole 128-row
+    tiles would be 400 CTAs, 3.03 waves of one CTA an SM)."""
+    v = quant.round_up_vocab(50257)
+    assert v == 51200
+    assert quant.head_plan(1, v, 768) == (264, 13)
+    spans = {quant.head_span(i, v // 16, 264)[1]
+             - quant.head_span(i, v // 16, 264)[0] for i in range(264)}
+    assert spans == {12, 13}
+
+
+def _head_kernel_order(x, q):
+    """``quant_head``'s sums in the kernel's order, in f32: for each box
+    of 128 codes and each of its eight tensor-core steps j, the 16-term
+    product over codes 32t + 4j + e (t, e = 0..3) of the box, added into
+    the running sum in turn."""
+    rows, d = x.shape
+    xf, qf = x.float(), q.float()
+    acc = torch.zeros(rows, q.shape[0])
+    for kc in range(0, d, quant.HEAD_BOX_K):
+        for j in range(8):
+            k = torch.tensor([kc + 32 * t + 4 * j + e for t in range(4)
+                              for e in range(4)])
+            acc = acc + xf[:, k] @ qf[:, k].t()
+    return acc
+
+
+@pytest.mark.parametrize("rows", [1, 8, 16])
+@pytest.mark.parametrize("d", [128, 384])
+def test_head_kernel_order_matches_plain_and_jax(d, rows):
+    """The tensor-core steps' order, f32, equals ``head_plain`` and the
+    JAX Pallas head (interpret mode, through ``head_logits``) at 1e-5 on
+    a 211-row table padded to 2048."""
+    rng = np.random.default_rng(rows * 7 + d)
+    h = rng.standard_normal((1, rows, d)).astype(np.float32)
+    wte = (0.05 * rng.standard_normal((211, d))).astype(np.float32)
+    tq = quant.quantize_params({"wte": torch.tensor(wte)},
+                               torch.float32)["wte"]
+    assert tq.q.shape == (2048, d)
+    hs = torch.tensor(h)[0] * tq.scale
+    got = _head_kernel_order(hs, tq.q)
+    np.testing.assert_allclose(got.numpy(), quant.head_plain(hs, tq.q).numpy(),
+                               atol=1e-5, rtol=1e-5)
+    jq = jquant.quantize_params({"wte": jnp.asarray(wte)}, jnp.float32)["wte"]
+    want = np.asarray(jquant.head_logits(jnp.asarray(h), jq,
+                                         force_pallas=True))[0]
+    np.testing.assert_allclose(got[:, :211].numpy(), want, atol=1e-5,
+                               rtol=1e-5)
