@@ -7,9 +7,10 @@ which must pass or the script exits non-zero:
 1. probe: the card's name, capability and power limit;
 2. build: every CUDA kernel of ``llm_sharding_demo_tpu_torch/csrc``,
    one nvcc per source, all started together, with each kernel's
-   registers, spills and shared memory; the bf16 flash forward's SASS
-   (``cuobjdump -sass``) must hold wgmma (HGMMA) and TMA loads (UTMALDG)
-   and no thread load from global memory (LDG);
+   registers, spills and shared memory; the SASS (``cuobjdump -sass``)
+   of the bf16 flash forward and of bf16 dK/dV must hold wgmma (HGMMA)
+   and TMA loads (UTMALDG) and no thread load from global memory (LDG),
+   each printed with its dynamic shared memory;
 3. kernels: each kernel's wrapper against its plain PyTorch version on
    the card, at the shapes the served paths give it (GPT-2 124M and
    llama-124m: decode attention with one and with three query heads per
@@ -845,6 +846,12 @@ def flash_phase(results: dict) -> None:
               f"{row['flop'] / row['ms'] / 1e9:.0f} TFLOP/s); called from "
               f"Python: kernel "
               f"{row['call_ms']:.4f} ms, plain {row['call_plain_ms']:.4f} ms")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = FA.dkv_plan(B * H, S, sms)
+    loads = [sum(FA.dkv_tile_cost(S, kt) for kt, _ in c) for c in plan]
+    print(f"  flash_bwd_dkv (bf16) work list: {sum(map(len, plan))} tiles of "
+          f"{FA.DKV_KEYS} keys on {len(plan)} CTAs, {min(loads)}-"
+          f"{max(loads)} q tiles of {FA.DKV_QUERIES} a CTA")
     del sets
     torch.cuda.empty_cache()
 
@@ -1366,19 +1373,25 @@ def find_cuobjdump() -> str:
     raise SmokeError("cuobjdump not found (CUDA toolkit or Triton)")
 
 
-def flash_forward_sass(lib_path: str) -> dict:
-    """Counts of HGMMA (wgmma), UTMALDG (TMA loads) and LDG (thread loads
-    from global memory) in the SASS of the bf16 flash forward
-    (``fwd_bf16``) of the built flash library."""
+FLASH_TMA_KERNELS = ("fwd_bf16", "dkv_bf16")  # wgmma fed by TMA rings
+
+
+def flash_sass(lib_path: str) -> dict:
+    """``{kernel: counts}`` of HGMMA (wgmma), UTMALDG (TMA loads) and LDG
+    (thread loads from global memory) in the SASS of each bf16 flash
+    kernel of ``FLASH_TMA_KERNELS`` (the forward, dK/dV) in the built
+    flash library."""
     out = subprocess.run([find_cuobjdump(), "-sass", lib_path],
                          capture_output=True, text=True, timeout=120)
     check(out.returncode == 0, f"cuobjdump failed: {out.stderr}")
-    counts = {"HGMMA": 0, "UTMALDG": 0, "LDG": 0}
-    inside = False
+    found = {k: {"HGMMA": 0, "UTMALDG": 0, "LDG": 0}
+             for k in FLASH_TMA_KERNELS}
+    counts = None
     for line in out.stdout.splitlines():
         if "Function :" in line:
-            inside = "fwd_bf16" in line
-        elif inside:
+            counts = next((found[k] for k in FLASH_TMA_KERNELS if k in line),
+                          None)
+        elif counts is not None:
             # "/*0b50*/  HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], ... ;
             # /* 0x... */": the instruction between the comments
             words = re.sub(r"/\*.*?\*/", " ", line).replace(";", " ").split()
@@ -1387,9 +1400,10 @@ def flash_forward_sass(lib_path: str) -> dict:
                 base = words[1].split(".")[0] if len(words) > 1 else ""
             if base in counts:
                 counts[base] += 1
-    check(any(counts[k] for k in ("HGMMA", "UTMALDG", "LDG")),
-          f"no fwd_bf16 function in the SASS of {lib_path}")
-    return counts
+    for k, counts in found.items():
+        check(any(counts.values()),
+              f"no {k} function in the SASS of {lib_path}")
+    return found
 
 
 def main() -> int:
@@ -1425,15 +1439,18 @@ def main() -> int:
             elif "registers" in line or "spill" in line:
                 print("   ", line.strip())
 
-    sass = flash_forward_sass(cuda_build.FLASH_ATTENTION_LIB.path)
-    smem = cuda_build.FLASH_ATTENTION_LIB.load().flash_fwd_smem_bytes()
-    print(f"  flash_fwd (bf16) SASS: {sass['HGMMA']} HGMMA (wgmma), "
-          f"{sass['UTMALDG']} UTMALDG (TMA tile loads), {sass['LDG']} LDG "
-          f"(thread loads from global memory); dynamic shared memory {smem} "
-          f"bytes a CTA")
-    check(sass["HGMMA"] > 0 and sass["UTMALDG"] > 0 and sass["LDG"] == 0,
-          f"the bf16 flash forward must issue wgmma and TMA loads and no "
-          f"thread loads from global memory: {sass}")
+    flash_lib = cuda_build.FLASH_ATTENTION_LIB
+    smem = {"fwd_bf16": flash_lib.load().flash_fwd_smem_bytes(),
+            "dkv_bf16": flash_lib.load().flash_dkv_smem_bytes()}
+    for kernel, counts in flash_sass(flash_lib.path).items():
+        print(f"  {kernel} SASS: {counts['HGMMA']} HGMMA (wgmma), "
+              f"{counts['UTMALDG']} UTMALDG (TMA tile loads), "
+              f"{counts['LDG']} LDG (thread loads from global memory); "
+              f"dynamic shared memory {smem[kernel]} bytes a CTA")
+        check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0
+              and counts["LDG"] == 0,
+              f"the bf16 flash kernel {kernel} must issue wgmma and TMA "
+              f"loads and no thread loads from global memory: {counts}")
 
     results: dict = {}
     if "kernels" in phases:

@@ -34,12 +34,18 @@
 //   wgmma (S = Q.K^T from shared memory, O += P.V with P from registers),
 //   the softmax in exp2 with the scale folded into one FMA, the mask on
 //   the diagonal tile only.
-// - bf16 dQ and dK/dV: one block of 4 warps per (b*h, 64-row tile); each
-//   warp owns 16 rows and runs mma.sync m16n8k16 bf16 tiles with f32
-//   accumulators. Q and dO (or K and V) fragments stay in registers for
-//   the whole loop; K/V (or Q/dO) tiles of 64 rows are staged in shared
-//   memory with a 144-byte row stride, so every fragment load is free of
-//   bank conflicts (wgmma and TMA are later work for them).
+// - bf16 dK/dV (dkv_bf16, below): the forward's shape turned around. One
+//   persistent CTA per SM walks (128-key block, b*h) tiles; the producer
+//   warpgroup loads each tile's K and V once and streams 64-row Q and dO
+//   tiles with their row statistics through a TMA ring; each consumer
+//   warpgroup owns 64 keys and runs the four products on wgmma m64n64k16
+//   (S^T and dP^T from shared memory, P^T.dO and dS^T.Q with P^T and dS^T
+//   from registers).
+// - bf16 dQ: one block of 4 warps per (b*h, 64-row tile); each warp owns
+//   16 rows and runs mma.sync m16n8k16 bf16 tiles with f32 accumulators.
+//   Q and dO fragments stay in registers for the whole loop; K/V tiles of
+//   64 rows are staged in shared memory with a 144-byte row stride, so
+//   every fragment load is free of bank conflicts.
 // - As in FlashAttention-2, P is rounded to bf16 before the P.V product
 //   and dS to bf16 before the dS.K and dS^T.Q products; l and every sum
 //   stay f32. The tests and chip_smoke.py hold the bf16 kernels to a
@@ -53,7 +59,8 @@
 //   end; tiles above the diagonal are never read. The mask j <= i, j < S
 //   inside a tile also covers a ragged last tile (rows past S load as
 //   zeros and are never written), so any S works. The bf16 forward's
-//   tiles are 128 rows, the other kernels' 64.
+//   tiles are 128 rows, bf16 dK/dV's 128 keys by 64 queries, the other
+//   kernels' 64.
 // - Each output element is written by exactly one thread and summed in a
 //   fixed order: no atomics, so two launches are bit-identical.
 // - Blocks with the most tiles start first (the forward and dQ grids run
@@ -293,74 +300,6 @@ __global__ void __launch_bounds__(kThreads) dq_bf16(Args p) {
              tg);
 }
 
-__global__ void __launch_bounds__(kThreads) dkv_bf16(Args p) {
-  __shared__ __align__(16) Tile T0, T1;
-  __shared__ float lse_s[kTile], dd_s[kTile];
-  const int S = p.S, bh = blockIdx.y;
-  const int kt = blockIdx.x, k0 = kt * kTile;
-  const int n_q = (S + kTile - 1) / kTile;
-  const size_t base = (size_t)bh * S * kHd;
-  const bf16* Q = static_cast<const bf16*>(p.q) + base;
-  const bf16* K = static_cast<const bf16*>(p.k) + base;
-  const bf16* V = static_cast<const bf16*>(p.v) + base;
-  const bf16* dO = static_cast<const bf16*>(p.dout) + base;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tg = lane & 3, wr = warp * 16;
-
-  load_tile(T0, K, k0, S);
-  load_tile(T1, V, k0, S);
-  __syncthreads();
-  uint32_t ka[4][4], va[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    frag_a(ka[kk], T0, wr, kk * 16, g, tg);
-    frag_a(va[kk], T1, wr, kk * 16, g, tg);
-  }
-  const int key[2] = {k0 + wr + g, k0 + wr + g + 8};
-  float dk[8][4], dv[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) dk[nt][c] = dv[nt][c] = 0.f;
-
-  for (int qt = kt; qt < n_q; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();
-    load_tile(T0, Q, q0, S);
-    load_tile(T1, dO, q0, S);
-    if (threadIdx.x < kTile) {
-      const int i = q0 + threadIdx.x;
-      lse_s[threadIdx.x] = i < S ? p.lse[(size_t)bh * S + i] : 0.f;
-      dd_s[threadIdx.x] = i < S ? p.delta[(size_t)bh * S + i] : 0.f;
-    }
-    __syncthreads();
-    // transposed scores: a warp's 16 keys against the tile's 64 queries
-    float pt[8][4], dpt[8][4];
-    rows_dot_tile(pt, ka, T0, g, tg);  // K . Q^T
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int r = c >> 1, ci = nt * 8 + 2 * tg + (c & 1), i = q0 + ci;
-        const bool ok = key[r] <= i && i < S;
-        pt[nt][c] = ok ? expf(pt[nt][c] * p.scale - lse_s[ci]) : 0.f;
-      }
-    c_times_tile(dv, pt, T1, g, tg);    // P^T (rounded to bf16) . dO
-    rows_dot_tile(dpt, va, T1, g, tg);  // V . dO^T
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int ci = nt * 8 + 2 * tg + (c & 1);
-        pt[nt][c] = pt[nt][c] * (dpt[nt][c] - dd_s[ci]);  // dS^T
-      }
-    c_times_tile(dk, pt, T0, g, tg);  // dS^T (rounded to bf16) . Q
-  }
-  store_rows(static_cast<bf16*>(p.dk) + base, dk, k0 + wr, p.scale, S, g,
-             tg);
-  store_rows(static_cast<bf16*>(p.dv) + base, dv, k0 + wr, 1.f, S, g, tg);
-}
-
 // -- bf16 forward: wgmma fed by a TMA ring ---------------------------------------
 //
 // One persistent CTA of three warpgroups per SM, walking (b*h, 128-row q
@@ -435,7 +374,8 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
-// rows [row, row + 128) of head bh into shared memory, completing on bar
+// the map's box of rows from row on of head bh into shared memory,
+// completing on bar
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
                                          uint64_t* bar, int row, int bh) {
   asm volatile(
@@ -443,6 +383,17 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0),
       "r"(row), "r"(bh)
+      : "memory");
+}
+
+// the box of a 1-D map from element x on into shared memory, completing
+// on bar
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int x) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x)
       : "memory");
 }
 
@@ -521,8 +472,32 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d (the 64 x 64 m64n64 accumulator) = (accumulate ? d : 0) + A . B^T
+// over 16 columns: A and B (64 rows each) K-major in shared memory
+__device__ __forceinline__ void wgmma_qk64(float (&d)[32], uint64_t a,
+                                           uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // d (the 64 x 64 m64n64 accumulator) += A . B over 16 positions: A (P,
-// bf16) from registers, B (V) MN-major in shared memory (transposed)
+// P^T or dS^T, bf16) from registers, B (V, dO or Q) MN-major in shared
+// memory (transposed)
 __device__ __forceinline__ void wgmma_pv(float (&d)[32],
                                          const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
@@ -771,6 +746,281 @@ fwd_bf16(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// -- bf16 dK/dV: wgmma fed by a TMA ring ------------------------------------------
+//
+// The forward's shape turned around: one persistent CTA of three
+// warpgroups per SM walks (128-key block, b*h) work tiles, the list
+// heaviest first (key block kt visits the q tiles from its diagonal to S,
+// so the lowest kt costs most) and taken by the grid back and forth (CTA
+// c takes positions c, 2G - 1 - c, 2G + c, ... of G CTAs), so the CTAs'
+// sums of work come out nearly equal. Warpgroup 0 is the producer: one
+// thread loads each work tile's K and V (128 rows each) once by TMA into
+// one of two buffers (the next tile's K/V load while this one's last q
+// tiles run), and streams 64-row Q and dO tiles, each with its 64 rows of
+// lse and D, through a ring of kDkvStages stages (a full mbarrier with
+// expect-tx bytes, an empty one with one arrival per consumer warp; the
+// ring is counted across work tiles). lse and D come through a 1-D map
+// over the flat [BH * S] array: a map over [BH, S] would need a row
+// stride of a multiple of 16 bytes, which S = 333 does not give. A box
+// must also start on a 16-byte boundary, so each stage's box starts at
+// the multiple of 4 elements at or before the tile's first row and holds
+// 4 more; the consumers skip (bh * S + q0) % 4 of them. A box past a
+// head's S reads the next head's first rows, which the mask drops.
+// Warpgroups 1 and 2 are the consumers, each owning 64 of the 128 keys;
+// per q tile (64 queries i), all products wgmma m64n64k16:
+//
+//   S^T  = K . Q^T   and   dP^T = V . dO^T   (both operands in shared
+//          memory, K-major), issued together, dP^T running under the exp
+//   P^T  = exp2(S^T * scale * log2(e) - lse_i * log2(e)), the mask
+//          key <= i < S only on the q tile that crosses this warpgroup's
+//          diagonal and on one that crosses S (a q tile wholly above the
+//          diagonal is skipped)
+//   dV  += P^T . dO  (P^T rounded to bf16 as the register A operand: the
+//          m64nN accumulator layout is the register-A fragment layout; dO
+//          MN-major, the transpose bit), running under dS^T
+//   dS^T = P^T * (dP^T - D_i), rounded to bf16
+//   dK  += dS^T . Q  (the same register-A form)
+//
+// then the stage goes back to the producer once both products have
+// completed. The epilogue writes dK * scale and dV as bf16 rows; each
+// element is written by one thread and every sum runs in a fixed order
+// (no atomics), so two launches are bit-identical. A consumer thread
+// holds dK, dV, S^T/P^T, dP^T (32 f32 each) and the two A operands (16
+// registers each); setmaxnreg moves registers from the producer to the
+// consumers.
+
+constexpr int kDkvBN = 128;  // keys of a work tile: two consumer warpgroups
+constexpr int kDkvBM = 64;   // queries of a ring stage
+constexpr int kDkvStages = 4;
+constexpr int kDkvStatBox = kDkvBM + 4;  // a 16-byte aligned row-stat box
+constexpr int kDkvStatPitch = 96;        // its slot: 384 bytes
+constexpr uint32_t kDkvKVBytes = kDkvBN * kHd * sizeof(bf16);  // 16 KB
+constexpr uint32_t kDkvStageBytes =
+    2 * kDkvBM * kHd * sizeof(bf16) + 2 * kDkvStatBox * sizeof(float);
+
+struct DkvSmem {  // every bf16 tile starts on a 1024-byte swizzle period
+  bf16 k[2][kDkvBN * kHd];
+  bf16 v[2][kDkvBN * kHd];
+  bf16 q[kDkvStages][kDkvBM * kHd];
+  bf16 dout[kDkvStages][kDkvBM * kHd];
+  float lse[kDkvStages][kDkvStatPitch];  // slots on 128-byte boundaries
+  float dd[kDkvStages][kDkvStatPitch];
+  uint64_t kv_full[2];
+  uint64_t kv_empty[2];
+  uint64_t full[kDkvStages];
+  uint64_t empty[kDkvStages];
+};
+constexpr int kDkvSmemBytes = sizeof(DkvSmem) + 1024;  // + alignment slack
+
+// the work tile of round n of this CTA: the grid walks the heaviest-first
+// list forwards on even rounds and backwards on odd ones
+__device__ __forceinline__ int dkv_tile(int n) {
+  return n * gridDim.x +
+         ((n & 1) ? (int)gridDim.x - 1 - (int)blockIdx.x : (int)blockIdx.x);
+}
+
+// grid: one persistent CTA per SM (at most the work-tile count); block
+// kFwdThreads; dynamic shared memory kDkvSmemBytes
+__global__ void __launch_bounds__(kFwdThreads, 1)
+dkv_bf16(const __grid_constant__ CUtensorMap tq,
+         const __grid_constant__ CUtensorMap tk,
+         const __grid_constant__ CUtensorMap tv,
+         const __grid_constant__ CUtensorMap tdo,
+         const __grid_constant__ CUtensorMap tlse,
+         const __grid_constant__ CUtensorMap tdd, bf16* __restrict__ dk_out,
+         bf16* __restrict__ dv_out, int S, int BH, float scale) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  DkvSmem& sm = *reinterpret_cast<DkvSmem*>(
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  const int nq = (S + kDkvBM - 1) / kDkvBM;
+  const int n_tiles = (S + kDkvBN - 1) / kDkvBN * BH;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&sm.kv_full[b], 1);
+      mbar_init(&sm.kv_empty[b], 8);  // one arrival per consumer warp
+    }
+#pragma unroll
+    for (int st = 0; st < kDkvStages; ++st) {
+      mbar_init(&sm.full[st], 1);
+      mbar_init(&sm.empty[st], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer warpgroup: one thread issues every copy. Work tile n uses
+    // K/V buffer n & 1; the ring's q tiles are counted across work tiles
+    // (it), and so are the stages and their phases.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int n = 0;; ++n) {
+        const int t = dkv_tile(n);
+        if (t >= n_tiles) break;
+        const int kt = t / BH, bh = t % BH, b = n & 1;
+        // the buffer's previous work tile has read K and V (the first
+        // two pass)
+        mbar_wait(&sm.kv_empty[b], ((n >> 1) & 1) ^ 1);
+        mbar_expect_tx(&sm.kv_full[b], 2 * kDkvKVBytes);
+        tma_load(sm.k[b], &tk, &sm.kv_full[b], kt * kDkvBN, bh);
+        tma_load(sm.v[b], &tv, &sm.kv_full[b], kt * kDkvBN, bh);
+        for (int qi = 2 * kt; qi < nq; ++qi, ++it) {
+          const int st = it % kDkvStages, q0 = qi * kDkvBM;
+          mbar_wait(&sm.empty[st], ((it / kDkvStages) & 1) ^ 1);
+          mbar_expect_tx(&sm.full[st], kDkvStageBytes);
+          tma_load(sm.q[st], &tq, &sm.full[st], q0, bh);
+          tma_load(sm.dout[st], &tdo, &sm.full[st], q0, bh);
+          const int x = (bh * S + q0) & ~3;  // a 16-byte boundary
+          tma_load_1d(sm.lse[st], &tlse, &sm.full[st], x);
+          tma_load_1d(sm.dd[st], &tdd, &sm.full[st], x);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int t0 = threadIdx.x - 128;
+    const int cw = t0 >> 7;  // consumer warpgroup: keys [64 cw, 64 cw + 64)
+    const int warp = (t0 >> 5) & 3, lane = t0 & 31;
+    const int g = lane >> 2, tg = lane & 3;
+    const float sl2 = scale * kLog2e;
+    // hand a barrier's slot back to the producer, once per warp
+    auto arrive = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    int it = 0;
+    for (int n = 0;; ++n) {
+      const int t = dkv_tile(n);
+      if (t >= n_tiles) break;
+      const int kt = t / BH, bh = t % BH, b = n & 1;
+      const int kb = kt * kDkvBN + 64 * cw;  // this warpgroup's first key
+      const int key[2] = {kb + 16 * warp + g, kb + 16 * warp + g + 8};
+      const uint64_t dka = sw128_desc(sm.k[b] + 64 * cw * kHd, 16, 1024);
+      const uint64_t dva = sw128_desc(sm.v[b] + 64 * cw * kHd, 16, 1024);
+      float dk[32], dv[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+      mbar_wait(&sm.kv_full[b], (n >> 1) & 1);
+
+      for (int qi = 2 * kt; qi < nq; ++qi, ++it) {
+        const int st = it % kDkvStages, q0 = qi * kDkvBM;
+        // waited for even when skipped below: a release before the fill
+        // would count toward the stage's previous phase, while the other
+        // warpgroup may still read it
+        mbar_wait(&sm.full[st], (it / kDkvStages) & 1);
+        if (q0 + kDkvBM <= kb) {  // every query before every key
+          arrive(&sm.empty[st]);
+          continue;
+        }
+        // S^T = K . Q^T and dP^T = V . dO^T: two groups
+        float s[32], dp[32];
+        const uint64_t dqk = sw128_desc(sm.q[st], 16, 1024);
+        const uint64_t ddk = sw128_desc(sm.dout[st], 16, 1024);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)  // +32 bytes per 16 head dims
+          wgmma_qk64(s, dka + 2 * kk, dqk + 2 * kk, kk);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_qk64(dp, dva + 2 * kk, ddk + 2 * kk, kk);
+        wgmma_commit();
+        wgmma_wait_one();  // S^T
+        fence_regs(s);
+
+        // P^T: row key[c >> 1], column (query) i = q0 + 8 j + 2 tg + (c & 1)
+        const int skip = (bh * S + q0) & 3;  // the box's rows before q0
+        const float* lse_s = sm.lse[st] + skip;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int ci = 8 * j + 2 * tg + (c & 1);
+            s[4 * j + c] = ex2(fmaf(s[4 * j + c], sl2, -lse_s[ci] * kLog2e));
+          }
+        if (q0 < kb + 64 || q0 + kDkvBM > S) {
+          // the q tile crosses this warpgroup's diagonal or S
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int r = c >> 1, i = q0 + 8 * j + 2 * tg + (c & 1);
+              const bool ok = key[r] <= i && i < S;
+              if (!ok) s[4 * j + c] = 0.f;
+            }
+        }
+        // dV += P^T . dO, P^T rounded to bf16: 16 queries per k step
+        uint32_t pa[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          pa[kk][0] = pack(s[8 * kk + 0], s[8 * kk + 1]);
+          pa[kk][1] = pack(s[8 * kk + 2], s[8 * kk + 3]);
+          pa[kk][2] = pack(s[8 * kk + 4], s[8 * kk + 5]);
+          pa[kk][3] = pack(s[8 * kk + 6], s[8 * kk + 7]);
+        }
+        const uint64_t dom = sw128_desc(sm.dout[st], 1024, 1024);
+        fence_regs(dv);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)  // +2048 bytes per 16 queries
+          wgmma_pv(dv, pa[kk], dom + 128 * kk);
+        wgmma_commit();
+        wgmma_wait_one();  // dP^T
+        fence_regs(dp);
+
+        // dS^T = P^T * (dP^T - D_i), then dK += dS^T . Q
+        const float* dd_s = sm.dd[st] + skip;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int ci = 8 * j + 2 * tg + (c & 1);
+            s[4 * j + c] = s[4 * j + c] * (dp[4 * j + c] - dd_s[ci]);
+          }
+        uint32_t da[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          da[kk][0] = pack(s[8 * kk + 0], s[8 * kk + 1]);
+          da[kk][1] = pack(s[8 * kk + 2], s[8 * kk + 3]);
+          da[kk][2] = pack(s[8 * kk + 4], s[8 * kk + 5]);
+          da[kk][3] = pack(s[8 * kk + 6], s[8 * kk + 7]);
+        }
+        const uint64_t dqm = sw128_desc(sm.q[st], 1024, 1024);
+        fence_regs(dk);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_pv(dk, da[kk], dqm + 128 * kk);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(dv);
+        fence_regs(dk);
+        fence_regs(pa);  // the two groups read pa and da until here
+        fence_regs(da);
+        arrive(&sm.empty[st]);
+      }
+      arrive(&sm.kv_empty[b]);  // the work tile's last read of K and V
+
+      const size_t base = (size_t)bh * S * kHd;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (key[r] >= S) continue;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const size_t at = base + (size_t)key[r] * kHd + 8 * j + 2 * tg;
+          *reinterpret_cast<__nv_bfloat162*>(dk_out + at) =
+              __floats2bfloat162_rn(dk[4 * j + 2 * r] * scale,
+                                    dk[4 * j + 2 * r + 1] * scale);
+          *reinterpret_cast<__nv_bfloat162*>(dv_out + at) =
+              __floats2bfloat162_rn(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
 // -- f32 kernels ----------------------------------------------------------------
 //
 // Two threads per row: thread half h owns head dims h, h + 2, ..., h + 62
@@ -982,15 +1232,16 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a 3-D map over a bf16 [BH, S, 64] tensor, boxes of 128 rows of one head,
-// 128-byte swizzle; rows past S load as zeros
-cudaError_t head_map(CUtensorMap* map, const void* base, int BH, int S) {
+// a 3-D map over a bf16 [BH, S, 64] tensor, boxes of `rows` rows of one
+// head, 128-byte swizzle; rows past S load as zeros
+cudaError_t head_map(CUtensorMap* map, const void* base, int BH, int S,
+                     int rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
   const cuuint64_t dims[3] = {(cuuint64_t)kHd, (cuuint64_t)S, (cuuint64_t)BH};
   const cuuint64_t strides[2] = {kHd * sizeof(bf16),
                                  (cuuint64_t)S * kHd * sizeof(bf16)};
-  const cuuint32_t box[3] = {(cuuint32_t)kHd, (cuuint32_t)kFwdBN, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)kHd, (cuuint32_t)rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
@@ -998,6 +1249,30 @@ cudaError_t head_map(CUtensorMap* map, const void* base, int BH, int S) {
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// a 1-D map over an f32 row statistic [BH * S] (lse or D), boxes of
+// kDkvStatBox elements; elements past BH * S load as zeros
+cudaError_t stats_map(CUtensorMap* map, const void* base, int BH, int S) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[1] = {(cuuint64_t)BH * (cuuint64_t)S};
+  const cuuint64_t strides[1] = {0};  // a rank-1 map has no stride
+  const cuuint32_t box[1] = {(cuuint32_t)kDkvStatBox};
+  const cuuint32_t elem[1] = {1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(base), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+cudaError_t sm_count(int* sms) {
+  int device;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
 }
 
 cudaError_t launch_fwd_bf16(const void* q, const void* k, const void* v,
@@ -1008,19 +1283,41 @@ cudaError_t launch_fwd_bf16(const void* q, const void* k, const void* v,
   if (allowed != cudaSuccess) return allowed;
   CUtensorMap tq, tk, tv;
   cudaError_t err;
-  if ((err = head_map(&tq, q, BH, S)) != cudaSuccess ||
-      (err = head_map(&tk, k, BH, S)) != cudaSuccess ||
-      (err = head_map(&tv, v, BH, S)) != cudaSuccess)
-    return err;
-  int device, sms;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    device)) != cudaSuccess)
+  int sms;
+  if ((err = head_map(&tq, q, BH, S, kFwdBM)) != cudaSuccess ||
+      (err = head_map(&tk, k, BH, S, kFwdBN)) != cudaSuccess ||
+      (err = head_map(&tv, v, BH, S, kFwdBN)) != cudaSuccess ||
+      (err = sm_count(&sms)) != cudaSuccess)
     return err;
   const int tiles = (S + kFwdBM - 1) / kFwdBM * BH;
   fwd_bf16<<<tiles < sms ? tiles : sms, kFwdThreads, kFwdSmemBytes,
              stream>>>(tq, tk, tv, static_cast<bf16*>(out),
                        static_cast<float*>(lse), S, BH, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, void* dk, void* dv, int BH,
+                            int S, float scale, cudaStream_t stream) {
+  static const cudaError_t allowed = cudaFuncSetAttribute(
+      dkv_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmemBytes);
+  if (allowed != cudaSuccess) return allowed;
+  CUtensorMap tq, tk, tv, tdo, tlse, tdd;
+  cudaError_t err;
+  int sms;
+  if ((err = head_map(&tq, q, BH, S, kDkvBM)) != cudaSuccess ||
+      (err = head_map(&tdo, dout, BH, S, kDkvBM)) != cudaSuccess ||
+      (err = head_map(&tk, k, BH, S, kDkvBN)) != cudaSuccess ||
+      (err = head_map(&tv, v, BH, S, kDkvBN)) != cudaSuccess ||
+      (err = stats_map(&tlse, lse, BH, S)) != cudaSuccess ||
+      (err = stats_map(&tdd, delta, BH, S)) != cudaSuccess ||
+      (err = sm_count(&sms)) != cudaSuccess)
+    return err;
+  const int tiles = (S + kDkvBN - 1) / kDkvBN * BH;
+  dkv_bf16<<<tiles < sms ? tiles : sms, kFwdThreads, kDkvSmemBytes,
+             stream>>>(tq, tk, tv, tdo, tlse, tdd, static_cast<bf16*>(dk),
+                       static_cast<bf16*>(dv), S, BH, scale);
   return cudaGetLastError();
 }
 
@@ -1067,21 +1364,22 @@ int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
                          void* dk, void* dv, int dtype, int BH, int S, int hd,
                          float scale, void* stream) {
   if (int e = check_args(dtype, BH, S, hd)) return e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return (int)launch_dkv_bf16(q, k, v, dout, lse, delta, dk, dv, BH, S,
+                                scale, s);
   Args a = {q, k, v, dout, static_cast<const float*>(lse),
             static_cast<const float*>(delta), nullptr, nullptr, nullptr, dk,
             dv, S, scale};
   const dim3 grid((S + kTile - 1) / kTile, BH);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    dkv_bf16<<<grid, kThreads, 0, s>>>(a);
-  else
-    dkv_f32<<<grid, kThreads, 0, s>>>(a);
+  dkv_f32<<<grid, kThreads, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 
-// the bf16 forward's dynamic shared memory a CTA (its ring, Q and the
-// barriers), for the build report
+// the bf16 forward's and dK/dV's dynamic shared memory a CTA (rings, the
+// tiles held for a whole work tile, the barriers), for the build report
 int flash_fwd_smem_bytes() { return kFwdSmemBytes; }
+int flash_dkv_smem_bytes() { return kDkvSmemBytes; }
 
 const char* flash_attention_error(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -171,7 +171,8 @@ FLASH_ATTENTION_LIB = KernelLibrary(
                              _P),
      "flash_bwd_dkv_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _F, _P),
-     "flash_fwd_smem_bytes": ()},
+     "flash_fwd_smem_bytes": (),
+     "flash_dkv_smem_bytes": ()},
     "flash_attention_error")
 LIBRARIES = (DECODE_ATTENTION_LIB, QUANT_LIB, DECODE_LAYER_LIB,
              FLASH_ATTENTION_LIB)

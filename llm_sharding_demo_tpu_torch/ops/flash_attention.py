@@ -21,13 +21,15 @@ normaliser is clamped at 1e-20.
 
 ``block_q``/``block_k`` keep the JAX signature: the plain versions tile
 by them as the JAX kernels do (``_pick_block``); the CUDA kernels pick
-Hopper tiles of their own (128 x 128 for the bf16 forward, 64 x 64
-else) and mask a ragged edge themselves.
+Hopper tiles of their own (128 x 128 for the bf16 forward, 128 keys by
+64 queries for bf16 dK/dV, 64 x 64 else) and mask a ragged edge
+themselves. ``dkv_plan`` spells out bf16 dK/dV's work list, which the
+kernel walks on the card.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -36,6 +38,34 @@ from .attention import causal_attention
 
 NEG_INF = -1e9
 KERNEL_HEAD_DIM = 64  # the CUDA kernels' head dim (every GPT-2 size)
+
+
+# bf16 dK/dV's tiles (``dkv_bf16`` in csrc/flash_attention.cu): a work
+# tile is 128 keys of one head, whose q tiles of 64 rows run from the key
+# block's diagonal to S
+DKV_KEYS, DKV_QUERIES = 128, 64
+
+
+def dkv_tile_cost(s: int, kt: int) -> int:
+    """The q tiles that bf16 dK/dV's key block ``kt`` visits at length
+    ``s``: from its diagonal to the last."""
+    return -(-s // DKV_QUERIES) - kt * DKV_KEYS // DKV_QUERIES
+
+
+def dkv_plan(bh: int, s: int, sms: int) -> List[List[Tuple[int, int]]]:
+    """bf16 dK/dV's work, CTA by CTA: ``min(tiles, sms)`` persistent CTAs,
+    each with the ``(key block, head)`` tiles it takes, in order. The
+    list runs heaviest first (key blocks in order, heads inner), and the
+    grid walks it forwards on even rounds and backwards on odd ones, so
+    round ``n`` gives CTA ``c`` position ``n * G + c`` or
+    ``n * G + G - 1 - c`` (``dkv_tile`` in the kernel)."""
+    tiles = -(-s // DKV_KEYS) * bh
+    ctas = min(tiles, sms)
+    plan: List[List[Tuple[int, int]]] = [[] for _ in range(ctas)]
+    for t in range(tiles):
+        n, c = divmod(t, ctas)
+        plan[c if n % 2 == 0 else ctas - 1 - c].append(divmod(t, bh))
+    return plan
 
 
 def _pick_block(s: int, block: int) -> int:

@@ -150,19 +150,27 @@ def smi() -> str:
                           text=True).stdout.strip()
 
 
-def turns(other: str) -> dict:
-    """``other``, this checkout, this checkout, ``other``: each timed in a
-    process of its own."""
+def run_turns(script: str, other: str) -> list:
+    """``script --tree T`` for T in ``other``, this checkout, this
+    checkout, ``other``, each in a process of its own; the JSON object
+    each prints last."""
     runs = []
     for i, tree in enumerate((other, HERE, HERE, other)):
         print(f"-- turn {i + 1}: {tree}", flush=True)
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--tree", tree], cwd=tree,
-                              capture_output=True, text=True, timeout=900)
+        proc = subprocess.run([sys.executable, script, "--tree", tree],
+                              cwd=tree, capture_output=True, text=True,
+                              timeout=900)
         print(proc.stdout, proc.stderr[-3000:], flush=True)
         if proc.returncode != 0:
             raise SystemExit(f"turn {i + 1} ({tree}) exit {proc.returncode}")
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    return runs
+
+
+def turns(other: str) -> dict:
+    """``other``, this checkout, this checkout, ``other``: each timed in a
+    process of its own."""
+    runs = run_turns(os.path.abspath(__file__), other)
     print("rows x d->n: other / this / this / other ms; bf16 matmul; bound; "
           "this plan")
     for k, row in enumerate(runs[1]["shapes"]):

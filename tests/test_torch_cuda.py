@@ -704,15 +704,23 @@ FLASH_PLANTED_FAULTS = {
     # D left out of dS = P * (dP - D)
     "delta_dropped": [("s[nt][c] = pr * (dp[nt][c] - dd[r]);",
                        "s[nt][c] = pr * dp[nt][c];"),
-                      ("pt[nt][c] = pt[nt][c] * (dpt[nt][c] - dd_s[ci]);",
-                       "pt[nt][c] = pt[nt][c] * dpt[nt][c];")],
+                      ("s[4 * j + c] = s[4 * j + c] * (dp[4 * j + c] - "
+                       "dd_s[ci]);",
+                       "s[4 * j + c] = s[4 * j + c] * dp[4 * j + c];")],
     # the forward's output accumulator not rescaled when the row max grows
     "rescale_dropped": [("o[4 * j + c] *= alpha[c >> 1];",
                          "o[4 * j + c] *= 1.f;")],
+    # bf16 dK/dV's second consumer warpgroup scores the first one's 64
+    # keys in place of its own
+    "warpgroup_keys_shared": [("sw128_desc(sm.k[b] + 64 * cw * kHd, 16, "
+                               "1024)", "sw128_desc(sm.k[b], 16, 1024)")],
 }
 # the faults that the bf16 forward (fwd_bf16) holds; delta_dropped is the
 # backward's alone (the forward has no D)
 FLASH_FORWARD_FAULTS = ("diagonal_dropped", "rescale_dropped")
+# the faults that bf16 dK/dV (dkv_bf16) holds
+FLASH_DKV_FAULTS = ("diagonal_dropped", "delta_dropped",
+                    "warpgroup_keys_shared")
 
 
 def _kernel_body(src, name):
@@ -741,15 +749,18 @@ def test_planted_fault_text_occurs_in_source(source, fault, edits):
     """Runs without a card: every planted fault's text still occurs in the
     current kernel source (once where the card test replaces it once), so
     a rewrite of a kernel cannot leave its planted-fault test vacuous;
-    the forward's faults reach the bf16 forward's own body."""
+    the forward's faults reach the bf16 forward's own body, and dK/dV's
+    the body of bf16 dK/dV."""
     src = open(os.path.join(cuda_build.CSRC_DIR, source)).read()
     for text, _ in edits:
         assert src.count(text) >= 1, (fault, text)
         if source != "flash_attention.cu":
             assert src.count(text) == 1, (fault, text)
-    if fault in FLASH_FORWARD_FAULTS:
-        body = _kernel_body(src, "fwd_bf16")
-        assert any(text in body for text, _ in edits), fault
+    for faults, kernel in ((FLASH_FORWARD_FAULTS, "fwd_bf16"),
+                           (FLASH_DKV_FAULTS, "dkv_bf16")):
+        if source == "flash_attention.cu" and fault in faults:
+            body = _kernel_body(src, kernel)
+            assert any(text in body for text, _ in edits), (fault, kernel)
 
 
 @pytest.mark.parametrize("fault", sorted(FLASH_PLANTED_FAULTS))

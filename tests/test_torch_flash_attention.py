@@ -151,6 +151,107 @@ def test_kernel_operand_checks():
         fa.flash_attention(q, q[:, :1], q)
 
 
+@pytest.mark.parametrize("bh,s", [(48, 2048), (12, 2048), (48, 4096),
+                                  (12, 4096), (24, 333), (1, 333)])
+def test_dkv_plan_covers_every_tile_once_heaviest_first(bh, s):
+    """bf16 dK/dV's work list (``dkv_plan``, the kernel's ``dkv_tile``):
+    every (key block, head) tile exactly once, on at most 132 CTAs; the
+    list runs heaviest first, each CTA takes one position a round, and
+    the walk back and forth keeps the CTAs' q-tile sums within one
+    heaviest tile of each other."""
+    sms = 132
+    plan = fa.dkv_plan(bh, s, sms)
+    n_kt = -(-s // fa.DKV_KEYS)
+    assert len(plan) == min(n_kt * bh, sms)
+    tiles = [tile for cta in plan for tile in cta]
+    assert sorted(tiles) == [(kt, h) for kt in range(n_kt)
+                             for h in range(bh)]
+    costs = [fa.dkv_tile_cost(s, kt) for kt in range(n_kt)]
+    assert costs == sorted(costs, reverse=True) and costs[-1] >= 1
+    for c, cta in enumerate(plan):
+        positions = [kt * bh + h for kt, h in cta]
+        assert [p // len(plan) for p in positions] == list(range(len(cta)))
+        assert all(p % len(plan) == (c if n % 2 == 0 else len(plan) - 1 - c)
+                   for n, p in enumerate(positions))
+    loads = [sum(costs[kt] for kt, _ in cta) for cta in plan]
+    assert max(loads) - min(loads) <= costs[0]
+
+
+def _emulate_dkv_bf16(q, k, v, do, lse, delta, round_bf16):
+    """bf16 dK/dV's tiling in f32 on the CPU, on flat ``[BH, S, 64]``
+    operands: each 128-key block split into two warpgroups of 64 keys,
+    q tiles of 64 rows from the key block's diagonal to S, a q tile wholly
+    before a warpgroup's keys skipped, the mask only on q tiles that
+    cross its diagonal or S, P^T in exp2 with the scale folded in, and
+    (with ``round_bf16``) P^T and dS^T rounded to bf16 before their
+    products."""
+    bh, s, hd = q.shape
+    scale, log2e = 1.0 / hd ** 0.5, 1.4426950408889634
+    rnd = ((lambda x: x.to(torch.bfloat16).float()) if round_bf16
+           else (lambda x: x))
+
+    def rows(x, r0, n=64):  # rows past S load as zeros
+        out = torch.zeros(bh, n, x.shape[-1])
+        part = x[:, r0:r0 + n]
+        out[:, :part.shape[1]] = part
+        return out
+
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for kt in range(-(-s // fa.DKV_KEYS)):
+        for cw in range(2):
+            kb = kt * fa.DKV_KEYS + 64 * cw
+            if kb >= s:
+                continue
+            kk, vv = rows(k, kb), rows(v, kb)
+            key = kb + torch.arange(64)[:, None]
+            acc_k, acc_v = torch.zeros(bh, 64, hd), torch.zeros(bh, 64, hd)
+            for qi in range(2 * kt, -(-s // fa.DKV_QUERIES)):
+                q0 = qi * fa.DKV_QUERIES
+                if q0 + 64 <= kb:
+                    continue
+                qt, dot = rows(q, q0), rows(do, q0)
+                ls, dd = rows(lse, q0).transpose(1, 2), rows(delta, q0)
+                p = torch.exp2(kk @ qt.transpose(1, 2) * (scale * log2e)
+                               - ls * log2e)
+                if q0 < kb + 64 or q0 + 64 > s:
+                    i = q0 + torch.arange(64)[None, :]
+                    p = torch.where((key <= i) & (i < s), p,
+                                    torch.zeros_like(p))
+                acc_v += rnd(p) @ dot
+                ds = p * (vv @ dot.transpose(1, 2) - dd.transpose(1, 2))
+                acc_k += rnd(ds) @ qt
+            n = min(64, s - kb)
+            dk[:, kb:kb + n] = (acc_k * scale)[:, :n]
+            dv[:, kb:kb + n] = acc_v[:, :n]
+    return dk, dv
+
+
+@pytest.mark.parametrize("round_bf16", [False, True])
+@pytest.mark.parametrize("s", [100, 333, 512])
+def test_dkv_tiling_emulated_matches_jax_kernel(s, round_bf16):
+    """bf16 dK/dV's tiles, skips and edge-only masks, emulated on the CPU,
+    against the JAX ``_backward_kernels`` (interpret mode): equal at the
+    f32 bar without the bf16 roundings, and within the bf16 kernels'
+    ``FLASH_POLICY`` with them. S = 100 leaves the second warpgroup of the
+    only key block partly past S; 333 ends inside a q tile."""
+    from llm_sharding_demo_tpu_torch.utils import graftnum
+    q, k, v, g = _arrays(s + 7, (1, 2, s, 64), 4)
+    jq, jk, jv, jg = map(jnp.asarray, (q, k, v, g))
+    jout, jlse = jfa._forward_kernel(jq, jk, jv, 512, 1024, True)
+    _, jdk, jdv = jfa._backward_kernels(jq, jk, jv, jout, jlse, jg, 512,
+                                        1024, True)
+    flat = [torch.tensor(x).reshape(2, s, 64) for x in (q, k, v, g)]
+    delta = fa.flash_delta(*_t(jout, g))
+    dk, dv = _emulate_dkv_bf16(*flat, torch.tensor(np.asarray(jlse)), delta,
+                               round_bf16)
+    for name, got, want in (("dk", dk, jdk), ("dv", dv, jdv)):
+        want = torch.tensor(np.asarray(want)).reshape(2, s, 64)
+        if round_bf16:
+            graftnum.compare_flash(name, got, want, torch.bfloat16)
+        else:
+            np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
 def test_gates_match_jax():
     for s in (1, 17, 1024, 1025, 2048, 2049, 4096, 4224):
         assert fa.flash_eligible(s) == jfa.flash_eligible(s)
