@@ -8,9 +8,9 @@ which must pass or the script exits non-zero:
 2. build: every CUDA kernel of ``llm_sharding_demo_tpu_torch/csrc``,
    one nvcc per source, all started together, with each kernel's
    registers, spills and shared memory; the SASS (``cuobjdump -sass``)
-   of the bf16 flash forward and of bf16 dK/dV must hold wgmma (HGMMA)
-   and TMA loads (UTMALDG) and no thread load from global memory (LDG),
-   each printed with its dynamic shared memory;
+   of the bf16 flash forward, of bf16 dQ and of bf16 dK/dV must hold
+   wgmma (HGMMA) and TMA loads (UTMALDG) and no thread load from global
+   memory (LDG), each printed with its dynamic shared memory;
 3. kernels: each kernel's wrapper against its plain PyTorch version on
    the card, at the shapes the served paths give it (GPT-2 124M and
    llama-124m: decode attention with one and with three query heads per
@@ -30,7 +30,7 @@ which must pass or the script exits non-zero:
    4096, a ragged S=333), bit-identical across launches, and timed at
    llama-124m's training shape beside their plain versions, SDPA (its
    backward captured in a CUDA graph and replayed, as the kernels are
-   timed) and their bounds;
+   timed) and their bounds, with the two backward kernels' work lists;
 4. engine: GPT-2 124M and llama-124m at full width (12 layers, seeded
    random weights), bf16 and int8, the per-layer kernel path ("layer")
    and the whole-stack kernel path ("mega") each held against the plain
@@ -847,11 +847,16 @@ def flash_phase(results: dict) -> None:
               f"Python: kernel "
               f"{row['call_ms']:.4f} ms, plain {row['call_plain_ms']:.4f} ms")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = FA.dkv_plan(B * H, S, sms)
-    loads = [sum(FA.dkv_tile_cost(S, kt) for kt, _ in c) for c in plan]
-    print(f"  flash_bwd_dkv (bf16) work list: {sum(map(len, plan))} tiles of "
-          f"{FA.DKV_KEYS} keys on {len(plan)} CTAs, {min(loads)}-"
-          f"{max(loads)} q tiles of {FA.DKV_QUERIES} a CTA")
+    for name, plan, cost, tile, step in (
+            ("flash_bwd_dq", FA.dq_plan, FA.dq_tile_cost,
+             f"{FA.DQ_ROWS} rows", f"k tiles of {FA.DQ_KEYS}"),
+            ("flash_bwd_dkv", FA.dkv_plan, FA.dkv_tile_cost,
+             f"{FA.DKV_KEYS} keys", f"q tiles of {FA.DKV_QUERIES}")):
+        ctas = plan(B * H, S, sms)
+        loads = [sum(cost(S, blk) for blk, _ in c) for c in ctas]
+        print(f"  {name} (bf16) work list: {sum(map(len, ctas))} tiles of "
+              f"{tile} on {len(ctas)} CTAs, {min(loads)}-{max(loads)} "
+              f"{step} a CTA")
     del sets
     torch.cuda.empty_cache()
 
@@ -1373,13 +1378,13 @@ def find_cuobjdump() -> str:
     raise SmokeError("cuobjdump not found (CUDA toolkit or Triton)")
 
 
-FLASH_TMA_KERNELS = ("fwd_bf16", "dkv_bf16")  # wgmma fed by TMA rings
+FLASH_TMA_KERNELS = ("fwd_bf16", "dq_bf16", "dkv_bf16")  # wgmma, TMA rings
 
 
 def flash_sass(lib_path: str) -> dict:
     """``{kernel: counts}`` of HGMMA (wgmma), UTMALDG (TMA loads) and LDG
     (thread loads from global memory) in the SASS of each bf16 flash
-    kernel of ``FLASH_TMA_KERNELS`` (the forward, dK/dV) in the built
+    kernel of ``FLASH_TMA_KERNELS`` (the forward, dQ, dK/dV) in the built
     flash library."""
     out = subprocess.run([find_cuobjdump(), "-sass", lib_path],
                          capture_output=True, text=True, timeout=120)
@@ -1441,6 +1446,7 @@ def main() -> int:
 
     flash_lib = cuda_build.FLASH_ATTENTION_LIB
     smem = {"fwd_bf16": flash_lib.load().flash_fwd_smem_bytes(),
+            "dq_bf16": flash_lib.load().flash_dq_smem_bytes(),
             "dkv_bf16": flash_lib.load().flash_dkv_smem_bytes()}
     for kernel, counts in flash_sass(flash_lib.path).items():
         print(f"  {kernel} SASS: {counts['HGMMA']} HGMMA (wgmma), "

@@ -41,11 +41,13 @@
 //   warpgroup owns 64 keys and runs the four products on wgmma m64n64k16
 //   (S^T and dP^T from shared memory, P^T.dO and dS^T.Q with P^T and dS^T
 //   from registers).
-// - bf16 dQ: one block of 4 warps per (b*h, 64-row tile); each warp owns
-//   16 rows and runs mma.sync m16n8k16 bf16 tiles with f32 accumulators.
-//   Q and dO fragments stay in registers for the whole loop; K/V tiles of
-//   64 rows are staged in shared memory with a 144-byte row stride, so
-//   every fragment load is free of bank conflicts.
+// - bf16 dQ (dq_bf16, below): dK/dV's machinery turned back to the rows.
+//   One persistent CTA per SM walks (128-row q block, b*h) tiles; the
+//   producer warpgroup loads each tile's Q and dO with their row
+//   statistics once and streams 64-key K and V tiles through a TMA ring;
+//   each consumer warpgroup owns 64 rows and runs the three products on
+//   wgmma m64n64k16 (S and dP from shared memory, dS.K with dS from
+//   registers), the dS.K of one k tile in flight under the next one's S.
 // - As in FlashAttention-2, P is rounded to bf16 before the P.V product
 //   and dS to bf16 before the dS.K and dS^T.Q products; l and every sum
 //   stay f32. The tests and chip_smoke.py hold the bf16 kernels to a
@@ -59,12 +61,13 @@
 //   end; tiles above the diagonal are never read. The mask j <= i, j < S
 //   inside a tile also covers a ragged last tile (rows past S load as
 //   zeros and are never written), so any S works. The bf16 forward's
-//   tiles are 128 rows, bf16 dK/dV's 128 keys by 64 queries, the other
-//   kernels' 64.
+//   tiles are 128 rows, bf16 dK/dV's 128 keys by 64 queries, bf16 dQ's
+//   128 rows by 64 keys, the f32 kernels' 64.
 // - Each output element is written by exactly one thread and summed in a
 //   fixed order: no atomics, so two launches are bit-identical.
 // - Blocks with the most tiles start first (the forward and dQ grids run
-//   the q tiles in reverse, dK/dV the k tiles in order).
+//   the q tiles in reverse, dK/dV the k tiles in order; bf16 dQ and dK/dV
+//   walk their lists back and forth).
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no libcuda link)
 #include <cuda_bf16.h>
@@ -76,7 +79,6 @@ namespace {
 constexpr int kHd = 64;        // head dim (every GPT-2 size, llama-124m)
 constexpr int kTile = 64;      // rows of a q tile and of a k tile
 constexpr int kThreads = 128;  // 4 warps
-constexpr int kPad = 72;       // bf16 shared-memory row stride (144 bytes)
 constexpr float kNegInf = -1e9f;  // the JAX kernel's NEG_INF
 
 typedef __nv_bfloat16 bf16;
@@ -97,24 +99,7 @@ struct Args {
   float scale;
 };
 
-// -- bf16 tensor-core helpers --------------------------------------------------
-
-// d += a . b for one m16n8k16 tile (bf16 inputs, f32 accumulators). Lane
-// (g = lane / 4, t = lane % 4) holds A rows g, g + 8 and columns 2t, 2t + 1,
-// 2t + 8, 2t + 9; B columns g and rows 2t, 2t + 1, 2t + 8, 2t + 9; C rows
-// g, g + 8 and columns 2t, 2t + 1.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+// -- bf16 helpers -----------------------------------------------------------------
 
 // two bf16 in one register, the first in the low half
 __device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
@@ -126,92 +111,6 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   return pack(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));
 }
 
-typedef bf16 Tile[kTile][kPad];
-
-// rows [row0, row0 + 64) of a [S, 64] matrix into shared memory, 16 bytes
-// a thread at a time; rows at or past S load as zeros
-__device__ __forceinline__ void load_tile(Tile& dst, const bf16* src,
-                                          int row0, int S) {
-  for (int i = threadIdx.x; i < kTile * (kHd / 8); i += kThreads) {
-    const int r = i / (kHd / 8), c = (i % (kHd / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * kHd +
-                                            c);
-    *reinterpret_cast<uint4*>(&dst[r][c]) = val;
-  }
-}
-
-// A fragment: rows [r0, r0 + 16), columns [c0, c0 + 16) of a tile
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const Tile& t,
-                                       int r0, int c0, int g, int tg) {
-  a[0] = ld32(&t[r0 + g][c0 + 2 * tg]);
-  a[1] = ld32(&t[r0 + g + 8][c0 + 2 * tg]);
-  a[2] = ld32(&t[r0 + g][c0 + 2 * tg + 8]);
-  a[3] = ld32(&t[r0 + g + 8][c0 + 2 * tg + 8]);
-}
-
-// B fragment with B[k][n] = t[n0 + n][k0 + k] (a tile row is a B column:
-// K for Q.K^T, V for dO.V^T, Q or dO for the transposed products)
-__device__ __forceinline__ void frag_b_rows(uint32_t& b0, uint32_t& b1,
-                                            const Tile& t, int n0, int k0,
-                                            int g, int tg) {
-  b0 = ld32(&t[n0 + g][k0 + 2 * tg]);
-  b1 = ld32(&t[n0 + g][k0 + 2 * tg + 8]);
-}
-
-// B fragment with B[k][n] = t[k0 + k][n0 + n] (the contraction runs down
-// the tile's rows: V for P.V, K for dS.K, dO for P^T.dO, Q for dS^T.Q)
-__device__ __forceinline__ void frag_b_cols(uint32_t& b0, uint32_t& b1,
-                                            const Tile& t, int k0, int n0,
-                                            int g, int tg) {
-  b0 = pack(t[k0 + 2 * tg][n0 + g], t[k0 + 2 * tg + 1][n0 + g]);
-  b1 = pack(t[k0 + 2 * tg + 8][n0 + g], t[k0 + 2 * tg + 9][n0 + g]);
-}
-
-// c[8][4] (a warp's 16 x 64 f32 result) as the A operand of the next
-// product, rounded to bf16: k step kk takes columns [16 kk, 16 kk + 16)
-__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c)[8][4],
-                                       int kk) {
-  a[0] = pack(c[2 * kk][0], c[2 * kk][1]);
-  a[1] = pack(c[2 * kk][2], c[2 * kk][3]);
-  a[2] = pack(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-  a[3] = pack(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-}
-
-// acc[8][4] = A (a warp's 16 x 64 in registers) . t^T over the 64 head dims
-__device__ __forceinline__ void rows_dot_tile(float (&acc)[8][4],
-                                              const uint32_t (&a)[4][4],
-                                              const Tile& t, int g, int tg) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t b0, b1;
-      frag_b_rows(b0, b1, t, nt * 8, kk * 16, g, tg);
-      mma(acc[nt], a[kk], b0, b1);
-    }
-  }
-}
-
-// acc[8][4] += c (16 x 64, rounded to bf16) . t (64 x 64)
-__device__ __forceinline__ void c_times_tile(float (&acc)[8][4],
-                                             const float (&c)[8][4],
-                                             const Tile& t, int g, int tg) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t a[4];
-    c_to_a(a, c, kk);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      uint32_t b0, b1;
-      frag_b_cols(b0, b1, t, kk * 16, nt * 8, g, tg);
-      mma(acc[nt], a, b0, b1);
-    }
-  }
-}
-
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -220,84 +119,6 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// a warp's 16 x 64 result (rows row0 + g and row0 + g + 8 of this lane),
-// times mul, as bf16 rows of dst
-__device__ __forceinline__ void store_rows(bf16* dst, const float (&c)[8][4],
-                                           int row0, float mul, int S, int g,
-                                           int tg) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + g + 8 * r;
-    if (row >= S) continue;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      __nv_bfloat162 v = __floats2bfloat162_rn(c[nt][2 * r] * mul,
-                                               c[nt][2 * r + 1] * mul);
-      *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)row * kHd + nt * 8 +
-                                         2 * tg) = v;
-    }
-  }
-}
-
-// -- bf16 kernels ---------------------------------------------------------------
-
-__global__ void __launch_bounds__(kThreads) dq_bf16(Args p) {
-  __shared__ __align__(16) Tile T0, T1;
-  const int S = p.S, bh = blockIdx.y;
-  const int qt = gridDim.x - 1 - blockIdx.x, q0 = qt * kTile;
-  const size_t base = (size_t)bh * S * kHd;
-  const bf16* Q = static_cast<const bf16*>(p.q) + base;
-  const bf16* K = static_cast<const bf16*>(p.k) + base;
-  const bf16* V = static_cast<const bf16*>(p.v) + base;
-  const bf16* dO = static_cast<const bf16*>(p.dout) + base;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tg = lane & 3, wr = warp * 16;
-
-  load_tile(T0, Q, q0, S);
-  load_tile(T1, dO, q0, S);
-  __syncthreads();
-  uint32_t qa[4][4], da[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    frag_a(qa[kk], T0, wr, kk * 16, g, tg);
-    frag_a(da[kk], T1, wr, kk * 16, g, tg);
-  }
-  const int row[2] = {q0 + wr + g, q0 + wr + g + 8};
-  float lse[2], dd[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    lse[r] = row[r] < S ? p.lse[(size_t)bh * S + row[r]] : 0.f;
-    dd[r] = row[r] < S ? p.delta[(size_t)bh * S + row[r]] : 0.f;
-  }
-  float acc[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    load_tile(T0, K, k0, S);
-    load_tile(T1, V, k0, S);
-    __syncthreads();
-    float s[8][4], dp[8][4];
-    rows_dot_tile(s, qa, T0, g, tg);   // Q . K^T
-    rows_dot_tile(dp, da, T1, g, tg);  // dO . V^T
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int r = c >> 1, col = k0 + nt * 8 + 2 * tg + (c & 1);
-        const bool ok = col <= row[r] && col < S;
-        const float pr = ok ? expf(s[nt][c] * p.scale - lse[r]) : 0.f;
-        s[nt][c] = pr * (dp[nt][c] - dd[r]);  // dS
-      }
-    c_times_tile(acc, s, T0, g, tg);  // dS (rounded to bf16) . K
-  }
-  store_rows(static_cast<bf16*>(p.dq) + base, acc, q0 + wr, p.scale, S, g,
-             tg);
 }
 
 // -- bf16 forward: wgmma fed by a TMA ring ---------------------------------------
@@ -813,7 +634,8 @@ struct DkvSmem {  // every bf16 tile starts on a 1024-byte swizzle period
 constexpr int kDkvSmemBytes = sizeof(DkvSmem) + 1024;  // + alignment slack
 
 // the work tile of round n of this CTA: the grid walks the heaviest-first
-// list forwards on even rounds and backwards on odd ones
+// list forwards on even rounds and backwards on odd ones (dK/dV's and
+// dQ's grids)
 __device__ __forceinline__ int dkv_tile(int n) {
   return n * gridDim.x +
          ((n & 1) ? (int)gridDim.x - 1 - (int)blockIdx.x : (int)blockIdx.x);
@@ -1016,6 +838,264 @@ dkv_bf16(const __grid_constant__ CUtensorMap tq,
           *reinterpret_cast<__nv_bfloat162*>(dv_out + at) =
               __floats2bfloat162_rn(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
         }
+      }
+    }
+  }
+}
+
+// -- bf16 dQ: wgmma fed by a TMA ring ----------------------------------------------
+//
+// dK/dV's machinery turned back to the rows: one persistent CTA of three
+// warpgroups per SM walks (128-row q block, b*h) work tiles, the list
+// heaviest first (q block nq - 1 - t / BH, head t % BH: block qb reads
+// the k tiles up to its diagonal, 2 qb + 2 of them) and taken by the grid
+// back and forth as dK/dV's is (dkv_tile). Warpgroup 0 is the producer:
+// one thread loads each work tile's Q and dO (128 rows each) with each
+// half's 64 rows of lse and D by TMA into one of two buffers (the next
+// work tile's rows load while this one's last k tiles run), and streams
+// 64-key K and V tiles through a ring of kDqStages stages (a full
+// mbarrier with expect-tx bytes, an empty one with one arrival per
+// consumer warp; the ring is counted across work tiles). lse and D come
+// through dK/dV's 1-D maps over the flat [BH * S] arrays, each box
+// starting at the multiple of 4 elements at or before its half's first
+// row (a TMA box starts on a 16-byte boundary). Warpgroups 1 and 2 are
+// the consumers, each owning 64 of the 128 rows; per k tile (64 keys j),
+// all products wgmma m64n64k16:
+//
+//   S  = Q . K^T   and   dP = dO . V^T   (both operands in shared memory,
+//        K-major), issued together, dP running under the exp
+//   P  = exp2(S * scale * log2(e) - lse_i * log2(e)), the mask j <= i only
+//        on the k tile that crosses this warpgroup's diagonal (for a row
+//        that is written, j <= i < S; rows past S are never written)
+//   dS = P * (dP - D_i), rounded to bf16
+//   dQ += dS . K  (dS as the register A operand: the m64nN accumulator
+//        layout is the register-A fragment layout; K MN-major, the
+//        transpose bit), left in flight under the next k tile's S and dP
+//
+// A stage goes back to the producer once the dS . K that reads it has
+// completed. The first warpgroup's rows end one k tile before the
+// second's: it waits for that tile's fill before it releases it (a
+// release before the fill would count toward the stage's previous phase
+// while the other warpgroup may still read it). The epilogue writes
+// dQ * scale as bf16 rows; each element is written by one thread and every
+// sum runs in a fixed order (no atomics), so two launches are
+// bit-identical. A consumer thread holds dQ, S/P, dP (32 f32 each) and dS
+// as the A operand (16 registers); setmaxnreg moves registers from the
+// producer to the consumers.
+
+constexpr int kDqBM = 128;  // q rows of a work tile: two consumer warpgroups
+constexpr int kDqBN = 64;   // keys of a ring stage
+constexpr int kDqStages = 4;
+constexpr uint32_t kDqRowsBytes =  // Q, dO and each half's lse and D boxes
+    2 * kDqBM * kHd * sizeof(bf16) + 4 * kDkvStatBox * sizeof(float);
+constexpr uint32_t kDqStageBytes = 2 * kDqBN * kHd * sizeof(bf16);  // K, V
+
+struct DqSmem {  // every bf16 tile starts on a 1024-byte swizzle period
+  bf16 q[2][kDqBM * kHd];
+  bf16 dout[2][kDqBM * kHd];
+  bf16 k[kDqStages][kDqBN * kHd];
+  bf16 v[kDqStages][kDqBN * kHd];
+  float lse[2][2][kDkvStatPitch];  // [buffer][half]: 128-byte slots
+  float dd[2][2][kDkvStatPitch];
+  uint64_t q_full[2];
+  uint64_t q_empty[2];
+  uint64_t full[kDqStages];
+  uint64_t empty[kDqStages];
+};
+constexpr int kDqSmemBytes = sizeof(DqSmem) + 1024;  // + alignment slack
+
+// grid: one persistent CTA per SM (at most the work-tile count); block
+// kFwdThreads; dynamic shared memory kDqSmemBytes
+__global__ void __launch_bounds__(kFwdThreads, 1)
+dq_bf16(const __grid_constant__ CUtensorMap tq,
+        const __grid_constant__ CUtensorMap tk,
+        const __grid_constant__ CUtensorMap tv,
+        const __grid_constant__ CUtensorMap tdo,
+        const __grid_constant__ CUtensorMap tlse,
+        const __grid_constant__ CUtensorMap tdd, bf16* __restrict__ dq_out,
+        int S, int BH, float scale) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  DqSmem& sm = *reinterpret_cast<DqSmem*>(
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  const int nq = (S + kDqBM - 1) / kDqBM;
+  const int nk = (S + kDqBN - 1) / kDqBN;
+  const int n_tiles = nq * BH;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&sm.q_full[b], 1);
+      mbar_init(&sm.q_empty[b], 8);  // one arrival per consumer warp
+    }
+#pragma unroll
+    for (int st = 0; st < kDqStages; ++st) {
+      mbar_init(&sm.full[st], 1);
+      mbar_init(&sm.empty[st], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer warpgroup: one thread issues every copy. Work tile n uses
+    // Q/dO buffer n & 1; the ring's k tiles are counted across work tiles
+    // (it), and so are the stages and their phases.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int n = 0;; ++n) {
+        const int t = dkv_tile(n);
+        if (t >= n_tiles) break;
+        const int qb = nq - 1 - t / BH, bh = t % BH, b = n & 1;
+        const int q0 = qb * kDqBM;
+        // the buffer's previous work tile has read Q and dO (the first
+        // two pass)
+        mbar_wait(&sm.q_empty[b], ((n >> 1) & 1) ^ 1);
+        mbar_expect_tx(&sm.q_full[b], kDqRowsBytes);
+        tma_load(sm.q[b], &tq, &sm.q_full[b], q0, bh);
+        tma_load(sm.dout[b], &tdo, &sm.q_full[b], q0, bh);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int x = (bh * S + q0 + 64 * h) & ~3;  // a 16-byte boundary
+          tma_load_1d(sm.lse[b][h], &tlse, &sm.q_full[b], x);
+          tma_load_1d(sm.dd[b][h], &tdd, &sm.q_full[b], x);
+        }
+        const int n_k = 2 * qb + 2 < nk ? 2 * qb + 2 : nk;
+        for (int kt = 0; kt < n_k; ++kt, ++it) {
+          const int st = it % kDqStages;
+          mbar_wait(&sm.empty[st], ((it / kDqStages) & 1) ^ 1);
+          mbar_expect_tx(&sm.full[st], kDqStageBytes);
+          tma_load(sm.k[st], &tk, &sm.full[st], kt * kDqBN, bh);
+          tma_load(sm.v[st], &tv, &sm.full[st], kt * kDqBN, bh);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int t0 = threadIdx.x - 128;
+    const int cw = t0 >> 7;  // consumer warpgroup: rows [64 cw, 64 cw + 64)
+    const int warp = (t0 >> 5) & 3, lane = t0 & 31;
+    const int g = lane >> 2, tg = lane & 3;
+    const float sl2 = scale * kLog2e;
+    // hand a barrier's slot back to the producer, once per warp
+    auto arrive = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    uint32_t da[4][4] = {};  // dS in bf16: the A operand of dS . K
+    int it = 0;
+    for (int n = 0;; ++n) {
+      const int t = dkv_tile(n);
+      if (t >= n_tiles) break;
+      const int qb = nq - 1 - t / BH, bh = t % BH, b = n & 1;
+      const int q0 = qb * kDqBM + 64 * cw;  // this warpgroup's first row
+      const int row[2] = {q0 + 16 * warp + g, q0 + 16 * warp + g + 8};
+      const int n_k = 2 * qb + 2 < nk ? 2 * qb + 2 : nk;
+      const int diag = 2 * qb + cw;  // the k tile on this warpgroup's diagonal
+      // the k tiles past the diagonal lie wholly above it
+      const int last = diag < n_k - 1 ? diag : n_k - 1;
+      const uint64_t dqa = sw128_desc(sm.q[b] + 64 * cw * kHd, 16, 1024);
+      const uint64_t doa = sw128_desc(sm.dout[b] + 64 * cw * kHd, 16, 1024);
+      float dq[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+      mbar_wait(&sm.q_full[b], (n >> 1) & 1);
+      // this thread's rows' -lse * log2(e) and D (the box's rows before
+      // q0 skipped)
+      const int skip = (bh * S + q0) & 3;
+      float nl[2], dd[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int ci = skip + 16 * warp + g + 8 * r;
+        nl[r] = -sm.lse[b][cw][ci] * kLog2e;
+        dd[r] = sm.dd[b][cw][ci];
+      }
+
+      for (int kt = 0; kt <= last; ++kt, ++it) {
+        const int st = it % kDqStages;
+        mbar_wait(&sm.full[st], (it / kDqStages) & 1);
+        // S = Q . K^T and dP = dO . V^T: two groups, behind the previous
+        // k tile's dS . K
+        float s[32], dp[32];
+        const uint64_t dkb = sw128_desc(sm.k[st], 16, 1024);
+        const uint64_t dvb = sw128_desc(sm.v[st], 16, 1024);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)  // +32 bytes per 16 head dims
+          wgmma_qk64(s, dqa + 2 * kk, dkb + 2 * kk, kk);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_qk64(dp, doa + 2 * kk, dvb + 2 * kk, kk);
+        wgmma_commit();
+        wgmma_wait_one();  // the previous dS . K, then S
+        fence_regs(s);
+        fence_regs(da);  // the previous dS . K read da until here
+        if (kt > 0) arrive(&sm.empty[(it - 1) % kDqStages]);
+
+        // P: row row[c >> 1], column (key) j = 64 kt + 8 jj + 2 tg + (c & 1)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            s[4 * jj + c] = ex2(fmaf(s[4 * jj + c], sl2, nl[c >> 1]));
+        if (kt == diag) {
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int r = c >> 1;
+              const int col = kt * kDqBN + 8 * jj + 2 * tg + (c & 1);
+              const bool ok = col <= row[r];
+              if (!ok) s[4 * jj + c] = 0.f;
+            }
+        }
+        wgmma_wait_all();  // dP
+        fence_regs(dp);
+        if (kt == last) arrive(&sm.q_empty[b]);  // the last read of Q and dO
+
+        // dS = P * (dP - D), then dQ += dS . K, left in flight
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            s[4 * jj + c] = s[4 * jj + c] * (dp[4 * jj + c] - dd[c >> 1]);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          da[kk][0] = pack(s[8 * kk + 0], s[8 * kk + 1]);
+          da[kk][1] = pack(s[8 * kk + 2], s[8 * kk + 3]);
+          da[kk][2] = pack(s[8 * kk + 4], s[8 * kk + 5]);
+          da[kk][3] = pack(s[8 * kk + 6], s[8 * kk + 7]);
+        }
+        const uint64_t dkm = sw128_desc(sm.k[st], 1024, 1024);
+        fence_regs(dq);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)  // +2048 bytes per 16 keys
+          wgmma_pv(dq, da[kk], dkm + 128 * kk);
+        wgmma_commit();
+      }
+      wgmma_wait_all();
+      fence_regs(dq);
+      fence_regs(da);
+      arrive(&sm.empty[(it - 1) % kDqStages]);
+      // a k tile wholly above the diagonal: waited for even so, then
+      // released
+      for (int kt = last + 1; kt < n_k; ++kt, ++it) {
+        const int st = it % kDqStages;
+        mbar_wait(&sm.full[st], (it / kDqStages) & 1);
+        arrive(&sm.empty[st]);
+      }
+
+      bf16* dst = dq_out + (size_t)bh * S * kHd;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (row[r] >= S) continue;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)row[r] * kHd +
+                                             8 * j + 2 * tg) =
+              __floats2bfloat162_rn(dq[4 * j + 2 * r] * scale,
+                                    dq[4 * j + 2 * r + 1] * scale);
       }
     }
   }
@@ -1321,6 +1401,30 @@ cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse,
+                           const void* delta, void* dq, int BH, int S,
+                           float scale, cudaStream_t stream) {
+  static const cudaError_t allowed = cudaFuncSetAttribute(
+      dq_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmemBytes);
+  if (allowed != cudaSuccess) return allowed;
+  CUtensorMap tq, tk, tv, tdo, tlse, tdd;
+  cudaError_t err;
+  int sms;
+  if ((err = head_map(&tq, q, BH, S, kDqBM)) != cudaSuccess ||
+      (err = head_map(&tdo, dout, BH, S, kDqBM)) != cudaSuccess ||
+      (err = head_map(&tk, k, BH, S, kDqBN)) != cudaSuccess ||
+      (err = head_map(&tv, v, BH, S, kDqBN)) != cudaSuccess ||
+      (err = stats_map(&tlse, lse, BH, S)) != cudaSuccess ||
+      (err = stats_map(&tdd, delta, BH, S)) != cudaSuccess ||
+      (err = sm_count(&sms)) != cudaSuccess)
+    return err;
+  const int tiles = (S + kDqBM - 1) / kDqBM * BH;
+  dq_bf16<<<tiles < sms ? tiles : sms, kFwdThreads, kDqSmemBytes, stream>>>(
+      tq, tk, tv, tdo, tlse, tdd, static_cast<bf16*>(dq), S, BH, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1347,15 +1451,14 @@ int flash_bwd_dq_launch(const void* q, const void* k, const void* v,
                         void* dq, int dtype, int BH, int S, int hd,
                         float scale, void* stream) {
   if (int e = check_args(dtype, BH, S, hd)) return e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return (int)launch_dq_bf16(q, k, v, dout, lse, delta, dq, BH, S, scale, s);
   Args a = {q, k, v, dout, static_cast<const float*>(lse),
             static_cast<const float*>(delta), nullptr, nullptr, dq, nullptr,
             nullptr, S, scale};
   const dim3 grid((S + kTile - 1) / kTile, BH);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    dq_bf16<<<grid, kThreads, 0, s>>>(a);
-  else
-    dq_f32<<<grid, kThreads, 0, s>>>(a);
+  dq_f32<<<grid, kThreads, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1376,9 +1479,11 @@ int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// the bf16 forward's and dK/dV's dynamic shared memory a CTA (rings, the
-// tiles held for a whole work tile, the barriers), for the build report
+// the bf16 forward's, dQ's and dK/dV's dynamic shared memory a CTA
+// (rings, the tiles held for a whole work tile, the barriers), for the
+// build report
 int flash_fwd_smem_bytes() { return kFwdSmemBytes; }
+int flash_dq_smem_bytes() { return kDqSmemBytes; }
 int flash_dkv_smem_bytes() { return kDkvSmemBytes; }
 
 const char* flash_attention_error(int code) {

@@ -172,6 +172,7 @@ FLASH_ATTENTION_LIB = KernelLibrary(
      "flash_bwd_dkv_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _F, _P),
      "flash_fwd_smem_bytes": (),
+     "flash_dq_smem_bytes": (),
      "flash_dkv_smem_bytes": ()},
     "flash_attention_error")
 LIBRARIES = (DECODE_ATTENTION_LIB, QUANT_LIB, DECODE_LAYER_LIB,

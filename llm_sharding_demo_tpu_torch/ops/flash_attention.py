@@ -22,9 +22,10 @@ normaliser is clamped at 1e-20.
 ``block_q``/``block_k`` keep the JAX signature: the plain versions tile
 by them as the JAX kernels do (``_pick_block``); the CUDA kernels pick
 Hopper tiles of their own (128 x 128 for the bf16 forward, 128 keys by
-64 queries for bf16 dK/dV, 64 x 64 else) and mask a ragged edge
-themselves. ``dkv_plan`` spells out bf16 dK/dV's work list, which the
-kernel walks on the card.
+64 queries for bf16 dK/dV, 128 rows by 64 keys for bf16 dQ, 64 x 64 for
+the f32 kernels) and mask a ragged edge themselves. ``dkv_plan`` and
+``dq_plan`` spell out the two bf16 backward kernels' work lists, which
+the kernels walk on the card.
 """
 
 from __future__ import annotations
@@ -44,6 +45,9 @@ KERNEL_HEAD_DIM = 64  # the CUDA kernels' head dim (every GPT-2 size)
 # tile is 128 keys of one head, whose q tiles of 64 rows run from the key
 # block's diagonal to S
 DKV_KEYS, DKV_QUERIES = 128, 64
+# bf16 dQ's tiles (``dq_bf16``): a work tile is 128 q rows of one head,
+# whose k tiles of 64 keys run from 0 to the block's diagonal
+DQ_ROWS, DQ_KEYS = 128, 64
 
 
 def dkv_tile_cost(s: int, kt: int) -> int:
@@ -52,20 +56,40 @@ def dkv_tile_cost(s: int, kt: int) -> int:
     return -(-s // DKV_QUERIES) - kt * DKV_KEYS // DKV_QUERIES
 
 
-def dkv_plan(bh: int, s: int, sms: int) -> List[List[Tuple[int, int]]]:
-    """bf16 dK/dV's work, CTA by CTA: ``min(tiles, sms)`` persistent CTAs,
-    each with the ``(key block, head)`` tiles it takes, in order. The
-    list runs heaviest first (key blocks in order, heads inner), and the
-    grid walks it forwards on even rounds and backwards on odd ones, so
-    round ``n`` gives CTA ``c`` position ``n * G + c`` or
-    ``n * G + G - 1 - c`` (``dkv_tile`` in the kernel)."""
-    tiles = -(-s // DKV_KEYS) * bh
+def dq_tile_cost(s: int, qb: int) -> int:
+    """The k tiles that bf16 dQ's q block ``qb`` streams at length ``s``:
+    up to its diagonal, and none wholly past S."""
+    return min((qb + 1) * DQ_ROWS // DQ_KEYS, -(-s // DQ_KEYS))
+
+
+def _walk(tiles: int, sms: int) -> List[List[int]]:
+    """The list positions that each of ``min(tiles, sms)`` persistent CTAs
+    takes, in order: the grid walks the list forwards on even rounds and
+    backwards on odd ones, so round ``n`` gives CTA ``c`` position
+    ``n * G + c`` or ``n * G + G - 1 - c`` (``dkv_tile`` in the kernels)."""
     ctas = min(tiles, sms)
-    plan: List[List[Tuple[int, int]]] = [[] for _ in range(ctas)]
+    plan: List[List[int]] = [[] for _ in range(ctas)]
     for t in range(tiles):
         n, c = divmod(t, ctas)
-        plan[c if n % 2 == 0 else ctas - 1 - c].append(divmod(t, bh))
+        plan[c if n % 2 == 0 else ctas - 1 - c].append(t)
     return plan
+
+
+def dkv_plan(bh: int, s: int, sms: int) -> List[List[Tuple[int, int]]]:
+    """bf16 dK/dV's work, CTA by CTA: the ``(key block, head)`` tiles that
+    each persistent CTA takes, in order (``_walk``). The list runs
+    heaviest first: key blocks in order, heads inner."""
+    return [[divmod(t, bh) for t in cta]
+            for cta in _walk(-(-s // DKV_KEYS) * bh, sms)]
+
+
+def dq_plan(bh: int, s: int, sms: int) -> List[List[Tuple[int, int]]]:
+    """bf16 dQ's work, CTA by CTA: the ``(q block, head)`` tiles that each
+    persistent CTA takes, in order (``_walk``). The list runs heaviest
+    first: q blocks from the last, heads inner."""
+    nq = -(-s // DQ_ROWS)
+    return [[(nq - 1 - t // bh, t % bh) for t in cta]
+            for cta in _walk(nq * bh, sms)]
 
 
 def _pick_block(s: int, block: int) -> int:

@@ -85,15 +85,19 @@ def time_tree(tree: str) -> dict:
           flush=True)
     result = dict(tree=tree, kernels=rows, sdpa_backward_ms=sdpa,
                   sdpa_backward_range=[lo, hi])
-    plan = getattr(FA, "dkv_plan", None)
-    if plan is not None:
-        ctas = plan(B * sm.H, S, torch.cuda.get_device_properties(
-            dev).multi_processor_count)
-        loads = [sum(FA.dkv_tile_cost(S, kt) for kt, _ in c) for c in ctas]
-        result["dkv_plan"] = dict(ctas=len(ctas), q_tiles_min=min(loads),
-                                  q_tiles_max=max(loads))
-        print(f"dK/dV plan: {len(ctas)} CTAs, {min(loads)}-{max(loads)} "
-              f"q tiles a CTA", flush=True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # the work lists of the backward kernels that have one in this tree
+    for kind, tiles in (("dkv", "q tiles"), ("dq", "k tiles")):
+        plan = getattr(FA, f"{kind}_plan", None)
+        if plan is None:
+            continue
+        cost = getattr(FA, f"{kind}_tile_cost")
+        loads = [sum(cost(S, blk) for blk, _ in c)
+                 for c in plan(B * sm.H, S, sms)]
+        result[f"{kind}_plan"] = dict(ctas=len(loads), tiles_min=min(loads),
+                                      tiles_max=max(loads))
+        print(f"{kind} plan: {len(loads)} CTAs, {min(loads)}-{max(loads)} "
+              f"{tiles} a CTA", flush=True)
     return result
 
 

@@ -702,8 +702,9 @@ FLASH_PLANTED_FAULTS = {
     "diagonal_dropped": [("col <= row[r]", "col < row[r]"),
                          ("key[r] <= i", "key[r] < i")],
     # D left out of dS = P * (dP - D)
-    "delta_dropped": [("s[nt][c] = pr * (dp[nt][c] - dd[r]);",
-                       "s[nt][c] = pr * dp[nt][c];"),
+    "delta_dropped": [("s[4 * jj + c] = s[4 * jj + c] * (dp[4 * jj + c] - "
+                       "dd[c >> 1]);",
+                       "s[4 * jj + c] = s[4 * jj + c] * dp[4 * jj + c];"),
                       ("s[4 * j + c] = s[4 * j + c] * (dp[4 * j + c] - "
                        "dd_s[ci]);",
                        "s[4 * j + c] = s[4 * j + c] * dp[4 * j + c];")],
@@ -714,6 +715,10 @@ FLASH_PLANTED_FAULTS = {
     # keys in place of its own
     "warpgroup_keys_shared": [("sw128_desc(sm.k[b] + 64 * cw * kHd, 16, "
                                "1024)", "sw128_desc(sm.k[b], 16, 1024)")],
+    # bf16 dQ's second consumer warpgroup scores the first one's 64 q rows
+    # in place of its own
+    "warpgroup_rows_shared": [("sw128_desc(sm.q[b] + 64 * cw * kHd, 16, "
+                               "1024)", "sw128_desc(sm.q[b], 16, 1024)")],
 }
 # the faults that the bf16 forward (fwd_bf16) holds; delta_dropped is the
 # backward's alone (the forward has no D)
@@ -721,6 +726,9 @@ FLASH_FORWARD_FAULTS = ("diagonal_dropped", "rescale_dropped")
 # the faults that bf16 dK/dV (dkv_bf16) holds
 FLASH_DKV_FAULTS = ("diagonal_dropped", "delta_dropped",
                     "warpgroup_keys_shared")
+# the faults that bf16 dQ (dq_bf16) holds
+FLASH_DQ_FAULTS = ("diagonal_dropped", "delta_dropped",
+                   "warpgroup_rows_shared")
 
 
 def _kernel_body(src, name):
@@ -749,14 +757,15 @@ def test_planted_fault_text_occurs_in_source(source, fault, edits):
     """Runs without a card: every planted fault's text still occurs in the
     current kernel source (once where the card test replaces it once), so
     a rewrite of a kernel cannot leave its planted-fault test vacuous;
-    the forward's faults reach the bf16 forward's own body, and dK/dV's
-    the body of bf16 dK/dV."""
+    the forward's faults reach the bf16 forward's own body, dQ's the body
+    of bf16 dQ, and dK/dV's the body of bf16 dK/dV."""
     src = open(os.path.join(cuda_build.CSRC_DIR, source)).read()
     for text, _ in edits:
         assert src.count(text) >= 1, (fault, text)
         if source != "flash_attention.cu":
             assert src.count(text) == 1, (fault, text)
     for faults, kernel in ((FLASH_FORWARD_FAULTS, "fwd_bf16"),
+                           (FLASH_DQ_FAULTS, "dq_bf16"),
                            (FLASH_DKV_FAULTS, "dkv_bf16")):
         if source == "flash_attention.cu" and fault in faults:
             body = _kernel_body(src, kernel)

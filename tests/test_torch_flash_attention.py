@@ -252,6 +252,104 @@ def test_dkv_tiling_emulated_matches_jax_kernel(s, round_bf16):
             np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
 
 
+@pytest.mark.parametrize("bh,s", [(48, 2048), (12, 2048), (48, 4096),
+                                  (12, 4096), (24, 333), (1, 333)])
+def test_dq_plan_covers_every_tile_once_heaviest_first(bh, s):
+    """bf16 dQ's work list (``dq_plan``, the kernel's ``dkv_tile`` walk):
+    every (q block, head) tile exactly once, on at most 132 CTAs; the list
+    runs heaviest first (q blocks from the last), each CTA takes one
+    position a round, and the CTAs' k-tile sums lie within one heaviest
+    tile of each other."""
+    sms = 132
+    plan = fa.dq_plan(bh, s, sms)
+    nq = -(-s // fa.DQ_ROWS)
+    assert len(plan) == min(nq * bh, sms)
+    tiles = [tile for cta in plan for tile in cta]
+    assert sorted(tiles) == [(qb, h) for qb in range(nq) for h in range(bh)]
+    costs = [fa.dq_tile_cost(s, nq - 1 - t // bh) for t in range(nq * bh)]
+    assert costs == sorted(costs, reverse=True) and costs[-1] >= 1
+    assert costs[0] == -(-s // fa.DQ_KEYS)  # the last block reaches S
+    for c, cta in enumerate(plan):
+        positions = [(nq - 1 - qb) * bh + h for qb, h in cta]
+        assert [p // len(plan) for p in positions] == list(range(len(cta)))
+        assert all(p % len(plan) == (c if n % 2 == 0 else len(plan) - 1 - c)
+                   for n, p in enumerate(positions))
+    loads = [sum(fa.dq_tile_cost(s, qb) for qb, _ in cta) for cta in plan]
+    assert max(loads) - min(loads) <= costs[0]
+
+
+def _emulate_dq_bf16(q, k, v, do, lse, delta, round_bf16):
+    """bf16 dQ's tiling in f32 on the CPU, on flat ``[BH, S, 64]``
+    operands: each 128-row q block split into two warpgroups of 64 rows,
+    k tiles of 64 keys up to the warpgroup's diagonal and none wholly past
+    S (the first warpgroup skips the block's last k tile), the mask only
+    on the k tile that crosses the diagonal, P in exp2 with the scale
+    folded in, and (with ``round_bf16``) dS rounded to bf16 before its
+    product."""
+    bh, s, hd = q.shape
+    scale, log2e = 1.0 / hd ** 0.5, 1.4426950408889634
+    rnd = ((lambda x: x.to(torch.bfloat16).float()) if round_bf16
+           else (lambda x: x))
+
+    def rows(x, r0, n=64):  # rows past S load as zeros
+        out = torch.zeros(bh, n, x.shape[-1])
+        part = x[:, r0:r0 + n]
+        out[:, :part.shape[1]] = part
+        return out
+
+    dq = torch.zeros_like(q)
+    for qb in range(-(-s // fa.DQ_ROWS)):
+        n_k = fa.dq_tile_cost(s, qb)
+        for cw in range(2):
+            q0 = qb * fa.DQ_ROWS + 64 * cw
+            if q0 >= s:
+                continue
+            qq, dd, dot = rows(q, q0), rows(delta, q0), rows(do, q0)
+            ls = rows(lse, q0)
+            row = q0 + torch.arange(64)[:, None]
+            diag = 2 * qb + cw
+            acc = torch.zeros(bh, 64, hd)
+            for kt in range(min(diag, n_k - 1) + 1):
+                kk, vv = rows(k, kt * fa.DQ_KEYS), rows(v, kt * fa.DQ_KEYS)
+                p = torch.exp2(qq @ kk.transpose(1, 2) * (scale * log2e)
+                               - ls * log2e)
+                if kt == diag:
+                    col = kt * fa.DQ_KEYS + torch.arange(64)[None, :]
+                    p = torch.where(col <= row, p, torch.zeros_like(p))
+                ds = p * (dot @ vv.transpose(1, 2) - dd)
+                acc += rnd(ds) @ kk
+            n = min(64, s - q0)
+            dq[:, q0:q0 + n] = (acc * scale)[:, :n]
+    return dq
+
+
+@pytest.mark.parametrize("round_bf16", [False, True])
+@pytest.mark.parametrize("s", [100, 300, 333, 512])
+def test_dq_tiling_emulated_matches_jax_kernel(s, round_bf16):
+    """bf16 dQ's tiles, skipped tile and diagonal-only mask, emulated on
+    the CPU, against the JAX ``_backward_kernels`` (interpret mode): equal
+    at the f32 bar without the bf16 rounding, and within the bf16
+    kernels' ``FLASH_POLICY`` with it. S = 100 leaves the second
+    warpgroup of the only q block partly past S; at 300 the last block's
+    second warpgroup lies wholly past S and its last k tile is never
+    streamed; 333 ends inside a k tile."""
+    from llm_sharding_demo_tpu_torch.utils import graftnum
+    q, k, v, g = _arrays(s + 11, (1, 2, s, 64), 4)
+    jq, jk, jv, jg = map(jnp.asarray, (q, k, v, g))
+    jout, jlse = jfa._forward_kernel(jq, jk, jv, 512, 1024, True)
+    jdq, _, _ = jfa._backward_kernels(jq, jk, jv, jout, jlse, jg, 512,
+                                      1024, True)
+    flat = [torch.tensor(x).reshape(2, s, 64) for x in (q, k, v, g)]
+    delta = fa.flash_delta(*_t(jout, g))
+    dq = _emulate_dq_bf16(*flat, torch.tensor(np.asarray(jlse)), delta,
+                          round_bf16)
+    want = torch.tensor(np.asarray(jdq)).reshape(2, s, 64)
+    if round_bf16:
+        graftnum.compare_flash("dq", dq, want, torch.bfloat16)
+    else:
+        np.testing.assert_allclose(dq.numpy(), want.numpy(), **TOL)
+
+
 def test_gates_match_jax():
     for s in (1, 17, 1024, 1025, 2048, 2049, 4096, 4224):
         assert fa.flash_eligible(s) == jfa.flash_eligible(s)
