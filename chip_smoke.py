@@ -19,9 +19,11 @@ which must pass or the script exits non-zero:
    shape printed with its ``linear_plan`` (column tile, split, CTAs) and
    registers a thread, the int8 tied head at GPT-2's table at rows 1..16,
    bit-identical, timed at rows 1, 8 and 16 with its ``head_plan`` (CTAs,
-   span) and registers, both whole-stack kernels; decode attention also at the
-   edges of its cluster split, with rows masked past whole spans or
-   entirely, B 1/8/16, two launches bit-identical), with each kernel's
+   span) and registers, both whole-stack kernels (each timed case printed
+   with its weight-ring plan: stages, stage bytes, shared memory);
+   decode attention also at the edges of its cluster split, with rows
+   masked past whole spans or entirely, B 1/8/16, two launches
+   bit-identical), with each kernel's
    time beside its plain version's, one library call's (for a
    whole-stack kernel: the per-layer kernel path's) and the card's lower
    bound for the same work (decode attention's cluster size with each);
@@ -598,6 +600,12 @@ def megakernel_phase(results: dict, family: str) -> None:
     runs = []
     for regime, layers, B, off in cases:
         n_l = layers.stop - layers.start
+        stages, stage_bytes, smem = DL.stage_plan(regime == "int8", B, D, kvw,
+                                                  inter, is_llama)
+        print(f"  {name} {regime} weights, {n_l} layers, B={B}, offset "
+              f"{off}: weight ring plan {stages} stages of {stage_bytes} "
+              f"bytes, {smem} bytes of dynamic shared memory beside "
+              f"{DL.static_smem_bytes(is_llama)} static")
         wbytes = weight_bytes(gpt2.map_params(lambda x: x[layers],
                                               stacks[regime]))
         sets = []
@@ -630,7 +638,8 @@ def megakernel_phase(results: dict, family: str) -> None:
         bms, by = bound_ms(nbytes, ops, "bfloat16")
         row = dict(shape=f"{regime} weights, {n_l} layers, B={B} D={D} "
                    f"H={H} Hkv={hkv} hd={HD} Smax={npos} offset={off}",
-                   bound_ms=bms, bound_by=by, weight_bytes=wbytes)
+                   bound_ms=bms, bound_by=by, weight_bytes=wbytes,
+                   stages=stages, stage_bytes=stage_bytes, smem_bytes=smem)
         timed(row, "ms", kernel)
         timed(row, "plain_ms", plains)
         timed(row, "layer_path_ms", per_layer)

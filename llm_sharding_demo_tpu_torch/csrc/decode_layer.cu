@@ -65,8 +65,7 @@
 //      every cache row read once for the group) over its span and leaves
 //      the span's softmax states (max, sum, 64 accumulators); the first
 //      span's block also leaves the self term's states and makes the one
-//      row write. Meanwhile every thread prefetches the weights of the
-//      layer's later phases into L2.
+//      row write.
 //   3. OUT: output projection tasks (32-row slices); each task first
 //      merges the softmax states of its 32 attention outputs in position
 //      order, the self term last.
@@ -81,11 +80,37 @@
 // every SM to work. The split sums are reduced in a fixed order by whoever
 // consumes them, never by float atomics, so two launches on the same
 // inputs give the same bits. Partials live in a workspace the wrapper
-// allocates. Weight tasks reuse the int8 linear's design (16-byte loads,
-// 16 int8 columns per thread, byte-permute int8 -> f32). Simple first:
-// each task has only a few loads in flight.
+// allocates.
+//
+// What holds it back is latency, not the rate: a weight task moves 4-32 KB,
+// less than one memory round trip of work for its SM, and each phase is a
+// chain of short steps between two grid barriers. The weight bytes are
+// taken off that chain, since they do not depend on the activations: a
+// block's weight slices for the whole launch are fixed by blockIdx.x and
+// the grid. For each layer, its QKV task's [kc x 128] slice, then OUT's,
+// FC's and PROJ's (a block with no task in a phase has no entry; more
+// tasks a block follow the task rule t += gridDim.x). One thread of each
+// block keeps the next slices of that sequence in flight with TMA
+// (cp.async.bulk.tensor, one 3-D tensor map per stacked weight, boxes of
+// 128 columns x rows x 1 layer) into a ring of 16 KB shared-memory stages,
+// each completing on its own mbarrier. An int8 slice takes one stage; a
+// bf16 one of 128 rows two, read in row order. The first fills are issued
+// at the kernel's start, so layer 0's q/k/v weights arrive under the first
+// norm; a slice's stages are filled again as soon as every thread has read
+// it, so the next slices stream under the current phase, its barrier,
+// attention and the residual phases. The number of stages is
+// ops/decode_layer.py::stage_plan's: what shared memory holds beside the
+// activations at two blocks an SM. No L2 prefetch runs besides: with the
+// ring's weights in flight, every thread prefetching the layer's later
+// weights at the end of attention only slowed attention
+// (tools/megakernel_sweep.py). A task reads its slice from the stage as it
+// read it from global memory before (16 bytes, 16 int8 or 8 bf16 columns
+// a thread, byte-permute int8 -> f32, each thread's rows in the same
+// order), so every sum keeps its order. The activations in shared memory
+// (xs) are bf16: every value they hold is a rounded bf16 value.
 
 #include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap and its enums (types only: no libcuda link)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -115,6 +140,18 @@ constexpr int kKcFc = 128;
 constexpr int kKcProj = 128;
 constexpr float kNegInf = -1e30f;
 constexpr int kNumWeights = 16;
+// the weight ring: stages of kStageBytes, at most kMaxStages, the first
+// kRingAlign-aligned in dynamic shared memory (the plan's smem_bytes
+// counts the slack)
+constexpr int kStageBytes = 16384;
+constexpr int kMaxStages = 8;
+constexpr int kRingAlign = 128;
+constexpr int kWeightPhases = 4;   // QKV, OUT, FC, PROJ
+// the most boxes one block reads in a layer (the launch refuses more)
+constexpr int kMaxLayerBoxes = 32;
+// stacked weights with a tensor map: GPT-2 c_attn, attn c_proj, c_fc,
+// mlp c_proj; llama wq, wk, wv, wo, gate, up, down
+constexpr int kMaxMaps = 7;
 
 // The two families. kMaxG: query heads one attention item carries (GPT-2
 // has one per kv head).
@@ -127,7 +164,12 @@ struct Llama {
   static constexpr int kMaxG = 4;
 };
 
-struct Params {
+// a kernel parameter (__grid_constant__): the tensor maps must sit on 64
+// bytes
+struct alignas(64) Params {
+  // one 3-D map per stacked weight ([L, K, N], boxes of kTile columns x
+  // the phase's slice rows (at most a stage) x 1 layer), kMaxMaps order
+  CUtensorMap maps[kMaxMaps];
   // operands in the JAX kernel's order; scales are null for bf16 weights.
   // GPT-2: ln1 s/b, qkv w/s/b, out w/s/b, ln2 s/b, fc w/s/b, proj w/s/b.
   // llama: ln_attn s, wq w/s, wk w/s, wv w/s, wo w/s, ln_mlp s, gate w/s,
@@ -141,6 +183,7 @@ struct Params {
   const float* sin;
   float* ws;
   int L, B, H, Hkv, D, I, Smax, off;
+  int stages;              // the weight ring's (stage_plan)
   float eps;
 };
 
@@ -281,26 +324,224 @@ struct Unpack<bf16> {
   }
 };
 
-// One weight task: rows [k0, k0 + kc) of a [K, ldw] layer weight times the
-// activations xs (shared memory, row b at xs[b * ldx], already offset to
-// k0), columns [col0, col0 + kTile). Writes the f32 partial sums to
-// part[b * ldp + pcol0 + c] (this split's slice of the workspace, whose
-// rows may hold several weights' outputs side by side). The order of
-// every sum is fixed.
+// -- the weight ring -----------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// wait until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// the box at (column col, row row, layer layer) of a 3-D tensor map into
+// shared memory, completing on bar
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int col, int row,
+                                         int layer) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col),
+      "r"(row), "r"(layer)
+      : "memory");
+}
+
+// weight rows of type W in one stage: a box is at most this tall
 template <typename W>
-__device__ void weight_task(const float* xs, int ldx, const W* w, int ldw,
-                            int k0, int kc, int col0, int B, float* part,
-                            int ldp, int pcol0,
-                            float (*red)[kRowGroup][kTile]) {
+__host__ __device__ constexpr int box_rows() {
+  return kStageBytes / (kTile * (int)sizeof(W));
+}
+
+// contraction rows per task of weight phase ph (0 QKV, 1 OUT, 2 FC, 3
+// PROJ), and the stages (boxes) one of its slices takes
+__host__ __device__ inline int phase_kc(int ph) {
+  return ph == 0 ? kKcQkv : ph == 1 ? kKcOut : ph == 2 ? kKcFc : kKcProj;
+}
+template <typename W>
+__host__ __device__ inline int slice_boxes(int kc) {
+  return (kc + box_rows<W>() - 1) / box_rows<W>();
+}
+
+// weight phase ph's tasks: (128-column tile, contraction split) pairs,
+// task t = split * tiles + tile
+template <bool kLlama>
+__host__ __device__ inline int phase_tiles(const Params& p, int ph) {
+  const int n = ph == 0 ? qkv_width(p.D, p.Hkv)
+                : ph == 2 ? fc_width(p.I, kLlama) : p.D;
+  return n / kTile;
+}
+template <bool kLlama>
+__host__ __device__ inline int phase_tasks(const Params& p, int ph) {
+  return phase_tiles<kLlama>(p, ph) * ((ph == 3 ? p.I : p.D) / phase_kc(ph));
+}
+
+// the tensor map that holds column col of weight phase ph's output row;
+// col becomes the column within that weight
+template <bool kLlama>
+__device__ inline int phase_map(const Params& p, int ph, int& col) {
+  if (!kLlama) return ph;
+  const int kvw = p.Hkv * kHd;
+  if (ph == 0) {
+    if (col < p.D) return 0;
+    col -= p.D;
+    if (col < kvw) return 1;
+    col -= kvw;
+    return 2;
+  }
+  if (ph == 2) {
+    if (col < p.I) return 4;
+    col -= p.I;
+    return 5;
+  }
+  return ph == 1 ? 3 : 6;
+}
+
+// The block's weight ring. Its slices are the same every layer, so the
+// producer lists one layer's boxes (tab: column, row, map, bytes) once, at
+// the start; staging one is then a table read and two TMA instructions.
+// Every thread keeps the ring's head (the stage of the next box the
+// block's tasks read) and that stage's fill parity: the block reads every
+// box together, so one count serves all its threads. The producer, thread
+// kProducer, alone keeps the tail (the next stage to fill) and the place
+// of the next box to stage (layer l, table entry k).
+constexpr int kProducer = kThreads - 1;   // idle in a task's sums at B < 4
+struct Ring {
+  unsigned char* buf;   // stages x kStageBytes
+  uint64_t* full;       // one mbarrier per stage
+  const int4* tab;      // one layer's boxes, in the order they are read
+  int stages, n;        // stages; boxes a layer (the producer's)
+  int head, parity;     // every thread
+  int tail, l, k;       // the producer
+};
+
+// the producer: stages the next box of the block's sequence into stage
+// tail, then steps past it
+template <typename W>
+__device__ __forceinline__ void ring_stage(const Params& p, Ring& r) {
+  const int4 e = r.tab[r.k];
+  mbar_expect_tx(&r.full[r.tail], e.w);
+  tma_load(r.buf + (size_t)r.tail * kStageBytes, &p.maps[e.z],
+           &r.full[r.tail], e.x, e.y, r.l);
+  if (++r.tail == r.stages) r.tail = 0;
+  if (++r.k == r.n) {
+    r.k = 0;
+    ++r.l;
+  }
+}
+
+// every thread: the block's ring over dynamic shared memory; the producer
+// lists the block's boxes of a layer (weight phase by weight phase, its
+// tasks t = blockIdx.x + i * gridDim.x in turn, each slice's boxes in row
+// order), sets up the barriers and fills the first stages
+template <typename W, typename F>
+__device__ Ring ring_start(const Params& p, unsigned char* buf,
+                           uint64_t* full, int4* tab) {
+  Ring r;
+  r.buf = buf;
+  r.full = full;
+  r.tab = tab;
+  r.stages = p.stages;
+  r.n = r.head = r.parity = r.tail = r.l = r.k = 0;
+  if (threadIdx.x == kProducer) {
+    for (int ph = 0; ph < kWeightPhases; ++ph) {
+      const int tiles = phase_tiles<F::kLlama>(p, ph);
+      const int kc = phase_kc(ph);
+      const int rows = min(kc, box_rows<W>());
+      for (int t = blockIdx.x; t < phase_tasks<F::kLlama>(p, ph);
+           t += gridDim.x) {
+        int col = (t % tiles) * kTile;
+        const int map = phase_map<F::kLlama>(p, ph, col);
+        for (int b = 0; b < slice_boxes<W>(kc); ++b)
+          tab[r.n++] = make_int4(col, (t / tiles) * kc + b * rows, map,
+                                 rows * kTile * (int)sizeof(W));
+      }
+    }
+    for (int m = 0; m < kMaxMaps; ++m)
+      asm volatile("prefetch.tensormap [%0];" ::"l"(
+                       reinterpret_cast<uint64_t>(&p.maps[m]))
+                   : "memory");
+    for (int s = 0; s < r.stages; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (r.n == 0) r.l = p.L;
+    for (int s = 0; s < r.stages && r.l < p.L; ++s) ring_stage<W>(p, r);
+  }
+  __syncthreads();
+  return r;
+}
+
+// every thread: box b of the block's next slice, once its fill landed
+__device__ __forceinline__ const unsigned char* ring_wait(const Ring& r,
+                                                          int b) {
+  int s = r.head + b;
+  uint32_t parity = r.parity;
+  if (s >= r.stages) {
+    s -= r.stages;
+    parity ^= 1;
+  }
+  mbar_wait(&r.full[s], parity);
+  return r.buf + (size_t)s * kStageBytes;
+}
+
+// every thread, once every thread has read the block's next slice (boxes
+// stages): its stages take the next boxes of the sequence
+template <typename W>
+__device__ __forceinline__ void ring_release(const Params& p, Ring& r,
+                                             int boxes) {
+  r.head += boxes;
+  if (r.head >= r.stages) {
+    r.head -= r.stages;
+    r.parity ^= 1;
+  }
+  if (threadIdx.x == kProducer)
+    for (int b = 0; b < boxes && r.l < p.L; ++b) ring_stage<W>(p, r);
+}
+
+// One weight task: the block's next slice of the ring ([kc, kTile] of a
+// layer weight, rows in one or two stages) times the activations xs
+// (shared memory, row b at xs[b * ldx], already offset to the slice's
+// first row). Writes the f32 partial sums to part[b * ldp + pcol0 + c]
+// (this split's slice of the workspace, whose rows may hold several
+// weights' outputs side by side). The order of every sum is fixed; the
+// lanes' sums of a row group's absent rows (r0 + r >= B) are skipped, as
+// nothing reads them. Once every thread has read the slice (the barrier
+// after the last row group's products), its stages take the next boxes
+// of the sequence while the warps' sums are added.
+template <typename W>
+__device__ void weight_task(const Params& p, Ring& ring, const bf16* xs,
+                            int ldx, int kc, int B, float* part, int ldp,
+                            int pcol0, float (*red)[kRowGroup][kTile]) {
   constexpr int kCpt = Unpack<W>::kCols;   // columns per thread
   constexpr int kTpr = kTile / kCpt;       // threads per weight row
   constexpr int kRpp = kThreads / kTpr;    // weight rows per pass
+  constexpr int kRows = box_rows<W>();     // rows per stage
+  const int boxes = slice_boxes<W>(kc);
+  const unsigned char* s0 = ring_wait(ring, 0);
+  const unsigned char* s1 = boxes > 1 ? ring_wait(ring, 1) : s0;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int cseg = (tid % kTpr) * kCpt;
   const int krow = tid / kTpr;
-  const W* wcol = w + (size_t)k0 * ldw + col0 + cseg;
   for (int r0 = 0; r0 < B; r0 += kRowGroup) {
     float acc[kRowGroup][kCpt];
 #pragma unroll
@@ -309,14 +550,16 @@ __device__ void weight_task(const float* xs, int ldx, const W* w, int ldw,
       for (int j = 0; j < kCpt; ++j) acc[r][j] = 0.f;
 #pragma unroll 4
     for (int kk = krow; kk < kc; kk += kRpp) {
+      const unsigned char* row =
+          (kk < kRows ? s0 : s1) + (size_t)(kk % kRows) * kTile * sizeof(W);
       const int4 raw =
-          __ldg(reinterpret_cast<const int4*>(wcol + (size_t)kk * ldw));
+          *reinterpret_cast<const int4*>(row + cseg * sizeof(W));
       float wf[kCpt];
       Unpack<W>::run(raw, wf);
 #pragma unroll
       for (int r = 0; r < kRowGroup; ++r) {
         if (r0 + r < B) {
-          const float xv = xs[(r0 + r) * ldx + kk];
+          const float xv = __bfloat162float(xs[(r0 + r) * ldx + kk]);
 #pragma unroll
           for (int j = 0; j < kCpt; ++j) acc[r][j] += xv * wf[j];
         }
@@ -324,22 +567,24 @@ __device__ void weight_task(const float* xs, int ldx, const W* w, int ldw,
     }
     // the lanes of a warp that share columns differ by multiples of kTpr
 #pragma unroll
-    for (int r = 0; r < kRowGroup; ++r)
+    for (int r = 0; r < kRowGroup; ++r) {
+      if (r0 + r < B) {
 #pragma unroll
-      for (int j = 0; j < kCpt; ++j) {
-        float v = acc[r][j];
+        for (int j = 0; j < kCpt; ++j) {
+          float v = acc[r][j];
 #pragma unroll
-        for (int o = kTpr; o < 32; o <<= 1)
-          v += __shfl_xor_sync(0xffffffffu, v, o);
-        acc[r][j] = v;
+          for (int o = kTpr; o < 32; o <<= 1)
+            v += __shfl_xor_sync(0xffffffffu, v, o);
+          acc[r][j] = v;
+        }
+        if (lane < kTpr) {
+#pragma unroll
+          for (int j = 0; j < kCpt; ++j) red[warp][r][cseg + j] = acc[r][j];
+        }
       }
-    if (lane < kTpr) {
-#pragma unroll
-      for (int r = 0; r < kRowGroup; ++r)
-#pragma unroll
-        for (int j = 0; j < kCpt; ++j) red[warp][r][cseg + j] = acc[r][j];
     }
     __syncthreads();
+    if (r0 + kRowGroup >= B) ring_release<W>(p, ring, boxes);
     for (int i = tid; i < kRowGroup * kTile; i += kThreads) {
       const int r = i / kTile;
       const int c = i - r * kTile;
@@ -383,49 +628,44 @@ __device__ __forceinline__ float gelu_new(float x) {
          (1.f + tanhf(0.7978845608028654f * (x + 0.044715f * x * x * x)));
 }
 
-// The first (or second) norm of h rows (bf16 source hb or float source hf)
-// into xs [B][D]: the block loads all B * D values at once (every load in
-// flight), then one warp per row takes the statistics from shared memory.
-// GPT-2: LayerNorm with scale s and bias b, one rounding. llama: RMSNorm,
-// rounded, then times s, rounded again (b unused).
+// The first (or second) norm of h rows (bf16 source hb or float source hf,
+// whose values are bf16 values) into xs [B][D]: the block loads all B * D
+// values at once (every load in flight), then one warp per row takes the
+// statistics from shared memory. GPT-2: LayerNorm with scale s and bias b,
+// one rounding. llama: RMSNorm, rounded, then times s, rounded again (b
+// unused).
 template <bool kRms>
 __device__ void norm_rows(const bf16* hb, const float* hf, const bf16* s,
-                          const bf16* b, float* xs, int B, int D, float eps) {
+                          const bf16* b, bf16* xs, int B, int D, float eps) {
   for (int i = threadIdx.x; i < B * D; i += kThreads)
-    xs[i] = hb != nullptr ? ld(hb, i) : hf[i];
+    xs[i] = hb != nullptr ? hb[i] : __float2bfloat16_rn(hf[i]);
   __syncthreads();
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   for (int r = warp; r < B; r += kWarps) {
-    float* x = xs + (size_t)r * D;
+    bf16* x = xs + (size_t)r * D;
     if (kRms) {
       float sq = 0.f;
-      for (int c = lane; c < D; c += 32) sq += x[c] * x[c];
+      for (int c = lane; c < D; c += 32) sq += ld(x, c) * ld(x, c);
       const float inv = rsqrtf(warp_sum(sq) / D + eps);
       for (int c = lane; c < D; c += 32)
-        x[c] = rnd(rnd(x[c] * inv) * ld(s, c));
+        x[c] = __float2bfloat16_rn(rnd(ld(x, c) * inv) * ld(s, c));
     } else {
       float sum = 0.f;
-      for (int c = lane; c < D; c += 32) sum += x[c];
+      for (int c = lane; c < D; c += 32) sum += ld(x, c);
       const float mean = warp_sum(sum) / D;
       float sq = 0.f;
       for (int c = lane; c < D; c += 32) {
-        const float d = x[c] - mean;
+        const float d = ld(x, c) - mean;
         sq += d * d;
       }
       const float inv = rsqrtf(warp_sum(sq) / D + eps);
       for (int c = lane; c < D; c += 32)
-        x[c] = rnd((x[c] - mean) * inv * ld(s, c) + ld(b, c));
+        x[c] = __float2bfloat16_rn((ld(x, c) - mean) * inv * ld(s, c) +
+                                   ld(b, c));
     }
   }
   __syncthreads();
-}
-
-__device__ __forceinline__ void prefetch_l2(const void* p, size_t bytes,
-                                            size_t tid, size_t threads) {
-  const char* c = static_cast<const char*>(p);
-  for (size_t o = tid * 128; o < bytes; o += threads * 128)
-    asm volatile("prefetch.global.L2 [%0];" ::"l"(c + o));
 }
 
 // folds the softmax state (m, l, a) into the running one (mf, lf, of)
@@ -438,55 +678,56 @@ __device__ __forceinline__ void merge_state(float& mf, float& lf, float& of,
   mf = m_new;
 }
 
-// up to three weights whose outputs sit side by side in one partial-sum
-// row (GPT-2's one c_attn or c_fc; llama's q | k | v, gate | up)
-template <typename W>
-struct Segs {
-  const W* w[3];
-  int n[3];
-  int count;
-};
-
-template <typename W>
-__device__ void weight_phase(const float* xs, int ldx_full, const Segs<W>& sg,
-                             int K, int kc, int B, float* part,
+// the tasks of weight phase ph (QKV or FC) on the normed rows xs [B][D]:
+// each of the block's tasks reads its slice from the ring and writes its
+// split's partial sums, part[split][b][N] (the phase's weights side by
+// side: GPT-2's one c_attn or c_fc; llama's q | k | v, gate | up)
+template <typename W, typename F>
+__device__ void weight_phase(const Params& p, Ring& ring, int ph,
+                             const bf16* xs, float* part,
                              float (*red)[kRowGroup][kTile]) {
-  int N = 0;
-  for (int s = 0; s < sg.count; ++s) N += sg.n[s];
-  const int tiles = N / kTile;
-  const int tasks = tiles * (K / kc);
+  const int tiles = phase_tiles<F::kLlama>(p, ph);
+  const int tasks = phase_tasks<F::kLlama>(p, ph);
+  const int kc = phase_kc(ph);
+  const int N = tiles * kTile;
   for (int t = blockIdx.x; t < tasks; t += gridDim.x) {
     const int tile = t % tiles;
     const int split = t / tiles;
-    int s = 0, col = tile * kTile;
-    while (s + 1 < sg.count && col >= sg.n[s]) col -= sg.n[s++];
-    weight_task<W>(xs + split * kc, ldx_full, sg.w[s], sg.n[s], split * kc,
-                   kc, col, B, part + (size_t)split * B * N, N, tile * kTile,
-                   red);
+    weight_task<W>(p, ring, xs + split * kc, p.D, kc, p.B,
+                      part + (size_t)split * p.B * N, N, tile * kTile, red);
   }
 }
 
 template <typename W, typename F>
 __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSm)
-decode_layers_kernel(const Params p) {
+decode_layers_kernel(const __grid_constant__ Params p) {
   constexpr int kG = F::kMaxG;
   constexpr bool kLlama = F::kLlama;
   // operand indices of the two families (see Params)
   constexpr int iNorm1 = 0;
   constexpr int iWo = kLlama ? 7 : 5;
   constexpr int iNorm2 = kLlama ? 9 : 8;
-  constexpr int iWfc = 10;
   constexpr int iWd = kLlama ? 14 : 13;
-  extern __shared__ __align__(16) float xs[];   // [B][D] f32
+  // dynamic: the weight ring (p.stages x kStageBytes, kRingAlign-aligned),
+  // then the activations xs [B][D] bf16
+  extern __shared__ __align__(16) unsigned char dsm[];
   // rows 0..g-1: the item's query heads; kG: k; kG + 1: v
   __shared__ float qkv_s[kG + 2][kHd];
   __shared__ float sm_m[kWarps][kG], sm_l[kWarps][kG];
   __shared__ float sm_acc[kWarps][kG][kHd];
   __shared__ float red[kWarps][kRowGroup][kTile];
+  __shared__ uint64_t full[kMaxStages];
+  __shared__ int4 box_tab[kMaxLayerBoxes];
   cg::grid_group grid = cg::this_grid();
 #ifdef DECODE_LAYERS_PHASE_CLOCK
   if (blockIdx.x == 0 && threadIdx.x == 0) g_clock_start = globaltimer();
 #endif
+  unsigned char* ring_buf =
+      dsm + ((kRingAlign - (smem_u32(dsm) & (kRingAlign - 1))) &
+             (kRingAlign - 1));
+  bf16* xs = reinterpret_cast<bf16*>(ring_buf +
+                                     (size_t)p.stages * kStageBytes);
+  Ring ring = ring_start<W, F>(p, ring_buf, full, box_tab);
 
   const int B = p.B, D = p.D, H = p.H, Hkv = p.Hkv, I = p.I, off = p.off;
   const int g = H / Hkv;
@@ -518,9 +759,6 @@ decode_layers_kernel(const Params p) {
     auto vec = [&](int i, int width) {
       return static_cast<const bf16*>(p.w[i]) + (size_t)l * width;
     };
-    auto mat = [&](int i, int rows, int cols, int layer) {
-      return static_cast<const W*>(p.w[i]) + (size_t)layer * rows * cols;
-    };
     auto scale = [&](int i, int width) {
       return quantized ? vec(i, width) : static_cast<const bf16*>(nullptr);
     };
@@ -532,19 +770,10 @@ decode_layers_kernel(const Params p) {
     const float* hf = l == 0 ? nullptr : ws.h;
 
     // 1. QKV
-    {
-      Segs<W> sg;
-      if (kLlama) {
-        sg = {{mat(1, D, D, l), mat(3, D, kvw, l), mat(5, D, kvw, l)},
-              {D, kvw, kvw}, 3};
-      } else {
-        sg = {{mat(2, D, 3 * D, l), nullptr, nullptr}, {3 * D, 0, 0}, 1};
-      }
-      if (blockIdx.x < (nqkv / kTile) * s_qkv) {
-        norm_rows<kLlama>(hb, hf, vec(iNorm1, D),
-                          kLlama ? nullptr : vec(1, D), xs, B, D, p.eps);
-        weight_phase<W>(xs, D, sg, D, kKcQkv, B, ws.qkv, red);
-      }
+    if (blockIdx.x < (nqkv / kTile) * s_qkv) {
+      norm_rows<kLlama>(hb, hf, vec(iNorm1, D), kLlama ? nullptr : vec(1, D),
+                        xs, B, D, p.eps);
+      weight_phase<W, F>(p, ring, 0, xs, ws.qkv, red);
     }
     phase_sync(grid, l, 0);
 
@@ -742,29 +971,6 @@ decode_layers_kernel(const Params p) {
       }
       __syncthreads();
     }
-    // the layer's later weights and the next layer's q/k/v, into L2
-    const size_t wsz = sizeof(W);
-    prefetch_l2(mat(iWo, D, D, l), (size_t)D * D * wsz, gtid, gthreads);
-    if (kLlama) {
-      prefetch_l2(mat(10, D, I, l), (size_t)D * I * wsz, gtid, gthreads);
-      prefetch_l2(mat(12, D, I, l), (size_t)D * I * wsz, gtid, gthreads);
-      prefetch_l2(mat(14, I, D, l), (size_t)I * D * wsz, gtid, gthreads);
-      if (l + 1 < p.L) {
-        prefetch_l2(mat(1, D, D, l + 1), (size_t)D * D * wsz, gtid, gthreads);
-        prefetch_l2(mat(3, D, kvw, l + 1), (size_t)D * kvw * wsz, gtid,
-                    gthreads);
-        prefetch_l2(mat(5, D, kvw, l + 1), (size_t)D * kvw * wsz, gtid,
-                    gthreads);
-      }
-    } else {
-      prefetch_l2(mat(10, D, 4 * D, l), (size_t)4 * D * D * wsz, gtid,
-                  gthreads);
-      prefetch_l2(mat(13, 4 * D, D, l), (size_t)4 * D * D * wsz, gtid,
-                  gthreads);
-      if (l + 1 < p.L)
-        prefetch_l2(mat(2, D, 3 * D, l + 1), (size_t)3 * D * D * wsz, gtid,
-                    gthreads);
-    }
     phase_sync(grid, l, 1);
 
     // 3. OUT: the output projection of the attention output, 32-row
@@ -784,12 +990,11 @@ decode_layers_kernel(const Params p) {
           float mf = kNegInf, lf = 0.f, of = 0.f;
           for (int s = 0; s <= n_spans; ++s, st += kState)
             merge_state(mf, lf, of, st[kHd], st[kHd + 1], st[c - hh * kHd]);
-          xs[i] = rnd(of / lf);
+          xs[i] = __float2bfloat16_rn(of / lf);
         }
         __syncthreads();
-        weight_task<W>(xs, kKcOut, mat(iWo, D, D, l), D, split * kKcOut,
-                       kKcOut, tile * kTile, B, ws.o + (size_t)split * bd, D,
-                       tile * kTile, red);
+        weight_task<W>(p, ring, xs, kKcOut, kKcOut, B,
+                          ws.o + (size_t)split * bd, D, tile * kTile, red);
       }
     }
     phase_sync(grid, l, 2);
@@ -805,18 +1010,10 @@ decode_layers_kernel(const Params p) {
     phase_sync(grid, l, 3);
 
     // 5. FC: the second norm, then c_fc (llama: gate | up)
-    {
-      Segs<W> sg;
-      if (kLlama) {
-        sg = {{mat(iWfc, D, I, l), mat(12, D, I, l), nullptr}, {I, I, 0}, 2};
-      } else {
-        sg = {{mat(iWfc, D, 4 * D, l), nullptr, nullptr}, {4 * D, 0, 0}, 1};
-      }
-      if (blockIdx.x < (nfc / kTile) * s_fc) {
-        norm_rows<kLlama>(nullptr, ws.hm, vec(iNorm2, D),
-                          kLlama ? nullptr : vec(9, D), xs, B, D, p.eps);
-        weight_phase<W>(xs, D, sg, D, kKcFc, B, ws.fc, red);
-      }
+    if (blockIdx.x < (nfc / kTile) * s_fc) {
+      norm_rows<kLlama>(nullptr, ws.hm, vec(iNorm2, D),
+                        kLlama ? nullptr : vec(9, D), xs, B, D, p.eps);
+      weight_phase<W, F>(p, ring, 2, xs, ws.fc, red);
     }
     phase_sync(grid, l, 4);
 
@@ -837,17 +1034,16 @@ decode_layers_kernel(const Params p) {
             const float up = finish(ws.fc, (size_t)B * nfc, s_fc, idx + I,
                                     scale(13, I), nullptr, col);
             const float sg = rnd(1.f / (1.f + expf(-gt)));
-            xs[i] = rnd(rnd(gt * sg) * up);
+            xs[i] = __float2bfloat16_rn(rnd(gt * sg) * up);
           } else {
             const float y = finish(ws.fc, (size_t)B * nfc, s_fc, idx,
                                    scale(11, 4 * D), vec(12, 4 * D), col);
-            xs[i] = rnd(gelu_new(y));
+            xs[i] = __float2bfloat16_rn(gelu_new(y));
           }
         }
         __syncthreads();
-        weight_task<W>(xs, kKcProj, mat(iWd, I, D, l), D, split * kKcProj,
-                       kKcProj, tile * kTile, B, ws.proj + (size_t)split * bd,
-                       D, tile * kTile, red);
+        weight_task<W>(p, ring, xs, kKcProj, kKcProj, B,
+                          ws.proj + (size_t)split * bd, D, tile * kTile, red);
       }
     }
     phase_sync(grid, l, 5);
@@ -869,12 +1065,100 @@ decode_layers_kernel(const Params p) {
   clock_arrive(p.L - 1, 6);
 }
 
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
+// query (the library links no libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      ptr = nullptr;
+    return reinterpret_cast<EncodeTiled>(ptr);
+  }();
+  return fn;
+}
+
+// a 3-D map over a stacked [L, K, N] weight of type W (16-byte aligned
+// base, rows of N * sizeof(W) bytes): boxes of kTile columns x rows x 1
+// layer, unswizzled (a box is [rows][kTile] in shared memory)
+template <typename W>
+cudaError_t weight_map(CUtensorMap* map, const void* w, int L, int K, int N,
+                       int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t es = sizeof(W);
+  const cuuint64_t dims[3] = {(cuuint64_t)N, (cuuint64_t)K, (cuuint64_t)L};
+  const cuuint64_t strides[2] = {N * es, (cuuint64_t)K * N * es};
+  const cuuint32_t box[3] = {(cuuint32_t)kTile, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map,
+      sizeof(W) == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      3, const_cast<void*>(w), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// the dynamic shared memory of a plan: the ring with its alignment slack,
+// then xs
+size_t plan_smem(int B, int D, int stages) {
+  return kRingAlign + (size_t)stages * kStageBytes +
+         (size_t)B * D * sizeof(bf16);
+}
+
+// Encodes the maps of the family's stacked weights into p and launches on
+// the plan (stages of stage_bytes, smem_bytes of dynamic shared memory:
+// ops/decode_layer.py::stage_plan), two blocks on every SM. Refuses a plan
+// that is not the kernel's, or widths that give a block more boxes a
+// layer than its table holds (cudaErrorInvalidValue), and a plan that
+// leaves fewer than two blocks an SM resident
+// (cudaErrorCooperativeLaunchTooLarge).
 template <typename W, typename F>
-cudaError_t launch_typed(const Params& p, cudaStream_t stream) {
+cudaError_t launch_typed(Params& p, int stages, int stage_bytes,
+                         int smem_bytes, cudaStream_t stream) {
+  if (stage_bytes != kStageBytes || stages < slice_boxes<W>(kKcFc) ||
+      stages > kMaxStages || smem_bytes < 0 ||
+      (size_t)smem_bytes != plan_smem(p.B, p.D, stages))
+    return cudaErrorInvalidValue;
+  p.stages = stages;
+  // (operand, K, N, weight phase) of each map, kMaxMaps order
+  const int D = p.D, I = p.I, kvw = p.Hkv * kHd;
+  const int gpt2[4][4] = {{2, D, 3 * D, 0}, {5, D, D, 1}, {10, D, I, 2},
+                          {13, I, D, 3}};
+  const int llama[7][4] = {{1, D, D, 0},   {3, D, kvw, 0}, {5, D, kvw, 0},
+                           {7, D, D, 1},   {10, D, I, 2},  {12, D, I, 2},
+                           {14, I, D, 3}};
+  const int n_maps = F::kLlama ? 7 : 4;
+  for (int m = 0; m < n_maps; ++m) {
+    const int* spec = F::kLlama ? llama[m] : gpt2[m];
+    const cudaError_t err = weight_map<W>(
+        &p.maps[m], p.w[spec[0]], p.L, spec[1], spec[2],
+        min(phase_kc(spec[3]), box_rows<W>()));
+    if (err != cudaSuccess) return err;
+  }
   const void* kernel = (const void*)decode_layers_kernel<W, F>;
-  const size_t smem = (size_t)p.B * p.D * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   int device = 0, sms = 0, per_sm = 0;
   err = cudaGetDevice(&device);
@@ -882,15 +1166,21 @@ cudaError_t launch_typed(const Params& p, cudaStream_t stream) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, smem);
+                                                        kThreads, smem_bytes);
   if (err != cudaSuccess) return err;
-  // every block must be resident for the grid barriers; the cooperative
-  // launch refuses a grid that is not (cudaErrorCooperativeLaunchTooLarge)
-  const int blocks = sms * max(1, min(per_sm, kMaxBlocksPerSm));
-  Params args = p;
-  void* kargs[] = {&args};
+  // every block must be resident for the grid barriers, and the attention
+  // spans and the weight tasks are shared out over the plan's grid
+  if (per_sm < kMaxBlocksPerSm) return cudaErrorCooperativeLaunchTooLarge;
+  // a block's boxes of a layer fit its table
+  const int blocks = sms * kMaxBlocksPerSm;
+  int boxes = 0;
+  for (int ph = 0; ph < kWeightPhases; ++ph)
+    boxes += (phase_tasks<F::kLlama>(p, ph) + blocks - 1) / blocks *
+             slice_boxes<W>(phase_kc(ph));
+  if (boxes > kMaxLayerBoxes) return cudaErrorInvalidValue;
+  void* kargs[] = {&p};
   err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads),
-                                    kargs, smem, stream);
+                                    kargs, smem_bytes, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -914,6 +1204,7 @@ Params make_params(const void* const* w, const void* h_in, void* h_out,
   p.I = 4 * D;
   p.Smax = Smax;
   p.off = off;
+  p.stages = 0;
   p.eps = eps;
   return p;
 }
@@ -925,22 +1216,28 @@ extern "C" {
 // GPT-2. w: host array of the 16 stacked operands in the JAX kernel's
 // order (scales null for bf16 weights); h_in/h_out [B, D] and kv bf16; ws
 // a float32 workspace of ws_floats >= decode_layers_workspace_floats(B, D,
-// H, Smax) elements. Requires head_dim 64 (D == 64 * H), D % 128 == 0,
-// 1 <= B <= 16 and 0 <= off < Smax. Returns the launch's cudaError_t
-// (0 on success); allocates nothing.
+// H, Smax) elements; (stages, stage_bytes, smem_bytes) the weight ring's
+// plan, ops/decode_layer.py::stage_plan's. Requires head_dim 64 (D == 64 *
+// H), D % 128 == 0, 1 <= B <= 16, 0 <= off < Smax and the weights 16-byte
+// aligned. Returns the cudaError_t of the launch or of a weight's
+// tensor-map encode (0 on success); allocates nothing.
 int decode_layers_launch(const void* const* w, const void* h_in, void* h_out,
                          void* kv, const void* valid_from, void* ws,
                          int ws_floats, int quantized, int L, int B, int H,
-                         int D, int Smax, int off, float eps, void* stream) {
+                         int D, int Smax, int off, float eps, int stages,
+                         int stage_bytes, int smem_bytes, void* stream) {
   if (L < 1 || B < 1 || B > kMaxB || D != H * kHd || D % kTile != 0 ||
       off < 0 || off >= Smax ||
       (size_t)ws_floats < workspace_floats(B, D, H, H, 4 * D, false, Smax))
     return (int)cudaErrorInvalidValue;
-  const Params p = make_params(w, h_in, h_out, kv, valid_from, ws, L, B, H, D,
-                               Smax, off, eps);
+  Params p = make_params(w, h_in, h_out, kv, valid_from, ws, L, B, H, D, Smax,
+                         off, eps);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = quantized ? launch_typed<int8_t, Gpt2>(p, s)
-                                    : launch_typed<bf16, Gpt2>(p, s);
+  const cudaError_t err =
+      quantized ? launch_typed<int8_t, Gpt2>(p, stages, stage_bytes,
+                                             smem_bytes, s)
+                : launch_typed<bf16, Gpt2>(p, stages, stage_bytes, smem_bytes,
+                                           s);
   return (int)err;
 }
 
@@ -957,13 +1254,16 @@ int decode_layers_workspace_floats(int B, int D, int H, int Smax) {
 // float32, the step's rotary angles; kv [L, B, Hkv, Smax, 128]; ws as
 // decode_layers_llama_workspace_floats(B, D, H, Hkv, I, Smax). Requires
 // head_dim 64 (D == 64 * H), H % Hkv == 0 with H / Hkv <= 4, D, 64 * Hkv
-// and I multiples of 128, 1 <= B <= 16 and 0 <= off < Smax.
+// and I multiples of 128, 1 <= B <= 16 and 0 <= off < Smax; the plan and
+// the weights as for GPT-2.
 int decode_layers_llama_launch(const void* const* w, const void* h_in,
                                void* h_out, void* kv, const void* valid_from,
                                const void* cos, const void* sin, void* ws,
                                int ws_floats, int quantized, int L, int B,
                                int H, int Hkv, int D, int I, int Smax,
-                               int off, float eps, void* stream) {
+                               int off, float eps, int stages,
+                               int stage_bytes, int smem_bytes,
+                               void* stream) {
   if (L < 1 || B < 1 || B > kMaxB || D != H * kHd || D % kTile != 0 ||
       Hkv < 1 || H % Hkv != 0 || H / Hkv > Llama::kMaxG ||
       (Hkv * kHd) % kTile != 0 || I < kTile || I % kTile != 0 ||
@@ -977,8 +1277,11 @@ int decode_layers_llama_launch(const void* const* w, const void* h_in,
   p.cos = static_cast<const float*>(cos);
   p.sin = static_cast<const float*>(sin);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = quantized ? launch_typed<int8_t, Llama>(p, s)
-                                    : launch_typed<bf16, Llama>(p, s);
+  const cudaError_t err =
+      quantized ? launch_typed<int8_t, Llama>(p, stages, stage_bytes,
+                                              smem_bytes, s)
+                : launch_typed<bf16, Llama>(p, stages, stage_bytes,
+                                            smem_bytes, s);
   return (int)err;
 }
 

@@ -158,10 +158,11 @@ QUANT_LIB = KernelLibrary(
 DECODE_LAYER_LIB = KernelLibrary(
     "decode_layer.cu",
     {"decode_layers_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _I, _I, _F, _P),
+                              _I, _I, _F, _I, _I, _I, _P),
      "decode_layers_workspace_floats": (_I, _I, _I, _I),
      "decode_layers_llama_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                    _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+                                    _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                                    _I, _I, _P),
      "decode_layers_llama_workspace_floats": (_I, _I, _I, _I, _I, _I)},
     "decode_layers_error")
 FLASH_ATTENTION_LIB = KernelLibrary(

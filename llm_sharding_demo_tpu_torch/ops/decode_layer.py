@@ -13,7 +13,10 @@ template parameter) replaces both TPU megakernels there:
   cache rows read once for its query heads), the output projection and
   residual, RMSNorm, SwiGLU and its residual; no biases.
 
-Each runs all of a stage's layers in one persistent launch.
+Each runs all of a stage's layers in one persistent launch. Each block
+stages its weight slices into shared memory by TMA, a phase or more
+ahead of the products that read them; ``stage_plan`` sizes that ring and
+``block_slices`` mirrors the order a block reads its slices in.
 
 Numerics are the megakernel's, not the per-layer path's: every
 projection is an f32 product of upcast operands, times the int8 scale,
@@ -34,7 +37,7 @@ it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -49,6 +52,95 @@ from .rope import rotate_half
 # the kernel's batch budget; the model takes the per-layer kernels past it
 MAX_BATCH = 16
 _LANE = 128
+
+# -- the weight ring (csrc/decode_layer.cu) ----------------------------------
+
+# the kernel's grid: two blocks on each of the H100's 132 SMs
+SMS, BLOCKS_PER_SM = 132, 2
+GRID = SMS * BLOCKS_PER_SM
+STAGE_BYTES = 16384    # kStageBytes
+MAX_STAGES = 8         # kMaxStages
+RING_ALIGN = 128       # kRingAlign: the ring's alignment slack
+MAX_LAYER_BOXES = 32   # kMaxLayerBoxes: a block's boxes a layer
+# an SM's shared memory, and what the card keeps of it for each block
+SM_SHARED_BYTES, BLOCK_RESERVED_BYTES = 233472, 1024
+_THREADS, _ROW_GROUP, _HD = 256, 4, 64   # kThreads, kRowGroup, kHd
+# the contraction rows a task of each weight phase (QKV, OUT, FC, PROJ)
+PHASE_KC = (64, 32, 128, 128)            # kKcQkv, kKcOut, kKcFc, kKcProj
+
+
+def static_smem_bytes(llama: bool) -> int:
+    """The kernel's static shared memory: ``red`` (the warps' partial
+    sums), the attention item's q/k/v rows and softmax states (for the
+    family's query heads per item), the ring's barriers and its table of
+    a layer's boxes."""
+    g = LLAMA_MAX_G if llama else 1
+    warps = _THREADS // 32
+    return (4 * (warps * _ROW_GROUP * _LANE + (g + 2) * _HD
+                 + 2 * warps * g + warps * g * _HD)
+            + 8 * MAX_STAGES + 16 * MAX_LAYER_BOXES)
+
+
+def _box_rows(quantized: bool) -> int:
+    """Weight rows in one stage (128 int8 or 64 bf16 columns' rows)."""
+    return STAGE_BYTES // (_LANE * (1 if quantized else 2))
+
+
+def slice_boxes(quantized: bool, phase: int) -> int:
+    """The stages one slice of weight phase ``phase`` takes."""
+    return -(-PHASE_KC[phase] // _box_rows(quantized))
+
+
+def stage_plan(quantized: bool, batch: int, d: int, kv_width: int,
+               inter: int, llama: bool) -> Tuple[int, int, int]:
+    """``(stages, stage_bytes, smem_bytes)`` of the weight ring at these
+    widths: as many 16 KB stages (at most ``MAX_STAGES``) as fit beside
+    the activations (``batch x d`` bf16) and the static shared memory
+    with two blocks on an SM; ``smem_bytes`` is the launch's dynamic
+    shared memory (the ring, its alignment slack and the activations).
+    Raises where the ring would not hold the largest slice."""
+    if (any(w % _LANE for w in (d, kv_width, inter))
+            or not 1 <= batch <= MAX_BATCH):
+        raise ValueError(f"stage_plan: widths ({d}, {kv_width}, {inter}) "
+                         f"must be multiples of {_LANE} and 1 <= batch <= "
+                         f"{MAX_BATCH}, got batch {batch}")
+    xs = batch * d * 2
+    room = (SM_SHARED_BYTES // BLOCKS_PER_SM - BLOCK_RESERVED_BYTES
+            - static_smem_bytes(llama) - RING_ALIGN - xs)
+    stages = min(MAX_STAGES, room // STAGE_BYTES)
+    need = max(slice_boxes(quantized, ph) for ph in range(len(PHASE_KC)))
+    if stages < need:
+        raise ValueError(f"stage_plan: {stages} stages of {STAGE_BYTES} "
+                         f"bytes fit beside {batch} x {d} activations; a "
+                         f"slice takes {need}")
+    return stages, STAGE_BYTES, RING_ALIGN + stages * STAGE_BYTES + xs
+
+
+def phase_tiles(phase: int, d: int, kv_width: int, inter: int,
+                llama: bool) -> Tuple[int, int]:
+    """``(tiles, splits)`` of weight phase ``phase``: its 128-column
+    output tiles (the phase's weights side by side) and contraction
+    slices; task ``t`` is tile ``t % tiles`` of split ``t // tiles``."""
+    n = (d + 2 * kv_width if llama else 3 * d,
+         d, 2 * inter if llama else inter, d)[phase]
+    k = inter if phase == 3 else d
+    return n // _LANE, k // PHASE_KC[phase]
+
+
+def block_slices(block: int, grid: int, n_layer: int, d: int, kv_width: int,
+                 inter: int, llama: bool) -> List[Tuple[int, int, int, int]]:
+    """The weight slices block ``block`` of ``grid`` reads, in the order
+    it reads them and its ring stages them: ``(layer, phase, tile,
+    split)``, for each layer its QKV task's slice, then OUT's, FC's and
+    PROJ's, a block's tasks ``t = block, block + grid, ...`` of each
+    phase in turn (the kernel's ``ring_stage``)."""
+    out = []
+    for layer in range(n_layer):
+        for ph in range(len(PHASE_KC)):
+            tiles, splits = phase_tiles(ph, d, kv_width, inter, llama)
+            for t in range(block, tiles * splits, grid):
+                out.append((layer, ph, t % tiles, t // tiles))
+    return out
 
 
 def mega_requested(decode_kernel: Optional[str], seq_len: int) -> bool:
@@ -201,6 +293,7 @@ def decode_layers(blocks, h: torch.Tensor, KV: torch.Tensor, offset: int,
     shapes = (d, d, (d, 3 * d), (d, d), d, d, (d, 4 * d), (4 * d, d))
     tensors = [h, KV]
     ptrs = _pointers(parts, shapes, quantized, n_layer, True, tensors)
+    plan = stage_plan(quantized, b, d, d, 4 * d, False)
     n_ws = cb.DECODE_LAYERS.library.load().decode_layers_workspace_floats(
         b, d, n_head, KV.shape[3])
     ws = _workspace("decode_layers", n_ws, h, tensors, k_valid_from)
@@ -211,7 +304,7 @@ def decode_layers(blocks, h: torch.Tensor, KV: torch.Tensor, offset: int,
         KV.data_ptr(),
         None if k_valid_from is None else k_valid_from.data_ptr(),
         ws.data_ptr(), n_ws, int(quantized), n_layer, b, n_head, d,
-        KV.shape[3], offset, eps, cb.stream_handle(h))
+        KV.shape[3], offset, eps, *plan, cb.stream_handle(h))
     return h_out, KV
 
 
@@ -323,6 +416,7 @@ def decode_layers_llama(blocks, h: torch.Tensor, KV: torch.Tensor,
               (d, inter), (inter, d))
     tensors = [h, KV, cos, sin]
     ptrs = _pointers(parts, shapes, quantized, n_layer, False, tensors)
+    plan = stage_plan(quantized, b, d, kvw, inter, True)
     lib = cb.DECODE_LAYERS_LLAMA.library.load()
     n_ws = lib.decode_layers_llama_workspace_floats(b, d, n_head, n_kv, inter,
                                                     KV.shape[3])
@@ -334,7 +428,7 @@ def decode_layers_llama(blocks, h: torch.Tensor, KV: torch.Tensor,
         KV.data_ptr(),
         None if k_valid_from is None else k_valid_from.data_ptr(),
         cos.data_ptr(), sin.data_ptr(), ws.data_ptr(), n_ws, int(quantized),
-        n_layer, b, n_head, n_kv, d, inter, KV.shape[3], offset, eps,
+        n_layer, b, n_head, n_kv, d, inter, KV.shape[3], offset, eps, *plan,
         cb.stream_handle(h))
     return h_out, KV
 
@@ -368,6 +462,13 @@ def _pointers(parts, shapes, quantized, n_layer, biased, tensors):
         (k, width), (w, scale, bias) = shape, p
         _expect(w, (n_layer, k, width),
                 torch.int8 if quantized else torch.bfloat16, "weight")
+        # the tensor maps' base and row stride (a stage's view of the
+        # stacked weights starts layers in)
+        if w.data_ptr() % 16 or w.stride(1) * w.element_size() % 16:
+            raise ValueError(f"megakernel: a weight's base and rows must "
+                             f"sit on 16 bytes, got base {w.data_ptr():#x}"
+                             f", rows of {w.stride(1) * w.element_size()} "
+                             "bytes")
         if scale is not None:
             _expect(scale, (n_layer, width), torch.bfloat16, "scale")
         ptrs += [w.data_ptr(), None if scale is None else scale.data_ptr()]

@@ -408,6 +408,21 @@ def test_decode_layers_kernel_matches_plain(dev, n_layer, regime, batch, off):
     assert torch.equal(a, c)
 
 
+# faults planted in the weight ring of a copy of the kernel source (both
+# families): (text, replacement)
+RING_PLANTED_FAULTS = {
+    # the producer stages each slice from the previous layer's weights
+    # (layer 0's from beyond the stack: the box's zero fill)
+    "ring_stages_previous_layer": (
+        "&r.full[r.tail], e.x, e.y, r.l);",
+        "&r.full[r.tail], e.x, e.y, r.l - 1);"),
+    # a task reads the stage one slot past its own (once its fill landed)
+    "ring_reads_slot_off": (
+        "return r.buf + (size_t)s * kStageBytes;",
+        "return r.buf + (size_t)(s + 1 == r.stages ? 0 : s + 1) * "
+        "kStageBytes;"),
+}
+
 # faults planted in a copy of the kernel source: (text, replacement)
 PLANTED_FAULTS = {
     # the output projection's merge skips the last span of cached positions
@@ -419,6 +434,7 @@ PLANTED_FAULTS = {
     "ignore_mask": (
         "const int start = p.valid_from != nullptr ? max(p.valid_from[b], 0) "
         ": 0;", "const int start = 0;"),
+    **RING_PLANTED_FAULTS,
 }
 
 
@@ -569,6 +585,7 @@ LLAMA_PLANTED_FAULTS = {
         "rv[j] = __fadd_rn(__fmul_rn(x[d], cs[d]), __fmul_rn(rot, sn[d]));",
         "rv[j] = r < g ? __fadd_rn(__fmul_rn(x[d], cs[d]), "
         "__fmul_rn(rot, sn[d])) : x[d];"),
+    **RING_PLANTED_FAULTS,
 }
 
 
