@@ -22,8 +22,9 @@ which must pass or the script exits non-zero:
    span) and registers, both whole-stack kernels (each timed case printed
    with its weight-ring plan: stages, stage bytes, shared memory);
    decode attention also at the edges of its cluster split, with rows
-   masked past whole spans or entirely, B 1/8/16, two launches
-   bit-identical), with each kernel's
+   masked past whole spans or entirely, B 1/8/16/32, two launches
+   bit-identical; the whole-stack kernels at B 1/2/4/8/16), with each
+   kernel's
    time beside its plain version's, one library call's (for a
    whole-stack kernel: the per-layer kernel path's) and the card's lower
    bound for the same work (decode attention's cluster size with each);
@@ -51,7 +52,33 @@ which must pass or the script exits non-zero:
    seeded sampling, each twice, each pair equal; greedy equal to an
    in-process engine on the same weights), /healthz reports cuda and the
    whole-stack kernel, launched once per stage per decode step;
-6. train: 5 llama-124m train steps (bf16, B=4, S=2048, remat, AdamW) on
+6. batch: in process, GPT-2 124M fp32 on the plain path (TF32 off):
+   the admission batcher and the iteration-level batcher, 24 ragged
+   greedy and then 24 seeded sampled requests from threads (the iter
+   batcher's in four groups 0.03 s apart over 8-step segments, so that
+   rows join a live batch and widen it: at least one join and one grow
+   each), each row byte-equal to the engine's solo run (a row that is
+   not is shown at its first differing token and held, teacher-forced,
+   at the fp32 parity bar 1e-5 against the solo path); chunked prefill
+   (PREFILL_CHUNK=16) byte-equal to monolithic; an int8 chunked prefill
+   on the kernels within ``decode.int8`` of the int8 plain path's
+   monolithic prefill, with exact launch counts, both beside fp32; for
+   each family a 32-row ragged int8 batch on the served staged engine,
+   teacher-forced past the megakernels' 16 rows (decode attention on
+   every layer of every step, exact launch counts), within
+   ``decode.int8`` of the int8 plain path, and one 32-row decode step's
+   eager and device time (the busy share); then two batched int8
+   servers, GPT-2 with
+   MAX_BATCH=32 BATCH_MODE=admission PREFILL_CHUNK=16 and llama-124m
+   with MAX_BATCH=32 BATCH_MODE=iter MAX_SEQ=4096, each taking waves of
+   1, 8 and 32 concurrent 64-token requests (greedy, then seeded
+   sampled, after one untimed request of each; the iter server's
+   arrivals in four groups 0.05 s apart), each
+   wave's launches exactly those its forwards (``/healthz``
+   ``forward_shapes``) must show, the megakernels at <= 16 rows and
+   decode attention past 16, its aggregate tokens/s and p50 per-token
+   latency; a seeded request alone twice replays;
+7. train: 5 llama-124m train steps (bf16, B=4, S=2048, remat, AdamW) on
    the flash kernels with exact launch counts (24 forwards, 12 dQ and 12
    dK/dV a step) and a falling loss, the same steps on the plain
    attention, step ms, tokens/s and peak memory for both; one f32 step
@@ -61,7 +88,8 @@ The last lines are the card's name and power limit, one JSON object with
 the kernels' numbers (each kernel's launches counted on the path that
 runs it: each server for its whole-stack kernel, the GPT-2 "layer" int8
 engine run for the per-layer kernels, with the llama paths' counts
-beside them, the 5 bf16 train steps for the flash kernels), and
+beside them, each batched server's counts under ``batch_launches``,
+the 5 bf16 train steps for the flash kernels), and
 ``{"ok": true, "device": {...}}``. ``--phases`` runs a subset (the
 default runs all).
 """
@@ -69,6 +97,7 @@ default runs all).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -253,7 +282,8 @@ def kernel_phase(results: dict) -> None:
     # head, 4096 slots)
     # head and cache geometry, with offsets at the cluster split's edges
     # (one span of MIN_SPAN positions and one more, a second span, the
-    # spans of C=16 at 3000 cached) and at the served depths
+    # spans of C=16 at 3000 cached) and at the served depths; B=32 is the
+    # batched servers' width past the megakernels' 16 rows
     attention_shapes = ((H, NPOS, (0, 1, 37, 63, 64, 65, 127, 128, 129, 255,
                                    256, 1000, 1023)),
                         (HKV, LNPOS, (0, 1, 63, 64, 65, 187, 188, 189, 255,
@@ -261,7 +291,7 @@ def kernel_phase(results: dict) -> None:
     tol = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
     worst = 0.0
     for dtype in (torch.bfloat16, torch.float32):
-        for B in (1, 8, 16):
+        for B in (1, 8, 16, 32):
             for hkv, slots, offs in attention_shapes:
                 KV = randn(L, B, hkv, slots, 2 * HD, dtype=dtype)
                 for off in offs:
@@ -476,8 +506,9 @@ def megakernel_phase(results: dict, family: str) -> None:
     ``decode_layers_llama`` at llama-124m, 4 kv heads, a 4096-slot cache):
     the 12-layer stack and the served stages (SPLIT_AT=1: the 1-layer
     first stage, where layer 0 is also the last, and the 11-layer second),
-    bf16 and int8 weights, B 1/8/16, five or six offsets (llama's up to
-    4095), odd rows masked over half or all of their cached positions.
+    bf16 and int8 weights, B 1/2/4/8/16 (the batchers' power-of-two
+    widths), five or six offsets (llama's up to 4095), odd rows masked
+    over half or all of their cached positions.
     The hidden state and the written cache rows must meet
     ``graftnum.STACK_POLICY`` (four bf16 ulps of the largest value at
     most, and an RMS error per row under 2^-5 of what the stack added to
@@ -539,7 +570,7 @@ def megakernel_phase(results: dict, family: str) -> None:
                            (DL.decode_layers, DL.decode_layers_plain))
     stacks = {"bf16": weights("bf16"), "int8": weights("int8")}
     worst, worst_rel = 0.0, 0.0
-    for B in (1, 8, 16):
+    for B in (1, 2, 4, 8, 16):
         KV = randn_bf16(g, L, B, hkv, npos, 2 * HD)
         for off in offsets:
             h = randn_bf16(g, B, 1, D)
@@ -1220,23 +1251,16 @@ def _http(url: str, body=None, timeout: float = 300.0) -> dict:
         return json.loads(resp.read())
 
 
-def server_phase(model_id: str, npos: int) -> dict:
-    """``python -m llm_sharding_demo_tpu_torch.serving`` with MODEL_ID
-    ``model_id``, int8, MAX_SEQ ``npos``: /generate greedy and seeded
-    sampling, twice each; /healthz before and after. Returns the server's
-    launch counts."""
-    import torch
-
-    from llm_sharding_demo_tpu_torch.runtime.engine import DecodeEngine
-    from llm_sharding_demo_tpu_torch.serving import loader
-    from llm_sharding_demo_tpu_torch.serving.tokenizer import ByteTokenizer
-    from llm_sharding_demo_tpu_torch.utils.config import ServingConfig
-
+@contextlib.contextmanager
+def serving_process(name: str, **env_vars):
+    """``python -m llm_sharding_demo_tpu_torch.serving`` with ``env_vars``
+    on a free port, its output in ``build/chip_smoke/<name>.log``; yields
+    ``(base url, first /healthz)`` once it answers, and stops it (SIGTERM,
+    then SIGKILL) on the way out."""
     port = _free_port()
-    env = dict(os.environ, MODEL_ID=model_id, INFERENCE_DTYPE="int8",
-               MAX_SEQ=str(npos), SHARD_PORT=str(port))
+    env = dict(os.environ, SHARD_PORT=str(port), **env_vars)
     os.makedirs(LOG_DIR, exist_ok=True)
-    log_path = os.path.join(LOG_DIR, f"server-{model_id}.log")
+    log_path = os.path.join(LOG_DIR, f"{name}.log")
     base = f"http://127.0.0.1:{port}"
     with open(log_path, "w") as log:
         proc = subprocess.Popen(
@@ -1255,23 +1279,7 @@ def server_phase(model_id: str, npos: int) -> dict:
                     check(time.monotonic() < deadline,
                           "server not ready after 300 s")
                     time.sleep(1)
-            check(health["device"].startswith("cuda"), f"healthz {health}")
-            check(health["decode_kernel"] == "mega", f"healthz {health}")
-            before = health["kernel_launches"]
-            check(all(v == 0 for v in before.values()),
-                  f"launch counts before the requests: {before}")
-            prompt = "The port of the sharded server answers: "
-            greedy = {"prompt": prompt, "max_new_tokens": 24,
-                      "mode": "greedy"}
-            sample = {"prompt": prompt, "max_new_tokens": 24,
-                      "mode": "sample", "seed": 1234}
-            t0 = time.perf_counter()
-            g1 = _http(base + "/generate", greedy)
-            t1 = time.perf_counter()
-            g2 = _http(base + "/generate", greedy)
-            s1 = _http(base + "/generate", sample)
-            s2 = _http(base + "/generate", sample)
-            health = _http(base + "/healthz")
+            yield base, health
         finally:
             proc.send_signal(signal.SIGTERM)
             try:
@@ -1279,6 +1287,40 @@ def server_phase(model_id: str, npos: int) -> dict:
             except subprocess.TimeoutExpired:
                 proc.kill()
                 proc.wait(timeout=30)
+
+
+def server_phase(model_id: str, npos: int) -> dict:
+    """``python -m llm_sharding_demo_tpu_torch.serving`` with MODEL_ID
+    ``model_id``, int8, MAX_SEQ ``npos``: /generate greedy and seeded
+    sampling, twice each; /healthz before and after. Returns the server's
+    launch counts."""
+    import torch
+
+    from llm_sharding_demo_tpu_torch.runtime.engine import DecodeEngine
+    from llm_sharding_demo_tpu_torch.serving import loader
+    from llm_sharding_demo_tpu_torch.serving.tokenizer import ByteTokenizer
+    from llm_sharding_demo_tpu_torch.utils.config import ServingConfig
+
+    with serving_process(f"server-{model_id}", MODEL_ID=model_id,
+                         INFERENCE_DTYPE="int8", MAX_SEQ=str(npos)) as (
+            base, health):
+        check(health["device"].startswith("cuda"), f"healthz {health}")
+        check(health["decode_kernel"] == "mega", f"healthz {health}")
+        before = health["kernel_launches"]
+        check(all(v == 0 for v in before.values()),
+              f"launch counts before the requests: {before}")
+        prompt = "The port of the sharded server answers: "
+        greedy = {"prompt": prompt, "max_new_tokens": 24,
+                  "mode": "greedy"}
+        sample = {"prompt": prompt, "max_new_tokens": 24,
+                  "mode": "sample", "seed": 1234}
+        t0 = time.perf_counter()
+        g1 = _http(base + "/generate", greedy)
+        t1 = time.perf_counter()
+        g2 = _http(base + "/generate", greedy)
+        s1 = _http(base + "/generate", sample)
+        s2 = _http(base + "/generate", sample)
+        health = _http(base + "/healthz")
     for r in (g1, g2, s1, s2):
         check(isinstance(r.get("generated"), str)
               and r["generated"].startswith(prompt), f"bad reply {r}")
@@ -1313,6 +1355,440 @@ def server_phase(model_id: str, npos: int) -> dict:
     del eng, params
     torch.cuda.empty_cache()
     return counts
+
+
+# -- phase 6: batched serving and chunked prefill ---------------------------
+
+BATCH_WAVES = (1, 8, 32)
+WAVE_TOKENS = 64
+N_ROWS = 24             # the in-process fp32 batchers' ragged requests
+CHUNK = 16              # PREFILL_CHUNK of the chunked checks and server
+
+
+def _threads(fn, n: int, delays=None, timeout: float = 600.0) -> list:
+    """``fn(i)`` for i < n, each on its own thread (after ``delays[i]``
+    seconds); returns the results in order. Raises if a thread did not
+    finish within ``timeout`` or raised."""
+    import threading
+
+    out, errs = [None] * n, []
+
+    def run(i):
+        if delays:
+            time.sleep(delays[i])
+        try:
+            out[i] = fn(i)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errs.append(f"{i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True)
+               for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=timeout)
+        check(not t.is_alive(), "a request thread did not finish")
+    check(not errs, f"requests failed: {errs[:3]}")
+    return out
+
+
+def tf_rows(eng, prompts, forced):
+    """f32 logits ``[B, T, vocab]`` of a ragged batch, teacher-forced:
+    row b's position t predicts ``forced[b][t]`` after its prompt and
+    ``forced[b][:t]``. The prefill is the engine's: chunked where it has
+    ``prefill_chunk`` (and chunking applies), else monolithic."""
+    import torch
+
+    from llm_sharding_demo_tpu_torch.runtime.engine import left_pad
+
+    ids, pad = left_pad(prompts)
+    with torch.inference_mode():
+        ids, pad, _, chunk = eng._align_chunks(ids, pad, ids.shape[1],
+                                               len(forced[0]))
+        pad_t = eng._pad(pad)
+        last, cache = eng._prefill_last(ids, pad_t, chunk)
+        rows = [last]
+        tok = torch.as_tensor(np.asarray(forced), device=eng.device)
+        for t in range(tok.shape[1] - 1):
+            logits, cache = eng._forward_cached(tok[:, t:t + 1], cache,
+                                                pad_t)
+            rows.append(logits[:, -1])
+    return torch.stack(rows, dim=1).float()
+
+
+def hold_row(eng, other, prompts, row, got, want, what: str, smi: str,
+             greedy: bool = False) -> bool:
+    """A row whose tokens differ from its solo run's: print the first
+    step that differs and the solo run's top-2 gap there, then hold the
+    row's logits, teacher-forced at its own tokens, on the path that
+    produced it (engine ``other`` over all of ``prompts``: the batch
+    beside its peers, or the chunked prefill) against the solo path at
+    the fp32 parity bar (1e-5). Within it, the difference is the card's
+    summation order at another shape (the GEMM), not the batcher or the
+    chunking: a wrong pad, position or cache row moves logits by far
+    more. A ``greedy`` row may part from its solo run only at a near tie:
+    the solo top-2 gap there within twice the bar (a join's cache rows
+    are not on the teacher-forced path, so this is what holds a joined
+    row)."""
+    import torch
+
+    t = int(np.flatnonzero(got != want)[0])
+    forced = got[:t + 1].tolist()
+    solo = tf_rows(eng, [prompts[row]], [forced])[0]
+    theirs = tf_rows(other, prompts, [forced] * len(prompts))[row]
+    top2 = torch.topk(solo[t], 2).values
+    gap = float(top2[0] - top2[1])
+    err = float((theirs - solo).abs().max())
+    scale = float(solo.abs().max())
+    bar = 1e-5 + 1e-5 * scale
+    print(f"    {what}: first difference at new token {t} "
+          f"(solo {int(want[t])}, batched {int(got[t])}; solo top-2 gap "
+          f"{gap:.3e}); teacher-forced max |diff| {err:.3e} of max |logit| "
+          f"{scale:.3e} [{smi}]")
+    return err <= bar and (not greedy or gap <= 2 * bar)
+
+
+def batch_rows(eng, batcher, prompts, budgets, sampling, gens_for,
+               want, smi: str, name: str, delays=None):
+    """Send ``prompts`` through ``batcher`` (fresh, over ``eng``) from one
+    thread each, thread i after ``delays[i]`` seconds; every row must
+    equal its solo run or hold the fp32 parity bar (``hold_row``).
+    Returns the batcher's stats."""
+    got = _threads(lambda i: batcher.generate(
+        np.asarray(prompts[i]), budgets[i], sampling=sampling,
+        generator=gens_for(i), timeout=600).tokens[0], len(prompts),
+        delays)
+    same = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if np.array_equal(g, w):
+            same += 1
+            continue
+        n = len(prompts[i])
+        greedy = sampling.mode == "greedy"
+        check(hold_row(eng, eng, prompts, i, g[n:], w[n:],
+                       f"{name} row {i}", smi, greedy),
+              f"{name} row {i}: batched logits off the solo path past the "
+              "fp32 parity bar" + (", or parted from it away from a near "
+                                   "tie" if greedy else ""))
+    stats = batcher.stats()
+    print(f"  fp32 {name} {sampling.mode}: {same}/{len(prompts)} rows "
+          f"byte-equal to the solo runs, the rest within the fp32 parity "
+          f"bar; batcher {stats} [{smi}]")
+    return stats
+
+
+def batch_inprocess(smi: str) -> None:
+    """GPT-2 124M at full width, fp32 plain path (TF32 off): both
+    batchers against the same engine's solo runs, greedy and seeded
+    sampled; chunked prefill against monolithic, fp32 byte for byte and
+    int8 within ``decode.int8`` with exact launch counts."""
+    import torch
+
+    from llm_sharding_demo_tpu_torch.models import gpt2
+    from llm_sharding_demo_tpu_torch.ops import cuda_build
+    from llm_sharding_demo_tpu_torch.runtime.batcher import BatchingEngine
+    from llm_sharding_demo_tpu_torch.runtime.engine import (DecodeEngine,
+                                                            SamplingConfig)
+    from llm_sharding_demo_tpu_torch.runtime.iterbatch import (
+        IterBatchingEngine)
+    from llm_sharding_demo_tpu_torch.utils import graftnum
+
+    cfg = gpt2.CONFIGS["gpt2"]
+    params = gpt2.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    eng = DecodeEngine(params, cfg, max_seq=NPOS, dtype="float32")
+    check(eng.decode_kernel_mode == "xla", "fp32 engine left the plain path")
+    # the card's GEMM at one row against the same row among 24
+    x = torch.randn(N_ROWS, D, device="cuda")
+    w = torch.randn(D, 3 * D, device="cuda")
+    gemm_same = bool(torch.equal(x[:1] @ w, (x @ w)[:1]))
+    print(f"  fp32 GEMM [1,{D}]x[{D},{3 * D}] bit-equal to row 0 of "
+          f"[{N_ROWS},{D}]x[{D},{3 * D}]: {gemm_same} [{smi}]")
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, V, int(n)).tolist()
+               for n in rng.integers(4, 41, N_ROWS)]
+    budgets = [int(n) for n in rng.integers(8, 33, N_ROWS)]
+    sample = SamplingConfig(mode="sample", temperature=0.8, top_k=40)
+
+    def gen(i):
+        return torch.Generator(device="cuda").manual_seed(100 + i)
+
+    for sampling in (SamplingConfig(), sample):
+        greedy = sampling.mode == "greedy"
+        t0 = time.perf_counter()
+        want = [eng.generate(np.asarray(p), n, sampling=sampling,
+                             generator=None if greedy else gen(i)).tokens[0]
+                for i, (p, n) in enumerate(zip(prompts, budgets))]
+        solo_s = time.perf_counter() - t0
+        print(f"  fp32 solo {sampling.mode} runs: {N_ROWS} requests in "
+              f"{solo_s:.2f} s [{smi}]")
+        gens = (lambda i: None) if greedy else gen
+        batch_rows(eng, BatchingEngine(eng, max_batch=32, max_wait_ms=200.0),
+                   prompts, budgets, sampling, gens, want, smi, "admission")
+        # the iter batcher's arrivals in four groups 0.03 s apart, its
+        # segments 8 steps long: later groups join the live batch at a
+        # segment boundary (a solo prefill copied into the cache at the
+        # batch's depth) and widen it past its seeded power of two
+        stats = batch_rows(
+            eng, IterBatchingEngine(eng, max_batch=32, seg_steps=8,
+                                    max_wait_ms=5.0),
+            prompts, budgets, sampling, gens, want, smi, "iter",
+            delays=[0.03 * (4 * i // N_ROWS) for i in range(N_ROWS)])
+        check(stats["joins"] > 0 and stats["grows"] > 0,
+              f"iter {sampling.mode}: no join or no grow: {stats}")
+
+    # chunked prefill (PREFILL_CHUNK=16), fp32: byte-equal to monolithic
+    chunked = DecodeEngine(params, cfg, max_seq=NPOS, dtype="float32",
+                           prefill_chunk=CHUNK)
+    for n in (41, 64, 100):
+        p = rng.integers(0, V, n).tolist()
+        mono = eng.generate(np.asarray(p), 32).row_tokens(0)[n:]
+        got = chunked.generate(np.asarray(p), 32).row_tokens(0)[n:]
+        lm = tf_rows(eng, [p], [mono[:1].tolist()])[0, 0]
+        lc = tf_rows(chunked, [p], [mono[:1].tolist()])[0, 0]
+        err = float((lc - lm).abs().max())
+        check(err <= 1e-5 + 1e-5 * float(lm.abs().max()),
+              f"chunked prefill logits off monolithic by {err}")
+        equal = np.array_equal(got, mono)
+        if not equal:
+            check(hold_row(eng, chunked, [p], 0, got, mono,
+                           f"chunked prefill n={n}", smi, greedy=True),
+                  f"chunked prefill n={n}: past the fp32 parity bar")
+        print(f"  fp32 chunked prefill, {n}-token prompt in {CHUNK}-token "
+              f"chunks: 32 tokens {'byte-equal to' if equal else 'held to'}"
+              f" monolithic, last logits max |diff| {err:.3e} [{smi}]")
+    del chunked
+
+    # int8 chunked prefill on the GPT-2 server's staged engine (the
+    # kernels: the int8 linear and head on each 16-row chunk, then the
+    # megakernels), teacher-forced, within decode.int8 of the int8 plain
+    # path's monolithic prefill, with exact launch counts; both beside
+    # the fp32 run
+    prompt = rng.integers(0, V, 41).tolist()
+    forced = rng.integers(0, V, 48).tolist()
+    lp = tf_rows(eng, [prompt], [forced])[0]
+    plain = DecodeEngine(params, cfg, max_seq=NPOS, dtype="int8",
+                         decode_kernel="xla")
+    lq = tf_rows(plain, [prompt], [forced])[0]
+    del plain
+    q = DecodeEngine(params, cfg, max_seq=NPOS, dtype="int8",
+                     boundaries=[1], prefill_chunk=CHUNK)
+    check(q.decode_kernel_mode == "mega", "int8 engine not on mega")
+    cuda_build.reset_launch_counts()
+    lk = tf_rows(q, [prompt], [forced])[0]
+    counts = cuda_build.launch_counts()
+    rep = graftnum.compare("decode.int8", lk, lq)
+
+    def fp32_distance(logits):
+        return (f"logit_mse {float(((logits - lp) ** 2).mean()):.3e}, "
+                f"top1 {float((logits.argmax(-1) == lp.argmax(-1)).float().mean()):.4f}")
+
+    print(f"  int8 vs fp32 at full width, teacher-forced: plain monolithic "
+          f"{fp32_distance(lq)}; kernels, chunked {fp32_distance(lk)} "
+          f"[{smi}]")
+    n_chunks, steps = -(-41 // CHUNK), len(forced) - 1
+    want = {k.name: 0 for k in cuda_build.KERNELS}
+    want.update({"quant_linear": n_chunks * 4 * L,
+                 "quant_head": n_chunks + steps,
+                 "decode_layers": 2 * steps})
+    check(counts == want, f"int8 chunked prefill launches {counts}, "
+                          f"expected {want}")
+    print(f"  int8 chunked prefill ({n_chunks} chunks of {CHUNK}) + {steps} "
+          f"mega steps vs the int8 plain path's monolithic prefill, "
+          f"teacher-forced: logit_mse="
+          f"{rep['logit_mse']:.3e} (cap {rep['policy']['logit_mse']:.0e}) "
+          f"top1={rep['top1_agreement']:.4f} (floor "
+          f"{rep['policy']['top1_agreement']}); launches {counts} [{smi}]")
+    del q, eng, params
+    torch.cuda.empty_cache()
+
+
+def step32_checks(smi: str) -> None:
+    """For each family, the served int8 staged engine at 32 rows, past
+    the megakernels' 16 (the per-layer path: decode attention on every
+    layer, the matmuls on the plain path): a ragged 32-row batch,
+    teacher-forced, within ``decode.int8`` of the int8 plain path on the
+    same weights, with exact launch counts; then one 32-row decode step
+    eager beside the device's own time (CUDA-graph replay): the device's
+    busy share."""
+    import torch
+
+    from llm_sharding_demo_tpu_torch.models import gpt2, llama
+    from llm_sharding_demo_tpu_torch.ops import cuda_build
+    from llm_sharding_demo_tpu_torch.runtime.engine import DecodeEngine
+    from llm_sharding_demo_tpu_torch.utils import graftnum
+
+    rows, steps = 32, 24
+    for family, model, cfg, npos in (
+            ("gpt2", gpt2, gpt2.CONFIGS["gpt2"], NPOS),
+            ("llama", llama, llama.CONFIGS["llama-124m"], LNPOS)):
+        params = model.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0))
+        eng = DecodeEngine(params, cfg, max_seq=npos, dtype="int8",
+                           boundaries=[1])
+        check(eng.decode_kernel_mode == "mega", f"{family} int8 engine not "
+                                                f"on mega")
+        rng = np.random.default_rng(5)
+        prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+                   for n in rng.integers(8, 49, rows)]
+        forced = rng.integers(0, cfg.vocab_size, (rows, steps)).tolist()
+        plain = DecodeEngine(params, cfg, max_seq=npos, dtype="int8",
+                             boundaries=[1], decode_kernel="xla")
+        lp = tf_rows(plain, prompts, forced)
+        del plain
+        cuda_build.reset_launch_counts()
+        lk = tf_rows(eng, prompts, forced)
+        counts = cuda_build.launch_counts()
+        check(bool(torch.isfinite(lk).all())
+              and tuple(lk.shape) == (rows, steps, cfg.vocab_size),
+              f"{family} 32-row logits: shape {tuple(lk.shape)} or "
+              f"non-finite")
+        # the 32-row prefill is past the int8 kernels' 16 rows: nothing
+        # launches; each of the steps - 1 single-token forwards runs decode
+        # attention once a layer
+        want = {k.name: 0 for k in cuda_build.KERNELS}
+        want["decode_attention"] = (steps - 1) * L
+        check(counts == want, f"{family} 32-row teacher-forced run: "
+                              f"launches {counts}, expected {want}")
+        rep = graftnum.compare("decode.int8", lk.flatten(0, 1),
+                               lp.flatten(0, 1))
+        print(f"  {family} int8 staged engine, 32 ragged rows, teacher-forced"
+              f" over {steps} positions vs the int8 plain path: logit_mse="
+              f"{rep['logit_mse']:.3e} (cap {rep['policy']['logit_mse']:.0e})"
+              f" top1={rep['top1_agreement']:.4f} (floor "
+              f"{rep['policy']['top1_agreement']}); launches {counts} [{smi}]")
+        ids = np.random.default_rng(3).integers(0, cfg.vocab_size, (rows, 48))
+        cuda_build.reset_launch_counts()
+        eager, device = step_ms(eng, ids)
+        check(cuda_build.launch_counts()["decode_attention"] > 0,
+              f"{family} 32-row step did not launch decode attention")
+        print(f"  {family} int8 staged decode step, 32 rows, 48 cached: "
+              f"{eager:.3f} ms eager vs {device:.3f} ms device (busy "
+              f"{device / eager:.1%}) [{smi}]")
+        del eng, params
+        torch.cuda.empty_cache()
+
+
+def expected_launches(shapes: dict, is_llama: bool, stages: int) -> dict:
+    """The launch counts a mega int8 engine's cached forwards must show,
+    from its ``forward_shapes`` (``{"BxT": forwards}``): a single token
+    at <= 16 rows runs one whole-stack launch a stage and the head kernel
+    (GPT-2's int8 tied head; llama's untied head on the int8 linear);
+    past 16 rows the per-layer path, decode attention once a layer, with
+    the matmuls on the plain path (the int8 kernels take <= 16 rows); a
+    window of <= 16 rows in all runs the int8 linear at every projection
+    and the head."""
+    from llm_sharding_demo_tpu_torch.ops import cuda_build
+    from llm_sharding_demo_tpu_torch.ops.decode_layer import MAX_BATCH
+
+    mega = "decode_layers_llama" if is_llama else "decode_layers"
+    want = {k.name: 0 for k in cuda_build.KERNELS}
+    for key, n in shapes.items():
+        b, t = (int(v) for v in key.split("x"))
+        if t == 1 and b <= MAX_BATCH:
+            want[mega] += stages * n
+            want["quant_linear" if is_llama else "quant_head"] += n
+        elif t == 1:
+            want["decode_attention"] += L * n
+        elif b * t <= MAX_BATCH:
+            want["quant_linear"] += (7 * L + 1 if is_llama else 4 * L) * n
+            if not is_llama:
+                want["quant_head"] += n
+    return want
+
+
+def batch_server(model_id: str, npos: int, mode: str, smi: str) -> dict:
+    """A batched int8 server (MAX_BATCH=32): waves of 1, 8 and 32
+    concurrent 64-token requests, greedy and seeded sampled (the iter
+    server's arrivals staggered so that some join mid-flight); each
+    wave's launch counts exactly those its forwards must show, its
+    aggregate tokens/s and p50 per-token latency; a seeded request sent
+    alone twice replays. Returns the server's launch counts."""
+    is_llama = model_id.startswith("llama")
+    knobs = dict(MODEL_ID=model_id, INFERENCE_DTYPE="int8",
+                 MAX_SEQ=str(npos), MAX_BATCH="32", BATCH_MODE=mode,
+                 BATCH_WAIT_MS="100" if mode == "admission" else "5")
+    if mode == "admission":
+        knobs["PREFILL_CHUNK"] = str(CHUNK)
+    label = f"{model_id} {mode}" + (f" PREFILL_CHUNK={CHUNK}"
+                                    if mode == "admission" else "")
+    wide = 0
+    with serving_process(f"batch-{model_id}-{mode}", **knobs) as (base,
+                                                                  health):
+        check(health["decode_kernel"] == "mega"
+              and health["max_batch"] == 32 and health["batch_mode"] == mode
+              and all(v == 0 for v in health["kernel_launches"].values()),
+              f"healthz {health}")
+        # one untimed request of each policy first: the process's first
+        # launches load the kernels' modules
+        for warm in ({"mode": "greedy"}, {"mode": "sample", "seed": 1}):
+            _http(base + "/generate", {"prompt": "Warm-up: ",
+                                       "max_new_tokens": 4, **warm})
+        for sampling in ("greedy", "sample"):
+            for n in BATCH_WAVES:
+                bodies = [{"prompt": f"Request {i} of a wave of {n}: "
+                                     + "abcdefghij"[:i % 10],
+                           "max_new_tokens": WAVE_TOKENS, "mode": sampling,
+                           **({"seed": 1000 + i} if sampling == "sample"
+                              else {})} for i in range(n)]
+                # the iter server's arrivals come in four groups 0.05 s
+                # apart, so later groups join the live batch
+                delays = ([0.05 * (4 * i // n) for i in range(n)]
+                          if mode == "iter" else None)
+                h0 = _http(base + "/healthz")
+                t0 = time.perf_counter()
+
+                def post(i):
+                    ts = time.perf_counter()
+                    r = _http(base + "/generate", bodies[i], timeout=600)
+                    return r, time.perf_counter() - ts
+
+                res = _threads(post, n, delays)
+                wall = time.perf_counter() - t0
+                h1 = _http(base + "/healthz")
+                for (r, _), b in zip(res, bodies):
+                    check(isinstance(r.get("generated"), str)
+                          and r["generated"].startswith(b["prompt"]),
+                          f"bad reply {r}")
+                shapes = {k: v - h0["forward_shapes"].get(k, 0)
+                          for k, v in h1["forward_shapes"].items()
+                          if v != h0["forward_shapes"].get(k, 0)}
+                got = {k: v - h0["kernel_launches"][k]
+                       for k, v in h1["kernel_launches"].items()}
+                want = expected_launches(shapes, is_llama, 2)
+                check(got == want, f"{label} wave {n} {sampling}: launches "
+                                   f"{got}, expected {want} from the "
+                                   f"forwards {shapes}")
+                stats = {k: v - h0["batch_stats"][k]
+                         for k, v in h1["batch_stats"].items()}
+                wide += got["decode_attention"]
+                per_tok = statistics.median(t / WAVE_TOKENS for _, t in res)
+                print(f"  {label} wave {n} {sampling}: "
+                      f"{n * WAVE_TOKENS / wall:.1f} tokens/s aggregate, p50 "
+                      f"{per_tok * 1e3:.2f} ms/token per request, wall "
+                      f"{wall:.2f} s; forwards {shapes}; launches {got}; "
+                      f"batcher {stats} [{smi}]")
+        body = {"prompt": "A seeded request, alone: ", "max_new_tokens":
+                WAVE_TOKENS, "mode": "sample", "seed": 4242}
+        a = _http(base + "/generate", body)
+        b = _http(base + "/generate", body)
+        check(a == b and a["generated"].startswith(body["prompt"]),
+              f"{label}: a seeded request did not replay: {a} vs {b}")
+        counts = _http(base + "/healthz")["kernel_launches"]
+    check(wide > 0, f"{label}: no decode-attention launch past 16 rows")
+    print(f"  {label}: seeded request alone twice equal; server launches "
+          f"{counts} [{smi}]")
+    return counts
+
+
+def batch_phase(smi: str) -> dict:
+    """Returns each batched server's launch counts."""
+    batch_inprocess(smi)
+    step32_checks(smi)
+    return {"GPT-2 admission server": batch_server("gpt2", NPOS,
+                                                   "admission", smi),
+            "llama-124m iter server": batch_server("llama-124m", LNPOS,
+                                                   "iter", smi)}
 
 
 # -- main ----------------------------------------------------------------------
@@ -1422,9 +1898,10 @@ def flash_sass(lib_path: str) -> dict:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="kernels,flash,engine,server,train",
+    parser.add_argument("--phases",
+                        default="kernels,flash,engine,server,batch,train",
                         help="comma-separated subset of kernels,flash,engine,"
-                             "server,train")
+                             "server,batch,train")
     phases = set(parser.parse_args().phases.split(","))
 
     t_start = time.perf_counter()
@@ -1495,6 +1972,11 @@ def main() -> int:
         counts = server_phase("llama-124m", LNPOS)
         launches["decode_layers_llama"] = counts["decode_layers_llama"]
         llama_launches["server"] = counts
+    batch_launches = {}
+    if "batch" in phases:
+        print("[batch] batched serving and chunked prefill: the batchers "
+              "and chunked prefill in process, batched int8 servers")
+        batch_launches = batch_phase(smi)
     if "train" in phases:
         print("[train] llama-124m train steps, flash kernels vs plain "
               "attention")
@@ -1541,6 +2023,8 @@ def main() -> int:
             "launches_on": paths[k.name],
             "llama_launches": {where: c[k.name]
                                for where, c in llama_launches.items()},
+            "batch_launches": {where: c[k.name]
+                               for where, c in batch_launches.items()},
             "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
             "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
             "bound_by": r.get("bound_by"),

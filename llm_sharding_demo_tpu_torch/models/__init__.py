@@ -34,3 +34,14 @@ def is_stage_partitionable(config) -> bool:
     one staging predicate): GPT-2 and llama."""
     from . import llama
     return is_partitionable(config) or isinstance(config, llama.LlamaConfig)
+
+
+def is_window_independent(config) -> bool:
+    """Whether a token's logits do not depend on which other tokens share
+    its forward window: the property behind every exactness contract
+    that replays tokens in other window shapes (chunked prefill, a
+    batcher's joins). The dense families are; the JAX package's MoE
+    family, whose capacity routing makes tokens compete within a window,
+    is not, and ``family_module`` refuses it."""
+    family_module(config)
+    return True

@@ -13,26 +13,37 @@ the cache length is a Python int.
 Token selection mirrors the reference sampler: greedy argmax, or
 temperature + top-k (+ optional top-p) drawn from a seeded
 ``torch.Generator`` (streams cannot match JAX's PRNG; the distribution,
-``sampler_pmf``, does).
+``sampler_pmf``, does). A batch draws either once jointly from one
+generator or once per row from a list of per-row generators, the form
+the batchers (``runtime.batcher``, ``runtime.iterbatch``) use so that a
+row's stream is its solo stream.
+
+``prefill_chunk=C`` prefills a prompt as C-wide cached forwards into
+one cache (the JAX engine's compile-count bound; here it caps the rows a
+prefill forward carries). The alignment pad rides the ragged-batch
+machinery, so tokens are those of the monolithic prefill.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from ..models import family_module, llama
+from ..models import family_module, is_window_independent, llama
 from ..models.gpt2 import Params, map_params, unstack_params
 from ..ops.attention import create_fused_cache
 from ..ops import decode_layer as DL
 from ..ops.decode_attention import BLOCK_S, KERNEL_HEAD_DIM, eligible
 from ..ops.flash_attention import flash_eligible, flash_profitable
 from ..ops.quant import quantize_params
+from ..utils import tracing
 from ..utils.device import DeviceLike, regime_of, resolve_device, torch_dtype
+from ..utils.metrics import kv_block_gauges
 
 # Reference sampler constants.
 REF_TEMPERATURE = 0.6
@@ -84,14 +95,38 @@ def sampler_pmf(logits: torch.Tensor, sampling: SamplingConfig,
     return probs, top_idx
 
 
+# one generator (a joint draw over the batch) or one per row (None: the
+# row draws nothing)
+Generators = Union[None, torch.Generator,
+                   Sequence[Optional[torch.Generator]]]
+
+
 def select_token(logits: torch.Tensor, sampling: SamplingConfig,
-                 generator: Optional[torch.Generator]) -> torch.Tensor:
+                 generator: Generators) -> torch.Tensor:
     """[B, vocab] last-position logits -> [B] int64 next tokens, on the
-    logits' device (no host sync)."""
+    logits' device (no host sync).
+
+    ``generator`` is one ``torch.Generator`` (one joint draw over the
+    batch) or a list of B, one per row: row i then draws alone, one
+    ``[1, k]`` multinomial on its own generator, so its t-th draw depends
+    only on that generator and t, never on the other rows, the batch
+    width or steps past its own budget. A row whose entry is None (a
+    batcher's dummy or ghost row) draws nothing and takes its top
+    survivor. At B = 1 the two forms draw the same bits."""
     if sampling.mode == "greedy":
         return torch.argmax(logits, dim=-1)
     probs, top_idx = sampler_pmf(logits, sampling)
-    choice = torch.multinomial(probs, 1, generator=generator)
+    if isinstance(generator, (list, tuple)):
+        if len(generator) != probs.shape[0]:
+            raise ValueError(f"{len(generator)} generators for "
+                             f"{probs.shape[0]} rows")
+        top = torch.zeros((1, 1), dtype=torch.int64, device=probs.device)
+        choice = torch.cat([
+            top if g is None else torch.multinomial(probs[i:i + 1], 1,
+                                                    generator=g)
+            for i, g in enumerate(generator)])
+    else:
+        choice = torch.multinomial(probs, 1, generator=generator)
     return top_idx.gather(-1, choice)[:, 0]
 
 
@@ -110,8 +145,7 @@ def left_pad(prompts, pad_id: int = 0) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def prepare_generate(prompt_ids, max_new_tokens: int, max_seq: int,
-                     sampling: SamplingConfig,
-                     generator: Optional[torch.Generator],
+                     sampling: SamplingConfig, generator: Generators,
                      allow_ragged: bool = True,
                      pad: Optional[np.ndarray] = None,
                      ) -> Tuple[np.ndarray, int, int, np.ndarray]:
@@ -150,6 +184,9 @@ def prepare_generate(prompt_ids, max_new_tokens: int, max_seq: int,
             f"= {total} exceeds max_seq={max_seq}")
     if sampling.mode == "sample" and generator is None:
         raise ValueError("sample mode requires an explicit torch.Generator")
+    if isinstance(generator, (list, tuple)) and len(generator) != batch:
+        raise ValueError(f"{len(generator)} per-row generators for a "
+                         f"batch of {batch}")
     return ids, batch, prompt_len, pad
 
 
@@ -290,14 +327,29 @@ class DecodeEngine:
     and round its length up to a whole number of 256-slot blocks, capped
     at ``n_positions``, as the JAX engine does. On the CPU the kernels'
     plain versions run.
+
+    ``prefill_chunk=C`` prefills prompts longer than C as C-wide cached
+    forwards (``_align_chunks``, ``_prefill_chunked``), byte-equal to the
+    monolithic prefill.
     """
 
     def __init__(self, params: Params, config, max_seq: int,
                  dtype="float32", boundaries: Optional[Sequence[int]] = None,
-                 decode_kernel: str = "auto", device: DeviceLike = None):
+                 decode_kernel: str = "auto", device: DeviceLike = None,
+                 prefill_chunk: Optional[int] = None):
         if max_seq > config.n_positions:
             raise ValueError(
                 f"max_seq={max_seq} exceeds n_positions={config.n_positions}")
+        if prefill_chunk is not None:
+            if prefill_chunk < 1:
+                raise ValueError(
+                    f"prefill_chunk={prefill_chunk} must be >= 1")
+            if not is_window_independent(config):
+                # a window-dependent router would route C-token windows
+                # differently from the monolithic prefill
+                raise NotImplementedError(
+                    "prefill_chunk requires window-independent routing")
+        self.prefill_chunk = prefill_chunk
         check_decode_kernel(decode_kernel)
         self._model = family_module(config)
         self.device = resolve_device(device)
@@ -329,6 +381,17 @@ class DecodeEngine:
 
         self.decode_kernel, self._cache_seq = resolve_decode_kernel(
             decode_kernel, config, max_seq, self.regime, dev.type == "cuda")
+        # (batch, tokens) -> cached forwards run: which rows each forward
+        # carried decides which kernels it launches (a single token at
+        # <= 16 rows: the megakernels; past 16: the per-layer kernels; a
+        # window of <= 16 rows: the int8 linear), so a caller can derive
+        # the launch counts a run must show. Unlocked: exact when one
+        # thread drives the engine, as a batcher's worker does
+        self._forward_shapes: collections.Counter = collections.Counter()
+
+    def forward_shapes(self) -> dict:
+        """``{(batch, tokens): cached forwards run}`` so far."""
+        return dict(self._forward_shapes)
 
     @property
     def decode_kernel_mode(self) -> str:
@@ -359,6 +422,7 @@ class DecodeEngine:
         """One cached forward: the whole model, or the stages in order
         (the staged path ignores ``flash_prefill``, as the JAX engine's
         does)."""
+        self._forward_shapes[tuple(x.shape[:2])] += 1
         if self.specs is None:
             return self._model.forward_with_cache(
                 self.params, x, self.config, cache, pad,
@@ -389,6 +453,69 @@ class DecodeEngine:
         return self._forward_cached(
             ids, cache, pad, self._flash_prefill(ids.shape[1], pad))
 
+    def _prefill_chunked(self, ids: torch.Tensor, pad: Optional[torch.Tensor],
+                         chunk: int):
+        """``(last logits [B, vocab], cache)``: ``ids`` [B, n*chunk]
+        (left-pad aligned by ``_align_chunks``; ``pad`` includes the
+        alignment pad) as one ``chunk``-wide cached forward per chunk into
+        a fresh cache. Never the flash prefill: after the first chunk
+        the cache is not fresh."""
+        cache = self._fresh_cache(ids.shape[0])
+        for c0 in range(0, ids.shape[1], chunk):
+            logits, cache = self._forward_cached(ids[:, c0:c0 + chunk],
+                                                 cache, pad)
+        return logits[:, -1], cache
+
+    def _align_chunks(self, ids: np.ndarray, pad: np.ndarray,
+                      prompt_len: int, reserve: int):
+        """Left-pad ``ids`` to a whole number of ``prefill_chunk`` chunks
+        when chunked prefill applies. Returns ``(ids, pad, prompt_len,
+        chunk or None)``; None means the monolithic prefill: chunking
+        off, a prompt within one chunk, or no room for the alignment pad
+        before ``reserve`` more tokens. The room is counted against
+        ``max_seq``, as the JAX engine does, not against a kernel
+        engine's cache rounded up to whole 256-slot blocks: the two
+        engines then take the same path, and the padded prompt always
+        fits the cache, which is at least ``max_seq`` long."""
+        chunk = self.prefill_chunk
+        if not chunk or prompt_len <= chunk:
+            return ids, pad, prompt_len, None
+        n_chunks = -(-prompt_len // chunk)
+        if n_chunks * chunk + reserve > self.max_seq:
+            return ids, pad, prompt_len, None
+        extra = n_chunks * chunk - prompt_len
+        if extra:
+            ids = np.concatenate(
+                [np.zeros((ids.shape[0], extra), ids.dtype), ids], axis=1)
+            pad = pad + extra
+        return ids, pad, n_chunks * chunk, chunk
+
+    def _prefill_last(self, ids: np.ndarray, pad: Optional[torch.Tensor],
+                      chunk: Optional[int]):
+        """``(last logits [B, vocab], cache)`` of an (aligned) prompt:
+        chunked where ``_align_chunks`` chose a chunk, else monolithic."""
+        if chunk:
+            return self._prefill_chunked(self._ids(ids), pad, chunk)
+        logits, cache = self._prefill(self._ids(ids), pad)
+        return logits[:, -1], cache
+
+    def _decode_seg(self, token: torch.Tensor, cache,
+                    pad: Optional[torch.Tensor], n: int,
+                    sampling: SamplingConfig, generator: Generators):
+        """``n`` cached single-token steps from ``token`` [B]: returns
+        ``(tokens [B, n] on the device, cache)``. The one decode loop:
+        ``generate`` and both batchers run every decode step through it.
+        With per-row generators each row draws once a step, so a row's
+        draws continue across segments from wherever its generator
+        stands. The caller holds ``torch.inference_mode``."""
+        out = torch.empty((token.shape[0], n), dtype=torch.int64,
+                          device=self.device)
+        for i in range(n):
+            logits, cache = self._forward_cached(token[:, None], cache, pad)
+            token = select_token(logits[:, -1], sampling, generator)
+            out[:, i] = token
+        return out, cache
+
     def _ids(self, ids: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(ids, dtype=np.int64),
                                device=self.device)
@@ -402,43 +529,50 @@ class DecodeEngine:
     @torch.inference_mode()
     def generate(self, prompt_ids, max_new_tokens: int,
                  sampling: SamplingConfig = SamplingConfig(),
-                 generator: Optional[torch.Generator] = None,
+                 generator: Generators = None,
                  pad: Optional[np.ndarray] = None,
                  eos_id: Optional[int] = None) -> GenerateResult:
         """[B, S] (or [S], or a ragged list) prompt ids -> GenerateResult
-        with [B, S+N] tokens. ``eos_id`` stops at the first EOS check
-        (32, 64, 128, 256, ... steps) where every row has emitted it; the
-        tokens returned are then an exact prefix of the unstopped stream.
+        with [B, S+N] tokens. ``generator`` is one ``torch.Generator`` or
+        a list of one per row (``select_token``). ``eos_id`` stops at the
+        first EOS check (32, 64, 128, 256, ... steps) where every row has
+        emitted it; the tokens returned are then an exact prefix of the
+        unstopped stream. With chunked prefill the returned ids carry the
+        alignment pad and ``pad`` counts it (``row_tokens`` strips it).
         """
         ids, batch, prompt_len, pad = prepare_generate(
             prompt_ids, max_new_tokens, self.max_seq, sampling, generator,
             pad=pad)
+        ids, pad, prompt_len, chunk = self._align_chunks(
+            ids, pad, prompt_len, reserve=max_new_tokens)
         pad_t = self._pad(pad)
         t0 = time.perf_counter()
-        logits, cache = self._prefill(self._ids(ids), pad_t)
-        token = select_token(logits[:, -1], sampling, generator)
-        out = torch.empty((batch, max_new_tokens), dtype=torch.int64,
-                          device=self.device)
-        out[:, 0] = token
+        last, cache = self._prefill_last(ids, pad_t, chunk)
+        token = select_token(last, sampling, generator)
+        parts = [token[:, None]]
         _sync(self.device)
         t1 = time.perf_counter()
-        n = 1
+        tracing.record("prefill", t0, t1, batch=batch,
+                       prompt_len=prompt_len, chunked=bool(chunk))
+        kv_block_gauges("engine", batch * (prompt_len + max_new_tokens),
+                        batch * self._cache_seq)
         done = None if eos_id is None else (token == eos_id)
         if done is None or not bool(done.all()):
             for take in eos_chunks(max_new_tokens - 1):
-                for _ in range(take):
-                    logits, cache = self._forward_cached(token[:, None],
-                                                         cache, pad_t)
-                    token = select_token(logits[:, -1], sampling, generator)
-                    out[:, n] = token
-                    n += 1
+                out, cache = self._decode_seg(token, cache, pad_t, take,
+                                              sampling, generator)
+                token = out[:, -1]
+                parts.append(out)
                 if done is not None:
-                    done |= (out[:, n - take:n] == eos_id).any(dim=1)
+                    done |= (out == eos_id).any(dim=1)
                     if bool(done.all()):
                         break
         # an owning host copy: nothing later writes these tokens
-        new = out[:, :n].cpu().numpy().copy()
+        new = torch.cat(parts, dim=1).cpu().numpy().copy()
         t2 = time.perf_counter()
+        n = new.shape[1]
+        tracing.record("decode", t1, t2, batch=batch, steps=n)
+        kv_block_gauges("engine", 0, batch * self._cache_seq)
         return GenerateResult(tokens=np.concatenate([ids, new], axis=1),
                               prompt_len=prompt_len,
                               prefill_seconds=t1 - t0,

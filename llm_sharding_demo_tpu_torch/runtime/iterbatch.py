@@ -1,0 +1,866 @@
+"""Iteration-level continuous batching: joins and retirements at segment
+boundaries, on contiguous caches.
+
+Counterpart of ``llm_sharding_demo_tpu/runtime/iterbatch.py`` without
+its paged pool, speculation and prefix store. ``runtime.batcher`` batches
+at admission and runs each round to its end; here the decode runs as
+segments of ``seg_steps`` steps (``DecodeEngine._decode_seg``), and
+between two segments the scheduler
+
+- **admits** queued requests into free rows: a solo prefill at a
+  bucketed length, whose K/V is copied into the live cache so that the
+  row's content ends at the batch's current depth d (content at
+  ``[d - plen, d)``, pad ``d - plen``: what a solo run's cache holds,
+  shifted; ``_admit_cache``);
+- **retires** rows that reached ``max_new_tokens`` or emitted their
+  ``eos_id``, freeing the row for the next join.
+
+Exactness is the admission batcher's, per row: a greedy row equals its
+solo run, since attention is row-independent and masks the left pad; a
+seeded sampled row is byte-equal to its solo run, since each row draws
+from its own request's generator, once a step, and ghost rows draw
+nothing (``engine.select_token``).
+
+Batches are policy-pure (one ``SamplingConfig`` per live batch); an
+incompatible arrival closes admission and seeds the next batch, FIFO
+kept. A batch runs at the smallest power-of-two width that fits it and
+grows when an arrival finds no free row (``_grow``); ghost rows copy
+row 0. Past 16 rows a decode step leaves the megakernels for the
+per-layer kernels (``models.gpt2.mega_step``).
+
+Degraded mode: a ``graftfault.TransientFault`` at a segment parks every
+live row and resumes it by recompute (a re-prefill of prompt plus
+emitted tokens), at most ``FAULT_PARK_BUDGET`` times a row; deadlines and
+caller timeouts cancel a row at the next boundary.
+
+The worker thread owns all device work, under ``torch.inference_mode``
+(which is thread-local). The paged pool (watermark admission,
+preemption, block tables), speculative segments and prefix-store
+admissions wait for ROADMAP Queue 1 items 9, 11 and 10.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import queue
+import threading
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..models import is_window_independent
+from ..ops.attention import KVCache
+from ..utils import graftfault, graftmem, graftsched, graftscope, tracing
+from ..utils.metrics import REGISTRY, kv_block_gauges
+from ..utils.device import device_scope
+from .batcher import _round_up, refuse_compositions
+from .engine import (DecodeEngine, GenerateResult, SamplingConfig,
+                     select_token)
+
+POOL_ITEM = "ROADMAP Queue 1 item 9 (paged KV)"
+
+# a row that keeps faulting past this many transient-fault parks fails
+# typed instead of cycling forever
+FAULT_PARK_BUDGET = 3
+
+
+def _next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+@dataclasses.dataclass
+class _Req:
+    prompt: np.ndarray
+    max_new_tokens: int
+    sampling: SamplingConfig
+    generator: Optional[torch.Generator]
+    eos_id: Optional[int]
+    done: threading.Event = dataclasses.field(
+        default_factory=threading.Event)
+    payload: Optional[tuple] = None   # (_Slot, eos_at): the caller assembles
+    error: Optional[Exception] = None
+    # set by generate() on timeout: the scheduler drops the request at
+    # dequeue and frees its row at the next boundary
+    cancelled: threading.Event = dataclasses.field(
+        default_factory=threading.Event)
+    deadline: Optional[graftfault.Deadline] = None
+    trace: Optional[object] = None
+    t_submit: float = 0.0
+
+    def fail(self, e: Exception) -> None:
+        """Deliver an error once (several paths may see the same
+        request)."""
+        if not self.done.is_set():
+            self.error = e
+            self.done.set()
+
+
+class _SegOut:
+    """One segment's ``[B, n]`` tokens. On the card the copy to pinned
+    host memory starts at construction, behind the segment on the same
+    stream, so the scheduler never waits on it; the first reader waits
+    for that copy alone. Several retiring rows may share one segment,
+    and caller threads race the read, hence the lock."""
+
+    def __init__(self, arr: torch.Tensor):
+        self._np = None
+        self._lock = graftsched.lock("iterbatch._SegOut._lock")
+        self._event = None
+        if arr.is_cuda:
+            self._host = torch.empty(arr.shape, dtype=arr.dtype,
+                                     pin_memory=True)
+            self._host.copy_(arr, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = arr
+
+    @property
+    def np(self) -> np.ndarray:
+        with self._lock:
+            if self._np is None:
+                if self._event is not None:
+                    self._event.synchronize()
+                self._np = self._host.numpy().copy()
+            return self._np
+
+
+@dataclasses.dataclass
+class _Slot:
+    req: _Req
+    plen: int
+    row: int                      # this slot's batch row (fixed)
+    first_ref: Optional[_SegOut]  # holds the first generated token ...
+    first_idx: int                # ... at this index (None when resumed)
+    emitted: int = 1              # tokens generated so far (incl. first)
+    segs: List = dataclasses.field(default_factory=list)  # (_SegOut, n)
+    order: int = 0                # admission order
+    # tokens emitted before a park (host copy); delivery prepends them in
+    # place of first_ref
+    resumed_prefix: Optional[np.ndarray] = None
+    fault_budget_used: int = 0
+    t0: float = 0.0
+    done_t: float = 0.0
+
+
+def _admit_cache_impl(cache, solo, slot: int, depth: int, sp: int,
+                      plen: int):
+    """Copy a solo-prefilled row into batch row ``slot``: its content at
+    solo slots ``[sp - plen, sp)`` lands at ``[depth - plen, depth)``,
+    in place. What the row held before stays outside that window: below
+    it the new pad masks it, above it decode writes each slot before
+    attention reads it. Plain, fused (placeholder ``v``) and staged
+    (list) caches."""
+    def one(c: KVCache, s: KVCache) -> None:
+        c.k[:, slot, :, depth - plen:depth] = s.k[:, 0, :, sp - plen:sp]
+        if not c.fused:
+            c.v[:, slot, :, depth - plen:depth] = s.v[:, 0, :, sp - plen:sp]
+
+    for c, s in (zip(cache, solo) if isinstance(cache, list)
+                 else [(cache, solo)]):
+        one(c, s)
+    return cache
+
+
+def _admit_cache_scope_key(cache, solo, slot, depth, sp, plen):
+    """(batch width, cache width, solo prefill width)."""
+    c = cache[0] if isinstance(cache, list) else cache
+    return (int(c.k.shape[1]), int(c.k.shape[3]), sp)
+
+
+_admit_cache = graftscope.instrument(_admit_cache_impl,
+                                     "iterbatch._admit_cache",
+                                     key_fn=_admit_cache_scope_key)
+
+
+@dataclasses.dataclass
+class _Parked:
+    """A row between a fault park and its resume: what the recompute
+    path needs to continue the stream."""
+
+    req: _Req
+    plen: int
+    emitted: int                  # tokens generated before the park
+    tokens: np.ndarray            # those tokens, on the host
+    order: int
+    t0: float
+    fault_budget_used: int = 0
+
+
+class _BatchState:
+    """The live batch between segments (worker-thread state)."""
+
+    def __init__(self, sampling, token, cache, pad, depth):
+        self.sampling = sampling
+        self.token = token            # [B] device int64
+        self.cache = cache
+        self.pad = pad                # [B] device int32
+        self.depth = depth            # uniform cache depth
+        self.slots: List[Optional[_Slot]] = []
+        self.closed = False           # True: no more admissions (FIFO)
+        self.mem_cache = graftmem.track(self, "cache", "engine_cache", cache)
+
+    def active(self) -> bool:
+        return any(s is not None for s in self.slots)
+
+
+class IterBatchingEngine:
+    """Thread-safe iteration-level batching front end over a
+    ``DecodeEngine`` (the calling convention of ``BatchingEngine``, plus
+    ``eos_id`` and ``deadline``).
+
+    ``seg_steps`` is the scheduling granularity: admissions and
+    retirements happen every ``seg_steps`` decode steps, so a request's
+    worst-case join delay is one segment.
+    """
+
+    def __init__(self, engine: DecodeEngine, max_batch: int = 8,
+                 seg_steps: int = 32, max_wait_ms: float = 2.0,
+                 prompt_bucket: int = 16, spec=None, prefix=None,
+                 pool=None):
+        if not is_window_independent(engine.config):
+            raise NotImplementedError(
+                "iteration-level batching requires window-independent "
+                "routing")
+        if engine.prefill_chunk:
+            raise NotImplementedError(
+                "iteration-level batching prefills admissions solo at "
+                "bucketed lengths; it does not compose with "
+                "prefill_chunk (use the admission batcher)")
+        if pool is not None:
+            raise NotImplementedError(
+                f"IterBatchingEngine: pool= waits for {POOL_ITEM}")
+        refuse_compositions(prefix, spec, "IterBatchingEngine")
+        self.engine = engine
+        self.max_batch = max_batch
+        self.seg_steps = seg_steps
+        self.max_wait_s = max_wait_ms / 1e3
+        self.prompt_bucket = prompt_bucket
+        self._queue: "queue.Queue[_Req]" = queue.Queue()
+        self._pending: Optional[_Req] = None
+        self._parked: List[_Parked] = []   # fault-parked rows, oldest first
+        self._order = 0                    # admission counter (worker only)
+        self._stats_lock = graftsched.lock(
+            "iterbatch.IterBatchingEngine._stats_lock")
+        self.batches_run = 0
+        self.rows_served = 0
+        self.joins = 0                # admissions into a live batch
+        self.segments_run = 0
+        self.eos_retires = 0
+        self.grows = 0                # width upgrades of a live batch
+        self.resumes = 0              # parked rows recomputed back in
+        self.fault_parks = 0          # transient-fault park events
+        self._worker = threading.Thread(target=self._loop, daemon=True)
+        self._worker.start()
+
+    # -- caller side ---------------------------------------------------------
+
+    def generate(self, prompt_ids, max_new_tokens: int,
+                 sampling: SamplingConfig = SamplingConfig(),
+                 generator: Optional[torch.Generator] = None,
+                 eos_id: Optional[int] = None,
+                 timeout: Optional[float] = None,
+                 deadline: Optional[graftfault.Deadline] = None,
+                 ) -> GenerateResult:
+        prompt = np.asarray(prompt_ids, dtype=np.int64).reshape(-1)
+        if prompt.size == 0:
+            raise ValueError("prompt must be non-empty")
+        if len(prompt) + max_new_tokens > self.engine.max_seq:
+            raise ValueError(
+                f"prompt_len={len(prompt)} + max_new_tokens="
+                f"{max_new_tokens} exceeds max_seq={self.engine.max_seq}")
+        if sampling.mode != "greedy" and generator is None:
+            raise ValueError(
+                "sample-mode requests must carry their own torch.Generator")
+        if deadline is not None:
+            deadline.raise_if_expired("iter-batched generate")
+        req = _Req(prompt=prompt, max_new_tokens=max_new_tokens,
+                   sampling=sampling, generator=generator, eos_id=eos_id,
+                   deadline=deadline, trace=tracing.current_trace(),
+                   t_submit=time.perf_counter())
+        self._queue.put(req)
+        REGISTRY.gauge("queue_depth", self._queue.qsize(), scheduler="iter")
+        wait = timeout
+        if deadline is not None:
+            rem = deadline.remaining()
+            wait = rem if wait is None else min(wait, rem)
+        if not req.done.wait(wait):
+            # cancel, not just abandon: the scheduler skips the request
+            # at dequeue or frees its row at the next boundary
+            req.cancelled.set()
+            if deadline is not None and deadline.expired():
+                raise graftfault.DeadlineExceeded(
+                    "iter-batched generate: deadline budget exhausted; "
+                    "in-flight work is cancelled at the next segment "
+                    "boundary")
+            raise TimeoutError("iter-batched generate timed out")
+        if req.error is not None:
+            raise req.error
+        # token assembly (the device->host reads) happens here, on the
+        # caller's thread: the scheduler only marks rows done
+        s, eos_at = req.payload
+        new = self._row_tokens(s)
+        if eos_at is not None:
+            new = new[:eos_at + 1]
+        tokens = np.concatenate([req.prompt, new])[None, :]
+        # decode_seconds is the row's wall time from admission to
+        # retirement (prefill, shared segments and scheduling)
+        return GenerateResult(
+            tokens=tokens, prompt_len=s.plen, prefill_seconds=0.0,
+            decode_seconds=s.done_t - s.t0, new_tokens=len(new),
+            decode_steps=len(new) - 1)
+
+    def stats(self) -> dict:
+        with self._stats_lock:
+            return {"batches": self.batches_run, "rows": self.rows_served,
+                    "joins": self.joins, "segments": self.segments_run,
+                    "eos_retires": self.eos_retires, "grows": self.grows,
+                    "resumes": self.resumes,
+                    "fault_parks": self.fault_parks,
+                    "parked": len(self._parked)}
+
+    # -- worker side: leaf-locked access to what serving threads read -------
+
+    def _peek_parked(self) -> Optional[_Parked]:
+        with self._stats_lock:
+            return self._parked[0] if self._parked else None
+
+    def _pop_parked(self) -> Optional[_Parked]:
+        with self._stats_lock:
+            return self._parked.pop(0) if self._parked else None
+
+    def _park(self, parked: _Parked) -> None:
+        with self._stats_lock:
+            self._parked.append(parked)
+            self._parked.sort(key=lambda p: p.order)
+
+    def _take_pending(self) -> Optional[_Req]:
+        with self._stats_lock:
+            req, self._pending = self._pending, None
+            return req
+
+    def _get_pending(self) -> Optional[_Req]:
+        with self._stats_lock:
+            return self._pending
+
+    def _set_pending(self, req: Optional[_Req]) -> None:
+        with self._stats_lock:
+            self._pending = req
+
+    def _req_dead(self, req: _Req) -> bool:
+        """Cancelled or past its deadline: nobody wants the work. A
+        past-deadline request is failed typed here and marked
+        cancelled."""
+        if req.cancelled.is_set():
+            return True
+        if req.deadline is not None and req.deadline.expired():
+            req.fail(graftfault.DeadlineExceeded(
+                "deadline budget exhausted before the scheduler could "
+                "run this request"))
+            req.cancelled.set()
+            return True
+        return False
+
+    def _loop(self):
+        with torch.inference_mode(), device_scope(self.engine.device):
+            while True:
+                # parked rows outrank every queued request (they were
+                # admitted first)
+                head = self._pop_parked()
+                if head is not None:
+                    if self._req_dead(head.req):
+                        continue
+                else:
+                    head = self._take_pending()
+                    if head is None:
+                        head = self._queue.get()
+                    if self._req_dead(head):
+                        continue
+                try:
+                    self._run_batch(head)
+                except Exception as e:  # noqa: BLE001 — per request
+                    self._ent_req(head).fail(e)
+
+    def _compatible(self, state: _BatchState, ent) -> bool:
+        """Can this entry (a fresh ``_Req`` or a ``_Parked`` resume) join
+        the live batch now? Same policy, its prefill fits below the
+        current depth, and its remaining generation fits the cache."""
+        return (self._ent_req(ent).sampling == state.sampling
+                and len(self._ent_ids(ent)) <= state.depth
+                and state.depth + self._ent_need(ent)
+                <= self.engine.max_seq)
+
+    def _run_batch(self, head):
+        state = self._seed(head)
+        try:
+            while state.active():
+                if not state.closed:
+                    self._admit(state)
+                try:
+                    self._advance(state)
+                except graftfault.TransientFault as e:
+                    self._fault_park_all(state, e)
+        except Exception as e:  # noqa: BLE001
+            for s in state.slots:
+                if s is not None:
+                    s.req.fail(e)
+            raise
+        finally:
+            graftmem.release(state.mem_cache)
+
+    # -- seeding -------------------------------------------------------------
+
+    @staticmethod
+    def _ent_req(e) -> _Req:
+        return e.req if isinstance(e, _Parked) else e
+
+    @staticmethod
+    def _ent_ids(e) -> np.ndarray:
+        """The tokens an entry's prefill forwards: the prompt or, for a
+        parked row, the prompt and every emitted token but the last (the
+        live token the segment loop carries)."""
+        if isinstance(e, _Parked):
+            return np.concatenate([e.req.prompt, e.tokens[:-1]])
+        return e.prompt
+
+    @staticmethod
+    def _ent_need(e) -> int:
+        """Cache slots the entry still needs past its prefill."""
+        if isinstance(e, _Parked):
+            return e.req.max_new_tokens - e.emitted + 1
+        return e.max_new_tokens
+
+    def _seed(self, head) -> _BatchState:
+        """Start a batch: same-policy parked rows first, then queued peers
+        that fit, for up to ``max_wait_ms``. A failure past gathering is
+        delivered to every gathered request."""
+        seed = [head]
+        sampling = self._ent_req(head).sampling
+        while len(seed) < self.max_batch:
+            nxt = self._peek_parked()
+            if nxt is None:
+                break
+            if self._req_dead(nxt.req):
+                self._pop_parked()
+                continue
+            if nxt.req.sampling == sampling and self._fits(seed + [nxt]):
+                seed.append(self._pop_parked())
+            else:
+                break
+        deadline = time.monotonic() + self.max_wait_s
+        while len(seed) < self.max_batch:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                break
+            try:
+                nxt = self._queue.get(timeout=remaining)
+            except queue.Empty:
+                break
+            if self._req_dead(nxt):
+                continue
+            if nxt.sampling == sampling and self._fits(seed + [nxt]):
+                seed.append(nxt)
+            else:
+                # held as the FIFO head: _admit reconsiders it first, and
+                # otherwise it seeds the next batch
+                self._set_pending(nxt)
+                break
+        try:
+            return self._seed_batch(seed)
+        except Exception as e:  # noqa: BLE001
+            for r in seed:
+                self._ent_req(r).fail(e)
+            raise
+
+    def _seed_batch(self, seed: List) -> _BatchState:
+        eng = self.engine
+        sampling = self._ent_req(seed[0]).sampling
+        s_max = self._seed_smax(seed)
+        rows = [self._ent_ids(e) for e in seed]
+        # right-sized: the next power of two that fits the seed; _admit
+        # grows it on demand
+        b = min(_next_pow2(len(seed)), self.max_batch)
+        ids = np.zeros((b, s_max), dtype=np.int64)
+        pad = np.zeros((b,), dtype=np.int32)
+        for i in range(b):
+            row = rows[min(i, len(seed) - 1)]  # free rows copy the last
+            ids[i, s_max - len(row):] = row
+            pad[i] = s_max - len(row)
+        t0 = time.monotonic()
+        sp0 = time.perf_counter()
+        logits, cache = eng._prefill(eng._ids(ids), eng._pad(pad))
+        # a resumed row's live token is its last emitted one, known: it
+        # draws nothing here; free rows draw nothing either
+        generators = None
+        if sampling.mode != "greedy":
+            generators = [None if isinstance(e, _Parked) else e.generator
+                          for e in seed] + [None] * (b - len(seed))
+        first = select_token(logits[:, -1], sampling, generators)
+        for i, e in enumerate(seed):
+            if isinstance(e, _Parked):
+                first[i] = int(e.tokens[-1])
+        sp1 = time.perf_counter()
+        for e in seed:
+            r = self._ent_req(e)
+            if r.trace is not None:
+                if not isinstance(e, _Parked):
+                    r.trace.add_span("queue_wait", r.t_submit, sp0,
+                                     scheduler="iter")
+                r.trace.add_span(
+                    "prefill", sp0, sp1, width=b,
+                    kind="resume" if isinstance(e, _Parked) else "seed")
+        state = _BatchState(sampling, first,
+                            cache, torch.as_tensor(pad, device=eng.device),
+                            s_max)
+        first_ref = _SegOut(first)          # one shared [B] read
+        state.slots = [None] * b
+        n_res = 0
+        for i, e in enumerate(seed):
+            r = self._ent_req(e)
+            if isinstance(e, _Parked):
+                n_res += 1
+                state.slots[i] = _Slot(
+                    req=r, plen=e.plen, row=i, first_ref=None, first_idx=0,
+                    emitted=e.emitted, resumed_prefix=e.tokens,
+                    order=e.order, t0=e.t0,
+                    fault_budget_used=e.fault_budget_used)
+            else:
+                self._order += 1
+                state.slots[i] = _Slot(req=r, plen=len(r.prompt), row=i,
+                                       first_ref=first_ref, first_idx=i,
+                                       order=self._order, t0=t0)
+        with self._stats_lock:
+            self.batches_run += 1
+            self.resumes += n_res
+        REGISTRY.inc("iter_batches_total")
+        self._retire_finished(state)      # max_new_tokens == 1 rows
+        self._set_gauges(state)
+        return state
+
+    def _fits(self, ents: List) -> bool:
+        s_max = self._seed_smax(ents)
+        return all(s_max + self._ent_need(e) <= self.engine.max_seq
+                   and len(self._ent_ids(e)) <= s_max for e in ents)
+
+    def _seed_smax(self, ents: List) -> int:
+        raw = max(len(self._ent_ids(e)) for e in ents)
+        need = max(self._ent_need(e) for e in ents)
+        return min(_round_up(raw, self.prompt_bucket),
+                   self.engine.max_seq - need)
+
+    # -- admission -----------------------------------------------------------
+
+    def _admit(self, state: _BatchState):
+        """Parked rows first (oldest first), then compatible queued
+        requests, into free rows. Strict FIFO: an incompatible head
+        closes admission and seeds the next batch; the held head
+        (``_pending``) is reconsidered first and never overwritten. With
+        no free row, a batch narrower than ``max_batch`` grows."""
+        while True:
+            ent = self._peek_parked()
+            if ent is None:
+                break
+            if self._req_dead(ent.req):
+                self._pop_parked()
+                continue
+            if not self._compatible(state, ent):
+                # a policy mismatch closes admission; a depth mismatch
+                # waits for the next batch to seed from it
+                if ent.req.sampling != state.sampling:
+                    state.closed = True
+                return
+            slot = self._free_slot(state)
+            if slot is None:
+                return  # full: retried at the next boundary
+            ent = self._pop_parked()
+            try:
+                self._admit_one(state, ent.req, slot, resume=ent)
+            except Exception as e:  # noqa: BLE001
+                ent.req.fail(e)
+                raise
+        while True:
+            req = self._get_pending()
+            if req is None:
+                try:
+                    req = self._queue.get_nowait()
+                except queue.Empty:
+                    return
+                self._set_pending(req)
+            if self._req_dead(req):
+                self._set_pending(None)
+                continue
+            if not self._compatible(state, req):
+                state.closed = True  # req stays held as the FIFO head
+                return
+            slot = self._free_slot(state)
+            if slot is None:
+                return  # full: req stays the head
+            self._set_pending(None)
+            try:
+                self._admit_one(state, req, slot)
+            except Exception as e:  # noqa: BLE001 — not in state.slots
+                req.fail(e)        # yet: without this its caller would
+                raise              # block forever
+
+    def _free_slot(self, state: _BatchState) -> Optional[int]:
+        free = [i for i, s in enumerate(state.slots) if s is None]
+        if not free:
+            if len(state.slots) >= self.max_batch:
+                return None
+            self._grow(state)
+            free = [i for i, s in enumerate(state.slots) if s is None]
+        return free[0]
+
+    def _grow(self, state: _BatchState):
+        """Widen the live batch to the next power of two: token, pad and
+        cache gain rows that copy row 0 (any live row is valid ghost
+        material: rows are independent)."""
+        old = len(state.slots)
+        new = min(_next_pow2(old + 1), self.max_batch)
+        extra = new - old
+
+        def rep(x: torch.Tensor, dim: int) -> torch.Tensor:
+            return torch.cat([x] + [x.narrow(dim, 0, 1)] * extra, dim=dim)
+
+        def grow_cache(c: KVCache) -> KVCache:
+            return KVCache(k=rep(c.k, 1), v=c.v if c.fused else rep(c.v, 1),
+                           length=c.length)
+
+        state.token = rep(state.token, 0)
+        state.pad = rep(state.pad, 0)
+        state.cache = ([grow_cache(c) for c in state.cache]
+                       if isinstance(state.cache, list)
+                       else grow_cache(state.cache))
+        graftmem.update(state.mem_cache, state.cache)
+        state.slots = state.slots + [None] * extra
+        with self._stats_lock:
+            self.grows += 1
+        REGISTRY.inc("iter_grows_total")
+
+    def _admit_one(self, state: _BatchState, req: _Req, slot: int,
+                   resume: Optional[_Parked] = None):
+        eng = self.engine
+        stream = self._ent_ids(resume) if resume is not None else req.prompt
+        plen_eff = len(stream)            # tokens the prefill forwards
+        plen = resume.plen if resume is not None else plen_eff
+        t0 = resume.t0 if resume is not None else time.monotonic()
+        p0 = time.perf_counter()
+        if req.trace is not None and resume is None:
+            req.trace.add_span("queue_wait", req.t_submit, p0,
+                               scheduler="iter")
+        sp = min(_round_up(plen_eff, self.prompt_bucket), state.depth)
+        sp = max(sp, plen_eff)  # a bucket past the depth: the exact length
+        ids = np.zeros((1, sp), dtype=np.int64)
+        ids[0, sp - plen_eff:] = stream
+        logits, solo = eng._prefill(
+            eng._ids(ids), eng._pad(np.asarray([sp - plen_eff], np.int32)))
+        if req.trace is not None:
+            req.trace.add_span(
+                "prefill", p0, time.perf_counter(),
+                kind="resume" if resume is not None else "admit",
+                depth=state.depth, prompt_len=plen_eff)
+        if resume is not None:
+            # the live token is the parked row's last emitted one
+            first = torch.full((1,), int(resume.tokens[-1]),
+                               dtype=torch.int64, device=eng.device)
+        else:
+            first = select_token(
+                logits[:, -1], state.sampling,
+                None if state.sampling.mode == "greedy" else [req.generator])
+        _admit_cache(state.cache, solo, slot, state.depth, sp, plen_eff)
+        state.pad[slot] = state.depth - plen_eff
+        # a new tensor, never a write into the last segment's output (the
+        # retired rows' tokens are read from it)
+        token = state.token.clone()
+        token[slot] = first[0]
+        state.token = token
+        self._order += 1
+        state.slots[slot] = _Slot(
+            req=req, plen=plen, row=slot,
+            first_ref=None if resume is not None else _SegOut(first),
+            first_idx=0, t0=t0,
+            emitted=resume.emitted if resume is not None else 1,
+            resumed_prefix=resume.tokens if resume is not None else None,
+            order=resume.order if resume is not None else self._order,
+            fault_budget_used=(resume.fault_budget_used
+                               if resume is not None else 0))
+        with self._stats_lock:
+            if resume is not None:
+                self.resumes += 1
+            else:
+                self.joins += 1
+        REGISTRY.inc("iter_resumes_total" if resume is not None
+                     else "iter_joins_total")
+        if req.max_new_tokens <= (resume.emitted if resume is not None
+                                  else 1):
+            self._retire_finished(state)
+
+    # -- degraded mode -------------------------------------------------------
+
+    def _park_slot(self, state: _BatchState, s: _Slot,
+                   fault_budget_used: int) -> None:
+        """Park one live row for recompute-resume: read its emitted
+        tokens (a host sync: parking is the slow path), free its row,
+        queue it oldest first."""
+        tokens = np.asarray(self._row_tokens(s), dtype=np.int64)
+        self._park(_Parked(req=s.req, plen=s.plen,
+                           emitted=min(s.emitted, s.req.max_new_tokens),
+                           tokens=tokens, order=s.order, t0=s.t0,
+                           fault_budget_used=fault_budget_used))
+        state.slots[s.row] = None
+
+    def _fault_park_all(self, state: _BatchState,
+                        fault: Exception) -> None:
+        """A transient fault before a segment: park every live row (the
+        failed segment never ran, so each row's snapshot is its
+        pre-segment state); a row past ``FAULT_PARK_BUDGET`` fails
+        typed."""
+        for i, s in enumerate(state.slots):
+            if s is None:
+                continue
+            if s.fault_budget_used + 1 > FAULT_PARK_BUDGET:
+                s.req.fail(graftfault.FaultBudgetError(
+                    f"row exhausted its transient-fault park budget "
+                    f"({FAULT_PARK_BUDGET}); last fault: {fault}"))
+                state.slots[i] = None
+                continue
+            if s.req.trace is not None:
+                s.req.trace.labels["fault_parks"] = (
+                    s.req.trace.labels.get("fault_parks", 0) + 1)
+            self._park_slot(state, s, s.fault_budget_used + 1)
+        with self._stats_lock:
+            self.fault_parks += 1
+        REGISTRY.inc("iter_fault_parks_total")
+
+    # -- the segment step ----------------------------------------------------
+
+    def _set_gauges(self, state: _BatchState) -> None:
+        live = sum(1 for s in state.slots if s is not None)
+        width = len(state.slots)
+        occupancy = round(live / max(width, 1), 4)
+        depth = self._queue.qsize()
+        REGISTRY.gauge("iter_live_rows", live)
+        REGISTRY.gauge("batch_occupancy", occupancy, scheduler="iter")
+        kv_block_gauges("iter", state.depth * live,
+                        width * self.engine._cache_seq)
+        REGISTRY.gauge("queue_depth", depth, scheduler="iter")
+        graftscope.sample("iter_live_rows", live)
+        graftscope.sample("batch_occupancy", occupancy, scheduler="iter")
+        graftscope.sample("queue_depth", depth, scheduler="iter")
+
+    def _advance(self, state: _BatchState):
+        # injected faults fire before any state changes, so a transient
+        # park snapshots exactly the pre-segment state
+        kind = graftfault.inject("iterbatch.decode_seg", "decode_transient",
+                                 "decode_permanent", "decode_slow")
+        if kind == "decode_slow":
+            time.sleep(0.05)
+        elif kind == "decode_transient":
+            raise graftfault.TransientFault(
+                "iterbatch.decode_seg", kind,
+                "graftfault: injected transient decode fault")
+        elif kind == "decode_permanent":
+            raise graftfault.PermanentFault(
+                "iterbatch.decode_seg", kind,
+                "graftfault: injected permanent engine fault")
+        eng = self.engine
+        d = state.depth
+        n = min(self.seg_steps, eng.max_seq - d)
+        if n < 1:
+            raise RuntimeError("live rows past max_seq (an admission bug)")
+        generators = None
+        if state.sampling.mode != "greedy":
+            generators = [None if s is None else s.req.generator
+                          for s in state.slots]
+        t0 = time.perf_counter()
+        out, state.cache = eng._decode_seg(state.token, state.cache,
+                                           state.pad, n, state.sampling,
+                                           generators)
+        state.token = out[:, -1]
+        state.depth = d + n
+        seg = _SegOut(out)
+        t1 = time.perf_counter()
+        # the scheduler thread's dispatch view: segments queue
+        # asynchronously on the card
+        REGISTRY.observe("decode_step_seconds", (t1 - t0) / n,
+                         component="iter")
+        with self._stats_lock:
+            self.segments_run += 1
+        REGISTRY.inc("iter_segments_total")
+        for s in state.slots:
+            if s is not None:
+                s.segs.append((seg, n))
+                s.emitted += n
+                if s.req.trace is not None:
+                    s.req.trace.add_span(
+                        "decode", t0, t1, seg=True, steps=n,
+                        width=len(state.slots), depth=state.depth)
+        self._retire_finished(state)
+        self._set_gauges(state)
+
+    # -- retirement ----------------------------------------------------------
+
+    def _retire_finished(self, state: _BatchState):
+        eos_armed = any(s is not None and s.req.eos_id is not None
+                        for s in state.slots)
+        for i, s in enumerate(state.slots):
+            if s is None:
+                continue
+            if (s.req.deadline is not None and s.req.deadline.expired()
+                    and not s.req.done.is_set()):
+                # past its deadline: cancelled at this boundary, typed
+                s.req.fail(graftfault.DeadlineExceeded(
+                    "deadline budget exhausted mid-decode; row "
+                    "cancelled at the segment boundary"))
+                s.req.cancelled.set()
+                state.slots[i] = None
+                continue
+            if s.req.cancelled.is_set():
+                # the caller timed out and left: free the row
+                if s.req.trace is not None:
+                    t = time.perf_counter()
+                    s.req.trace.add_span("abandoned", t, t,
+                                         scheduler="iter", emitted=s.emitted)
+                state.slots[i] = None
+                continue
+            done = s.emitted >= s.req.max_new_tokens
+            eos_at = None
+            if s.req.eos_id is not None and (done or eos_armed):
+                # the EOS scan reads the segment: only armed batches pay
+                # this host sync
+                hits = np.flatnonzero(self._row_tokens(s) == s.req.eos_id)
+                if hits.size:
+                    eos_at = int(hits[0])
+                    done = True
+            if done:
+                self._deliver(state, i, s, eos_at)
+
+    def _row_tokens(self, s: _Slot) -> np.ndarray:
+        if s.resumed_prefix is not None:
+            # tokens emitted before the park were read then; segments
+            # since the resume append after them
+            parts = [s.resumed_prefix]
+        else:
+            parts = [s.first_ref.np[s.first_idx:s.first_idx + 1]]
+        parts += [seg.np[s.row] for seg, _ in s.segs]
+        return np.concatenate(parts)[:s.req.max_new_tokens]
+
+    def _deliver(self, state: _BatchState, i: int, s: _Slot, eos_at):
+        """Retire the row and hand it to its caller, whose thread
+        assembles the tokens, so the scheduler keeps dispatching."""
+        if eos_at is not None and eos_at + 1 < s.req.max_new_tokens:
+            with self._stats_lock:
+                self.eos_retires += 1
+            REGISTRY.inc("iter_eos_retires_total")
+        s.done_t = time.monotonic()
+        s.req.payload = (s, eos_at)
+        s.req.done.set()
+        state.slots[i] = None
+        with self._stats_lock:
+            self.rows_served += 1
+        REGISTRY.inc("iter_rows_total")

@@ -10,11 +10,18 @@ Counterpart of the core of ``llm_sharding_demo_tpu/serving/app.py``
   resolved decode kernel mode and the kernels' launch counts.
 
 Role guards answer HTTP 200 with ``{"error": ...}`` as the reference does.
-Runner choice: ``INFERENCE_DTYPE=int8`` or ``bfloat16`` -> the staged
-``DecodeEngine``, which runs the per-layer CUDA kernels on the GPU;
-float32 -> the kernel-free ``PipelineRunner``, the fp32 parity path.
-(The JAX app serves single-stream bf16 through its ``PipelineRunner``;
-here bf16 takes the engine so that its decode steps run the kernels.)
+Runner choice: ``INFERENCE_DTYPE=int8`` or ``bfloat16``, ``MAX_BATCH >
+1`` or ``PREFILL_CHUNK`` -> the staged ``DecodeEngine``, which runs the
+CUDA kernels on the GPU for bf16 and int8; otherwise the kernel-free
+``PipelineRunner``, the fp32 single-stream parity path. (The JAX app
+serves single-stream bf16 through its ``PipelineRunner``; here bf16
+takes the engine so that its decode steps run the kernels.) With
+``MAX_BATCH > 1`` the engine sits behind the admission batcher
+(``BATCH_MODE=admission``, ``runtime.batcher``) or the iteration-level
+batcher (``BATCH_MODE=iter``, ``runtime.iterbatch``). Each request draws
+from its own generator, seeded by its ``seed``, so a seeded request
+replays whether it ran alone or in a batch; a batched request waits at
+most ``GENERATE_TIMEOUT_S`` and then answers 503.
 """
 
 from __future__ import annotations
@@ -27,13 +34,16 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..models import is_partitionable
+from ..models import is_partitionable, is_window_independent
 from ..models.gpt2 import map_params
 from ..ops import cuda_build
 from ..parallel import partition as P_
 from ..parallel.pipeline import PipelineRunner
+from ..runtime.batcher import BatchingEngine
 from ..runtime.engine import (REF_TEMPERATURE, REF_TOP_K, DecodeEngine,
                               SamplingConfig)
+from ..runtime.iterbatch import IterBatchingEngine
+from ..utils import graftfault
 from ..utils.config import ServingConfig, from_env
 from ..utils.device import DeviceLike, resolve_device
 from . import loader
@@ -41,6 +51,9 @@ from .http import JSONApp
 from .tokenizer import get_tokenizer
 
 log = logging.getLogger(__name__)
+
+# how long a request thread waits for its row in a batch
+GENERATE_TIMEOUT_S = 600.0
 
 
 @dataclasses.dataclass
@@ -95,17 +108,28 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
             "coordinator's decode path only; shard roles serve the fp32 "
             "parity endpoints")
 
-    runner = None
+    check_batching(cfg, config)
+
+    runner = engine = None
     decode_kernel = None
     if cfg.shard_role == "coordinator":
-        if cfg.inference_dtype == "float32":
-            runner = PipelineRunner(params, config, list(cfg.boundaries),
-                                    max_seq=cfg.max_seq, device=dev)
-        else:
-            runner = DecodeEngine(params, config, max_seq=cfg.max_seq,
+        pchunk = cfg.prefill_chunk or None
+        if (cfg.inference_dtype != "float32" or cfg.max_batch > 1
+                or pchunk):
+            engine = DecodeEngine(params, config, max_seq=cfg.max_seq,
                                   boundaries=list(cfg.boundaries),
-                                  dtype=cfg.inference_dtype, device=dev)
-        decode_kernel = runner.decode_kernel_mode
+                                  dtype=cfg.inference_dtype, device=dev,
+                                  prefill_chunk=pchunk)
+        else:
+            engine = PipelineRunner(params, config, list(cfg.boundaries),
+                                    max_seq=cfg.max_seq, device=dev)
+        decode_kernel = engine.decode_kernel_mode
+        runner = engine
+        if cfg.max_batch > 1:
+            batcher = (IterBatchingEngine if cfg.batch_mode == "iter"
+                       else BatchingEngine)
+            runner = batcher(engine, max_batch=cfg.max_batch,
+                             max_wait_ms=cfg.batch_wait_ms)
     # the reference's two-stage wire topology (/forward, /forward_b) is
     # dense GPT-2 only; other families answer /generate alone
     partitionable = is_partitionable(config)
@@ -129,11 +153,20 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
             "model": cfg.model_id,
             "n_stages": len(cfg.boundaries) + 1,
             "dispatch": cfg.dispatch,
-            "max_batch": 1,
+            "max_batch": cfg.max_batch,
+            "batch_mode": cfg.batch_mode,
+            "prefill_chunk": cfg.prefill_chunk,
             "inference_dtype": cfg.inference_dtype,
             "device": str(dev),
             "decode_kernel": decode_kernel,
             "kernel_launches": cuda_build.launch_counts(),
+            # the engine's cached forwards by "BATCHxTOKENS"
+            "forward_shapes": ({} if engine is None else {
+                f"{b}x{t}": n
+                for (b, t), n in sorted(engine.forward_shapes().items())}),
+            **({"batch_stats": runner.stats()}
+               if isinstance(runner, (BatchingEngine, IterBatchingEngine))
+               else {}),
         }
 
     @app.post("/forward")
@@ -208,11 +241,22 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
                                         temperature=req.temperature,
                                         top_k=req.top_k, top_p=req.top_p))
         seed = req.seed if req.seed is not None else secrets.randbits(31)
-        gen = torch.Generator(device=runner.device).manual_seed(seed)
-        result = runner.generate(np.asarray(prompt_ids),
-                                 max_new_tokens=req.max_new_tokens,
-                                 sampling=sampling, generator=gen,
-                                 eos_id=eos_id)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        kw = {}
+        if isinstance(runner, (BatchingEngine, IterBatchingEngine)):
+            kw["timeout"] = GENERATE_TIMEOUT_S
+        if eos_id is not None and not isinstance(runner, BatchingEngine):
+            # the engine and the iteration batcher stop at EOS checks;
+            # the admission batcher's rows are cut below, same reply
+            kw["eos_id"] = eos_id
+        try:
+            result = runner.generate(np.asarray(prompt_ids),
+                                     max_new_tokens=req.max_new_tokens,
+                                     sampling=sampling, generator=gen, **kw)
+        except graftfault.Unavailable as e:
+            return 503, {"error": e.code, "detail": str(e)}
+        except TimeoutError as e:
+            return 503, {"error": "timeout", "detail": str(e)}
         ids = [int(t) for t in result.row_tokens(0)]
         finish_reason = "length"
         if eos_id is not None:
@@ -230,3 +274,26 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
         return body
 
     return app
+
+
+def check_batching(cfg: ServingConfig, config) -> None:
+    """The JAX app's startup refusals that concern the batching and
+    chunked-prefill knobs."""
+    if cfg.batch_mode != "iter":
+        return
+    if cfg.max_batch <= 1:
+        raise ValueError("BATCH_MODE=iter requires MAX_BATCH > 1 "
+                         "(iteration-level scheduling is a batching "
+                         "policy)")
+    if not (cfg.shard_role == "coordinator" and cfg.dispatch == "local"):
+        raise ValueError("BATCH_MODE=iter applies to the coordinator's "
+                         "local decode path only")
+    if cfg.prefill_chunk > 0:
+        raise ValueError(
+            "BATCH_MODE=iter drives the single-device engine's segment "
+            "loop; PREFILL_CHUNK uses BATCH_MODE=admission")
+    if not is_window_independent(config):
+        raise ValueError(
+            "BATCH_MODE=iter requires window-independent routing "
+            f"(dense families); {type(config).__name__} batches via "
+            "BATCH_MODE=admission")

@@ -194,5 +194,11 @@ def serve(app: JSONApp, host: str = "0.0.0.0", port: int = 5000) -> None:
             logging.getLogger("llm_sharding_demo_tpu_torch.serving").info(
                 "%s %s", self.address_string(), fmt % args)
 
-    with ThreadingHTTPServer((host, port), Handler) as server:
+    class Server(ThreadingHTTPServer):
+        # the listen backlog: the socketserver default of 5 drops the
+        # connects of a burst of concurrent clients (a batched server's
+        # whole point), which then retry a second later
+        request_queue_size = 128
+
+    with Server((host, port), Handler) as server:
         server.serve_forever()

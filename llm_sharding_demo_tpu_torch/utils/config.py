@@ -1,9 +1,11 @@
 """Typed serving configuration with env-var overrides.
 
 The same env names as the JAX package's ``utils/config.py``, parsed into
-one validated dataclass. This slice honours ``MODEL_ID``, ``SHARD_ROLE``,
+one validated dataclass. The port honours ``MODEL_ID``, ``SHARD_ROLE``,
 ``SPLIT_AT``/``BOUNDARIES``, ``SHARD_PORT``, ``MAX_SEQ``,
-``INFERENCE_DTYPE`` and ``DISPATCH=local``. Every other knob the JAX
+``INFERENCE_DTYPE``, ``DISPATCH=local``, the batching knobs
+``MAX_BATCH``, ``BATCH_MODE`` and ``BATCH_WAIT_MS``, and
+``PREFILL_CHUNK``. Every other knob the JAX
 package accepts refuses at startup when it is set to anything but its
 default, naming the ROADMAP item that will port it: a knob ignored in
 silence would let a deployment believe it runs a configuration it does
@@ -33,22 +35,11 @@ def _is_int(value: int) -> Callable[[str], bool]:
     return check
 
 
-def _is_float(value: float) -> Callable[[str], bool]:
-    def check(raw: str) -> bool:
-        try:
-            return float(raw) == value
-        except ValueError:
-            return False
-    return check
-
-
 def _is_str(*values: str) -> Callable[[str], bool]:
     return lambda raw: raw.strip() in values
 
 
 # knob -> (the ROADMAP item that ports it, "is this value the default?")
-_CHUNKED = "ROADMAP Queue 1 item 7 (chunked prefill)"
-_BATCHING = "ROADMAP Queue 1 item 8 (batching)"
 _PAGED = "ROADMAP Queue 1 item 9 (paged KV)"
 _PREFIX = "ROADMAP Queue 1 item 10 (prefix cache and host tier)"
 _SPEC = "ROADMAP Queue 1 item 11 (speculative decoding)"
@@ -56,10 +47,6 @@ _MULTI = "ROADMAP Queue 1 item 13 (multi-device decode)"
 _FLEET = "ROADMAP Queue 1 item 15 (fleet, planning and observability)"
 _REMOTE = "ROADMAP Queue 1 item 16 (checkpoints and remote dispatch)"
 REFUSED_KNOBS: Dict[str, Tuple[str, Callable[[str], bool]]] = {
-    "PREFILL_CHUNK": (_CHUNKED, _is_int(0)),
-    "MAX_BATCH": (_BATCHING, _is_int(1)),
-    "BATCH_MODE": (_BATCHING, _is_str("", "admission")),
-    "BATCH_WAIT_MS": (_BATCHING, _is_float(5.0)),
     "KV_POOL_BLOCKS": (_PAGED, _is_int(0)),
     "KV_BLOCK_SIZE": (_PAGED, _is_int(16)),
     "KV_POOL_DTYPE": (_PAGED, _is_str("")),
@@ -95,6 +82,15 @@ class ServingConfig:
     # int8, bf16 activations; served by the staged DecodeEngine)
     inference_dtype: str = "float32"
     dispatch: str = "local"
+    # concurrent /generate requests share batched decodes when > 1
+    max_batch: int = 1
+    # "admission" (runtime.batcher: gather, run a round to its end) or
+    # "iter" (runtime.iterbatch: joins and retirements between segments)
+    batch_mode: str = "admission"
+    # how long a round waits to gather peers
+    batch_wait_ms: float = 5.0
+    # 0: monolithic prefill; > 0: prompts prefill in chunks of this width
+    prefill_chunk: int = 0
 
     def __post_init__(self):
         if self.shard_role not in VALID_ROLES:
@@ -113,10 +109,22 @@ class ServingConfig:
                 "strictly increasing (single source of truth for ALL roles)")
         if self.max_seq < 2:
             raise ValueError(f"max_seq={self.max_seq} too small")
+        if self.max_batch < 1:
+            raise ValueError(f"MAX_BATCH={self.max_batch} must be >= 1")
+        if self.batch_wait_ms < 0:
+            raise ValueError(
+                f"BATCH_WAIT_MS={self.batch_wait_ms} must be >= 0")
+        if self.batch_mode not in ("admission", "iter"):
+            raise ValueError(
+                f"BATCH_MODE={self.batch_mode!r} not admission|iter")
         if self.inference_dtype not in VALID_DTYPES:
             raise ValueError(
                 f"INFERENCE_DTYPE={self.inference_dtype!r} not "
                 "float32|bfloat16|int8")
+        if self.prefill_chunk < 0:
+            raise ValueError(
+                f"PREFILL_CHUNK={self.prefill_chunk} must be >= 0 "
+                "(0 disables, >0 is the chunk width in tokens)")
 
     @property
     def split_at(self) -> int:
@@ -132,6 +140,16 @@ def _env_int(name: str, default: int) -> int:
         return int(raw)
     except ValueError as e:
         raise ValueError(f"{name}={raw!r} is not an integer") from e
+
+
+def _env_float(name: str, default: float) -> float:
+    raw = os.environ.get(name)
+    if raw is None or raw == "":
+        return default
+    try:
+        return float(raw)
+    except ValueError as e:
+        raise ValueError(f"{name}={raw!r} is not a number") from e
 
 
 def refuse_unported_knobs(environ=None) -> None:
@@ -173,4 +191,8 @@ def from_env() -> ServingConfig:
         max_seq=_env_int("MAX_SEQ", 512),
         inference_dtype=os.environ.get("INFERENCE_DTYPE", "float32"),
         dispatch=os.environ.get("DISPATCH", "local") or "local",
+        max_batch=_env_int("MAX_BATCH", 1),
+        batch_mode=os.environ.get("BATCH_MODE", "admission") or "admission",
+        batch_wait_ms=_env_float("BATCH_WAIT_MS", 5.0),
+        prefill_chunk=_env_int("PREFILL_CHUNK", 0),
     )

@@ -7,6 +7,7 @@ without that request they raise: nothing quietly carries on on the CPU.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -57,3 +58,12 @@ def torch_dtype(regime: str) -> torch.dtype:
     """Activation/cache dtype of a regime (int8 weights run bf16
     activations and a bf16 KV cache)."""
     return torch.float32 if regime == "float32" else torch.bfloat16
+
+
+def device_scope(device: torch.device):
+    """A context making ``device`` current on this thread (a CUDA
+    device's index; nothing on the CPU): what a worker thread that owns
+    an engine's device work enters."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()

@@ -137,7 +137,7 @@ def test_request_validation(weights):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("MAX_BATCH", "4"), ("PREFILL_CHUNK", "16"), ("PREFIX_CACHE", "8"),
+    ("KV_BLOCK_SIZE", "32"), ("KV_POOL_DTYPE", "int8"), ("PREFIX_CACHE", "8"),
     ("KV_POOL_BLOCKS", "64"), ("SPEC_DECODE", "3"), ("PP_DECODE", "1"),
     ("TP_DECODE", "true"), ("EP_DECODE", "1"), ("AUTO_PLAN", "1"),
     ("FLEET_ROLE", "decode"), ("CHECKPOINT_DIR", "/ckpt"),
@@ -161,6 +161,32 @@ def test_kept_knobs_and_defaults_parse(monkeypatch):
         "gpt2", "b", (3, 6), 5055, 1024, "int8")
     with pytest.raises(ValueError, match="INFERENCE_DTYPE"):
         ServingConfig(inference_dtype="float16")
+
+
+def test_batching_and_chunk_knobs_parse_and_validate(monkeypatch):
+    """MAX_BATCH, BATCH_MODE, BATCH_WAIT_MS and PREFILL_CHUNK are served:
+    they parse from the environment and are validated as the JAX package
+    validates them."""
+    for k, v in {"MAX_BATCH": "32", "BATCH_MODE": "iter",
+                 "BATCH_WAIT_MS": "2.5", "PREFILL_CHUNK": "16"}.items():
+        monkeypatch.setenv(k, v)
+    cfg = tconfig.from_env()
+    assert (cfg.max_batch, cfg.batch_mode, cfg.batch_wait_ms,
+            cfg.prefill_chunk) == (32, "iter", 2.5, 16)
+    defaults = ServingConfig()
+    assert (defaults.max_batch, defaults.batch_mode, defaults.batch_wait_ms,
+            defaults.prefill_chunk) == (1, "admission", 5.0, 0)
+    for bad, match in ((dict(max_batch=0), "MAX_BATCH"),
+                       (dict(batch_mode="continuous"), "BATCH_MODE"),
+                       (dict(batch_wait_ms=-1.0), "BATCH_WAIT_MS"),
+                       (dict(prefill_chunk=-1), "PREFILL_CHUNK")):
+        with pytest.raises(ValueError, match=match):
+            ServingConfig(**bad)
+        with pytest.raises(ValueError, match=match):
+            JServingConfig(**bad)
+    monkeypatch.setenv("MAX_BATCH", "four")
+    with pytest.raises(ValueError, match="MAX_BATCH"):
+        tconfig.from_env()
 
 
 def test_unported_models_refuse(monkeypatch):
