@@ -83,6 +83,26 @@ which must pass or the script exits non-zero:
    dK/dV a step) and a falling loss, the same steps on the plain
    attention, step ms, tokens/s and peak memory for both; one f32 step
    of each path from the same weights, loss and gradients held together.
+8. paged: the paged KV pool (no kernel of its own: gathers and scatters
+   of PyTorch ops). The movers at GPT-2's and llama-124m's served
+   geometries (16-slot fp32 blocks) byte-equal on the card to the CPU
+   movers, trash duplicates included, int8 and fp8 codes and scales
+   bit-equal to the CPU codec, and one 32-row segment's gather and
+   scatter timed beside their bytes bound; ``PagedKVRunner`` on GPT-2
+   fp32, greedy and seeded sampled (B=1, ragged B=4), byte-equal to the
+   contiguous engine; llama-124m fp32 on int8 and fp8 pools,
+   teacher-forced 48 positions, held to ``kv.int8`` / ``kv.fp8`` against
+   the fp32 pool (a miss is printed with its numbers), bytes a block;
+   the pooled iter batcher over 128 blocks, wave 32 in process (every
+   row equal to its solo run or held at the fp32 parity bar,
+   preemptions > 0); the server ``MAX_BATCH=32 BATCH_MODE=iter
+   MAX_SEQ=1024 KV_BLOCK_SIZE=16 KV_POOL_BLOCKS=128`` (fp32 GPT-2) with
+   waves of 1, 8 and 32 greedy 64-token requests (replies equal to the
+   solo runs' text, blocks conserved, preemptions > 0 at 32), 429 with
+   Retry-After once 32 requests wait on a saturated pool, tokens/s and
+   p50 per-token latency beside the same server without the pool;
+   ``KV_POOL_BLOCKS`` with ``INFERENCE_DTYPE=int8`` refused at startup
+   with the JAX package's reason.
 
 The last lines are the card's name and power limit, one JSON object with
 the kernels' numbers (each kernel's launches counted on the path that
@@ -1791,6 +1811,504 @@ def batch_phase(smi: str) -> dict:
                                                    "iter", smi)}
 
 
+# -- phase 8: paged KV -------------------------------------------------------
+
+PAGED_BS = 16           # KV_BLOCK_SIZE of every paged check
+PAGED_BLOCKS = 128      # the pooled server's KV_POOL_BLOCKS
+PAGED_ROWS = 32
+PAGED_HOLD_TOKENS = 256  # the budget of the requests that saturate the pool
+
+
+def paged_tables(rng, rows: int, nbm: int, owned, trash: int, ids):
+    """``[rows, nbm]`` int32 block tables: row r owns ``owned[r]`` columns
+    from a pad-prefix column on, drawn without repeat from ``ids``; every
+    other entry points at the trash block (a ghost row owns 0)."""
+    t = np.full((rows, nbm), trash, np.int32)
+    free = list(rng.permutation(ids))
+    for r in range(rows):
+        lo = int(rng.integers(0, nbm - owned[r] + 1)) if owned[r] else 0
+        t[r, lo:lo + owned[r]] = [free.pop() for _ in range(owned[r])]
+    return t
+
+
+def mover_ms(fn, reps: int = 5) -> float:
+    """Median ms of one eager call of ``fn`` (CUDA events; the movers copy
+    their host tables to the card, so they are not graph-captured)."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def paged_movers(smi: str) -> None:
+    """The pool's movers at the served geometries (GPT-2: 12 kv heads,
+    1024 slots; llama-124m: 4 kv heads, 4096 slots; 16-slot blocks, fp32):
+    scatter, gather and copy on the card byte-equal to the same movers on
+    CPU tensors, trash duplicates included; int8 and fp8 codes and scales
+    on the card bit-equal to the CPU codec's; one 32-row segment's gather
+    and scatter timed beside their bytes bound."""
+    import torch
+
+    from llm_sharding_demo_tpu_torch.ops import kv_quant as KVQ
+    from llm_sharding_demo_tpu_torch.ops import paged_attention as PA
+
+    rng = np.random.default_rng(13)
+    for name, hkv, slots in (("GPT-2", H, NPOS), ("llama-124m", HKV, LNPOS)):
+        nbm = slots // PAGED_BS
+        slot_bytes = L * 2 * hkv * HD * 4
+        # exactness: 4 rows (one a ghost, one full, two partial) against
+        # the CPU movers on the same tensors
+        nb = 3 * nbm
+        owned = [0, nbm, 5, nbm // 2]
+        t = paged_tables(rng, 4, nbm, owned, nb, range(nb))
+        g = torch.Generator(device="cuda").manual_seed(1)
+        pool = torch.randn(PA.pool_shape(L, nb, hkv, PAGED_BS, HD),
+                           generator=g, device="cuda")
+        k, v = (torch.randn(L, 4, hkv, slots, HD, generator=g,
+                            device="cuda") for _ in range(2))
+        want = PA.scatter_kv(pool.cpu(), k.cpu(), v.cpu(), t)
+        got = PA.scatter_kv(pool, k, v, t)
+        check(torch.equal(got.cpu(), want),
+              f"{name}: scatter on the card differs from the CPU movers")
+        gk, gv = PA.gather_kv(got, t)
+        real = [r for r in range(4) if owned[r] == nbm]
+        check(torch.equal(gk[:, real], k[:, real])
+              and torch.equal(gv[:, real], v[:, real]),
+              f"{name}: gather after scatter is not the identity")
+        wk, wv = PA.gather_kv(want, t)
+        check(torch.equal(gk.cpu(), wk) and torch.equal(gv.cpu(), wv),
+              f"{name}: gather on the card differs from the CPU movers")
+        src, dst = [int(t[1, 0]), int(t[1, 1])], [nb - 1, int(t[1, 0])]
+        check(torch.equal(PA.copy_blocks(got.clone(), src, dst).cpu(),
+                          PA.copy_blocks(want.clone(), src, dst)),
+              f"{name}: copy_blocks on the card differs from the CPU")
+        for regime in ("int8", "fp8"):
+            blocks = got[:, :nb].clone()
+            blocks[:, 0] = 0.0                       # the 1e-8 floor
+            q, s = KVQ.QUANTIZERS[regime](blocks)
+            qc, sc = KVQ.QUANTIZERS[regime](blocks.cpu())
+            codes_off = int((q.view(torch.uint8).cpu()
+                             != qc.view(torch.uint8)).sum())
+            scales_off = int((s.cpu() != sc).sum())
+            check(codes_off == 0 and scales_off == 0,
+                  f"{name}: {regime} on the card differs from the CPU "
+                  f"codec in {codes_off} of {q.numel()} codes and "
+                  f"{scales_off} of {s.numel()} scales")
+        del pool, got, want, k, v
+        # one 32-row segment: the served wave-32 footprint (7 blocks a
+        # row), then every entry a block of its own
+        for label, owned in (("7 blocks a row", [7] * PAGED_ROWS),
+                             ("full rows", [nbm] * PAGED_ROWS)):
+            nb = sum(owned)
+            t = paged_tables(rng, PAGED_ROWS, nbm, owned, nb, range(nb))
+            pool = torch.zeros(PA.pool_shape(L, nb, hkv, PAGED_BS, HD),
+                               device="cuda")
+            k, v = PA.gather_kv(pool, t)
+            g_ms = mover_ms(lambda: PA.gather_kv(pool, t))
+            s_ms = mover_ms(lambda: PA.scatter_kv(pool, k, v, t))
+            view = PAGED_ROWS * slots * slot_bytes
+            block = PAGED_BS * slot_bytes
+            g_bound, _ = bound_ms(2 * view, 0, "float32")
+            # the scatter reads and writes each distinct target's block
+            s_bound, _ = bound_ms(2 * len(set(t.reshape(-1))) * block, 0,
+                                  "float32")
+            print(f"  {name} fp32 32-row segment ({label}): view "
+                  f"{view / 1e9:.3f} GB ({slot_bytes} B a slot); gather "
+                  f"{g_ms:.3f} ms (bound {g_bound:.3f}, {g_ms / g_bound:.1f}"
+                  f"x), scatter {s_ms:.3f} ms (bound {s_bound:.3f}, "
+                  f"{s_ms / s_bound:.1f}x) [{smi}]")
+            del pool, k, v
+            torch.cuda.empty_cache()
+    print(f"  movers on the card byte-equal to the CPU movers (trash "
+          f"duplicates included); int8 and fp8 codes and scales bit-equal "
+          f"to the CPU codec, both geometries [{smi}]")
+
+
+def tf_paged(eng, pool, prompt, forced):
+    """f32 logits ``[len(forced), vocab]`` of one row teacher-forced
+    through ``pool``: the prefill scattered into blocks, then each forced
+    token one gather, one cached forward and one scatter (so a quantized
+    pool re-quantizes at every position, as a served row's segments
+    do)."""
+    import torch
+
+    alloc = pool.allocator
+    tables = np.full((1, pool.nbm), pool.trash, np.int32)
+    row = alloc.alloc(alloc.blocks_for(len(prompt) + len(forced)))
+    tables[0, :len(row)] = row
+    try:
+        with torch.inference_mode():
+            logits, cache = eng._prefill(eng._ids([list(prompt)]), None)
+            pool.scatter(cache, tables)
+            rows = [logits[0, -1]]
+            for t, tok in enumerate(forced[:-1]):
+                cache = pool.gather(tables, len(prompt) + t)
+                logits, cache = eng._forward_cached(eng._ids([[tok]]),
+                                                    cache, None)
+                pool.scatter(cache, tables)
+                rows.append(logits[0, -1])
+    finally:
+        alloc.free(row)
+    return torch.stack(rows).float()
+
+
+def probe_paged(eng, pool, prompt, forced):
+    """f32 logits ``[len(forced), vocab]`` measured as the ``kv.*``
+    budgets are defined (the JAX package's ``_QuantizedKVProbe``): for
+    each position, the history before its last token prefilled exactly,
+    its cache sent once through the pool (scatter, gather), and the last
+    token forwarded on the gathered cache."""
+    import torch
+
+    alloc = pool.allocator
+    rows = []
+    with torch.inference_mode():
+        for t in range(len(forced)):
+            hist = list(prompt) + list(forced[:t])
+            _, cache = eng._prefill(eng._ids([hist[:-1]]), None)
+            row = alloc.alloc(pool.nbm)
+            try:
+                tables = np.asarray([row], np.int32)
+                pool.scatter(cache, tables)
+                working = pool.gather(tables, len(hist) - 1)
+                logits, _ = eng._forward_cached(eng._ids([hist[-1:]]),
+                                                working, None)
+            finally:
+                alloc.free(row)
+            rows.append(logits[0, -1])
+    return torch.stack(rows).float()
+
+
+def paged_runner(smi: str, eng) -> None:
+    """``PagedKVRunner`` on GPT-2 124M fp32 (TF32 off): greedy streams at
+    B = 1 and a ragged batch of 4, and seeded sampled streams, byte-equal
+    to the contiguous engine on the card; every block back after each."""
+    import torch
+
+    from llm_sharding_demo_tpu_torch.runtime.engine import SamplingConfig
+    from llm_sharding_demo_tpu_torch.runtime.kv_pool import (KVBlockPool,
+                                                             PagedKVRunner)
+
+    runner = PagedKVRunner(eng, KVBlockPool.for_engine(
+        eng, num_blocks=PAGED_BLOCKS, block_size=PAGED_BS))
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, V, int(n)) for n in (23, 9, 31, 17)]
+    sample = SamplingConfig(mode="sample", temperature=0.8, top_k=40)
+
+    def gens(n):
+        return [torch.Generator(device="cuda").manual_seed(200 + i)
+                for i in range(n)]
+
+    t0 = time.perf_counter()
+    for what, batch, sampling in (
+            ("greedy B=1", prompts[:1], SamplingConfig()),
+            ("greedy ragged B=4", prompts, SamplingConfig()),
+            ("sampled B=1", prompts[:1], sample),
+            ("sampled ragged B=4", prompts, sample)):
+        n = 0 if sampling.mode == "greedy" else len(batch)
+        want = eng.generate(batch, 64, sampling=sampling,
+                            generator=gens(n) if n else None).tokens
+        got = runner.generate(batch, 64, sampling=sampling,
+                              generator=gens(n) if n else None).tokens
+        check(np.array_equal(got, want),
+              f"PagedKVRunner {what}: stream differs from the contiguous "
+              "engine")
+        st = runner.pool.allocator.stats()
+        check(st.blocks_in_use == 0 and st.blocks_free == PAGED_BLOCKS,
+              f"PagedKVRunner {what}: blocks not returned: {st}")
+    print(f"  PagedKVRunner GPT-2 fp32: greedy and seeded sampled streams "
+          f"(B=1, ragged B=4, 64 tokens) byte-equal to the contiguous "
+          f"engine; {time.perf_counter() - t0:.1f} s [{smi}]")
+
+
+def paged_quant(smi: str) -> None:
+    """llama-124m fp32 on pools of int8 and fp8 blocks, 48 positions after
+    a 41-token prompt, against the fp32 engine under ``kv.int8`` /
+    ``kv.fp8`` as the budgets are measured (``probe_paged``: one trip
+    through the pool a position); beside it, the same positions
+    teacher-forced through the pool a token at a time (``tf_paged``: a
+    trip a token, as no served segment is shorter), a reading. A miss is
+    reported with its numbers, as the int8 engine's at full width was
+    (ROADMAP Queue 3), not failed: the budgets stay as declared."""
+    import torch
+
+    from llm_sharding_demo_tpu_torch.models import llama
+    from llm_sharding_demo_tpu_torch.runtime.engine import DecodeEngine
+    from llm_sharding_demo_tpu_torch.runtime.kv_pool import KVBlockPool
+    from llm_sharding_demo_tpu_torch.utils import graftnum
+
+    cfg = llama.CONFIGS["llama-124m"]
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    eng = DecodeEngine(params, cfg, max_seq=LNPOS, dtype="float32")
+    check(eng.decode_kernel_mode == "xla", "fp32 llama engine left the "
+                                           "plain path")
+    rng = np.random.default_rng(19)
+    prompt = rng.integers(0, cfg.vocab_size, 41).tolist()
+    forced = rng.integers(0, cfg.vocab_size, 48).tolist()
+    full = KVBlockPool.for_engine(eng, num_blocks=LNPOS // PAGED_BS,
+                                  block_size=PAGED_BS)
+    exact = tf_paged(eng, full, prompt, forced)
+    check(bool(torch.equal(exact, teacher_forced_logits(eng, prompt,
+                                                        forced))),
+          "llama fp32 paged logits differ from the contiguous engine's")
+    print(f"  llama-124m fp32 pool: {full.stats()['bytes_per_block']} B a "
+          f"block; teacher-forced logits bit-equal to the contiguous "
+          f"engine [{smi}]")
+    for regime, path in (("int8", "kv.int8"), ("fp8", "kv.fp8")):
+        pool = KVBlockPool.for_engine(eng, num_blocks=LNPOS // PAGED_BS,
+                                      block_size=PAGED_BS,
+                                      block_dtype=regime)
+        codes = pool.data[0, 0].numel() * pool.data.element_size() * L
+        scales = pool.scales[0, 0].numel() * 4 * L
+        check(pool.stats()["bytes_per_block"] == codes + scales,
+              f"{regime}: bytes a block {pool.stats()} vs {codes} + "
+              f"{scales}")
+        approx = probe_paged(eng, pool, prompt, forced)
+        per_token = tf_paged(eng, pool, prompt, forced)
+        check(bool(torch.isfinite(approx).all())
+              and bool(torch.isfinite(per_token).all())
+              and approx.shape == per_token.shape == exact.shape,
+              f"{regime} pool: logits non-finite or of shape "
+              f"{tuple(approx.shape)}")
+        check(torch.equal(tf_paged(eng, pool, prompt, forced), per_token),
+              f"{regime} pool: a replay differs")
+        try:
+            rep = graftnum.compare(path, approx, exact)
+            verdict = "within"
+        except graftnum.GraftnumError as e:
+            rep, verdict = e.report, "MISSES"
+        mse = float(((per_token - exact) ** 2).mean(-1).mean())
+        top1 = float((per_token.argmax(-1) == exact.argmax(-1)).float()
+                     .mean())
+        print(f"  llama-124m {regime} pool ({codes} B of codes + {scales} B "
+              f"of scales a block) vs fp32, {rep['n_positions']} positions "
+              f"a trip each: logit_mse {rep['logit_mse']:.3e} top1 "
+              f"{rep['top1_agreement']:.4f}, {verdict} {path} (cap "
+              f"{rep['policy']['logit_mse']:.0e}, floor "
+              f"{rep['policy']['top1_agreement']}); a trip a token: "
+              f"logit_mse {mse:.3e} top1 {top1:.4f}, replay bit-identical "
+              f"[{smi}]")
+        del pool
+    del eng, params, full
+    torch.cuda.empty_cache()
+
+
+def paged_prompts(n: int, seed: int):
+    """``n`` byte-tokenizer prompts of 20-35 tokens."""
+    rng = np.random.default_rng(seed)
+    return [f"Paged request {i}: " + "".join(
+        chr(int(c)) for c in rng.integers(97, 123, int(rng.integers(3, 18))))
+        for i in range(n)]
+
+
+def paged_server(smi: str, eng) -> None:
+    """The pooled iter server (GPT-2 fp32, MAX_BATCH=32 BATCH_MODE=iter
+    MAX_SEQ=1024 KV_BLOCK_SIZE=16 KV_POOL_BLOCKS=128): in process, the
+    same batcher over a 128-block pool takes wave 32 (each row byte-equal
+    to its solo contiguous run, or held at the fp32 parity bar, with
+    preemptions > 0); then the server process takes waves of 1, 8 and 32
+    greedy 64-token requests (each reply equal to the solo run's text,
+    blocks conserved after each wave, preemptions > 0 at 32), a burst past
+    its queue limit (429 with Retry-After), and the same server without
+    the pool takes the same waves: tokens/s and p50 per-token latency
+    side by side, a health reading."""
+    import threading
+    import urllib.error
+
+    from llm_sharding_demo_tpu_torch.runtime.engine import SamplingConfig
+    from llm_sharding_demo_tpu_torch.runtime.iterbatch import (
+        IterBatchingEngine)
+    from llm_sharding_demo_tpu_torch.runtime.kv_pool import KVBlockPool
+    from llm_sharding_demo_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    waves = {n: paged_prompts(n, n) for n in BATCH_WAVES}
+    want = {n: [eng.generate(np.asarray(tok.encode(p)), WAVE_TOKENS).tokens[0]
+                for p in ps] for n, ps in waves.items()}
+    pool = KVBlockPool.for_engine(eng, num_blocks=PAGED_BLOCKS,
+                                  block_size=PAGED_BS)
+    ids = [tok.encode(p) for p in waves[32]]
+    stats = batch_rows(
+        eng, IterBatchingEngine(eng, max_batch=32, max_wait_ms=5.0,
+                                pool=pool),
+        ids, [WAVE_TOKENS] * 32, SamplingConfig(), lambda i: None, want[32],
+        smi, "pooled iter (128 blocks)")
+    check(stats["preemptions"] > 0 and stats["resumes"] > 0,
+          f"pooled iter batcher, wave 32: no preemption: {stats}")
+    check(pool.allocator.stats().blocks_free == PAGED_BLOCKS,
+          f"pooled iter batcher: blocks not returned {pool.stats()}")
+
+    knobs = dict(MODEL_ID="gpt2", INFERENCE_DTYPE="float32",
+                 MAX_SEQ=str(NPOS), MAX_BATCH="32", BATCH_MODE="iter",
+                 BATCH_WAIT_MS="5")
+    readings = {}
+    for label, extra in (("pooled", dict(KV_BLOCK_SIZE=str(PAGED_BS),
+                                         KV_POOL_BLOCKS=str(PAGED_BLOCKS))),
+                         ("contiguous", {})):
+        with serving_process(f"paged-{label}", **knobs, **extra) as (
+                base, health):
+            check(health["decode_kernel"] == "xla"
+                  and health["kv_pool_blocks"] == (
+                      PAGED_BLOCKS if extra else 0), f"healthz {health}")
+            _http(base + "/generate", {"prompt": "Warm-up: ",
+                                       "max_new_tokens": 4,
+                                       "mode": "greedy"})
+            for n, prompts in waves.items():
+                h0 = _http(base + "/healthz")["batch_stats"]
+                t0 = time.perf_counter()
+
+                def post(i):
+                    ts = time.perf_counter()
+                    r = _http(base + "/generate",
+                              {"prompt": prompts[i], "mode": "greedy",
+                               "max_new_tokens": WAVE_TOKENS}, timeout=600)
+                    return r, time.perf_counter() - ts
+
+                res = _threads(post, n)
+                wall = time.perf_counter() - t0
+                h1 = _http(base + "/healthz")
+                for i, (r, _) in enumerate(res):
+                    check(r["generated"].startswith(prompts[i]) and (
+                        not extra or r["generated"] == tok.decode(
+                            [int(x) for x in want[n][i]])),
+                          f"{label} server wave {n} row {i}: reply differs "
+                          "from the solo contiguous run's text")
+                st = {k: v - h0[k] for k, v in h1["batch_stats"].items()}
+                per_tok = statistics.median(t / WAVE_TOKENS for _, t in res)
+                readings[(label, n)] = (n * WAVE_TOKENS / wall, per_tok)
+                pool_note = ""
+                if extra:
+                    ps = h1["kv_pool_stats"]
+                    check(ps["blocks_free"] == ps["blocks_total"]
+                          == PAGED_BLOCKS and ps["blocks_in_use"] == 0,
+                          f"pooled wave {n}: blocks not conserved {ps}")
+                    if n == 32:
+                        check(st["preemptions"] > 0,
+                              f"pooled wave 32: no preemption {st}")
+                    pool_note = (f"; preemptions {st['preemptions']}, "
+                                 f"watermark deferrals {st['deferrals']}, "
+                                 f"resumes {st['resumes']}, blocks free "
+                                 f"{ps['blocks_free']}/{ps['blocks_total']}")
+                print(f"  {label} fp32 iter server wave {n}: "
+                      f"{n * WAVE_TOKENS / wall:.1f} tokens/s aggregate, p50 "
+                      f"{per_tok * 1e3:.2f} ms/token per request, wall "
+                      f"{wall:.2f} s{pool_note} [{smi}]")
+            if not extra:
+                continue
+            # a burst past the queue limit is shed with 429 + Retry-After:
+            # 32 long requests saturate the pool, then 64 more arrive; once
+            # 32 wait, the rest are refused
+            def post_status(prompts, new_tokens):
+                def post(i):
+                    req = urllib.request.Request(
+                        base + "/generate", data=json.dumps(
+                            {"prompt": prompts[i], "mode": "greedy",
+                             "max_new_tokens": new_tokens}).encode(),
+                        headers={"Content-Type": "application/json"})
+                    try:
+                        with urllib.request.urlopen(req, timeout=600) as r:
+                            return r.status, None
+                    except urllib.error.HTTPError as e:
+                        return e.code, e.headers.get("Retry-After")
+                return post
+
+            box = {}
+            hold = threading.Thread(target=lambda: box.update(codes=_threads(
+                post_status(paged_prompts(32, 7), PAGED_HOLD_TOKENS), 32)),
+                                    daemon=True)
+            hold.start()
+            deadline = time.monotonic() + 120
+            while _http(base + "/healthz")["kv_pool_stats"][
+                    "blocks_in_use"] < 0.9 * PAGED_BLOCKS:
+                check(time.monotonic() < deadline and hold.is_alive(),
+                      "the pool never saturated under 32 long requests")
+                time.sleep(0.02)
+            burst = paged_prompts(64, 64)
+            codes = _threads(post_status(burst, WAVE_TOKENS), len(burst))
+            hold.join(timeout=600)
+            check(not hold.is_alive() and all(
+                c == 200 for c, _ in box["codes"]),
+                  f"the 32 long requests: {box.get('codes')}")
+            shed = [ra for c, ra in codes if c == 429]
+            check(shed and all(ra and int(ra) >= 1 for ra in shed),
+                  f"a burst of {len(burst)} past the queue limit: no 429 "
+                  f"with Retry-After ({sorted(set(codes))})")
+            check(all(c in (200, 429) for c, _ in codes),
+                  f"burst: unexpected statuses {sorted(set(codes))}")
+            h = _http(base + "/healthz")
+            ps = h["kv_pool_stats"]
+            check(ps["blocks_free"] == PAGED_BLOCKS,
+                  f"after the burst: blocks not conserved {ps}")
+            print(f"  pooled server, 64 requests while 32 long ones hold "
+                  f"the pool: {len(shed)} shed with 429 (Retry-After "
+                  f"{sorted(set(shed))} s), {len(burst) - len(shed)} "
+                  f"served; blocks free {ps['blocks_free']}/"
+                  f"{ps['blocks_total']}; batcher {h['batch_stats']} [{smi}]")
+    print("  pooled vs contiguous iter server, tokens/s | p50 ms/token: "
+          + "; ".join(
+              f"wave {n} {readings[('pooled', n)][0]:.1f} | "
+              f"{readings[('pooled', n)][1] * 1e3:.2f} vs "
+              f"{readings[('contiguous', n)][0]:.1f} | "
+              f"{readings[('contiguous', n)][1] * 1e3:.2f}"
+              for n in BATCH_WAVES) + f" [{smi}]")
+
+
+def paged_refusal(smi: str) -> None:
+    """KV_POOL_BLOCKS with INFERENCE_DTYPE=int8 on the card: the engine
+    runs a decode kernel, and the app refuses at startup with the JAX
+    package's reason."""
+    from llm_sharding_demo_tpu_torch.serving.app import create_app
+    from llm_sharding_demo_tpu_torch.utils.config import ServingConfig
+
+    reason = ("KV pool paging drives the XLA cache layout; the Pallas "
+              "decode kernel owns its fused in-place cache "
+              "(decode_kernel='xla' composes)")
+    try:
+        create_app(ServingConfig(model_id="gpt2", inference_dtype="int8",
+                                 max_seq=NPOS, kv_pool_blocks=PAGED_BLOCKS,
+                                 kv_block_size=PAGED_BS))
+    except NotImplementedError as e:
+        check(str(e) == reason, f"int8 + KV_POOL_BLOCKS refused with {e}")
+    else:
+        raise SmokeError("int8 + KV_POOL_BLOCKS started on the card")
+    print(f"  KV_POOL_BLOCKS with INFERENCE_DTYPE=int8 refuses at startup: "
+          f"{reason} [{smi}]")
+
+
+def paged_phase(smi: str) -> None:
+    """The paged KV path on the card (module docstring, phase 8)."""
+    import torch
+
+    from llm_sharding_demo_tpu_torch.runtime.engine import DecodeEngine
+    from llm_sharding_demo_tpu_torch.serving import loader
+    from llm_sharding_demo_tpu_torch.utils.config import ServingConfig
+
+    t0 = time.perf_counter()
+    paged_movers(smi)
+    # the served weights (MODEL_ID=gpt2, seed 0), as the server draws them
+    config, params = loader.resolve_model(ServingConfig(model_id="gpt2"),
+                                          torch.device("cuda"))
+    eng = DecodeEngine(params, config, max_seq=NPOS, dtype="float32")
+    check(eng.decode_kernel_mode == "xla", "fp32 engine left the plain path")
+    paged_runner(smi, eng)
+    paged_quant(smi)
+    paged_server(smi, eng)
+    del eng, params
+    torch.cuda.empty_cache()
+    paged_refusal(smi)
+    print(f"  [paged] {time.perf_counter() - t0:.1f} s wall [{smi}]")
+
+
 # -- main ----------------------------------------------------------------------
 
 def kernel_name(mangled: str) -> str:
@@ -1899,9 +2417,10 @@ def flash_sass(lib_path: str) -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases",
-                        default="kernels,flash,engine,server,batch,train",
+                        default="kernels,flash,engine,server,batch,train,"
+                                "paged",
                         help="comma-separated subset of kernels,flash,engine,"
-                             "server,batch,train")
+                             "server,batch,train,paged")
     phases = set(parser.parse_args().phases.split(","))
 
     t_start = time.perf_counter()
@@ -1983,6 +2502,10 @@ def main() -> int:
         counts = train_phase()
         for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
             launches[kernel] = counts[kernel]
+    if "paged" in phases:
+        print("[paged] paged KV: the movers, PagedKVRunner, quantized "
+              "pools, the pooled iter server")
+        paged_phase(smi)
 
     sources = {"decode_attention": "csrc/decode_attention.cu",
                "quant_linear": "csrc/quant.cu",

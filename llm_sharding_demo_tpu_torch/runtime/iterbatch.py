@@ -1,8 +1,8 @@
 """Iteration-level continuous batching: joins and retirements at segment
-boundaries, on contiguous caches.
+boundaries, on contiguous caches or on the paged pool.
 
 Counterpart of ``llm_sharding_demo_tpu/runtime/iterbatch.py`` without
-its paged pool, speculation and prefix store. ``runtime.batcher`` batches
+its speculation and prefix store. ``runtime.batcher`` batches
 at admission and runs each round to its end; here the decode runs as
 segments of ``seg_steps`` steps (``DecodeEngine._decode_seg``), and
 between two segments the scheduler
@@ -33,10 +33,27 @@ live row and resumes it by recompute (a re-prefill of prompt plus
 emitted tokens), at most ``FAULT_PARK_BUDGET`` times a row; deadlines and
 caller timeouts cancel a row at the next boundary.
 
+Paged KV (``pool=``, ``runtime.kv_pool``): between segments the rows'
+K/V live in ref-counted pool blocks (block tables, pad-prefix entries on
+the trash block) instead of a ``[B, max_seq]`` cache; each segment
+gathers the tables into a contiguous cache, runs the same segment and
+scatters it back, so fp32 rows stay byte-equal to their solo runs. The
+pool is the admission authority, in blocks, never bytes:
+
+- a policy-compatible request whose blocks the allocator's watermark
+  refuses (``BlockAllocator.admit_alloc``) waits without closing the
+  batch, and serving turns sustained refusal into 429 + Retry-After
+  (``admission_load``);
+- when live rows grow past a block boundary and the allocator is
+  exhausted, the youngest row is preempted (``_preempt_lowest``): its
+  tokens are read, its blocks freed, and it resumes later by recompute
+  through the park path above, byte-identical to the unpreempted
+  stream. A quantized pool re-quantizes what it re-scatters, so its
+  streams hold ``kv.int8`` / ``kv.fp8`` instead.
+
 The worker thread owns all device work, under ``torch.inference_mode``
-(which is thread-local). The paged pool (watermark admission,
-preemption, block tables), speculative segments and prefix-store
-admissions wait for ROADMAP Queue 1 items 9, 11 and 10.
+(which is thread-local). Speculative segments and prefix-store
+admissions wait for ROADMAP Queue 1 items 11 and 10.
 """
 
 from __future__ import annotations
@@ -45,7 +62,7 @@ import dataclasses
 import queue
 import threading
 import time
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,8 +75,7 @@ from ..utils.device import device_scope
 from .batcher import _round_up, refuse_compositions
 from .engine import (DecodeEngine, GenerateResult, SamplingConfig,
                      select_token)
-
-POOL_ITEM = "ROADMAP Queue 1 item 9 (paged KV)"
+from .kv_pool import PoolExhausted
 
 # a row that keeps faulting past this many transient-fault parks fails
 # typed instead of cycling forever
@@ -146,6 +162,10 @@ class _Slot:
     fault_budget_used: int = 0
     t0: float = 0.0
     done_t: float = 0.0
+    # pool mode: this row's block ids at table columns [blk_lo, blk_lo +
+    # len(blk_ids)); every other column points at the trash block
+    blk_lo: int = 0
+    blk_ids: List[int] = dataclasses.field(default_factory=list)
 
 
 def _admit_cache_impl(cache, solo, slot: int, depth: int, sp: int,
@@ -180,8 +200,8 @@ _admit_cache = graftscope.instrument(_admit_cache_impl,
 
 @dataclasses.dataclass
 class _Parked:
-    """A row between a fault park and its resume: what the recompute
-    path needs to continue the stream."""
+    """A row between a park (a preemption or a fault) and its resume:
+    what the recompute path needs to continue the stream."""
 
     req: _Req
     plen: int
@@ -189,6 +209,7 @@ class _Parked:
     tokens: np.ndarray            # those tokens, on the host
     order: int
     t0: float
+    park_t: float = 0.0
     fault_budget_used: int = 0
 
 
@@ -198,9 +219,10 @@ class _BatchState:
     def __init__(self, sampling, token, cache, pad, depth):
         self.sampling = sampling
         self.token = token            # [B] device int64
-        self.cache = cache
+        self.cache = cache            # None once a pool holds the rows
         self.pad = pad                # [B] device int32
         self.depth = depth            # uniform cache depth
+        self.tables: Optional[np.ndarray] = None   # [B, NBm] (pool mode)
         self.slots: List[Optional[_Slot]] = []
         self.closed = False           # True: no more admissions (FIFO)
         self.mem_cache = graftmem.track(self, "cache", "engine_cache", cache)
@@ -217,12 +239,17 @@ class IterBatchingEngine:
     ``seg_steps`` is the scheduling granularity: admissions and
     retirements happen every ``seg_steps`` decode steps, so a request's
     worst-case join delay is one segment.
+
+    ``pool`` (a ``runtime.kv_pool.KVBlockPool`` of this engine's cache
+    geometry) turns on paged storage, watermark admission and
+    preemption. ``queue_limit`` (default ``max_batch``) feeds
+    ``admission_load``, the serving 429 decision.
     """
 
     def __init__(self, engine: DecodeEngine, max_batch: int = 8,
                  seg_steps: int = 32, max_wait_ms: float = 2.0,
                  prompt_bucket: int = 16, spec=None, prefix=None,
-                 pool=None):
+                 pool=None, queue_limit: Optional[int] = None):
         if not is_window_independent(engine.config):
             raise NotImplementedError(
                 "iteration-level batching requires window-independent "
@@ -232,11 +259,15 @@ class IterBatchingEngine:
                 "iteration-level batching prefills admissions solo at "
                 "bucketed lengths; it does not compose with "
                 "prefill_chunk (use the admission batcher)")
-        if pool is not None:
-            raise NotImplementedError(
-                f"IterBatchingEngine: pool= waits for {POOL_ITEM}")
+        if pool is not None and pool.max_seq != engine._cache_seq:
+            raise ValueError(
+                f"pool rows span {pool.max_seq} slots, engine cache is "
+                f"{engine._cache_seq}; gathered segments must match the "
+                "compiled programs' cache width")
         refuse_compositions(prefix, spec, "IterBatchingEngine")
         self.engine = engine
+        self.pool = pool
+        self.queue_limit = max_batch if queue_limit is None else queue_limit
         self.max_batch = max_batch
         self.seg_steps = seg_steps
         self.max_wait_s = max_wait_ms / 1e3
@@ -255,6 +286,8 @@ class IterBatchingEngine:
         self.grows = 0                # width upgrades of a live batch
         self.resumes = 0              # parked rows recomputed back in
         self.fault_parks = 0          # transient-fault park events
+        self.preemptions = 0          # rows parked under pool pressure
+        self.deferrals = 0            # admissions the pool's watermark held
         self._worker = threading.Thread(target=self._loop, daemon=True)
         self._worker.start()
 
@@ -322,7 +355,31 @@ class IterBatchingEngine:
                     "eos_retires": self.eos_retires, "grows": self.grows,
                     "resumes": self.resumes,
                     "fault_parks": self.fault_parks,
+                    "preemptions": self.preemptions,
+                    "deferrals": self.deferrals,
                     "parked": len(self._parked)}
+
+    def admission_load(self, prompt_len: int,
+                       max_new_tokens: int) -> Tuple[bool, float]:
+        """The serving 429 decision: ``(admit, retry_after_s)``. Shed only
+        when the pool cannot admit the prompt's blocks AND the waiting
+        line is already at ``queue_limit``; without a pool, always admit.
+        Advisory: the worker's grant is ``admit_alloc``'s."""
+        if self.pool is None:
+            return True, 0.0
+        # the admission footprint; growth past it is preemption's business
+        need = self.pool.allocator.blocks_for(prompt_len)
+        with self._stats_lock:
+            waiting = (self._queue.qsize() + len(self._parked)
+                       + (1 if self._pending is not None else 0))
+        # a seeded pool-exhaustion spike sheds as a real storm would
+        spike = graftfault.inject("iterbatch.admission_load", "pool_spike")
+        if spike is None and (self.pool.allocator.can_admit(need)
+                              or waiting < self.queue_limit):
+            return True, 0.0
+        # each max_batch-wide wave of waiters takes about one batch
+        # lifetime to drain
+        return False, float(1 + waiting // max(self.max_batch, 1))
 
     # -- worker side: leaf-locked access to what serving threads read -------
 
@@ -406,9 +463,11 @@ class IterBatchingEngine:
                 except graftfault.TransientFault as e:
                     self._fault_park_all(state, e)
         except Exception as e:  # noqa: BLE001
-            for s in state.slots:
+            for i, s in enumerate(state.slots):
                 if s is not None:
                     s.req.fail(e)
+                    # nothing else will release an aborted row's blocks
+                    self._release_blocks(state, i)
             raise
         finally:
             graftmem.release(state.mem_cache)
@@ -453,7 +512,10 @@ class IterBatchingEngine:
             else:
                 break
         deadline = time.monotonic() + self.max_wait_s
-        while len(seed) < self.max_batch:
+        # a held head (``_pending``, left by an earlier batch while parked
+        # rows seed this one) stays first in line: gathering past it would
+        # break FIFO, and holding a second arrival would drop the first
+        while len(seed) < self.max_batch and self._get_pending() is None:
             remaining = deadline - time.monotonic()
             if remaining <= 0:
                 break
@@ -508,7 +570,10 @@ class IterBatchingEngine:
         for e in seed:
             r = self._ent_req(e)
             if r.trace is not None:
-                if not isinstance(e, _Parked):
+                if isinstance(e, _Parked):
+                    r.trace.add_span("preempted", e.park_t, sp0,
+                                     scheduler="iter")
+                else:
                     r.trace.add_span("queue_wait", r.t_submit, sp0,
                                      scheduler="iter")
                 r.trace.add_span(
@@ -534,6 +599,8 @@ class IterBatchingEngine:
                 state.slots[i] = _Slot(req=r, plen=len(r.prompt), row=i,
                                        first_ref=first_ref, first_idx=i,
                                        order=self._order, t0=t0)
+        if self.pool is not None:
+            self._init_tables(state, pad)
         with self._stats_lock:
             self.batches_run += 1
             self.resumes += n_res
@@ -544,8 +611,19 @@ class IterBatchingEngine:
 
     def _fits(self, ents: List) -> bool:
         s_max = self._seed_smax(ents)
-        return all(s_max + self._ent_need(e) <= self.engine.max_seq
-                   and len(self._ent_ids(e)) <= s_max for e in ents)
+        ok = all(s_max + self._ent_need(e) <= self.engine.max_seq
+                 and len(self._ent_ids(e)) <= s_max for e in ents)
+        if ok and self.pool is not None:
+            # the current footprint only (blocks covering the seed depth):
+            # future growth is oversubscribed on purpose, preemption
+            # handles it
+            alloc = self.pool.allocator
+            need = sum(
+                alloc.blocks_for(s_max)
+                - (s_max - len(self._ent_ids(e))) // self.pool.block_size
+                for e in ents)
+            ok = need <= alloc.available()
+        return ok
 
     def _seed_smax(self, ents: List) -> int:
         raw = max(len(self._ent_ids(e)) for e in ents)
@@ -555,12 +633,31 @@ class IterBatchingEngine:
 
     # -- admission -----------------------------------------------------------
 
+    def _reserve_blocks(self, state: _BatchState, ent):
+        """The pool grant for one would-be row's current footprint: blocks
+        covering its content at the live depth (pad-prefix columns stay
+        on the trash block), checked against the watermark and granted
+        under one allocator hold. ``(p_lo, ids)``, or None to defer."""
+        if self.pool is None:
+            return 0, []
+        bs = self.pool.block_size
+        p_lo = (state.depth - len(self._ent_ids(ent))) // bs
+        p_hi = -(-state.depth // bs)
+        ids = self.pool.allocator.admit_alloc(p_hi - p_lo)
+        if ids is None:
+            with self._stats_lock:
+                self.deferrals += 1
+            return None
+        return p_lo, ids
+
     def _admit(self, state: _BatchState):
         """Parked rows first (oldest first), then compatible queued
         requests, into free rows. Strict FIFO: an incompatible head
         closes admission and seeds the next batch; the held head
-        (``_pending``) is reconsidered first and never overwritten. With
-        no free row, a batch narrower than ``max_batch`` grows."""
+        (``_pending``) is reconsidered first and never overwritten. A
+        head that is compatible but lacks pool room waits without
+        closing (blocks come back as rows retire). With no free row, a
+        batch narrower than ``max_batch`` grows."""
         while True:
             ent = self._peek_parked()
             if ent is None:
@@ -574,12 +671,16 @@ class IterBatchingEngine:
                 if ent.req.sampling != state.sampling:
                     state.closed = True
                 return
-            slot = self._free_slot(state)
-            if slot is None:
+            if not self._slot_possible(state):
                 return  # full: retried at the next boundary
+            reserved = self._reserve_blocks(state, ent)
+            if reserved is None:
+                return  # stays parked until blocks come back
+            slot = self._free_slot(state)
             ent = self._pop_parked()
             try:
-                self._admit_one(state, ent.req, slot, resume=ent)
+                self._admit_one(state, ent.req, slot, resume=ent,
+                                reserved=reserved)
             except Exception as e:  # noqa: BLE001
                 ent.req.fail(e)
                 raise
@@ -597,24 +698,31 @@ class IterBatchingEngine:
             if not self._compatible(state, req):
                 state.closed = True  # req stays held as the FIFO head
                 return
-            slot = self._free_slot(state)
-            if slot is None:
+            if not self._slot_possible(state):
                 return  # full: req stays the head
+            reserved = self._reserve_blocks(state, req)
+            if reserved is None:
+                return  # req stays the head until blocks come back
+            slot = self._free_slot(state)
             self._set_pending(None)
             try:
-                self._admit_one(state, req, slot)
+                self._admit_one(state, req, slot, reserved=reserved)
             except Exception as e:  # noqa: BLE001 — not in state.slots
                 req.fail(e)        # yet: without this its caller would
                 raise              # block forever
 
-    def _free_slot(self, state: _BatchState) -> Optional[int]:
-        free = [i for i, s in enumerate(state.slots) if s is None]
-        if not free:
-            if len(state.slots) >= self.max_batch:
-                return None
+    def _slot_possible(self, state: _BatchState) -> bool:
+        """Is there a free row, or room to grow one? Checked before any
+        pool grant, so that a full batch takes no blocks."""
+        return (any(s is None for s in state.slots)
+                or len(state.slots) < self.max_batch)
+
+    def _free_slot(self, state: _BatchState) -> int:
+        """A free row, growing the batch when it has none (the caller
+        checked ``_slot_possible``)."""
+        if all(s is not None for s in state.slots):
             self._grow(state)
-            free = [i for i, s in enumerate(state.slots) if s is None]
-        return free[0]
+        return next(i for i, s in enumerate(state.slots) if s is None)
 
     def _grow(self, state: _BatchState):
         """Widen the live batch to the next power of two: token, pad and
@@ -633,26 +741,51 @@ class IterBatchingEngine:
 
         state.token = rep(state.token, 0)
         state.pad = rep(state.pad, 0)
-        state.cache = ([grow_cache(c) for c in state.cache]
-                       if isinstance(state.cache, list)
-                       else grow_cache(state.cache))
-        graftmem.update(state.mem_cache, state.cache)
+        if state.cache is not None:
+            state.cache = ([grow_cache(c) for c in state.cache]
+                           if isinstance(state.cache, list)
+                           else grow_cache(state.cache))
+            graftmem.update(state.mem_cache, state.cache)
+        if state.tables is not None:
+            # ghost rows read and write the trash block only
+            state.tables = np.concatenate(
+                [state.tables, np.full((extra, self.pool.nbm),
+                                       self.pool.trash, dtype=np.int32)])
         state.slots = state.slots + [None] * extra
         with self._stats_lock:
             self.grows += 1
         REGISTRY.inc("iter_grows_total")
 
     def _admit_one(self, state: _BatchState, req: _Req, slot: int,
-                   resume: Optional[_Parked] = None):
+                   resume: Optional[_Parked] = None, *,
+                   reserved: Tuple[int, List[int]]):
+        """``reserved`` is the row's pool grant (``_reserve_blocks``):
+        placed on success, freed on any failure."""
+        try:
+            self._admit_one_inner(state, req, slot, resume, reserved)
+        except BaseException:
+            if self.pool is not None:
+                self.pool.allocator.free(reserved[1])
+                if state.tables is not None:
+                    state.tables[slot, :] = self.pool.trash
+            raise
+
+    def _admit_one_inner(self, state: _BatchState, req: _Req, slot: int,
+                         resume: Optional[_Parked],
+                         reserved: Tuple[int, List[int]]):
         eng = self.engine
         stream = self._ent_ids(resume) if resume is not None else req.prompt
         plen_eff = len(stream)            # tokens the prefill forwards
         plen = resume.plen if resume is not None else plen_eff
         t0 = resume.t0 if resume is not None else time.monotonic()
         p0 = time.perf_counter()
-        if req.trace is not None and resume is None:
-            req.trace.add_span("queue_wait", req.t_submit, p0,
-                               scheduler="iter")
+        if req.trace is not None:
+            if resume is not None:
+                req.trace.add_span("preempted", resume.park_t, p0,
+                                   scheduler="iter")
+            else:
+                req.trace.add_span("queue_wait", req.t_submit, p0,
+                                   scheduler="iter")
         sp = min(_round_up(plen_eff, self.prompt_bucket), state.depth)
         sp = max(sp, plen_eff)  # a bucket past the depth: the exact length
         ids = np.zeros((1, sp), dtype=np.int64)
@@ -672,7 +805,11 @@ class IterBatchingEngine:
             first = select_token(
                 logits[:, -1], state.sampling,
                 None if state.sampling.mode == "greedy" else [req.generator])
-        _admit_cache(state.cache, solo, slot, state.depth, sp, plen_eff)
+        if self.pool is not None:
+            self._place_admitted(state, slot, solo, state.depth - sp,
+                                 reserved)
+        else:
+            _admit_cache(state.cache, solo, slot, state.depth, sp, plen_eff)
         state.pad[slot] = state.depth - plen_eff
         # a new tensor, never a write into the last segment's output (the
         # retired rows' tokens are read from it)
@@ -688,7 +825,8 @@ class IterBatchingEngine:
             resumed_prefix=resume.tokens if resume is not None else None,
             order=resume.order if resume is not None else self._order,
             fault_budget_used=(resume.fault_budget_used
-                               if resume is not None else 0))
+                               if resume is not None else 0),
+            blk_lo=reserved[0], blk_ids=reserved[1])
         with self._stats_lock:
             if resume is not None:
                 self.resumes += 1
@@ -700,19 +838,110 @@ class IterBatchingEngine:
                                   else 1):
             self._retire_finished(state)
 
+    # -- paged storage (pool mode) -------------------------------------------
+
+    def _init_tables(self, state: _BatchState, pad: np.ndarray) -> None:
+        """Seed placement: allocate each live row's content blocks
+        (pad-prefix columns stay on the trash block), scatter the seed
+        prefill into them and drop the contiguous cache: between
+        segments the pool is the only storage."""
+        bs = self.pool.block_size
+        state.tables = np.full((len(state.slots), self.pool.nbm),
+                               self.pool.trash, dtype=np.int32)
+        p_hi = -(-state.depth // bs)
+        try:
+            for i, s in enumerate(state.slots):
+                if s is None:
+                    continue
+                s.blk_lo = int(pad[i]) // bs
+                s.blk_ids = self.pool.allocator.alloc(p_hi - s.blk_lo)
+                state.tables[i, s.blk_lo:p_hi] = s.blk_ids
+            self.pool.scatter(state.cache, state.tables)
+        except BaseException:
+            # rows placed before the failure must not keep their refs
+            for i in range(len(state.slots)):
+                self._release_blocks(state, i)
+            raise
+        state.cache = None
+        graftmem.release(state.mem_cache)
+        state.mem_cache = 0
+
+    def _place_admitted(self, state: _BatchState, slot: int, solo,
+                        roll: int, reserved: Tuple[int, List[int]]) -> None:
+        """Point row ``slot`` at its granted blocks and scatter the rolled
+        solo prefill into them (the paged form of ``_admit_cache``)."""
+        p_lo, ids = reserved
+        state.tables[slot, :] = self.pool.trash
+        state.tables[slot, p_lo:p_lo + len(ids)] = ids
+        self.pool.scatter_row(solo, state.tables[slot], roll)
+
+    def _release_blocks(self, state: _BatchState, i: int) -> None:
+        s = state.slots[i]
+        if self.pool is None or s is None or not s.blk_ids:
+            return
+        self.pool.allocator.free(s.blk_ids)
+        s.blk_ids = []
+        if state.tables is not None:
+            state.tables[i, :] = self.pool.trash
+
+    def _ensure_blocks(self, state: _BatchState, new_depth: int) -> None:
+        """Before a segment: every live row owns blocks covering the
+        segment's writes (slots below ``new_depth``). Rows are served
+        oldest first, so that when the pool is exhausted the rows
+        preempted to make room are the youngest."""
+        p_hi = -(-new_depth // self.pool.block_size)
+        for s in sorted((s for s in state.slots if s is not None),
+                        key=lambda s: s.order):
+            if state.slots[s.row] is not s:
+                continue  # preempted by an earlier iteration
+            while True:
+                missing = p_hi - (s.blk_lo + len(s.blk_ids))
+                if missing <= 0:
+                    break
+                try:
+                    ids = self.pool.allocator.alloc(missing)
+                except PoolExhausted:
+                    if not self._preempt_lowest(state):
+                        raise
+                    if state.slots[s.row] is not s:
+                        break  # this row was the youngest: it parked
+                    continue
+                col = s.blk_lo + len(s.blk_ids)
+                state.tables[s.row, col:p_hi] = ids
+                s.blk_ids.extend(ids)
+
+    def _preempt_lowest(self, state: _BatchState) -> bool:
+        """Park the youngest live row (the highest admission order),
+        whichever row's growth asked; False with no live row."""
+        live = [s for s in state.slots if s is not None]
+        if not live:
+            return False
+        victim = max(live, key=lambda s: s.order)
+        self._park_slot(state, victim, victim.fault_budget_used)
+        if victim.req.trace is not None:
+            victim.req.trace.labels["preempted"] = (
+                victim.req.trace.labels.get("preempted", 0) + 1)
+        with self._stats_lock:
+            self.preemptions += 1
+        REGISTRY.inc("kv_pool_preemptions_total")
+        return True
+
     # -- degraded mode -------------------------------------------------------
 
     def _park_slot(self, state: _BatchState, s: _Slot,
                    fault_budget_used: int) -> None:
-        """Park one live row for recompute-resume: read its emitted
-        tokens (a host sync: parking is the slow path), free its row,
-        queue it oldest first."""
+        """Park one live row for recompute-resume (a preemption or a
+        fault): read its emitted tokens (a host sync: parking is the slow
+        path), free its blocks and its row, queue it oldest first."""
         tokens = np.asarray(self._row_tokens(s), dtype=np.int64)
-        self._park(_Parked(req=s.req, plen=s.plen,
-                           emitted=min(s.emitted, s.req.max_new_tokens),
-                           tokens=tokens, order=s.order, t0=s.t0,
-                           fault_budget_used=fault_budget_used))
+        parked = _Parked(req=s.req, plen=s.plen,
+                         emitted=min(s.emitted, s.req.max_new_tokens),
+                         tokens=tokens, order=s.order, t0=s.t0,
+                         park_t=time.perf_counter(),
+                         fault_budget_used=fault_budget_used)
+        self._release_blocks(state, s.row)
         state.slots[s.row] = None
+        self._park(parked)
 
     def _fault_park_all(self, state: _BatchState,
                         fault: Exception) -> None:
@@ -727,6 +956,7 @@ class IterBatchingEngine:
                 s.req.fail(graftfault.FaultBudgetError(
                     f"row exhausted its transient-fault park budget "
                     f"({FAULT_PARK_BUDGET}); last fault: {fault}"))
+                self._release_blocks(state, i)
                 state.slots[i] = None
                 continue
             if s.req.trace is not None:
@@ -746,8 +976,11 @@ class IterBatchingEngine:
         depth = self._queue.qsize()
         REGISTRY.gauge("iter_live_rows", live)
         REGISTRY.gauge("batch_occupancy", occupancy, scheduler="iter")
-        kv_block_gauges("iter", state.depth * live,
-                        width * self.engine._cache_seq)
+        if self.pool is not None:
+            self.pool.note_gauges(component="iter")
+        else:
+            kv_block_gauges("iter", state.depth * live,
+                            width * self.engine._cache_seq)
         REGISTRY.gauge("queue_depth", depth, scheduler="iter")
         graftscope.sample("iter_live_rows", live)
         graftscope.sample("batch_occupancy", occupancy, scheduler="iter")
@@ -773,14 +1006,26 @@ class IterBatchingEngine:
         n = min(self.seg_steps, eng.max_seq - d)
         if n < 1:
             raise RuntimeError("live rows past max_seq (an admission bug)")
+        pooled = self.pool is not None
+        cache = state.cache
+        if pooled:
+            # every live row's blocks must cover this segment's writes:
+            # the preemption point
+            self._ensure_blocks(state, d + n)
+            if not state.active():
+                return  # every row parked
+            cache = self.pool.gather(state.tables, d)
         generators = None
         if state.sampling.mode != "greedy":
             generators = [None if s is None else s.req.generator
                           for s in state.slots]
         t0 = time.perf_counter()
-        out, state.cache = eng._decode_seg(state.token, state.cache,
-                                           state.pad, n, state.sampling,
-                                           generators)
+        out, cache = eng._decode_seg(state.token, cache, state.pad, n,
+                                     state.sampling, generators)
+        if pooled:
+            self.pool.scatter(cache, state.tables)
+        else:
+            state.cache = cache
         state.token = out[:, -1]
         state.depth = d + n
         seg = _SegOut(out)
@@ -799,7 +1044,8 @@ class IterBatchingEngine:
                 if s.req.trace is not None:
                     s.req.trace.add_span(
                         "decode", t0, t1, seg=True, steps=n,
-                        width=len(state.slots), depth=state.depth)
+                        width=len(state.slots), depth=state.depth,
+                        **({"blocks": len(s.blk_ids)} if pooled else {}))
         self._retire_finished(state)
         self._set_gauges(state)
 
@@ -818,6 +1064,7 @@ class IterBatchingEngine:
                     "deadline budget exhausted mid-decode; row "
                     "cancelled at the segment boundary"))
                 s.req.cancelled.set()
+                self._release_blocks(state, i)
                 state.slots[i] = None
                 continue
             if s.req.cancelled.is_set():
@@ -826,6 +1073,7 @@ class IterBatchingEngine:
                     t = time.perf_counter()
                     s.req.trace.add_span("abandoned", t, t,
                                          scheduler="iter", emitted=s.emitted)
+                self._release_blocks(state, i)
                 state.slots[i] = None
                 continue
             done = s.emitted >= s.req.max_new_tokens
@@ -860,6 +1108,7 @@ class IterBatchingEngine:
         s.done_t = time.monotonic()
         s.req.payload = (s, eos_at)
         s.req.done.set()
+        self._release_blocks(state, i)
         state.slots[i] = None
         with self._stats_lock:
             self.rows_served += 1

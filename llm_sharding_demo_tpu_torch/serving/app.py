@@ -7,7 +7,8 @@ Counterpart of the core of ``llm_sharding_demo_tpu/serving/app.py``
 - ``POST /forward``   {"input_ids": [int]}       -> {"hidden_states": [[[f]]]}
 - ``POST /forward_b`` {"hidden_states": [[[f]]]} -> {"logits": [[[f]]]}
 - ``GET /healthz``    readiness, the serving composition, the device, the
-  resolved decode kernel mode and the kernels' launch counts.
+  resolved decode kernel mode, the kernels' launch counts and, with a
+  paged pool, its block stats.
 
 Role guards answer HTTP 200 with ``{"error": ...}`` as the reference does.
 Runner choice: ``INFERENCE_DTYPE=int8`` or ``bfloat16``, ``MAX_BATCH >
@@ -18,7 +19,15 @@ serves single-stream bf16 through its ``PipelineRunner``; here bf16
 takes the engine so that its decode steps run the kernels.) With
 ``MAX_BATCH > 1`` the engine sits behind the admission batcher
 (``BATCH_MODE=admission``, ``runtime.batcher``) or the iteration-level
-batcher (``BATCH_MODE=iter``, ``runtime.iterbatch``). Each request draws
+batcher (``BATCH_MODE=iter``, ``runtime.iterbatch``).
+
+``KV_POOL_BLOCKS > 0`` pages the KV cache (``runtime.kv_pool``): an
+unstaged engine, its pool (``KVBlockPool.for_engine``), and
+``PagedKVRunner`` at ``MAX_BATCH=1`` or the iteration batcher over the
+pool. As in the JAX package, paging takes an engine without a decode
+kernel, so on the card it serves fp32; a bf16 or int8 server refuses at
+startup. A request the pool cannot host while the waiting line is full
+answers 429 with ``Retry-After``. Each request draws
 from its own generator, seeded by its ``seed``, so a seeded request
 replays whether it ran alone or in a batch; a batched request waits at
 most ``GENERATE_TIMEOUT_S`` and then answers 503.
@@ -43,9 +52,11 @@ from ..runtime.batcher import BatchingEngine
 from ..runtime.engine import (REF_TEMPERATURE, REF_TOP_K, DecodeEngine,
                               SamplingConfig)
 from ..runtime.iterbatch import IterBatchingEngine
+from ..runtime.kv_pool import KVBlockPool, PagedKVRunner
 from ..utils import graftfault
 from ..utils.config import ServingConfig, from_env
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.metrics import REGISTRY
 from . import loader
 from .http import JSONApp
 from .tokenizer import get_tokenizer
@@ -110,11 +121,20 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
 
     check_batching(cfg, config)
 
-    runner = engine = None
+    runner = engine = kv_pool = None
     decode_kernel = None
     if cfg.shard_role == "coordinator":
         pchunk = cfg.prefill_chunk or None
-        if (cfg.inference_dtype != "float32" or cfg.max_batch > 1
+        if cfg.kv_pool_blocks > 0:
+            # paged storage gathers and scatters whole-model cache rows,
+            # so the engine runs unstaged
+            engine = DecodeEngine(params, config, max_seq=cfg.max_seq,
+                                  dtype=cfg.inference_dtype, device=dev)
+            kv_pool = KVBlockPool.for_engine(
+                engine, num_blocks=cfg.kv_pool_blocks,
+                block_size=cfg.kv_block_size,
+                block_dtype=cfg.kv_pool_dtype or None)
+        elif (cfg.inference_dtype != "float32" or cfg.max_batch > 1
                 or pchunk):
             engine = DecodeEngine(params, config, max_seq=cfg.max_seq,
                                   boundaries=list(cfg.boundaries),
@@ -125,11 +145,15 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
                                     max_seq=cfg.max_seq, device=dev)
         decode_kernel = engine.decode_kernel_mode
         runner = engine
-        if cfg.max_batch > 1:
-            batcher = (IterBatchingEngine if cfg.batch_mode == "iter"
-                       else BatchingEngine)
-            runner = batcher(engine, max_batch=cfg.max_batch,
-                             max_wait_ms=cfg.batch_wait_ms)
+        if cfg.max_batch > 1 and cfg.batch_mode == "iter":
+            runner = IterBatchingEngine(engine, max_batch=cfg.max_batch,
+                                        max_wait_ms=cfg.batch_wait_ms,
+                                        pool=kv_pool)
+        elif cfg.max_batch > 1:
+            runner = BatchingEngine(engine, max_batch=cfg.max_batch,
+                                    max_wait_ms=cfg.batch_wait_ms)
+        elif kv_pool is not None:
+            runner = PagedKVRunner(engine, kv_pool)
     # the reference's two-stage wire topology (/forward, /forward_b) is
     # dense GPT-2 only; other families answer /generate alone
     partitionable = is_partitionable(config)
@@ -147,6 +171,17 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
 
     @app.get("/healthz")
     def healthz():
+        live = {}
+        if kv_pool is not None:
+            st = kv_pool.stats()
+            # every block is free or referenced: drift is an accounting
+            # bug, answered 500 rather than a wrong gauge
+            if st["blocks_in_use"] + st["blocks_free"] != st["blocks_total"]:
+                raise AssertionError(
+                    "kv_pool_stats conservation violated: "
+                    f"{st['blocks_in_use']} in_use + {st['blocks_free']} "
+                    f"free != {st['blocks_total']} total")
+            live["kv_pool_stats"] = st
         return {
             "status": "ok",
             "role": cfg.shard_role,
@@ -156,6 +191,9 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
             "max_batch": cfg.max_batch,
             "batch_mode": cfg.batch_mode,
             "prefill_chunk": cfg.prefill_chunk,
+            "kv_pool_blocks": cfg.kv_pool_blocks,
+            "kv_block_size": cfg.kv_block_size,
+            "kv_pool_dtype": cfg.kv_pool_dtype,
             "inference_dtype": cfg.inference_dtype,
             "device": str(dev),
             "decode_kernel": decode_kernel,
@@ -167,6 +205,7 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
             **({"batch_stats": runner.stats()}
                if isinstance(runner, (BatchingEngine, IterBatchingEngine))
                else {}),
+            **live,
         }
 
     @app.post("/forward")
@@ -236,6 +275,28 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
                                  "explicitly"}
             if not 0 <= eos_id < config.vocab_size:
                 return {"error": f"eos_token_id {eos_id} out of vocab range"}
+        if kv_pool is not None:
+            # a request the pool cannot host, with the waiting line full,
+            # is shed with 429 + Retry-After rather than queued without
+            # bound; the solo paged runner sheds what the pool could not
+            # host right now
+            if isinstance(runner, IterBatchingEngine):
+                ok, retry = runner.admission_load(len(prompt_ids),
+                                                  req.max_new_tokens)
+            else:
+                need = kv_pool.allocator.blocks_for(
+                    len(prompt_ids) + req.max_new_tokens)
+                spike = graftfault.inject("serving.admission", "pool_spike")
+                ok = (spike is None
+                      and kv_pool.allocator.available() >= need)
+                retry = 1.0
+            if not ok:
+                REGISTRY.inc("kv_pool_admission_rejections_total")
+                return 429, {"error": "kv_pool_saturated",
+                             "detail": "KV memory pool cannot admit this "
+                                       "request; retry after the "
+                                       "indicated backoff"}, {
+                    "Retry-After": str(max(1, int(round(retry))))}
         sampling = (SamplingConfig(mode="greedy") if req.mode == "greedy"
                     else SamplingConfig(mode="sample",
                                         temperature=req.temperature,
@@ -277,8 +338,28 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
 
 
 def check_batching(cfg: ServingConfig, config) -> None:
-    """The JAX app's startup refusals that concern the batching and
-    chunked-prefill knobs."""
+    """The JAX app's startup refusals that concern the batching,
+    chunked-prefill and paged-pool knobs."""
+    if cfg.kv_pool_blocks > 0:
+        if not (cfg.shard_role == "coordinator" and cfg.dispatch == "local"):
+            raise ValueError("KV_POOL_BLOCKS applies to the coordinator's "
+                             "local decode path only")
+        if cfg.prefill_chunk > 0:
+            raise ValueError(
+                "KV_POOL_BLOCKS prefills monolithically (one block "
+                "scatter per admission); PREFILL_CHUNK owns another "
+                "prefill program structure")
+        if cfg.max_batch > 1 and cfg.batch_mode != "iter":
+            raise ValueError(
+                "KV_POOL_BLOCKS batches through BATCH_MODE=iter "
+                "(watermark admission + preemption live at segment "
+                "boundaries); the admission batcher keeps contiguous "
+                "round caches")
+        if not is_window_independent(config):
+            raise ValueError(
+                "KV_POOL_BLOCKS requires window-independent routing "
+                f"(dense families); {type(config).__name__} serves "
+                "unpaged")
     if cfg.batch_mode != "iter":
         return
     if cfg.max_batch <= 1:

@@ -7,8 +7,8 @@ in-process ``TestClient`` that runs the exact dispatch path.
 
 POST handlers may annotate one parameter with a dataclass; the JSON body
 is validated into it (HTTP 422 with ``{"detail": [...]}`` on failure,
-unknown keys ignored). They return a dict (200) or ``(status,
-payload)``; an uncaught exception answers 500.
+unknown keys ignored). They return a dict (200), ``(status, payload)``
+or ``(status, payload, headers)``; an uncaught exception answers 500.
 """
 
 from __future__ import annotations
@@ -105,14 +105,15 @@ class JSONApp:
             return fn
         return deco
 
-    def handle(self, method: str, path: str,
-               body: Optional[bytes]) -> Tuple[int, Any]:
+    def handle(self, method: str, path: str, body: Optional[bytes],
+               ) -> Tuple[int, Any, Dict[str, str]]:
+        """``(status, payload, response headers)`` of one request."""
         route_path = urlsplit(path).path
         fn = self._routes.get((method, route_path))
         if fn is None:
             if any(p == route_path for (_, p) in self._routes):
-                return 405, {"detail": "Method Not Allowed"}
-            return 404, {"detail": "Not Found"}
+                return 405, {"detail": "Method Not Allowed"}, {}
+            return 404, {"detail": "Not Found"}, {}
 
         args = []
         hints = {k: v for k, v in typing.get_type_hints(fn).items()
@@ -123,29 +124,31 @@ class JSONApp:
                 try:
                     payload = json.loads(body or b"null")
                 except json.JSONDecodeError:
-                    return 422, {"detail": "invalid JSON body"}
+                    return 422, {"detail": "invalid JSON body"}, {}
                 try:
                     args.append(validate(model, payload))
                 except ValidationError as e:
-                    return 422, {"detail": e.errors}
+                    return 422, {"detail": e.errors}, {}
         try:
             result = fn(*args)
         except Exception as e:  # uncaught handler error -> 500
             logging.getLogger(__name__).exception("handler %s failed",
                                                   route_path)
-            return 500, {"detail": f"{type(e).__name__}: {e}"}
-        if (isinstance(result, tuple) and len(result) == 2
+            return 500, {"detail": f"{type(e).__name__}: {e}"}, {}
+        if (isinstance(result, tuple) and len(result) in (2, 3)
                 and isinstance(result[0], int)):
-            return result
-        return 200, result
+            return (*result[:2], dict(result[2]) if len(result) == 3 else {})
+        return 200, result, {}
 
 
 class Response:
     """requests-compatible view of a handled call."""
 
-    def __init__(self, status_code: int, payload: Any):
+    def __init__(self, status_code: int, payload: Any,
+                 headers: Optional[Dict[str, str]] = None):
         self.status_code = status_code
         self._payload = payload
+        self.headers = dict(headers or {})
 
     def json(self) -> Any:
         return self._payload
@@ -176,9 +179,11 @@ def serve(app: JSONApp, host: str = "0.0.0.0", port: int = 5000) -> None:
         def _dispatch(self, method: str):
             length = int(self.headers.get("Content-Length") or 0)
             body = self.rfile.read(length) if length else None
-            status, payload = app.handle(method, self.path, body)
+            status, payload, headers = app.handle(method, self.path, body)
             data = json.dumps(payload).encode()
             self.send_response(status)
+            for name, value in headers.items():
+                self.send_header(name, value)
             self.send_header("Content-Type", "application/json")
             self.send_header("Content-Length", str(len(data)))
             self.end_headers()

@@ -4,9 +4,9 @@ The same env names as the JAX package's ``utils/config.py``, parsed into
 one validated dataclass. The port honours ``MODEL_ID``, ``SHARD_ROLE``,
 ``SPLIT_AT``/``BOUNDARIES``, ``SHARD_PORT``, ``MAX_SEQ``,
 ``INFERENCE_DTYPE``, ``DISPATCH=local``, the batching knobs
-``MAX_BATCH``, ``BATCH_MODE`` and ``BATCH_WAIT_MS``, and
-``PREFILL_CHUNK``. Every other knob the JAX
-package accepts refuses at startup when it is set to anything but its
+``MAX_BATCH``, ``BATCH_MODE`` and ``BATCH_WAIT_MS``, ``PREFILL_CHUNK``,
+and the paged pool's ``KV_POOL_BLOCKS``, ``KV_BLOCK_SIZE`` and
+``KV_POOL_DTYPE``. Every other knob the JAX package accepts refuses at startup when it is set to anything but its
 default, naming the ROADMAP item that will port it: a knob ignored in
 silence would let a deployment believe it runs a configuration it does
 not.
@@ -40,16 +40,12 @@ def _is_str(*values: str) -> Callable[[str], bool]:
 
 
 # knob -> (the ROADMAP item that ports it, "is this value the default?")
-_PAGED = "ROADMAP Queue 1 item 9 (paged KV)"
 _PREFIX = "ROADMAP Queue 1 item 10 (prefix cache and host tier)"
 _SPEC = "ROADMAP Queue 1 item 11 (speculative decoding)"
 _MULTI = "ROADMAP Queue 1 item 13 (multi-device decode)"
 _FLEET = "ROADMAP Queue 1 item 15 (fleet, planning and observability)"
 _REMOTE = "ROADMAP Queue 1 item 16 (checkpoints and remote dispatch)"
 REFUSED_KNOBS: Dict[str, Tuple[str, Callable[[str], bool]]] = {
-    "KV_POOL_BLOCKS": (_PAGED, _is_int(0)),
-    "KV_BLOCK_SIZE": (_PAGED, _is_int(16)),
-    "KV_POOL_DTYPE": (_PAGED, _is_str("")),
     "PREFIX_CACHE": (_PREFIX, _is_int(0)),
     "PREFIX_CHUNK": (_PREFIX, _is_int(0)),
     "KV_HOST_BLOCKS": (_PREFIX, _is_int(0)),
@@ -91,6 +87,13 @@ class ServingConfig:
     batch_wait_ms: float = 5.0
     # 0: monolithic prefill; > 0: prompts prefill in chunks of this width
     prefill_chunk: int = 0
+    # > 0: the paged KV pool's block count (runtime.kv_pool); a block is
+    # n_layer * 2 * n_kv_head * KV_BLOCK_SIZE * head_dim elements
+    kv_pool_blocks: int = 0
+    kv_block_size: int = 16
+    # "": blocks in the engine dtype; "int8" or "fp8": quantized blocks
+    # (ops.kv_quant). Requires KV_POOL_BLOCKS > 0.
+    kv_pool_dtype: str = ""
 
     def __post_init__(self):
         if self.shard_role not in VALID_ROLES:
@@ -125,6 +128,38 @@ class ServingConfig:
             raise ValueError(
                 f"PREFILL_CHUNK={self.prefill_chunk} must be >= 0 "
                 "(0 disables, >0 is the chunk width in tokens)")
+        if self.kv_pool_blocks < 0:
+            raise ValueError(
+                f"KV_POOL_BLOCKS={self.kv_pool_blocks} must be >= 0 "
+                "(0 disables paging, >0 is the pool's block count)")
+        if self.kv_block_size < 1:
+            raise ValueError(
+                f"KV_BLOCK_SIZE={self.kv_block_size} must be >= 1")
+        if self.kv_pool_dtype:
+            if self.kv_pool_blocks == 0:
+                raise ValueError(
+                    "KV_POOL_DTYPE selects the paged pool's block "
+                    "storage; it needs KV_POOL_BLOCKS > 0 (a silently "
+                    "ignored knob would misreport the serving "
+                    "composition)")
+            from .graftnum import GraftnumError, regime_of
+            try:
+                regime = regime_of(self.kv_pool_dtype)
+            except GraftnumError as e:
+                raise ValueError(
+                    f"KV_POOL_DTYPE={self.kv_pool_dtype!r}: {e}") from e
+            if regime not in ("int8", "fp8"):
+                raise ValueError(
+                    f"KV_POOL_DTYPE={self.kv_pool_dtype!r} names the "
+                    f"full-precision regime {regime!r} — the pool "
+                    "already stores full-precision blocks by default; "
+                    "quantized storage takes 'int8' or 'fp8'")
+        if self.kv_pool_blocks > 0 and self.max_seq % self.kv_block_size:
+            raise ValueError(
+                f"MAX_SEQ={self.max_seq} must be a multiple of "
+                f"KV_BLOCK_SIZE={self.kv_block_size}: the paged decode "
+                "path gathers whole-block rows at exactly the compiled "
+                "programs' cache width")
 
     @property
     def split_at(self) -> int:
@@ -195,4 +230,7 @@ def from_env() -> ServingConfig:
         batch_mode=os.environ.get("BATCH_MODE", "admission") or "admission",
         batch_wait_ms=_env_float("BATCH_WAIT_MS", 5.0),
         prefill_chunk=_env_int("PREFILL_CHUNK", 0),
+        kv_pool_blocks=_env_int("KV_POOL_BLOCKS", 0),
+        kv_block_size=_env_int("KV_BLOCK_SIZE", 16),
+        kv_pool_dtype=os.environ.get("KV_POOL_DTYPE", ""),
     )

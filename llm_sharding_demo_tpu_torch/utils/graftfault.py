@@ -13,6 +13,12 @@ Trimmed counterpart of ``llm_sharding_demo_tpu/utils/graftfault.py``:
   that serving answers with a 503);
 - ``Deadline``, one monotonic per-request budget.
 
+The port's sites: ``iterbatch.decode_seg`` (``decode_transient``,
+``decode_permanent``, ``decode_slow``) before each segment, and
+``pool_spike``, a pool that refuses as a full one would, at the paged
+pool's grant (``kv_pool.admit_alloc``) and at the two 429 gates
+(``iterbatch.admission_load``, ``serving.admission``).
+
 The plan built from ``GRAFTFAULT*`` environment variables and the hop
 policy of remote dispatch wait for ROADMAP Queue 1 items 15 and 16.
 """

@@ -1,7 +1,8 @@
 """The device-memory ledger of long-lived holdings.
 
 Trimmed counterpart of ``llm_sharding_demo_tpu/utils/graftmem.py``:
-``track`` registers one holding (a batch's KV cache) under a component
+``track`` registers one holding (a batch's KV cache, a pool's planes)
+under a component
 and returns a handle, ``update`` re-measures it after a rebind (a batch
 that grew), ``release`` drops it. Bytes are the sum of ``nbytes`` over
 the tensors the holding reaches (through lists, tuples, dicts and
@@ -21,7 +22,9 @@ import torch
 
 from . import graftsched
 
-MEMORY_COMPONENTS = frozenset({"engine_cache"})
+# a batch's contiguous KV cache; the paged pool's block storage (full
+# precision or codes) and its scales
+MEMORY_COMPONENTS = frozenset({"engine_cache", "pool_codes", "pool_scales"})
 
 
 def measure(value: Any) -> int:

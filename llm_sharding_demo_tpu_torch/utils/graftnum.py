@@ -1,9 +1,11 @@
 """Declared quality budgets for the approximate decode paths.
 
 Counterpart of the part of ``llm_sharding_demo_tpu/utils/graftnum.py``
-this slice needs: the ``decode.bf16`` and ``decode.int8`` entries of
-``TOLERANCE_POLICY`` (same numbers) and the teacher-forced comparison
-behind them. ``logit_mse`` caps the mean over scored positions of the
+this slice needs: the ``decode.bf16``, ``decode.int8``, ``kv.int8`` and
+``kv.fp8`` entries of ``TOLERANCE_POLICY`` (same numbers), the
+teacher-forced comparison behind them, and ``regime_of``, the dtype
+vocabulary the paged pool's ``block_dtype`` (``KV_POOL_DTYPE``) is
+validated against. ``logit_mse`` caps the mean over scored positions of the
 per-position MSE over the vocab (f32 logits); ``top1_agreement`` floors
 the fraction of positions whose argmax matches the exact side.
 
@@ -24,6 +26,19 @@ TOLERANCE_POLICY = {
     "decode.int8": {"logit_mse": 2e-4, "top1_agreement": 0.90},
     # bf16 decode (matmul operand rounding; LN stats, softmax, logits f32)
     "decode.bf16": {"logit_mse": 5e-5, "top1_agreement": 0.95},
+    # quantized KV blocks (runtime.kv_pool block_dtype, ops.kv_quant)
+    "kv.int8": {"logit_mse": 2e-6, "top1_agreement": 0.90},
+    "kv.fp8": {"logit_mse": 3e-5, "top1_agreement": 0.90},
+}
+
+# the declared dtype regimes and their spellings; ``fp8`` is a KV-block
+# storage regime only (e4m3fn, ``ops.kv_quant.STORAGE_DTYPES``)
+REGIMES = ("f32", "bf16", "int8", "fp8")
+_REGIME_ALIASES = {
+    "float32": "f32", "f32": "f32",
+    "bfloat16": "bf16", "bf16": "bf16",
+    "int8": "int8",
+    "fp8": "fp8", "float8_e4m3fn": "fp8", "float8_e5m2": "fp8",
 }
 
 
@@ -33,6 +48,18 @@ class GraftnumError(Exception):
     def __init__(self, message: str, report: dict):
         super().__init__(message)
         self.report = report
+
+
+def regime_of(spelling: str) -> str:
+    """A dtype spelling -> its regime token; anything outside the
+    vocabulary raises ``GraftnumError``."""
+    regime = _REGIME_ALIASES.get(str(spelling))
+    if regime is None:
+        raise GraftnumError(
+            f"dtype {spelling!r} is outside the declared regime vocabulary "
+            f"{REGIMES} (spellings: float32/bfloat16/int8/fp8)",
+            {"dtype": str(spelling)})
+    return regime
 
 
 def compare(path: str, approx: torch.Tensor, exact: torch.Tensor) -> dict:

@@ -47,7 +47,8 @@ def test_port_imports_with_jax_blocked():
         [PKG], prefix="llm_sharding_demo_tpu_torch."))
     assert "llm_sharding_demo_tpu_torch.serving.app" in modules
     for name in ("ops.decode_layer", "ops.rope", "models.llama",
-                 "ops.flash_attention", "training.train"):
+                 "ops.flash_attention", "training.train",
+                 "ops.paged_attention", "ops.kv_quant", "runtime.kv_pool"):
         assert f"llm_sharding_demo_tpu_torch.{name}" in modules
     code = "; ".join([
         "import sys",

@@ -293,7 +293,7 @@ def test_admit_failure_delivers_error_to_popped_request(weights,
     ib = IterBatchingEngine(_engine(weights), max_batch=4, seg_steps=8,
                             max_wait_ms=10.0)
 
-    def boom(self, state, req, slot, resume=None):
+    def boom(self, state, req, slot, resume=None, reserved=None):
         raise RuntimeError("synthetic admit failure")
 
     monkeypatch.setattr(IterBatchingEngine, "_admit_one", boom)
@@ -445,8 +445,7 @@ def test_refusals(weights):
         ib.generate(np.arange(190), 90, timeout=WAIT)
     with pytest.raises(NotImplementedError, match="prefill_chunk"):
         IterBatchingEngine(_engine(weights, prefill_chunk=8), max_batch=2)
-    for kw, item in (("pool", "item 9"), ("prefix", "item 10"),
-                     ("spec", "item 11")):
+    for kw, item in (("prefix", "item 10"), ("spec", "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             IterBatchingEngine(engine, max_batch=2, **{kw: object()})
 

@@ -137,8 +137,7 @@ def test_request_validation(weights):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("KV_BLOCK_SIZE", "32"), ("KV_POOL_DTYPE", "int8"), ("PREFIX_CACHE", "8"),
-    ("KV_POOL_BLOCKS", "64"), ("SPEC_DECODE", "3"), ("PP_DECODE", "1"),
+    ("PREFIX_CACHE", "8"), ("SPEC_DECODE", "3"), ("PP_DECODE", "1"),
     ("TP_DECODE", "true"), ("EP_DECODE", "1"), ("AUTO_PLAN", "1"),
     ("FLEET_ROLE", "decode"), ("CHECKPOINT_DIR", "/ckpt"),
     ("DISPATCH", "remote"),
@@ -146,6 +145,54 @@ def test_request_validation(weights):
 def test_unported_knobs_refuse_at_startup(monkeypatch, knob, value):
     monkeypatch.setenv(knob, value)
     with pytest.raises(ValueError, match="ROADMAP Queue 1 item"):
+        tconfig.from_env()
+
+
+@pytest.mark.parametrize("env,at_startup", [
+    # KV_POOL_DTYPE without KV_POOL_BLOCKS: a silently ignored knob
+    ({"KV_POOL_DTYPE": "int8"}, False),
+    # the gathered view must be exactly the cache width
+    ({"KV_POOL_BLOCKS": "16", "KV_BLOCK_SIZE": "20", "MAX_SEQ": "96"},
+     False),
+    # parse, then the app's composition checks refuse
+    ({"KV_POOL_BLOCKS": "16", "PREFILL_CHUNK": "8"}, True),
+    ({"KV_POOL_BLOCKS": "16", "MAX_BATCH": "4", "BATCH_MODE": "admission"},
+     True),
+])
+def test_paged_knobs_parse_and_refuse_as_jax(weights, monkeypatch, env,
+                                             at_startup):
+    """KV_POOL_BLOCKS, KV_BLOCK_SIZE and KV_POOL_DTYPE are served: they
+    parse from the environment and refuse where the JAX package's config
+    (or, for compositions, its app) refuses, with its message."""
+    from llm_sharding_demo_tpu.utils import config as jconfig
+    (jcfg, jp), (tcfg, tp) = weights
+    monkeypatch.setenv("KV_BLOCK_SIZE", "8")
+    monkeypatch.setenv("MAX_SEQ", "96")
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    if not at_startup:
+        with pytest.raises(ValueError) as jerr:
+            jconfig.from_env()
+        with pytest.raises(ValueError) as terr:
+            tconfig.from_env()
+        assert str(terr.value) == str(jerr.value)
+        return
+    cfg, jc = tconfig.from_env(), jconfig.from_env()
+    assert (cfg.kv_pool_blocks, cfg.kv_block_size) == (
+        jc.kv_pool_blocks, jc.kv_block_size) == (16, 8)
+    with pytest.raises(ValueError) as jerr:
+        jcreate_app(jc, model=(jcfg, jp), tokenizer=JByteTokenizer())
+    with pytest.raises(ValueError) as terr:
+        create_app(cfg, model=(tcfg, tp), tokenizer=ByteTokenizer(),
+                   device="cpu")
+    assert str(terr.value) == str(jerr.value)
+
+
+def test_host_tier_knob_still_refuses_naming_its_item(monkeypatch):
+    monkeypatch.setenv("KV_POOL_BLOCKS", "16")
+    monkeypatch.setenv("KV_HOST_BLOCKS", "64")
+    with pytest.raises(ValueError, match="KV_HOST_BLOCKS='64' waits for "
+                                         "ROADMAP Queue 1 item 10"):
         tconfig.from_env()
 
 
