@@ -103,12 +103,31 @@ which must pass or the script exits non-zero:
    p50 per-token latency beside the same server without the pool;
    ``KV_POOL_BLOCKS`` with ``INFERENCE_DTYPE=int8`` refused at startup
    with the JAX package's reason.
+9. prefix: the prefix cache (``runtime.prefix_cache``, chunk 64) and the
+   host tier (``runtime.kv_tier``). GPT-2 124M and llama-124m at full
+   width: fp32 greedy streams through the store (cold, exact hit,
+   partial hit, deeper extension) against the engine with the cache off
+   (a stream that parts must do so at a near tie); on the int8 mega
+   path a hit's stream equal to the cold walk's, teacher-forced logits
+   through the store within ``decode.int8`` of the int8 plain path and
+   exact launch counts; time to first token of a cold walk against a
+   hit (768 + 32 and 3072 + 32 tokens; wall and device ms, tokens
+   forwarded) and the hit's entry clone beside its bytes bound; a
+   512-token entry's demote and promote beside a pinned ``copy_`` of
+   the same bytes; the tiered fp32 GPT-2 iter server (MAX_BATCH=4
+   KV_POOL_BLOCKS=256 PREFIX_CACHE=8 KV_HOST_BLOCKS=256, six 512-token
+   system prompts cycled three times) replying as the same server
+   without the store and the tier, conserved after every wave, with
+   demotions and promotions; an int8 GPT-2 admission server with
+   PREFIX_CACHE=8 MAX_BATCH=8 whose warm wave equals its cold wave, with
+   exact launch counts.
 
 The last lines are the card's name and power limit, one JSON object with
 the kernels' numbers (each kernel's launches counted on the path that
 runs it: each server for its whole-stack kernel, the GPT-2 "layer" int8
 engine run for the per-layer kernels, with the llama paths' counts
-beside them, each batched server's counts under ``batch_launches``,
+beside them, each batched server's counts under ``batch_launches``, the prefix
+paths' under ``prefix_launches``,
 the 5 bf16 train steps for the flash kernels), and
 ``{"ok": true, "device": {...}}``. ``--phases`` runs a subset (the
 default runs all).
@@ -2309,6 +2328,445 @@ def paged_phase(smi: str) -> None:
     print(f"  [paged] {time.perf_counter() - t0:.1f} s wall [{smi}]")
 
 
+# -- phase 9: the prefix cache and the host tier -----------------------------
+
+PREFIX_CHUNK = 64        # the store's chunk on every prefix check
+PREFIX_NEW = 24          # new tokens of the in-process prefix streams
+TIER_BLOCKS = 256        # the tiered server's KV_POOL_BLOCKS and KV_HOST_BLOCKS
+TIER_PROMPT = 512        # its system prompts' length (bytes = tokens)
+
+
+def prefix_models(family: str, regime: str):
+    """``(cfg, npos, engine)`` at full width, seeded weights (seed 0);
+    int8 resolves to the megakernel path on the card, fp32 to the plain
+    path."""
+    import torch
+
+    from llm_sharding_demo_tpu_torch.models import gpt2, llama
+    from llm_sharding_demo_tpu_torch.runtime.engine import DecodeEngine
+
+    is_llama = family == "llama"
+    model = llama if is_llama else gpt2
+    cfg = llama.CONFIGS["llama-124m"] if is_llama else gpt2.CONFIGS["gpt2"]
+    npos = LNPOS if is_llama else NPOS
+    params = model.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    return cfg, npos, params, DecodeEngine(params, cfg, max_seq=npos,
+                                           dtype=regime)
+
+
+def tf_prefix(pce, prompt, forced):
+    """f32 logits ``[len(forced), vocab]`` through the prefix store: the
+    store walk of ``prompt`` (hit or miss), then ``forced[:-1]`` one
+    cached step each on the engine's decode path."""
+    import torch
+
+    eng = pce.plain
+    with torch.inference_mode():
+        with pce._lock:
+            logits, cache, _ = pce._prefill_walk(np.asarray(prompt))
+        rows = [logits[0, -1]]
+        for tok in forced[:-1]:
+            logits, cache = eng._forward_cached(eng._ids([[tok]]), cache,
+                                                None)
+            rows.append(logits[0, -1])
+    return torch.stack(rows).float()
+
+
+def prefix_fp32_streams(smi: str) -> None:
+    """fp32 greedy streams through the store (cold, exact hit, partial
+    hit, deeper extension) against the same engine with the cache off,
+    both families at full width. A stream that parts from the plain one
+    must do so at a near tie (``hold_row``'s rule): teacher-forced at
+    its own tokens, the store path's logits within the fp32 parity bar of
+    the plain path's, and the plain top-2 gap there within twice it."""
+    import torch
+
+    from llm_sharding_demo_tpu_torch.runtime.prefix_cache import (
+        PrefixCachingEngine)
+
+    for family in ("gpt2", "llama"):
+        cfg, _, _, eng = prefix_models(family, "float32")
+        check(eng.decode_kernel_mode == "xla", "fp32 left the plain path")
+        pce = PrefixCachingEngine(eng, capacity=4, chunk=PREFIX_CHUNK)
+        rng = np.random.default_rng(21)
+        system = rng.integers(0, cfg.vocab_size, 300)
+        prompts = {"cold": np.concatenate([system, rng.integers(
+                       0, cfg.vocab_size, 20)])}
+        prompts["hit"] = prompts["cold"]
+        prompts["partial hit"] = np.concatenate(
+            [system[:256], rng.integers(0, cfg.vocab_size, 100)])
+        prompts["extension"] = np.concatenate(
+            [prompts["cold"], rng.integers(0, cfg.vocab_size, 150)])
+        same = []
+        for kind, p in prompts.items():
+            got = pce.generate(p, PREFIX_NEW).tokens[0][len(p):]
+            want = eng.generate(p[None], PREFIX_NEW).tokens[0][len(p):]
+            if np.array_equal(got, want):
+                same.append(kind)
+                continue
+            t = int(np.flatnonzero(got != want)[0])
+            forced = got[:t + 1].tolist()
+            mine = tf_prefix(PrefixCachingEngine(eng, chunk=PREFIX_CHUNK),
+                             p, forced)
+            plain = teacher_forced_logits(eng, p, forced)
+            top2 = torch.topk(plain[t], 2).values
+            gap = float(top2[0] - top2[1])
+            err = float((mine - plain).abs().max())
+            bar = 1e-5 + 1e-5 * float(plain.abs().max())
+            print(f"    {family} fp32 {kind}: first difference at new token "
+                  f"{t}; plain top-2 gap {gap:.3e}; teacher-forced max "
+                  f"|diff| {err:.3e} (bar {bar:.3e}) [{smi}]")
+            check(err <= bar and gap <= 2 * bar,
+                  f"{family} fp32 prefix {kind}: the store's stream parted "
+                  "from the plain engine's away from a near tie")
+        st = pce.stats()
+        check((st["hits"], st["misses"]) == (3, 1), f"{family} stats {st}")
+        print(f"  {family} fp32 prefix store: {len(same)}/4 streams "
+              f"({', '.join(same)}) byte-equal to the cache-off engine, "
+              f"{PREFIX_NEW} new tokens each; stats {st} [{smi}]")
+        del eng, pce
+        torch.cuda.empty_cache()
+
+
+def prefix_int8(smi: str) -> dict:
+    """The int8 mega path through the store, both families: a hit's
+    stream equals the cold walk's, teacher-forced logits through the
+    store within ``decode.int8`` of the int8 plain path, the launches of
+    the two generates exactly what their forwards must show; then time to
+    first token of a cold walk against a hit (768 + 32 tokens for GPT-2,
+    3072 + 32 for llama-124m) and the hit's entry clone beside its bytes
+    bound. Returns each family's launch counts."""
+    import torch
+
+    from llm_sharding_demo_tpu_torch.ops import cuda_build
+    from llm_sharding_demo_tpu_torch.runtime.engine import DecodeEngine
+    from llm_sharding_demo_tpu_torch.runtime.prefix_cache import (
+        PrefixCachingEngine, clone_cache)
+    from llm_sharding_demo_tpu_torch.utils import graftmem, graftnum
+
+    out = {}
+    for family in ("gpt2", "llama"):
+        is_llama = family == "llama"
+        cfg, npos, params, eng = prefix_models(family, "int8")
+        check(eng.decode_kernel_mode == "mega", "int8 left the mega path")
+        plain = DecodeEngine(params, cfg, max_seq=npos, dtype="int8",
+                             decode_kernel="xla")
+        rng = np.random.default_rng(22)
+        # 4 chunks and a 14-token tail: the tail takes the int8 kernels
+        prompt = rng.integers(0, cfg.vocab_size, 4 * PREFIX_CHUNK + 14)
+        forced = rng.integers(0, cfg.vocab_size, 32).tolist()
+        pce = PrefixCachingEngine(eng, capacity=4, chunk=PREFIX_CHUNK)
+        shapes0 = eng.forward_shapes()
+        cuda_build.reset_launch_counts()
+        cold = pce.generate(prompt, PREFIX_NEW).tokens
+        hit = pce.generate(prompt, PREFIX_NEW).tokens
+        counts = cuda_build.launch_counts()
+        shapes = {f"{b}x{t}": n - shapes0.get((b, t), 0)
+                  for (b, t), n in eng.forward_shapes().items()
+                  if n != shapes0.get((b, t), 0)}
+        want = expected_launches(shapes, is_llama, 1)
+        check(counts == want, f"{family} int8 prefix: launches {counts}, "
+                              f"expected {want} from {shapes}")
+        check(np.array_equal(cold, hit),
+              f"{family} int8: the hit's stream differs from the cold walk's")
+        check(pce.stats()["hits"] == 1, f"{family}: {pce.stats()}")
+        lk = tf_prefix(pce, prompt, forced)
+        lp = teacher_forced_logits(plain, prompt, forced)
+        check(bool(torch.isfinite(lk).all()) and tuple(lk.shape) == (
+            len(forced), cfg.vocab_size), f"{family}: bad logits")
+        rep = graftnum.compare("decode.int8", lk, lp)
+        out[f"{family} int8 in process"] = counts
+        print(f"  {family} int8 mega through the store: hit stream equal to "
+              f"the cold walk's; teacher-forced (a hit) vs the int8 plain "
+              f"path: logit_mse={rep['logit_mse']:.3e} (cap "
+              f"{rep['policy']['logit_mse']:.0e}) top1_agreement="
+              f"{rep['top1_agreement']:.4f}; forwards {shapes}; launches "
+              f"{counts} [{smi}]")
+        del plain
+        # time to first token, cold against a hit, int8 mega
+        shared = PREFIX_CHUNK * (48 if is_llama else 12)
+        long = rng.integers(0, cfg.vocab_size, shared + 32)
+        hot = PrefixCachingEngine(eng, capacity=2, chunk=PREFIX_CHUNK)
+        hot.prefill_state(long)        # stores the 768 / 3072-token entry
+        walks = {"cold": lambda: PrefixCachingEngine(
+                     eng, capacity=2, chunk=PREFIX_CHUNK).prefill_state(long),
+                 "hit": lambda: hot.prefill_state(long)}
+        readings = {}
+        for kind, walk in walks.items():
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                walk()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            readings[kind] = (statistics.median(walls), device_ms(walk))
+        entry, = hot._store.values()
+        nbytes = graftmem.measure(entry)
+        clone = time_ms_events(lambda: clone_cache(entry))
+        bound = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"  {family} int8 time to first token ({shared} shared + 32 "
+              f"new tokens, chunk {PREFIX_CHUNK}): cold walk forwards "
+              f"{len(long)} tokens, wall {readings['cold'][0]:.2f} ms, "
+              f"device {fmt_ms(readings['cold'][1])} ms; hit forwards 32, "
+              f"wall {readings['hit'][0]:.2f} ms, device "
+              f"{fmt_ms(readings['hit'][1])} ms; the hit's entry clone "
+              f"({tuple(entry.k.shape)} {str(entry.k.dtype)[6:]}, "
+              f"{nbytes / 1e6:.1f} MB) {clone:.4f} ms vs bound "
+              f"{bound:.4f} ms (read + write at 3.35 TB/s) [{smi}]")
+        del eng, pce, hot, entry, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def device_ms(fn):
+    """The device's kernel time for ``fn`` (ms, summed over the kernels
+    ``torch.profiler`` records), or None when the profiler records no
+    device time here."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        total += float(getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0)))
+    return total / 1e3 if total > 0 else None
+
+
+def time_ms_events(fn, reps: int = 20) -> float:
+    """Median device ms of ``fn`` between CUDA events, one call each."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def tier_moves(smi: str) -> None:
+    """The host tier's moves on the card (GPT-2 fp32 pool, 16-slot
+    blocks): one 32-block entry (512 tokens) demoted and promoted, each
+    timed, beside a pinned ``copy_`` of the same bytes each way, and the
+    round trip bit-exact."""
+    import torch
+
+    from llm_sharding_demo_tpu_torch.runtime.kv_pool import KVBlockPool
+    from llm_sharding_demo_tpu_torch.runtime.kv_tier import HostKVTier
+
+    _, _, _, eng = prefix_models("gpt2", "float32")
+    pool = KVBlockPool.for_engine(eng, num_blocks=TIER_BLOCKS,
+                                  block_size=PAGED_BS)
+    tier = HostKVTier(TIER_BLOCKS)
+    pool.attach_tier(tier)
+    n = TIER_PROMPT // PAGED_BS
+    a = pool.allocator
+    demote, promote = [], []
+    for i in range(5):
+        ids = a.alloc(n)
+        pool.data[:, ids] = torch.randn_like(pool.data[:, ids])
+        before = pool.data[:, ids]
+        key = f"entry {i}".encode()
+        a.register_prefix(key, ids)
+        a.free(ids)
+        t0 = time.perf_counter()
+        check(tier.demote_lru(pool), "demote refused")
+        demote.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        new = tier.promote(pool, key)
+        torch.cuda.synchronize()
+        promote.append((time.perf_counter() - t0) * 1e3)
+        check(torch.equal(pool.data[:, list(new)], before),
+              "a promoted entry differs from the demoted one")
+        a.free(new)
+        a.drop_prefix(key)
+    nbytes = n * pool._bytes_per_block
+    dev = torch.empty(nbytes // 4, dtype=torch.float32, device="cuda")
+    host = torch.empty(nbytes // 4, dtype=torch.float32, pin_memory=True)
+
+    def copy_ms(dst, src):
+        ts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dst.copy_(src)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ts)
+
+    d2h, h2d = copy_ms(host, dev), copy_ms(dev, host)
+    print(f"  host tier, one {n}-block entry ({nbytes / 1e6:.1f} MB fp32): "
+          f"demote {statistics.median(demote):.3f} ms vs a pinned copy_ "
+          f"device->host {d2h:.3f} ms; promote "
+          f"{statistics.median(promote):.3f} ms vs host->device "
+          f"{h2d:.3f} ms (medians of 5); round trip bit-exact; tier "
+          f"{tier.stats()} [{smi}]")
+    del pool, eng
+    torch.cuda.empty_cache()
+
+
+def tier_prompts(seed: int):
+    """Six 512-byte system prompts and, for each, a wave's four suffixes:
+    the lead's 48 bytes, then 16-40."""
+    rng = np.random.default_rng(seed)
+
+    def text(n):
+        return "".join(chr(int(c)) for c in rng.integers(97, 123, n))
+
+    systems = [f"System prompt {i}: " + text(TIER_PROMPT - 16)
+               for i in range(6)]
+    suffixes = [[text(48)] + [text(int(k)) for k in rng.integers(16, 41, 3)]
+                for _ in range(6)]
+    return systems, suffixes
+
+
+def tier_server(smi: str) -> None:
+    """The pooled fp32 GPT-2 iter server with the prefix store and the
+    host tier (MAX_BATCH=4 BATCH_MODE=iter MAX_SEQ=1024 KV_BLOCK_SIZE=16
+    KV_POOL_BLOCKS=256 PREFIX_CACHE=8 KV_HOST_BLOCKS=256) beside the same
+    server without the store and the tier. Six 512-token system prompts
+    cycled three times, a wave of four requests on one prompt: the lead
+    (a 48-byte suffix, 96 new tokens) seeds a batch, the other three
+    (16-40-byte suffixes, 32 new tokens) arrive 0.1 s later and join it
+    through the store. Replies equal the other server's; after every wave
+    the tier is conserved and the pool holds only the registry's blocks;
+    demotions and promotions > 0."""
+    systems, suffixes = tier_prompts(31)
+    waves = [(w % 6) for w in range(18)]
+    knobs = dict(MODEL_ID="gpt2", INFERENCE_DTYPE="float32",
+                 MAX_SEQ=str(NPOS), MAX_BATCH="4", BATCH_MODE="iter",
+                 BATCH_WAIT_MS="5", KV_BLOCK_SIZE=str(PAGED_BS),
+                 KV_POOL_BLOCKS=str(TIER_BLOCKS))
+    replies = {}
+    for label, extra in (("tiered", dict(PREFIX_CACHE="8",
+                                         KV_HOST_BLOCKS=str(TIER_BLOCKS))),
+                         ("plain", {})):
+        t_server = time.perf_counter()
+        with serving_process(f"prefix-{label}", **knobs, **extra) as (
+                base, health):
+            check(health["decode_kernel"] == "xla", f"healthz {health}")
+            got = []
+            for wi, s in enumerate(waves):
+                bodies = [{"prompt": systems[s] + suf, "mode": "greedy",
+                           "max_new_tokens": 96 if j == 0 else 32}
+                          for j, suf in enumerate(suffixes[s])]
+                res = _threads(lambda i: _http(base + "/generate", bodies[i],
+                                               timeout=600),
+                               4, [0.0, 0.1, 0.1, 0.1])
+                got.append([r["generated"] for r in res])
+                if not extra:
+                    continue
+                deadline = time.monotonic() + 10
+                while True:
+                    h = _http(base + "/healthz")
+                    ps = h["kv_pool_stats"]
+                    if ps["blocks_in_use"] == ps["blocks_evictable"]:
+                        break
+                    check(time.monotonic() < deadline,
+                          f"wave {wi}: a row's blocks left in the pool {ps}")
+                    time.sleep(0.05)
+                tier = ps["tier"]
+                check(tier["host_entries"] == tier["demotions"]
+                      - tier["promotions"] - tier["discards"]
+                      and tier["host_blocks_in_use"]
+                      <= tier["host_blocks_total"],
+                      f"wave {wi}: tier not conserved {tier}")
+            wall = time.perf_counter() - t_server
+            if extra:
+                st = h["prefix_cache_stats"]
+                check(tier["demotions"] > 0 and tier["promotions"] > 0,
+                      f"no demotion or promotion: {tier}")
+                check(h["batch_stats"]["joins"] > 0 and st["hits"] > 0,
+                      f"no store-backed join: {h['batch_stats']} {st}")
+                per = tier["promote_ms_total"] / max(tier["promotions"], 1)
+                print(f"  tiered fp32 iter server, 18 waves of 4 on six "
+                      f"{TIER_PROMPT}-token system prompts: prefix "
+                      f"{st}; tier {tier} (promote {per:.3f} ms an entry, "
+                      f"wall clock); pool {ps['blocks_in_use']} blocks in "
+                      f"use = the registry's {ps['blocks_evictable']}; "
+                      f"batcher {h['batch_stats']}; {wall:.1f} s with "
+                      f"startup [{smi}]")
+            replies[label] = got
+    same = sum(a == b for wa, wb in zip(replies["tiered"], replies["plain"])
+               for a, b in zip(wa, wb))
+    check(same == 4 * len(waves),
+          f"tiered server: {4 * len(waves) - same} replies differ from the "
+          "server without the store")
+    print(f"  tiered server: all {same} replies equal the server without "
+          f"PREFIX_CACHE and KV_HOST_BLOCKS [{smi}]")
+
+
+def prefix_server(smi: str) -> dict:
+    """An int8 GPT-2 admission server with the store (PREFIX_CACHE=8
+    MAX_BATCH=8, chunk 64): a wave of 8 greedy requests on a shared
+    system prompt, then the same wave again (warm); warm replies equal
+    the cold ones, hits counted in /healthz, each wave's launches exactly
+    what its forwards must show. Returns the server's launch counts."""
+    rng = np.random.default_rng(41)
+    system = "You answer briefly and exactly. " + "".join(
+        chr(int(c)) for c in rng.integers(97, 123, 200))
+    bodies = [{"prompt": system + f" Question {i}: " + "xyz"[:i % 3],
+               "max_new_tokens": 24, "mode": "greedy"} for i in range(8)]
+    knobs = dict(MODEL_ID="gpt2", INFERENCE_DTYPE="int8", MAX_SEQ=str(NPOS),
+                 MAX_BATCH="8", BATCH_MODE="admission", BATCH_WAIT_MS="100",
+                 PREFIX_CACHE="8")
+    with serving_process("prefix-int8-admission", **knobs) as (base,
+                                                                health):
+        check(health["decode_kernel"] == "mega"
+              and health["prefix_cache"] == 8, f"healthz {health}")
+        waves = []
+        for kind in ("cold", "warm"):
+            h0 = _http(base + "/healthz")
+            res = _threads(lambda i: _http(base + "/generate", bodies[i],
+                                           timeout=600), len(bodies))
+            h1 = _http(base + "/healthz")
+            shapes = {k: v - h0["forward_shapes"].get(k, 0)
+                      for k, v in h1["forward_shapes"].items()
+                      if v != h0["forward_shapes"].get(k, 0)}
+            got = {k: v - h0["kernel_launches"][k]
+                   for k, v in h1["kernel_launches"].items()}
+            want = expected_launches(shapes, False, 2)
+            check(got == want, f"int8 prefix server {kind} wave: launches "
+                               f"{got}, expected {want} from {shapes}")
+            st = {k: h1["prefix_cache_stats"][k]
+                  - h0["prefix_cache_stats"][k] for k in ("hits", "misses")}
+            waves.append([r["generated"] for r in res])
+            print(f"  int8 GPT-2 admission server with the store, {kind} "
+                  f"wave of 8: prefix {st}; forwards {shapes}; launches "
+                  f"{got} [{smi}]")
+        check(waves[0] == waves[1], "warm replies differ from the cold ones")
+        check(h1["prefix_cache_stats"]["hits"] > 0,
+              f"no hit counted: {h1['prefix_cache_stats']}")
+        counts = h1["kernel_launches"]
+    print(f"  int8 prefix server: warm wave equal to the cold wave; "
+          f"launches {counts} [{smi}]")
+    return counts
+
+
+def prefix_phase(smi: str) -> dict:
+    """The prefix cache and the host tier (module docstring, phase 9).
+    Returns the launch counts of the prefix paths."""
+    t0 = time.perf_counter()
+    prefix_fp32_streams(smi)
+    launches = prefix_int8(smi)
+    tier_moves(smi)
+    tier_server(smi)
+    launches["GPT-2 int8 admission server"] = prefix_server(smi)
+    print(f"  [prefix] {time.perf_counter() - t0:.1f} s wall [{smi}]")
+    return launches
+
+
 # -- main ----------------------------------------------------------------------
 
 def kernel_name(mangled: str) -> str:
@@ -2418,9 +2876,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases",
                         default="kernels,flash,engine,server,batch,train,"
-                                "paged",
+                                "paged,prefix",
                         help="comma-separated subset of kernels,flash,engine,"
-                             "server,batch,train,paged")
+                             "server,batch,train,paged,prefix")
     phases = set(parser.parse_args().phases.split(","))
 
     t_start = time.perf_counter()
@@ -2506,6 +2964,12 @@ def main() -> int:
         print("[paged] paged KV: the movers, PagedKVRunner, quantized "
               "pools, the pooled iter server")
         paged_phase(smi)
+    prefix_launches = {}
+    if "prefix" in phases:
+        print("[prefix] the prefix cache and the host tier: fp32 and int8 "
+              "streams through the store, time to first token, the tier's "
+              "moves, the tiered iter server, an int8 prefix server")
+        prefix_launches = prefix_phase(smi)
 
     sources = {"decode_attention": "csrc/decode_attention.cu",
                "quant_linear": "csrc/quant.cu",
@@ -2548,6 +3012,8 @@ def main() -> int:
                                for where, c in llama_launches.items()},
             "batch_launches": {where: c[k.name]
                                for where, c in batch_launches.items()},
+            "prefix_launches": {where: c[k.name]
+                                for where, c in prefix_launches.items()},
             "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
             "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
             "bound_by": r.get("bound_by"),

@@ -18,9 +18,16 @@ and hands each row back truncated to its own ``max_new_tokens``.
   (``engine.select_token``'s per-row form), so a seeded row is byte-equal
   to its solo run whatever it was batched with.
 
+- With a prefix store (``prefix=``, a ``PrefixCachingEngine`` over the
+  same engine) a solo round goes through ``prefix.generate``; a greedy
+  round of several rows prefills each row through the store
+  (``prefix.prefill_state``), merges the right-aligned row caches into
+  one left-padded cache by a roll (``_merge``) and decodes once
+  (``_run_prefix``). Sampled rounds of several rows bypass the store.
+
 The worker thread enters ``torch.inference_mode`` itself (it is
-thread-local) and owns all device work. Prefix-cache and speculative
-rounds (``prefix=``, ``spec=``) wait for ROADMAP Queue 1 items 10 and 11.
+thread-local) and owns all device work. Speculative rounds (``spec=``)
+wait for ROADMAP Queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -34,12 +41,12 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..ops.attention import KVCache
 from ..utils import graftsched, graftscope, tracing
 from ..utils.device import device_scope
 from ..utils.metrics import REGISTRY, kv_block_gauges
 from .engine import DecodeEngine, GenerateResult, SamplingConfig
 
-PREFIX_ITEM = "ROADMAP Queue 1 item 10 (prefix cache and host tier)"
 SPEC_ITEM = "ROADMAP Queue 1 item 11 (speculative decoding)"
 
 
@@ -54,12 +61,43 @@ def _bucket_batch(n: int, cap: int) -> int:
     return min(b, cap)
 
 
-def refuse_compositions(prefix, spec, what: str) -> None:
-    """The prefix-cache and speculative compositions are not ported."""
-    if prefix is not None:
-        raise NotImplementedError(f"{what}: prefix= waits for {PREFIX_ITEM}")
+def check_compositions(engine, prefix, spec, what: str) -> None:
+    """A prefix store must wrap the batcher's own engine; the
+    speculative composition is not ported."""
+    if prefix is not None and prefix.plain is not engine:
+        raise ValueError("prefix must wrap the same engine instance")
     if spec is not None:
         raise NotImplementedError(f"{what}: spec= waits for {SPEC_ITEM}")
+
+
+def _merge_impl(solos, pads: np.ndarray, length: int):
+    """Per-row right-aligned caches -> one left-padded batch cache: row
+    i's content at slots ``[0, plen_i)`` rolls by ``pads[i]`` to
+    ``[pad_i, s_max)`` (what wraps lands in the masked pad prefix, and
+    past ``s_max`` where decode writes before it reads). Plain, fused
+    (placeholder ``v``) and staged (list) caches."""
+    def one(rows):
+        def cat(leaves):
+            if leaves[0].dim() <= 1:           # fused placeholder v
+                return leaves[0]
+            return torch.cat([torch.roll(x, int(pads[i]), dims=-2)
+                              for i, x in enumerate(leaves)], dim=1)
+        return KVCache(k=cat([c.k for c in rows]),
+                       v=cat([c.v for c in rows]), length=length)
+
+    if isinstance(solos[0], list):             # staged engine
+        return [one([s[j] for s in solos]) for j in range(len(solos[0]))]
+    return one(solos)
+
+
+def _merge_scope_key(solos, pads, length):
+    """(rows, solo cache width)."""
+    first = solos[0][0] if isinstance(solos[0], list) else solos[0]
+    return (len(solos), int(first.k.shape[-2]))
+
+
+_merge = graftscope.instrument(_merge_impl, "batcher._merge",
+                               key_fn=_merge_scope_key)
 
 
 @dataclasses.dataclass
@@ -86,8 +124,9 @@ class BatchingEngine:
     def __init__(self, engine: DecodeEngine, max_batch: int = 8,
                  max_wait_ms: float = 5.0, prompt_bucket: int = 16,
                  steps_bucket: int = 32, prefix=None, spec=None):
-        refuse_compositions(prefix, spec, "BatchingEngine")
+        check_compositions(engine, prefix, spec, "BatchingEngine")
         self.engine = engine
+        self.prefix = prefix
         self.max_batch = max_batch
         self.max_wait_s = max_wait_ms / 1e3
         self.prompt_bucket = prompt_bucket
@@ -224,20 +263,54 @@ class BatchingEngine:
             self._run_inner(batch)
 
     def _run_inner(self, batch: List[_Request]):
+        if self.prefix is not None and len(batch) == 1:
+            # a solo round keeps the single-stream prefix path and its
+            # true shapes
+            req = batch[0]
+            result = self.prefix.generate(req.prompt, req.max_new_tokens,
+                                          sampling=req.sampling,
+                                          generator=req.generator)
+            self._deliver(batch, result)
+            return
         s_max, steps = self._shapes(batch)  # planned feasible: not None
         b = _bucket_batch(len(batch), self.max_batch)
         ids, pad = self._bucket_rows(batch, b, s_max)
         kv_block_gauges("batcher", b * (s_max + steps),
                         b * self.engine._cache_seq)
         sampling = batch[0].sampling
-        # dummy rows draw nothing: a real row's generator advances once a
-        # step, by its own row only
-        generators = (None if sampling.mode == "greedy"
-                      else [r.generator for r in batch]
-                      + [None] * (b - len(batch)))
-        result = self.engine.generate(ids, steps, sampling=sampling,
-                                      generator=generators, pad=pad)
+        if self.prefix is not None and sampling.mode == "greedy":
+            result = self._run_prefix(batch, ids, pad, steps)
+        else:
+            # dummy rows draw nothing: a real row's generator advances
+            # once a step, by its own row only. Sampled rounds bypass the
+            # prefix store: its first-token merge is argmax.
+            generators = (None if sampling.mode == "greedy"
+                          else [r.generator for r in batch]
+                          + [None] * (b - len(batch)))
+            result = self.engine.generate(ids, steps, sampling=sampling,
+                                          generator=generators, pad=pad)
         self._deliver(batch, result, padded_rows=b - len(batch))
+
+    def _run_prefix(self, batch: List[_Request], ids: np.ndarray,
+                    pad: np.ndarray, steps: int) -> GenerateResult:
+        """A greedy round over per-row prefix-store prefills: each row's
+        right-aligned cache rolls into one left-padded batch cache, then
+        one batched decode. Dummy rows clone the last real row."""
+        t0 = time.perf_counter()
+        states = []
+        for req in batch:
+            # this row's prefill span goes to its own trace
+            with tracing.use_trace(req.trace):
+                last, cache, _ = self.prefix.prefill_state(req.prompt)
+            states.append((last, cache))
+        while len(states) < ids.shape[0]:
+            states.append(states[len(batch) - 1])
+        first = torch.argmax(torch.cat([s[0] for s in states]), dim=-1)
+        cache = _merge([s[1] for s in states], pad, ids.shape[1])
+        eng = self.engine
+        return eng._decode_and_pack(ids, pad, eng._pad(pad), first, cache,
+                                    steps, batch[0].sampling, None,
+                                    ids.shape[1], time.perf_counter() - t0)
 
     @staticmethod
     def _bucket_rows(batch: List[_Request], b: int, s_max: int):

@@ -549,13 +549,32 @@ class DecodeEngine:
         t0 = time.perf_counter()
         last, cache = self._prefill_last(ids, pad_t, chunk)
         token = select_token(last, sampling, generator)
-        parts = [token[:, None]]
         _sync(self.device)
         t1 = time.perf_counter()
         tracing.record("prefill", t0, t1, batch=batch,
                        prompt_len=prompt_len, chunked=bool(chunk))
         kv_block_gauges("engine", batch * (prompt_len + max_new_tokens),
                         batch * self._cache_seq)
+        return self._decode_and_pack(ids, pad, pad_t, token, cache,
+                                     max_new_tokens, sampling, generator,
+                                     prompt_len, t1 - t0, eos_id=eos_id)
+
+    def _decode_and_pack(self, ids: np.ndarray, pad: np.ndarray,
+                         pad_t: Optional[torch.Tensor], token: torch.Tensor,
+                         cache, max_new_tokens: int,
+                         sampling: SamplingConfig, generator: Generators,
+                         prompt_len: int, prefill_seconds: float,
+                         eos_id: Optional[int] = None) -> GenerateResult:
+        """The decode loop off a prepared ``(first token [B], cache)``
+        state, and the ``GenerateResult``: shared by ``generate``, the
+        prefix-cache front end (``runtime.prefix_cache``) and the
+        admission batcher's prefix rounds, which prepare the prefill
+        state their own way. Writes ``cache`` in place. ``eos_id``
+        stops at the first EOS check (32, 64, 128, 256, ... steps) where
+        every row has emitted it."""
+        t1 = time.perf_counter()
+        batch = ids.shape[0]
+        parts = [token[:, None]]
         done = None if eos_id is None else (token == eos_id)
         if done is None or not bool(done.all()):
             for take in eos_chunks(max_new_tokens - 1):
@@ -575,7 +594,7 @@ class DecodeEngine:
         kv_block_gauges("engine", 0, batch * self._cache_seq)
         return GenerateResult(tokens=np.concatenate([ids, new], axis=1),
                               prompt_len=prompt_len,
-                              prefill_seconds=t1 - t0,
+                              prefill_seconds=prefill_seconds,
                               decode_seconds=t2 - t1, new_tokens=n,
                               decode_steps=n - 1,
                               pad=pad if pad.any() else None)

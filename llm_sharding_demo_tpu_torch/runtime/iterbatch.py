@@ -2,7 +2,7 @@
 boundaries, on contiguous caches or on the paged pool.
 
 Counterpart of ``llm_sharding_demo_tpu/runtime/iterbatch.py`` without
-its speculation and prefix store. ``runtime.batcher`` batches
+its speculation. ``runtime.batcher`` batches
 at admission and runs each round to its end; here the decode runs as
 segments of ``seg_steps`` steps (``DecodeEngine._decode_seg``), and
 between two segments the scheduler
@@ -51,9 +51,15 @@ pool is the admission authority, in blocks, never bytes:
   stream. A quantized pool re-quantizes what it re-scatters, so its
   streams hold ``kv.int8`` / ``kv.fp8`` instead.
 
+Prefix store (``prefix=``, a ``PrefixCachingEngine`` over the same
+engine, with or without a pool): an admission that is not a resume
+prefills through the store (``prefill_state``), so a joiner whose prompt
+shares a cached prefix forwards only its suffix; the store's cache is
+right-aligned, so the row's content sits at ``[0, plen)`` of it.
+
 The worker thread owns all device work, under ``torch.inference_mode``
-(which is thread-local). Speculative segments and prefix-store
-admissions wait for ROADMAP Queue 1 items 11 and 10.
+(which is thread-local). Speculative segments wait for ROADMAP Queue 1
+item 11.
 """
 
 from __future__ import annotations
@@ -72,7 +78,7 @@ from ..ops.attention import KVCache
 from ..utils import graftfault, graftmem, graftsched, graftscope, tracing
 from ..utils.metrics import REGISTRY, kv_block_gauges
 from ..utils.device import device_scope
-from .batcher import _round_up, refuse_compositions
+from .batcher import _round_up, check_compositions
 from .engine import (DecodeEngine, GenerateResult, SamplingConfig,
                      select_token)
 from .kv_pool import PoolExhausted
@@ -264,8 +270,9 @@ class IterBatchingEngine:
                 f"pool rows span {pool.max_seq} slots, engine cache is "
                 f"{engine._cache_seq}; gathered segments must match the "
                 "compiled programs' cache width")
-        refuse_compositions(prefix, spec, "IterBatchingEngine")
+        check_compositions(engine, prefix, spec, "IterBatchingEngine")
         self.engine = engine
+        self.prefix = prefix
         self.pool = pool
         self.queue_limit = max_batch if queue_limit is None else queue_limit
         self.max_batch = max_batch
@@ -786,24 +793,33 @@ class IterBatchingEngine:
             else:
                 req.trace.add_span("queue_wait", req.t_submit, p0,
                                    scheduler="iter")
-        sp = min(_round_up(plen_eff, self.prompt_bucket), state.depth)
-        sp = max(sp, plen_eff)  # a bucket past the depth: the exact length
-        ids = np.zeros((1, sp), dtype=np.int64)
-        ids[0, sp - plen_eff:] = stream
-        logits, solo = eng._prefill(
-            eng._ids(ids), eng._pad(np.asarray([sp - plen_eff], np.int32)))
-        if req.trace is not None:
-            req.trace.add_span(
-                "prefill", p0, time.perf_counter(),
-                kind="resume" if resume is not None else "admit",
-                depth=state.depth, prompt_len=plen_eff)
+        if self.prefix is not None and resume is None:
+            # through the store: its cache is right-aligned (content at
+            # [0, plen)), so sp = plen; the store records this row's
+            # prefill span, hit depth labelled
+            with tracing.use_trace(req.trace):
+                last, solo, sp = self.prefix.prefill_state(stream)
+        else:
+            sp = min(_round_up(plen_eff, self.prompt_bucket), state.depth)
+            sp = max(sp, plen_eff)  # a bucket past the depth: exact length
+            ids = np.zeros((1, sp), dtype=np.int64)
+            ids[0, sp - plen_eff:] = stream
+            logits, solo = eng._prefill(
+                eng._ids(ids),
+                eng._pad(np.asarray([sp - plen_eff], np.int32)))
+            last = logits[:, -1]
+            if req.trace is not None:
+                req.trace.add_span(
+                    "prefill", p0, time.perf_counter(),
+                    kind="resume" if resume is not None else "admit",
+                    depth=state.depth, prompt_len=plen_eff)
         if resume is not None:
             # the live token is the parked row's last emitted one
             first = torch.full((1,), int(resume.tokens[-1]),
                                dtype=torch.int64, device=eng.device)
         else:
             first = select_token(
-                logits[:, -1], state.sampling,
+                last, state.sampling,
                 None if state.sampling.mode == "greedy" else [req.generator])
         if self.pool is not None:
             self._place_admitted(state, slot, solo, state.depth - sp,

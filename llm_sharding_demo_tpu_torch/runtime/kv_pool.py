@@ -21,15 +21,19 @@ Counterpart of ``llm_sharding_demo_tpu/runtime/kv_pool.py``:
   state into blocks, then gathers each decode segment's rows into a
   contiguous cache, runs the engine's own ``_decode_seg`` on it and
   scatters it back. The model code is the contiguous path's, so an fp32
-  paged stream equals the contiguous engine's byte for byte.
+  paged stream equals the contiguous engine's byte for byte. With a
+  pool-backed prefix store (``prefix=``) a solo prompt prefills through
+  the store and references the entry's full blocks in its own table; the
+  frontier block is copied on write.
+- The host spill tier (``runtime.kv_tier``) hangs below the pool
+  (``attach_tier``): the allocator demotes its LRU prefix entry there
+  before an allocation would evict it (``_demote_pressure``,
+  ``lease_lru_prefix``, ``demote_pop_prefix``), and the raw planes move
+  through ``spill_blocks`` and ``fill_blocks``.
 
 The reference's pools compile their movers with ``jax.jit`` and certify
 their program counts (``note_compiles``, the recompile certificate);
-PyTorch runs the movers eagerly, so neither has a counterpart here. The
-host spill tier (``attach_tier``, ``spill_blocks``, ``fill_blocks``), the
-allocator's demotion hooks it drives and the prefix store's block
-sharing (``PagedKVRunner(prefix=)``) wait for ROADMAP Queue 1 item 10;
-the calls refuse, naming it.
+PyTorch runs the movers eagerly, so neither has a counterpart here.
 
 Block lifecycle::
 
@@ -67,8 +71,6 @@ from .engine import (DecodeEngine, GenerateResult, Generators,
                      SamplingConfig, _sync, eos_chunks, prepare_generate,
                      select_token)
 
-TIER_ITEM = "ROADMAP Queue 1 item 10 (prefix cache and host tier)"
-
 # gauge/stats label of a full-precision pool's blocks
 _REGIME_LABELS = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -83,6 +85,14 @@ def bytes_per_block(n_layer: int, n_kv_head: int, block_size: int,
         return slots * dtype.itemsize
     return (slots * KVQ.STORAGE_DTYPES[block_dtype].itemsize
             + n_layer * 2 * n_kv_head * torch.float32.itemsize)
+
+
+def _bytes_of(t: torch.Tensor) -> torch.Tensor:
+    """fp8 codes as their bytes: index_select and index_copy_ take no
+    fp8 tensors; every other storage dtype as it is."""
+    if t.dtype in (torch.int8, torch.float32, torch.bfloat16):
+        return t
+    return t.view(torch.uint8)
 
 
 class PoolExhausted(RuntimeError):
@@ -184,6 +194,10 @@ class BlockAllocator:
         self._san_grants = 0
         self._san_drops = 0
         self._on_free: Optional[Callable[[List[int]], None]] = None
+        # the host tier's demotion hook (``KVBlockPool.attach_tier``),
+        # called outside ``_lock`` before an allocation would evict: True
+        # when it moved one entry down a tier; None means no tier
+        self._tier_demote: Optional[Callable[[], bool]] = None
         if self.sanitize:
             _SAN_ALLOCATORS.add(self)
 
@@ -327,12 +341,30 @@ class BlockAllocator:
             self._san_check_locked("alloc")
         return out, [b for b in evict_freed if b not in self._ref]
 
+    def _demote_pressure(self, n: int) -> None:
+        """While granting ``n`` would force an LRU eviction and a tier is
+        attached, ask it to demote the LRU prefix entry instead. Runs
+        outside ``_lock`` (a demotion reads the device under the pool's
+        ``_dev_lock``); ``_alloc_locked``'s eviction stays the fallback
+        when the tier refuses. Each demotion removes one entry, so the
+        loop ends."""
+        hook = self._tier_demote
+        if hook is None:
+            return
+        while True:
+            with self._lock:
+                pressed = len(self._free) < n and bool(self._prefix)
+            if not pressed or not hook():
+                return
+
     def alloc(self, n: int) -> List[int]:
-        """Allocate ``n`` blocks at ref=1, evicting zero-ref prefix
-        entries as needed. Raises ``PoolExhausted`` without taking any
-        block when ``n`` cannot be satisfied."""
+        """Allocate ``n`` blocks at ref=1, demoting (with a tier) or
+        evicting zero-ref prefix entries as needed. Raises
+        ``PoolExhausted`` without taking any block when ``n`` cannot be
+        satisfied."""
         if n == 0:
             return []
+        self._demote_pressure(n)
         with self._lock:
             site = _call_site() if self.sanitize else ""
             out, evict_freed = self._alloc_locked(n, site)
@@ -349,6 +381,7 @@ class BlockAllocator:
         # a seeded pool-exhaustion spike refuses as a full pool would
         if graftfault.inject("kv_pool.admit_alloc", "pool_spike"):
             return None
+        self._demote_pressure(n)
         evict_freed: List[int] = []
         with self._lock:
             if self.sanitize:
@@ -474,6 +507,45 @@ class BlockAllocator:
         with self._lock:
             return len(self._prefix)
 
+    # -- host-tier demotion (runtime/kv_tier.py) -----------------------------
+
+    def lease_lru_prefix(self) -> Optional[Tuple[bytes, Tuple[int, ...]]]:
+        """The LRU prefix entry with one caller ref per block, recency
+        untouched: the tier's demote lease. The refs keep the blocks
+        alive and immutable while the tier copies them out of the lock;
+        release with ``free`` after ``demote_pop_prefix``. None when the
+        registry is empty."""
+        with self._lock:
+            if not self._prefix:
+                return None
+            key = next(iter(self._prefix))
+            ids = self._prefix[key]
+            site = f"tier:{_call_site()}" if self.sanitize else ""
+            for b in ids:
+                self._ref[b] += 1
+                if self.sanitize:
+                    self._san_grant_locked(b, site)
+            if self.sanitize:
+                self._san_check_locked("tier_lease")
+            return key, ids
+
+    def demote_pop_prefix(self, key: bytes, expect_ids) -> bool:
+        """Drop the entry for ``key`` as a demotion (the tier holds its
+        bytes now): not an eviction, so ``evictions`` does not count it.
+        False, touching nothing, when the entry vanished or was
+        re-registered with other blocks since the lease."""
+        expect = tuple(expect_ids)
+        freed: List[int] = []
+        with self._lock:
+            if self._prefix.get(key) != expect:
+                return False
+            del self._prefix[key]
+            freed = self._deref_prefix_locked(expect)
+            if self.sanitize:
+                self._san_check_locked("tier_demote")
+        self._notify_freed(freed)
+        return True
+
     def _deref_prefix_locked(self, ids) -> List[int]:
         freed: List[int] = []
         site = _call_site() if self.sanitize else ""
@@ -592,6 +664,9 @@ class KVBlockPool:
         else:
             self.data = torch.zeros(shape, dtype=dtype, device=self.device)
             self.scales = None
+        # the host spill tier below this pool (``attach_tier``); None:
+        # cold prefix entries are evicted
+        self.tier = None
         self._bytes_per_block = bytes_per_block(
             n_layer, n_kv_head, block_size, head_dim, dtype,
             self.block_dtype)
@@ -748,16 +823,55 @@ class KVBlockPool:
             self._scatter_impl(k, v, np.asarray(table_row)[None])
 
     def attach_tier(self, tier) -> None:
-        raise NotImplementedError(f"KVBlockPool.attach_tier (the host "
-                                  f"spill tier) waits for {TIER_ITEM}")
+        """Wire a host tier (``runtime.kv_tier.HostKVTier``) below this
+        pool: allocation pressure demotes cold prefix entries into it
+        instead of evicting them, and the prefix store promotes them
+        back on a hit."""
+        self.tier = tier
+        self.allocator._tier_demote = lambda: tier.demote_lru(self)
 
-    def spill_blocks(self, ids):
-        raise NotImplementedError(f"KVBlockPool.spill_blocks (the host "
-                                  f"spill tier) waits for {TIER_ITEM}")
+    def spill_blocks(self, ids) -> Tuple[torch.Tensor,
+                                         Optional[torch.Tensor]]:
+        """Host copies of the raw planes of blocks ``ids``: codes ``[L,
+        n, 2, Hkv, bs, hd]`` in the storage dtype, plus the ``[L, n, 2,
+        Hkv]`` f32 scales of a quantized pool (None at full precision).
+        Codes spill as codes, never dequantized, so a round trip is bit
+        exact. The copy into host memory (pinned when the pool is on
+        CUDA) is synchronous: the tensors are complete on return."""
+        idx = torch.as_tensor(np.asarray(ids, dtype=np.int64),
+                              device=self.device)
+        pin = self.device.type == "cuda"
+        with self._dev_lock:
+            if self.allocator.sanitize:
+                self._graftsan_check_tables(np.asarray(ids), "spill_blocks")
+            planes = [self.data] + ([self.scales]
+                                    if self.scales is not None else [])
+            out = []
+            for plane in planes:
+                picked = _bytes_of(plane).index_select(1, idx)
+                host = torch.empty(picked.shape, dtype=picked.dtype,
+                                   pin_memory=pin)
+                host.copy_(picked)
+                out.append(host.view(plane.dtype))
+        return out[0], (out[1] if len(out) > 1 else None)
 
-    def fill_blocks(self, ids, codes, scales=None) -> None:
-        raise NotImplementedError(f"KVBlockPool.fill_blocks (the host "
-                                  f"spill tier) waits for {TIER_ITEM}")
+    def fill_blocks(self, ids, codes: torch.Tensor,
+                    scales: Optional[torch.Tensor] = None) -> None:
+        """Write spilled raw blocks back into freshly allocated ``ids``
+        (the tier's promote): the same plane slots a scatter fills, byte
+        for byte what ``spill_blocks`` captured. The targets must be
+        privately owned (GRAFTSAN traps a shared one)."""
+        idx = torch.as_tensor(np.asarray(ids, dtype=np.int64),
+                              device=self.device)
+        with self._dev_lock:
+            if self.allocator.sanitize:
+                self._graftsan_check_tables(np.asarray(ids), "fill_blocks",
+                                            write=True)
+            _bytes_of(self.data).index_copy_(1, idx, _bytes_of(
+                codes.to(self.device, self.data.dtype)))
+            if self.scales is not None:
+                self.scales.index_copy_(1, idx, scales.to(
+                    self.device, self.scales.dtype))
 
     def cow_copy(self, src: int) -> int:
         """Copy-on-write: allocate a private block, copy ``src`` into it,
@@ -783,21 +897,32 @@ class KVBlockPool:
         REGISTRY.gauge("kv_pool_bytes_per_block", self._bytes_per_block,
                        **labels)
         graftscope.sample("kv_cache_blocks_in_use", in_use, **labels)
+        if self.tier is not None:
+            self.tier.note_gauges(component=component)
 
     def stats(self) -> dict:
-        return {**self.allocator.stats().as_dict(),
-                "block_size": self.block_size,
-                "blocks_per_row": self.nbm,
-                "block_dtype": self.block_regime,
-                "bytes_per_block": self._bytes_per_block,
-                "graftsan": self.allocator.sanitize}
+        out = {**self.allocator.stats().as_dict(),
+               "block_size": self.block_size,
+               "blocks_per_row": self.nbm,
+               "block_dtype": self.block_regime,
+               "bytes_per_block": self._bytes_per_block,
+               "graftsan": self.allocator.sanitize}
+        if self.tier is not None:
+            out["tier"] = self.tier.stats()
+        return out
 
 
 class PagedKVRunner:
     """Solo or ragged paged ``generate``: the engine's own forwards on
     pool-backed storage, with ``DecodeEngine.generate``'s calling
     convention. An fp32 stream equals the contiguous engine's byte for
-    byte; a quantized pool's within ``kv.int8`` / ``kv.fp8``."""
+    byte; a quantized pool's within ``kv.int8`` / ``kv.fp8``.
+
+    With ``prefix`` (a pool-backed ``PrefixCachingEngine`` over the same
+    engine and pool) a solo prompt prefills only what the store lacks
+    and shares the store's full blocks in its own table; only the
+    partly filled frontier block is copied on write.
+    """
 
     def __init__(self, engine: DecodeEngine, pool: KVBlockPool,
                  prefix=None):
@@ -811,11 +936,16 @@ class PagedKVRunner:
                 "PagedKVRunner prefills monolithically (one scatter per "
                 "admission); build the engine without prefill_chunk")
         if prefix is not None:
-            raise NotImplementedError(
-                f"PagedKVRunner(prefix=) (pool-backed prefix sharing) "
-                f"waits for {TIER_ITEM}")
+            if prefix.plain is not engine:
+                raise ValueError("prefix must wrap the same DecodeEngine")
+            if getattr(prefix, "_pool", None) is not pool:
+                raise ValueError(
+                    "prefix store must be backed by the same pool "
+                    "(pass pool= to PrefixCachingEngine) — block "
+                    "sharing is the point")
         self.engine = engine
         self.pool = pool
+        self.prefix = prefix
         # one generation at a time: the allocator's alloc/free pairs of
         # two generates must not interleave
         self._gen_lock = graftsched.lock("kv_pool.PagedKVRunner._gen_lock")
@@ -834,52 +964,85 @@ class PagedKVRunner:
         with self._gen_lock:
             t0 = time.perf_counter()
             pad_t = eng._pad(pad)
-            logits, tables, owned = self._prefill_tables(
-                ids, batch, prompt_len, max_new_tokens, pad_t)
+            last, tables, owned, shared = self._prefill_tables(
+                ids, batch, prompt_len, max_new_tokens, pad, pad_t)
             try:
-                token = select_token(logits[:, -1], sampling, generator)
+                token = select_token(last, sampling, generator)
                 _sync(eng.device)
                 t1 = time.perf_counter()
                 tracing.record("prefill", t0, t1, batch=batch,
                                prompt_len=prompt_len, paged=True)
                 self.pool.note_gauges(component="paged")
+                # columns below every row's shared prefix hold registry
+                # blocks, which are immutable: each segment scatters the
+                # owned tail only
+                nb_lo = min(len(s) for s in shared)
                 return self._decode(ids, pad, pad_t, token, tables,
                                     max_new_tokens, sampling, generator,
-                                    prompt_len, t1 - t0, eos_id)
+                                    prompt_len, t1 - t0, eos_id, nb_lo)
             finally:
-                for row_ids in owned:
+                for row_ids in owned + shared:
                     alloc.free(row_ids)
                 self.pool.note_gauges(component="paged")
 
-    def _prefill_tables(self, ids, batch, prompt_len, max_new, pad_t):
-        """Prefill, allocate each row's blocks, scatter the state.
-        Returns ``(logits [B, S, V], tables [B, NBm], owned ids per
-        row)``; a row's table entries past its blocks are trash."""
+    def _prefill_tables(self, ids, batch, prompt_len, max_new, pad, pad_t):
+        """Prefill (through the prefix store for a solo unpadded prompt,
+        when one is attached), allocate each row's blocks, scatter the
+        state. Returns ``(last logits [B, V], tables [B, NBm], owned ids
+        per row, shared ids per row)``; a row's table entries past its
+        blocks are trash."""
         eng, pool = self.engine, self.pool
         alloc = pool.allocator
+        bs = pool.block_size
         need = alloc.blocks_for(prompt_len + max_new)
         tables = np.full((batch, pool.nbm), pool.trash, dtype=np.int32)
         owned: List[List[int]] = []
+        shared: List[List[int]] = []
+        frontier: List[int] = []
         try:
-            logits, cache = eng._prefill(eng._ids(ids), pad_t)
-            for b in range(batch):
-                row = alloc.alloc(need)
-                tables[b, :need] = row
-                owned.append(row)
-            pool.scatter(cache, tables)
+            if self.prefix is not None and batch == 1 and not pad.any():
+                last, cache, keep_ids, hit_depth = \
+                    self.prefix.prefill_shared(ids[0])
+                # full blocks stay shared; the partly filled frontier
+                # block is copied on write (this row writes into it)
+                n_full = hit_depth // bs
+                row_shared = list(keep_ids[:n_full])
+                shared.append(row_shared)
+                row_owned: List[int] = []
+                owned.append(row_owned)
+                frontier = list(keep_ids[n_full:])
+                while frontier:
+                    row_owned.append(pool.cow_copy(frontier[0]))
+                    alloc.free([frontier.pop(0)])
+                row_owned.extend(alloc.alloc(need - n_full - len(row_owned)))
+                tables[0, :n_full] = row_shared
+                tables[0, n_full:need] = row_owned
+                # only the owned tail: the shared blocks hold these bytes
+                pool.scatter_columns(cache, tables, n_full)
+            else:
+                logits, cache = eng._prefill(eng._ids(ids), pad_t)
+                last = logits[:, -1]
+                for b in range(batch):
+                    row = alloc.alloc(need)
+                    tables[b, :need] = row
+                    owned.append(row)
+                    shared.append([])
+                pool.scatter(cache, tables)
         except BaseException:
-            # all-or-nothing: a failure mid-placement returns the refs
+            # all-or-nothing: a failure mid-placement returns every ref
             # taken so far
-            for row_ids in owned:
+            for row_ids in owned + shared:
                 alloc.free(row_ids)
+            alloc.free(frontier)
             raise
-        return logits, tables, owned
+        return last, tables, owned, shared
 
     def _decode(self, ids, pad, pad_t, token, tables, max_new_tokens,
                 sampling, generator, prompt_len, prefill_seconds,
-                eos_id) -> GenerateResult:
+                eos_id, nb_lo: int = 0) -> GenerateResult:
         """``DecodeEngine.generate``'s decode loop, each EOS-check chunk
-        one segment: gather, the engine's ``_decode_seg``, scatter."""
+        one segment: gather, the engine's ``_decode_seg``, scatter of the
+        table columns from ``nb_lo`` on."""
         eng = self.engine
         t1 = time.perf_counter()
         parts = [token[:, None]]
@@ -890,7 +1053,7 @@ class PagedKVRunner:
                 working = self.pool.gather(tables, depth)
                 out, working = eng._decode_seg(token, working, pad_t, take,
                                                sampling, generator)
-                self.pool.scatter(working, tables)
+                self.pool.scatter_columns(working, tables, nb_lo)
                 token = out[:, -1]
                 parts.append(out)
                 depth += take

@@ -12,7 +12,7 @@ Counterpart of the core of ``llm_sharding_demo_tpu/serving/app.py``
 
 Role guards answer HTTP 200 with ``{"error": ...}`` as the reference does.
 Runner choice: ``INFERENCE_DTYPE=int8`` or ``bfloat16``, ``MAX_BATCH >
-1`` or ``PREFILL_CHUNK`` -> the staged ``DecodeEngine``, which runs the
+1``, ``PREFILL_CHUNK`` or ``PREFIX_CACHE`` -> the staged ``DecodeEngine``, which runs the
 CUDA kernels on the GPU for bf16 and int8; otherwise the kernel-free
 ``PipelineRunner``, the fp32 single-stream parity path. (The JAX app
 serves single-stream bf16 through its ``PipelineRunner``; here bf16
@@ -27,7 +27,15 @@ unstaged engine, its pool (``KVBlockPool.for_engine``), and
 pool. As in the JAX package, paging takes an engine without a decode
 kernel, so on the card it serves fp32; a bf16 or int8 server refuses at
 startup. A request the pool cannot host while the waiting line is full
-answers 429 with ``Retry-After``. Each request draws
+answers 429 with ``Retry-After``. ``KV_HOST_BLOCKS`` hangs a host spill
+tier (``runtime.kv_tier``) below the pool.
+
+``PREFIX_CACHE > 0`` puts the prefix store (``runtime.prefix_cache``,
+chunk ``PREFIX_CHUNK``, else ``PREFILL_CHUNK``, else 64) in front of the
+engine: alone it serves ``/generate``, and it backs the admission
+batcher's rounds, the iteration batcher's admissions and, with a pool,
+``PagedKVRunner``, whose rows share the store's blocks; ``/healthz``
+serves its ``prefix_cache_stats``. Each request draws
 from its own generator, seeded by its ``seed``, so a seeded request
 replays whether it ran alone or in a batch; a batched request waits at
 most ``GENERATE_TIMEOUT_S`` and then answers 503.
@@ -53,6 +61,8 @@ from ..runtime.engine import (REF_TEMPERATURE, REF_TOP_K, DecodeEngine,
                               SamplingConfig)
 from ..runtime.iterbatch import IterBatchingEngine
 from ..runtime.kv_pool import KVBlockPool, PagedKVRunner
+from ..runtime.kv_tier import HostKVTier
+from ..runtime.prefix_cache import PrefixCachingEngine
 from ..utils import graftfault
 from ..utils.config import ServingConfig, from_env
 from ..utils.device import DeviceLike, resolve_device
@@ -121,7 +131,7 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
 
     check_batching(cfg, config)
 
-    runner = engine = kv_pool = None
+    runner = engine = kv_pool = prefix = None
     decode_kernel = None
     if cfg.shard_role == "coordinator":
         pchunk = cfg.prefill_chunk or None
@@ -135,7 +145,7 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
                 block_size=cfg.kv_block_size,
                 block_dtype=cfg.kv_pool_dtype or None)
         elif (cfg.inference_dtype != "float32" or cfg.max_batch > 1
-                or pchunk):
+                or pchunk or cfg.prefix_cache > 0):
             engine = DecodeEngine(params, config, max_seq=cfg.max_seq,
                                   boundaries=list(cfg.boundaries),
                                   dtype=cfg.inference_dtype, device=dev,
@@ -145,15 +155,26 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
                                     max_seq=cfg.max_seq, device=dev)
         decode_kernel = engine.decode_kernel_mode
         runner = engine
+        if kv_pool is not None and cfg.kv_host_blocks > 0:
+            # cold prefix entries demote to host memory instead of being
+            # evicted, and promote back on a hit
+            kv_pool.attach_tier(HostKVTier(cfg.kv_host_blocks))
+        if cfg.prefix_cache > 0:
+            prefix = PrefixCachingEngine(
+                engine, capacity=cfg.prefix_cache,
+                chunk=cfg.prefix_chunk or cfg.prefill_chunk or 64,
+                pool=kv_pool)
+            runner = prefix
         if cfg.max_batch > 1 and cfg.batch_mode == "iter":
             runner = IterBatchingEngine(engine, max_batch=cfg.max_batch,
                                         max_wait_ms=cfg.batch_wait_ms,
-                                        pool=kv_pool)
+                                        prefix=prefix, pool=kv_pool)
         elif cfg.max_batch > 1:
             runner = BatchingEngine(engine, max_batch=cfg.max_batch,
-                                    max_wait_ms=cfg.batch_wait_ms)
+                                    max_wait_ms=cfg.batch_wait_ms,
+                                    prefix=prefix)
         elif kv_pool is not None:
-            runner = PagedKVRunner(engine, kv_pool)
+            runner = PagedKVRunner(engine, kv_pool, prefix=prefix)
     # the reference's two-stage wire topology (/forward, /forward_b) is
     # dense GPT-2 only; other families answer /generate alone
     partitionable = is_partitionable(config)
@@ -181,7 +202,12 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
                     "kv_pool_stats conservation violated: "
                     f"{st['blocks_in_use']} in_use + {st['blocks_free']} "
                     f"free != {st['blocks_total']} total")
+            if kv_pool.tier is not None:
+                # per-tier conservation: drift answers 500, as above
+                kv_pool.tier.graftsan_check("healthz")
             live["kv_pool_stats"] = st
+        if prefix is not None:
+            live["prefix_cache_stats"] = prefix.stats()
         return {
             "status": "ok",
             "role": cfg.shard_role,
@@ -191,9 +217,12 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
             "max_batch": cfg.max_batch,
             "batch_mode": cfg.batch_mode,
             "prefill_chunk": cfg.prefill_chunk,
+            "prefix_cache": cfg.prefix_cache,
+            "prefix_chunk": cfg.prefix_chunk,
             "kv_pool_blocks": cfg.kv_pool_blocks,
             "kv_block_size": cfg.kv_block_size,
             "kv_pool_dtype": cfg.kv_pool_dtype,
+            "kv_host_blocks": cfg.kv_host_blocks,
             "inference_dtype": cfg.inference_dtype,
             "device": str(dev),
             "decode_kernel": decode_kernel,
@@ -306,9 +335,11 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
         kw = {}
         if isinstance(runner, (BatchingEngine, IterBatchingEngine)):
             kw["timeout"] = GENERATE_TIMEOUT_S
-        if eos_id is not None and not isinstance(runner, BatchingEngine):
-            # the engine and the iteration batcher stop at EOS checks;
-            # the admission batcher's rows are cut below, same reply
+        if eos_id is not None and not isinstance(
+                runner, (BatchingEngine, PrefixCachingEngine)):
+            # the engine, the paged runner and the iteration batcher stop
+            # at EOS checks; the admission batcher's and the prefix
+            # store's rows are cut below, same reply
             kw["eos_id"] = eos_id
         try:
             result = runner.generate(np.asarray(prompt_ids),
@@ -339,7 +370,12 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
 
 def check_batching(cfg: ServingConfig, config) -> None:
     """The JAX app's startup refusals that concern the batching,
-    chunked-prefill and paged-pool knobs."""
+    chunked-prefill, prefix-cache and paged-pool knobs."""
+    if cfg.prefix_cache > 0 and not (cfg.shard_role == "coordinator"
+                                     and cfg.dispatch == "local"):
+        raise ValueError(
+            f"PREFIX_CACHE={cfg.prefix_cache} applies to the "
+            "coordinator's local decode path only")
     if cfg.kv_pool_blocks > 0:
         if not (cfg.shard_role == "coordinator" and cfg.dispatch == "local"):
             raise ValueError("KV_POOL_BLOCKS applies to the coordinator's "

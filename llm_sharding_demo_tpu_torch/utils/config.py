@@ -5,8 +5,9 @@ one validated dataclass. The port honours ``MODEL_ID``, ``SHARD_ROLE``,
 ``SPLIT_AT``/``BOUNDARIES``, ``SHARD_PORT``, ``MAX_SEQ``,
 ``INFERENCE_DTYPE``, ``DISPATCH=local``, the batching knobs
 ``MAX_BATCH``, ``BATCH_MODE`` and ``BATCH_WAIT_MS``, ``PREFILL_CHUNK``,
-and the paged pool's ``KV_POOL_BLOCKS``, ``KV_BLOCK_SIZE`` and
-``KV_POOL_DTYPE``. Every other knob the JAX package accepts refuses at startup when it is set to anything but its
+the paged pool's ``KV_POOL_BLOCKS``, ``KV_BLOCK_SIZE`` and
+``KV_POOL_DTYPE``, and the prefix store's ``PREFIX_CACHE`` and
+``PREFIX_CHUNK`` with the host tier's ``KV_HOST_BLOCKS``. Every other knob the JAX package accepts refuses at startup when it is set to anything but its
 default, naming the ROADMAP item that will port it: a knob ignored in
 silence would let a deployment believe it runs a configuration it does
 not.
@@ -40,15 +41,11 @@ def _is_str(*values: str) -> Callable[[str], bool]:
 
 
 # knob -> (the ROADMAP item that ports it, "is this value the default?")
-_PREFIX = "ROADMAP Queue 1 item 10 (prefix cache and host tier)"
 _SPEC = "ROADMAP Queue 1 item 11 (speculative decoding)"
 _MULTI = "ROADMAP Queue 1 item 13 (multi-device decode)"
 _FLEET = "ROADMAP Queue 1 item 15 (fleet, planning and observability)"
 _REMOTE = "ROADMAP Queue 1 item 16 (checkpoints and remote dispatch)"
 REFUSED_KNOBS: Dict[str, Tuple[str, Callable[[str], bool]]] = {
-    "PREFIX_CACHE": (_PREFIX, _is_int(0)),
-    "PREFIX_CHUNK": (_PREFIX, _is_int(0)),
-    "KV_HOST_BLOCKS": (_PREFIX, _is_int(0)),
     "SPEC_DECODE": (_SPEC, _is_int(0)),
     "PP_DECODE": (_MULTI, _is_off),
     "TP_DECODE": (_MULTI, _is_off),
@@ -94,6 +91,15 @@ class ServingConfig:
     # "": blocks in the engine dtype; "int8" or "fp8": quantized blocks
     # (ops.kv_quant). Requires KV_POOL_BLOCKS > 0.
     kv_pool_dtype: str = ""
+    # > 0: the prefix store's resident-entry capacity
+    # (runtime.prefix_cache); 0: off
+    prefix_cache: int = 0
+    # > 0: the prefix store's chunk width (default: PREFILL_CHUNK, else
+    # 64). Requires PREFIX_CACHE > 0.
+    prefix_chunk: int = 0
+    # > 0: the host spill tier's block budget below the pool
+    # (runtime.kv_tier). Requires KV_POOL_BLOCKS > 0.
+    kv_host_blocks: int = 0
 
     def __post_init__(self):
         if self.shard_role not in VALID_ROLES:
@@ -128,6 +134,10 @@ class ServingConfig:
             raise ValueError(
                 f"PREFILL_CHUNK={self.prefill_chunk} must be >= 0 "
                 "(0 disables, >0 is the chunk width in tokens)")
+        if self.prefix_cache < 0:
+            raise ValueError(
+                f"PREFIX_CACHE={self.prefix_cache} must be >= 0 "
+                "(0 disables, >0 is the resident-entry capacity)")
         if self.kv_pool_blocks < 0:
             raise ValueError(
                 f"KV_POOL_BLOCKS={self.kv_pool_blocks} must be >= 0 "
@@ -154,6 +164,24 @@ class ServingConfig:
                     f"full-precision regime {regime!r} — the pool "
                     "already stores full-precision blocks by default; "
                     "quantized storage takes 'int8' or 'fp8'")
+        if self.kv_host_blocks < 0:
+            raise ValueError(
+                f"KV_HOST_BLOCKS={self.kv_host_blocks} must be >= 0 "
+                "(0 disables the host tier, >0 is its block budget)")
+        if self.kv_host_blocks > 0 and self.kv_pool_blocks == 0:
+            raise ValueError(
+                "KV_HOST_BLOCKS sizes the host spill tier below the "
+                "paged pool; it needs KV_POOL_BLOCKS > 0 (a silently "
+                "ignored knob would misreport the serving composition)")
+        if self.prefix_chunk < 0:
+            raise ValueError(
+                f"PREFIX_CHUNK={self.prefix_chunk} must be >= 0 "
+                "(0: default alignment, >0: the store's chunk width)")
+        if self.prefix_chunk > 0 and self.prefix_cache == 0:
+            raise ValueError(
+                "PREFIX_CHUNK tunes the prefix store's alignment; it "
+                "needs PREFIX_CACHE > 0 (a silently ignored knob would "
+                "misreport the serving composition)")
         if self.kv_pool_blocks > 0 and self.max_seq % self.kv_block_size:
             raise ValueError(
                 f"MAX_SEQ={self.max_seq} must be a multiple of "
@@ -233,4 +261,7 @@ def from_env() -> ServingConfig:
         kv_pool_blocks=_env_int("KV_POOL_BLOCKS", 0),
         kv_block_size=_env_int("KV_BLOCK_SIZE", 16),
         kv_pool_dtype=os.environ.get("KV_POOL_DTYPE", ""),
+        prefix_cache=_env_int("PREFIX_CACHE", 0),
+        prefix_chunk=_env_int("PREFIX_CHUNK", 0),
+        kv_host_blocks=_env_int("KV_HOST_BLOCKS", 0),
     )

@@ -1,9 +1,9 @@
 """The device-memory ledger of long-lived holdings.
 
 Trimmed counterpart of ``llm_sharding_demo_tpu/utils/graftmem.py``:
-``track`` registers one holding (a batch's KV cache, a pool's planes)
-under a component
-and returns a handle, ``update`` re-measures it after a rebind (a batch
+``track`` registers one holding (a batch's KV cache, a pool's planes, a
+stored prefix, a demoted host entry) under a component and returns a
+handle, ``update`` re-measures it after a rebind (a batch
 that grew), ``release`` drops it. Bytes are the sum of ``nbytes`` over
 the tensors the holding reaches (through lists, tuples, dicts and
 dataclasses such as ``KVCache``), never shape arithmetic. The owner is
@@ -23,8 +23,10 @@ import torch
 from . import graftsched
 
 # a batch's contiguous KV cache; the paged pool's block storage (full
-# precision or codes) and its scales
-MEMORY_COMPONENTS = frozenset({"engine_cache", "pool_codes", "pool_scales"})
+# precision or codes) and its scales; the prefix store's cache copies;
+# the host tier's demoted blocks (host memory, not the device's)
+MEMORY_COMPONENTS = frozenset({"engine_cache", "pool_codes", "pool_scales",
+                               "prefix_store", "host_spill"})
 
 
 def measure(value: Any) -> int:
@@ -59,7 +61,8 @@ class MemoryLedger:
         with self._lock:
             handle = self._next
             self._next += 1
-            self._entries[handle] = {"holding": holding,
+            self._entries[handle] = {"owner_id": id(owner),
+                                     "holding": holding,
                                      "component": component,
                                      "bytes": nbytes}
             self._totals[component] = self._totals.get(component, 0) + nbytes
@@ -84,6 +87,14 @@ class MemoryLedger:
         with self._lock:
             return dict(self._totals)
 
+    def holding_bytes(self, owner: Any, holding: str) -> int:
+        """Live bytes of one owner's named holding, summed over its
+        entries."""
+        oid = id(owner)
+        with self._lock:
+            return sum(e["bytes"] for e in self._entries.values()
+                       if e["owner_id"] == oid and e["holding"] == holding)
+
 
 STATE = MemoryLedger()
 
@@ -102,3 +113,7 @@ def release(handle: int) -> None:
 
 def component_bytes() -> Dict[str, int]:
     return STATE.component_bytes()
+
+
+def holding_bytes(owner: Any, holding: str) -> int:
+    return STATE.holding_bytes(owner, holding)

@@ -35,6 +35,8 @@ from llm_sharding_demo_tpu_torch.runtime.batcher import (BatchingEngine,
                                                          _Request)
 from llm_sharding_demo_tpu_torch.runtime.engine import (DecodeEngine,
                                                         SamplingConfig)
+from llm_sharding_demo_tpu_torch.runtime.prefix_cache import (
+    PrefixCachingEngine)
 from llm_sharding_demo_tpu_torch.serving.app import create_app
 from llm_sharding_demo_tpu_torch.serving.http import TestClient
 from llm_sharding_demo_tpu_torch.serving.tokenizer import ByteTokenizer
@@ -247,10 +249,14 @@ def test_round_phases_fan_out_to_every_row_trace(setup):
         assert t.find("decode") is not None
 
 
-def test_prefix_and_spec_compositions_refuse(setup):
+def test_prefix_and_spec_compositions_refuse(weights, setup):
+    """A prefix store over another engine refuses (the JAX batcher's
+    check); speculation waits for its item."""
     engine, _ = setup
-    with pytest.raises(NotImplementedError, match="item 10"):
-        BatchingEngine(engine, prefix=object())
+    other = DecodeEngine(weights[1], gpt2.GPT2Config(**DIMS),
+                         max_seq=MAX_SEQ, device="cpu")
+    with pytest.raises(ValueError, match="same engine"):
+        BatchingEngine(engine, prefix=PrefixCachingEngine(other))
     with pytest.raises(NotImplementedError, match="item 11"):
         BatchingEngine(engine, spec=object())
 

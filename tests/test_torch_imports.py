@@ -48,7 +48,9 @@ def test_port_imports_with_jax_blocked():
     assert "llm_sharding_demo_tpu_torch.serving.app" in modules
     for name in ("ops.decode_layer", "ops.rope", "models.llama",
                  "ops.flash_attention", "training.train",
-                 "ops.paged_attention", "ops.kv_quant", "runtime.kv_pool"):
+                 "ops.paged_attention", "ops.kv_quant", "runtime.kv_pool",
+                 "runtime.prefix_cache", "runtime.kv_tier",
+                 "runtime.batcher"):
         assert f"llm_sharding_demo_tpu_torch.{name}" in modules
     code = "; ".join([
         "import sys",

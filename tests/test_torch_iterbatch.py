@@ -36,6 +36,8 @@ from llm_sharding_demo_tpu_torch.runtime.engine import (DecodeEngine,
                                                         SamplingConfig)
 from llm_sharding_demo_tpu_torch.runtime.iterbatch import (
     FAULT_PARK_BUDGET, IterBatchingEngine)
+from llm_sharding_demo_tpu_torch.runtime.prefix_cache import (
+    PrefixCachingEngine)
 from llm_sharding_demo_tpu_torch.serving.app import create_app
 from llm_sharding_demo_tpu_torch.serving.http import TestClient
 from llm_sharding_demo_tpu_torch.serving.tokenizer import ByteTokenizer
@@ -445,9 +447,11 @@ def test_refusals(weights):
         ib.generate(np.arange(190), 90, timeout=WAIT)
     with pytest.raises(NotImplementedError, match="prefill_chunk"):
         IterBatchingEngine(_engine(weights, prefill_chunk=8), max_batch=2)
-    for kw, item in (("prefix", "item 10"), ("spec", "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
-            IterBatchingEngine(engine, max_batch=2, **{kw: object()})
+    with pytest.raises(ValueError, match="same engine"):
+        IterBatchingEngine(engine, max_batch=2, prefix=PrefixCachingEngine(
+            _engine(weights)))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        IterBatchingEngine(engine, max_batch=2, spec=object())
 
 
 # -- serving -----------------------------------------------------------------

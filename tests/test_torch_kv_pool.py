@@ -35,6 +35,9 @@ from llm_sharding_demo_tpu_torch.runtime.kv_pool import (BlockAllocator,
                                                          PagedKVRunner,
                                                          PoolExhausted,
                                                          graftsan_sweep)
+from llm_sharding_demo_tpu_torch.runtime.kv_tier import HostKVTier
+from llm_sharding_demo_tpu_torch.runtime.prefix_cache import (
+    PrefixCachingEngine)
 from llm_sharding_demo_tpu_torch.utils import graftnum
 from llm_sharding_demo_tpu_torch.utils.metrics import REGISTRY
 from test_torch_model import np_gpt2_params
@@ -349,13 +352,21 @@ def test_for_engine_refusals(weights, eng):
     with pytest.raises(ValueError, match="one full row"):
         KVBlockPool.for_engine(eng, num_blocks=4, block_size=BS)
     pool = KVBlockPool.for_engine(eng, num_blocks=24, block_size=BS)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        PagedKVRunner(eng, pool, prefix=object())
-    for call in (lambda: pool.attach_tier(object()),
-                 lambda: pool.spill_blocks([0]),
-                 lambda: pool.fill_blocks([0], None)):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            call()
+    # the prefix store must share the runner's pool (the JAX check)
+    with pytest.raises(ValueError, match="same pool"):
+        PagedKVRunner(eng, pool, prefix=PrefixCachingEngine(eng))
+    # the host tier's hooks: attach, then a spill/fill round trip of the
+    # raw planes into another block
+    tier = HostKVTier(4)
+    pool.attach_tier(tier)
+    assert pool.tier is tier and pool.stats()["tier"] == tier.stats()
+    src, dst = pool.allocator.alloc(2)
+    pool.data[:, src].normal_()
+    codes, scales = pool.spill_blocks([src])
+    assert codes.shape == pool.data[:, [src]].shape and scales is None
+    pool.fill_blocks([dst], codes)
+    assert torch.equal(pool.data[:, dst], pool.data[:, src])
+    pool.allocator.free([src, dst])
 
 
 def test_scatter_columns_writes_only_the_tail(eng):

@@ -137,7 +137,7 @@ def test_request_validation(weights):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("PREFIX_CACHE", "8"), ("SPEC_DECODE", "3"), ("PP_DECODE", "1"),
+    ("AUTO_PLAN_CONTINUOUS", "1"), ("SPEC_DECODE", "3"), ("PP_DECODE", "1"),
     ("TP_DECODE", "true"), ("EP_DECODE", "1"), ("AUTO_PLAN", "1"),
     ("FLEET_ROLE", "decode"), ("CHECKPOINT_DIR", "/ckpt"),
     ("DISPATCH", "remote"),
@@ -188,12 +188,38 @@ def test_paged_knobs_parse_and_refuse_as_jax(weights, monkeypatch, env,
     assert str(terr.value) == str(jerr.value)
 
 
-def test_host_tier_knob_still_refuses_naming_its_item(monkeypatch):
-    monkeypatch.setenv("KV_POOL_BLOCKS", "16")
-    monkeypatch.setenv("KV_HOST_BLOCKS", "64")
-    with pytest.raises(ValueError, match="KV_HOST_BLOCKS='64' waits for "
-                                         "ROADMAP Queue 1 item 10"):
-        tconfig.from_env()
+@pytest.mark.parametrize("env", [
+    # parse: the store, its chunk, the tier below a pool
+    {"PREFIX_CACHE": "8", "PREFIX_CHUNK": "16", "KV_POOL_BLOCKS": "16",
+     "KV_HOST_BLOCKS": "64"},
+    # PREFIX_CHUNK without PREFIX_CACHE, KV_HOST_BLOCKS without a pool:
+    # silently ignored knobs
+    {"PREFIX_CHUNK": "16"},
+    {"KV_HOST_BLOCKS": "64"},
+    # negative values
+    {"PREFIX_CACHE": "-1"},
+    {"PREFIX_CACHE": "2", "PREFIX_CHUNK": "-4"},
+    {"KV_POOL_BLOCKS": "16", "KV_HOST_BLOCKS": "-2"},
+])
+def test_prefix_and_host_tier_knobs_parse_and_validate_as_jax(monkeypatch,
+                                                              env):
+    """PREFIX_CACHE, PREFIX_CHUNK and KV_HOST_BLOCKS are served: they
+    parse, and refuse where the JAX config refuses, with its message."""
+    from llm_sharding_demo_tpu.utils import config as jconfig
+    monkeypatch.setenv("KV_BLOCK_SIZE", "8")
+    monkeypatch.setenv("MAX_SEQ", "96")
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    try:
+        jc = jconfig.from_env()
+    except ValueError as jerr:
+        with pytest.raises(ValueError) as terr:
+            tconfig.from_env()
+        assert str(terr.value) == str(jerr)
+        return
+    cfg = tconfig.from_env()
+    assert (cfg.prefix_cache, cfg.prefix_chunk, cfg.kv_host_blocks) == (
+        jc.prefix_cache, jc.prefix_chunk, jc.kv_host_blocks) == (8, 16, 64)
 
 
 def test_kept_knobs_and_defaults_parse(monkeypatch):
