@@ -18,8 +18,9 @@ which must pass or the script exits non-zero:
    untied head at rows 1..16, two launches bit-identical, each timed
    shape printed with its ``linear_plan`` (column tile, split, CTAs) and
    registers a thread, the int8 tied head at GPT-2's table at rows 1..16,
-   bit-identical, timed at rows 1, 8 and 16 with its ``head_plan`` (CTAs,
-   span) and registers, both whole-stack kernels (each timed case printed
+   bit-identical, timed at rows 1, 7, 8, 14 and 16 with its ``head_plan``
+   (CTAs, span) and registers (the int8 linear's c_fc also at rows 7 and
+   14: a verify window of one and of two streams), both whole-stack kernels (each timed case printed
    with its weight-ring plan: stages, stage bytes, shared memory);
    decode attention also at the edges of its cluster split, with rows
    masked past whole spans or entirely, B 1/8/16/32, two launches
@@ -121,13 +122,28 @@ which must pass or the script exits non-zero:
    demotions and promotions; an int8 GPT-2 admission server with
    PREFIX_CACHE=8 MAX_BATCH=8 whose warm wave equals its cold wave, with
    exact launch counts.
+10. spec: speculative decoding (``runtime.spec_decode``, K = 6). GPT-2
+   124M and llama-124m at full width: fp32 greedy spec streams against
+   the same plain engine's (a stream that parts must do so at a near
+   tie): solo on a repetitive and a random prompt (tokens a verify), 4
+   ragged rows batched, the iteration batcher with a mid-flight join,
+   the pooled iteration batcher under preemption; the int8 spec engine
+   at one stream and two, its launches exactly what its forwards
+   predict (the int8 linear at every projection and GPT-2's tied head,
+   once a verify window of <= 16 rows; no attention kernel), its
+   teacher-forced verify-window logits against the int8 plain path
+   under ``decode.int8`` (a miss printed with its numbers), a verify's
+   eager and device time, the host-sync share, tokens a verify and ms a
+   token beside the mega engine's step and the plain int8 step; a GPT-2
+   int8 ``SPEC_DECODE=6`` server answering four /generate requests
+   with ``spec_decode_stats`` in /healthz and exact launches.
 
 The last lines are the card's name and power limit, one JSON object with
 the kernels' numbers (each kernel's launches counted on the path that
 runs it: each server for its whole-stack kernel, the GPT-2 "layer" int8
 engine run for the per-layer kernels, with the llama paths' counts
 beside them, each batched server's counts under ``batch_launches``, the prefix
-paths' under ``prefix_launches``,
+paths' under ``prefix_launches``, the spec paths' under ``spec_launches``,
 the 5 bf16 train steps for the flash kernels), and
 ``{"ok": true, "device": {...}}``. ``--phases`` runs a subset (the
 default runs all).
@@ -444,9 +460,13 @@ def kernel_phase(results: dict) -> None:
     linear_registers = quant_registers("quant_linear_kernel")
     row = results["quant_linear"] = dict(linear_timing(D, 4 * D),
                                          max_abs_err=worst)
+    # c_fc at a one-stream (7 rows) and a two-stream (14 rows) verify
+    # window of SPEC_DECODE=6
     row["other_shapes"] = [linear_timing(D, LV), linear_timing(D, LV, rows=8),
                            linear_timing(4 * D, D), linear_timing(INTER, D),
-                           linear_timing(D, HKV * HD)]
+                           linear_timing(D, HKV * HD),
+                           linear_timing(D, 4 * D, rows=SPEC_K + 1),
+                           linear_timing(D, 4 * D, rows=2 * (SPEC_K + 1))]
     # one layer's four projections at rows=1, as a decode step calls them
     layer_bytes = sum(d * n_out for d, n_out in shapes)
     sets = []
@@ -514,7 +534,9 @@ def kernel_phase(results: dict) -> None:
         return row
 
     row = results["quant_head"] = dict(head_timing(1), max_abs_err=worst)
-    row["other_shapes"] = [head_timing(8), head_timing(16)]
+    row["other_shapes"] = [head_timing(8), head_timing(16),
+                           head_timing(SPEC_K + 1),
+                           head_timing(2 * (SPEC_K + 1))]
     for name, res in results.items():
         for r in [res] + res.get("other_shapes", []):
             print(f"  {name}: {r['shape']}: device time per call: kernel "
@@ -2767,6 +2789,414 @@ def prefix_phase(smi: str) -> dict:
     return launches
 
 
+# -- phase 10: speculative decoding ------------------------------------------
+
+SPEC_K = 6          # SPEC_DECODE: the served default draft depth
+SPEC_NEW = 48       # new tokens of the in-process spec streams
+SPEC_SEQ = 1024     # max_seq of the in-process spec engines (both families)
+
+
+def spec_prompts(vocab: int, seed: int):
+    """A repetitive 40-token prompt (drafts get accepted) and a random
+    one (they mostly do not)."""
+    rng = np.random.default_rng(seed)
+    period = rng.integers(0, vocab, 8)
+    return {"repetitive": np.tile(period, 5),
+            "random": rng.integers(0, vocab, 40)}
+
+
+def expected_spec_launches(shapes: dict, is_llama: bool) -> dict:
+    """The launch counts a spec engine's forwards must show from its
+    ``forward_shapes`` (``{(B, T): forwards}``): a forward of <= 16 rows
+    in all runs the int8 linear at every projection (llama: 7 a layer
+    and the untied head) and GPT-2's tied head kernel; attention is plain
+    and no whole-stack or decode-attention kernel runs."""
+    from llm_sharding_demo_tpu_torch.ops import cuda_build
+    from llm_sharding_demo_tpu_torch.ops.quant import MAX_KERNEL_ROWS
+
+    want = {k.name: 0 for k in cuda_build.KERNELS}
+    for (b, t), n in shapes.items():
+        if b * t <= MAX_KERNEL_ROWS:
+            want["quant_linear"] += (7 * L + 1 if is_llama else 4 * L) * n
+            if not is_llama:
+                want["quant_head"] += n
+    return want
+
+
+def spec_hold(eng, prompt, got, want, what: str, smi: str) -> bool:
+    """Equal to the plain stream, or parted from it only at a near tie
+    (``hold_row``'s greedy rule on the plain path's teacher-forced
+    logits)."""
+    if np.array_equal(got, want):
+        return True
+    n = len(prompt)
+    check(hold_row(eng, eng, [list(prompt)], 0, got[n:], want[n:], what,
+                   smi, greedy=True),
+          f"{what}: the spec stream parted from the plain one away from a "
+          "near tie")
+    return False
+
+
+def spec_fp32(smi: str) -> None:
+    """fp32 greedy spec streams against the same plain engine's, both
+    families at full width: solo (a repetitive and a random prompt, with
+    tokens per verify), 4 ragged rows batched, the iteration batcher with
+    a mid-flight join, the pooled iteration batcher under preemption."""
+    import torch
+
+    from llm_sharding_demo_tpu_torch.models import gpt2, llama
+    from llm_sharding_demo_tpu_torch.runtime.engine import SamplingConfig
+    from llm_sharding_demo_tpu_torch.runtime.iterbatch import (
+        IterBatchingEngine)
+    from llm_sharding_demo_tpu_torch.runtime.kv_pool import KVBlockPool
+    from llm_sharding_demo_tpu_torch.runtime.spec_decode import (
+        SpecDecodeEngine)
+
+    flagged = SamplingConfig(spec=True)
+    for family in ("gpt2", "llama"):
+        model = llama if family == "llama" else gpt2
+        cfg = (llama.CONFIGS["llama-124m"] if family == "llama"
+               else gpt2.CONFIGS["gpt2"])
+        params = model.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0))
+        spec = SpecDecodeEngine(params, cfg, max_seq=SPEC_SEQ,
+                                draft_len=SPEC_K)
+        eng = spec.plain
+        check(eng.decode_kernel_mode == "xla", "fp32 left the plain path")
+        prompts = spec_prompts(cfg.vocab_size, 23)
+        rng = np.random.default_rng(24)
+
+        def plain(p, n=SPEC_NEW):
+            return eng.generate(np.asarray(p)[None], n).tokens[0]
+
+        same, total, notes = 0, 0, []
+        for kind, p in prompts.items():
+            r = spec.generate(p, SPEC_NEW)
+            total += 1
+            same += spec_hold(eng, p, r.tokens[0], plain(p),
+                              f"{family} fp32 solo {kind}", smi)
+            notes.append(f"{kind} prompt {(SPEC_NEW - 1) / r.verify_steps:.2f}"
+                         f" tokens a verify ({r.verify_steps} verifies)")
+        ragged = [prompts["repetitive"][:24], prompts["random"],
+                  rng.integers(0, cfg.vocab_size, 9),
+                  np.tile(prompts["random"][:3], 6)]
+        r = spec.generate(ragged, SPEC_NEW)
+        for i, p in enumerate(ragged):
+            total += 1
+            same += spec_hold(eng, p, r.row_tokens(i), plain(p),
+                              f"{family} fp32 batched row {i}", smi)
+        ib = IterBatchingEngine(eng, max_batch=4, seg_steps=14,
+                                max_wait_ms=20.0, spec=spec)
+        pa, pb = prompts["repetitive"], rng.integers(0, cfg.vocab_size, 12)
+        done = []
+
+        def join(i):
+            if i:
+                t_end = time.monotonic() + 60
+                while (ib.stats()["segments"] < 1
+                       and time.monotonic() < t_end):
+                    time.sleep(0.001)
+            return ib.generate((pa, pb)[i], (96, 40)[i], sampling=flagged,
+                               timeout=600).tokens[0]
+        for i, got in enumerate(_threads(join, 2)):
+            total += 1
+            p = (pa, pb)[i]
+            same += spec_hold(eng, p, got, plain(p, (96, 40)[i]),
+                              f"{family} fp32 iter row {i}", smi)
+        st = ib.stats()
+        check(st["joins"] >= 1 and st["spec_segments"] >= 2,
+              f"{family} spec iter batcher: no mid-flight join: {st}")
+        # a pool of one full row: the two rows outgrow it together
+        pool = KVBlockPool.for_engine(eng, num_blocks=SPEC_SEQ // PAGED_BS,
+                                      block_size=PAGED_BS, watermark=1.0)
+        pib = IterBatchingEngine(eng, max_batch=4, seg_steps=14,
+                                 max_wait_ms=200.0, spec=spec, pool=pool)
+        pc, pd = prompts["repetitive"][:16], rng.integers(0, cfg.vocab_size,
+                                                          60)
+        budgets = (600, 560)
+        got = _threads(lambda i: pib.generate(
+            (pc, pd)[i], budgets[i], sampling=flagged,
+            timeout=600).tokens[0], 2)
+        for i, g in enumerate(got):
+            total += 1
+            p = (pc, pd)[i]
+            same += spec_hold(eng, p, g, plain(p, budgets[i]),
+                              f"{family} fp32 pooled iter row {i}", smi)
+        pst = pib.stats()
+        check(pst["preemptions"] >= 1 and pst["resumes"] >= 1
+              and pool.allocator.stats().blocks_in_use == 0,
+              f"{family} pooled spec iter: no preemption or a leak: {pst}")
+        print(f"  {family} fp32 spec (K={SPEC_K}) vs the plain engine: "
+              f"{same}/{total} greedy streams byte-equal (solo x2, 4 ragged "
+              f"rows, iter batcher with a join, pooled iter under "
+              f"{pst['preemptions']} preemptions), the rest parted at a "
+              f"near tie; solo {', '.join(notes)}; iter {st}; pooled "
+              f"{pst} [{smi}]")
+        del spec, eng, ib, pib, pool, params
+        torch.cuda.empty_cache()
+
+
+def spec_windows_logits(eng, prompt, forced, k: int):
+    """f32 logits ``[len(forced), vocab]``, teacher-forced in verify
+    windows: row 0 from the prefill, then ``forced`` in windows of k + 1
+    tokens (each forward's logits predict the window's next tokens)."""
+    import torch
+
+    with torch.inference_mode():
+        cache = eng._fresh_cache(1)
+        logits, cache = eng._forward_cached(eng._ids([list(prompt)]), cache,
+                                            None)
+        rows = [logits[0, -1:]]
+        for w0 in range(0, len(forced) - 1, k + 1):
+            window = forced[w0:w0 + k + 1]
+            logits, cache = eng._forward_cached(eng._ids([window]), cache,
+                                                None)
+            rows.append(logits[0])
+    return torch.cat(rows)[:len(forced)].float()
+
+
+def verify_ms(spec, prompt, steps: int = 20):
+    """``(eager_ms, device_ms)`` of one verify (a K+1-token forward of
+    one stream and its greedy acceptance): the host clock around
+    ``steps`` eager verifies ending in a sync, and the device's time for
+    one replayed from a CUDA graph. Every verify writes the same slots."""
+    import torch
+
+    from llm_sharding_demo_tpu_torch.runtime.engine import SamplingConfig
+
+    eng, k = spec.plain, spec.draft_len
+    with torch.inference_mode():
+        cache = eng._fresh_cache(1)
+        _, cache = eng._forward_cached(eng._ids([list(prompt)]), cache, None)
+        x = eng._ids([list(prompt[-(k + 1):])])
+        greedy = SamplingConfig()
+
+        def step():
+            logits, _ = eng._forward_cached(x, cache, None)
+            spec._accept_patch(logits[0], x[0, 1:], None, greedy)
+
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                step()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        eager = (time.perf_counter() - t0) * 1e3 / steps
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            step()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        graph.replay()
+        start.record()
+        for _ in range(steps):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        device = start.elapsed_time(end) / steps
+        del graph
+    return eager, device
+
+
+def spec_int8(smi: str) -> dict:
+    """The int8 spec engine, both families at full width: one stream and
+    two, launches exactly what ``forward_shapes`` predicts (48 int8
+    linear launches and one tied head a GPT-2 verify window, 85 linear
+    launches a llama window); teacher-forced verify-window logits of the
+    kernel path against the int8 plain path under ``decode.int8`` (a miss
+    is printed with its numbers); then the verify's eager and device
+    time, the host-sync share, tokens a verify and ms a token, beside
+    the "auto" mega engine's step and the plain "xla" int8 step. Returns
+    the launch counts."""
+    import torch
+
+    from llm_sharding_demo_tpu_torch.models import gpt2, llama
+    from llm_sharding_demo_tpu_torch.ops import cuda_build
+    from llm_sharding_demo_tpu_torch.runtime.engine import DecodeEngine
+    from llm_sharding_demo_tpu_torch.runtime.spec_decode import (
+        SpecDecodeEngine)
+    from llm_sharding_demo_tpu_torch.utils import graftnum
+
+    out = {}
+    for family in ("gpt2", "llama"):
+        is_llama = family == "llama"
+        model = llama if is_llama else gpt2
+        cfg = (llama.CONFIGS["llama-124m"] if is_llama
+               else gpt2.CONFIGS["gpt2"])
+        params = model.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0))
+        spec = SpecDecodeEngine(params, cfg, max_seq=SPEC_SEQ, dtype="int8",
+                                draft_len=SPEC_K)
+        eng = spec.plain
+        check(eng.decode_kernel_mode == "xla" and eng.matmul_kernels,
+              f"{family} int8 spec engine: {eng.decode_kernel_mode}")
+        prompts = spec_prompts(cfg.vocab_size, 25)
+        per_window = 7 * L + 1 if is_llama else 4 * L
+        for streams in (1, 2):
+            rows = [prompts["repetitive"], prompts["random"]][:streams]
+            eng._forward_shapes.clear()
+            cuda_build.reset_launch_counts()
+            r = spec.generate(rows if streams > 1 else rows[0], SPEC_NEW)
+            counts = cuda_build.launch_counts()
+            shapes = eng.forward_shapes()
+            want = expected_spec_launches(shapes, is_llama)
+            windows = shapes.get((streams, SPEC_K + 1), 0)
+            check(windows == r.verify_steps >= 1 and counts == want
+                  and want["quant_linear"] == per_window * windows
+                  and want["quant_head"] == (0 if is_llama else windows),
+                  f"{family} int8 spec, {streams} stream(s): launches "
+                  f"{counts}, expected {want} from {shapes}")
+            out[f"{family} int8 spec, {streams} stream(s)"] = counts
+            print(f"  {family} int8 spec, {streams} stream(s), {SPEC_NEW} "
+                  f"new tokens: {windows} verify windows of "
+                  f"{streams * (SPEC_K + 1)} rows, quant_linear "
+                  f"{per_window} a window"
+                  + ("" if is_llama else ", quant_head 1 a window")
+                  + f"; forwards {shapes}; launches {counts} (as predicted)"
+                  f" [{smi}]")
+        plain = DecodeEngine(params, cfg, max_seq=SPEC_SEQ, dtype="int8",
+                             decode_kernel="xla")
+        check(not plain.matmul_kernels, "the plain int8 reference engine")
+        rng = np.random.default_rng(26)
+        prompt = rng.integers(0, cfg.vocab_size, 40).tolist()
+        forced = rng.integers(0, cfg.vocab_size, 43).tolist()
+        cuda_build.reset_launch_counts()
+        lp = spec_windows_logits(plain, prompt, forced, SPEC_K)
+        check(all(v == 0 for v in cuda_build.launch_counts().values()),
+              "the plain int8 engine launched a kernel")
+        lk = spec_windows_logits(eng, prompt, forced, SPEC_K)
+        check(bool(torch.isfinite(lk).all()) and lk.shape == lp.shape == (
+            len(forced), cfg.vocab_size), f"{family}: bad window logits")
+        try:
+            rep = graftnum.compare("decode.int8", lk, lp)
+            verdict = "within"
+        except graftnum.GraftnumError as e:
+            rep, verdict = e.report, "MISSES"
+        print(f"  {family} int8 verify windows (K+1 = {SPEC_K + 1} rows), "
+              f"kernel path vs the int8 plain path, {rep['n_positions']} "
+              f"teacher-forced positions: logit_mse {rep['logit_mse']:.3e} "
+              f"top1 {rep['top1_agreement']:.4f}, {verdict} decode.int8 "
+              f"(cap {rep['policy']['logit_mse']:.0e}, floor "
+              f"{rep['policy']['top1_agreement']}) [{smi}]")
+        # timing: a verify, the host sync inside the loop, and the
+        # single-token steps it competes with
+        sync = [0.0]
+        fetch = spec._fetch
+
+        def timed_fetch(*a):
+            t = time.perf_counter()
+            try:
+                return fetch(*a)
+            finally:
+                sync[0] += time.perf_counter() - t
+        spec._fetch = timed_fetch
+        auto = DecodeEngine(params, cfg, max_seq=SPEC_SEQ, dtype="int8")
+        check(auto.decode_kernel_mode == "mega", "int8 'auto' is not mega")
+        ids = np.asarray(prompts["random"])[None]
+        mega_eager, mega_device = step_ms(auto, ids)
+        xla_eager, xla_device = step_ms(plain, ids)
+        v_eager, v_device = verify_ms(spec, prompts["random"])
+        auto.generate(ids, 8)
+        mega_tok = auto.generate(ids, SPEC_NEW).per_token_latency * 1e3
+        for kind, p in prompts.items():
+            spec.generate(p, 8)                       # warm
+            sync[0] = 0.0
+            r = spec.generate(p, SPEC_NEW)
+            wall = r.decode_seconds * 1e3 / r.verify_steps
+            per_tok = r.decode_seconds * 1e3 / (SPEC_NEW - 1)
+            print(f"  {family} int8 spec timing, {kind} prompt: "
+                  f"{(SPEC_NEW - 1) / r.verify_steps:.2f} tokens a verify, "
+                  f"verify wall {wall:.3f} ms (host sync "
+                  f"{sync[0] / r.decode_seconds:.1%} of it), "
+                  f"{per_tok:.3f} ms a token; one verify {v_eager:.3f} ms "
+                  f"eager vs {v_device:.3f} ms device; mega step "
+                  f"{mega_eager:.3f} ms eager vs {mega_device:.3f} ms "
+                  f"device ({mega_tok:.3f} ms a token in generate); plain "
+                  f"int8 step {xla_eager:.3f} ms eager vs {xla_device:.3f} "
+                  f"ms device [{smi}]")
+        del spec, eng, plain, auto, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def spec_server(smi: str) -> dict:
+    """``SPEC_DECODE=6`` GPT-2 int8 server (MAX_SEQ=1024): four
+    /generate requests (greedy and seeded sampled, twice each) answered,
+    the greedy reply equal to an in-process spec engine on the same
+    weights, ``spec_decode_stats`` in /healthz, launches exactly what
+    its forwards predict. Returns the server's launch counts."""
+    import torch
+
+    from llm_sharding_demo_tpu_torch.runtime.spec_decode import (
+        SpecDecodeEngine)
+    from llm_sharding_demo_tpu_torch.serving import loader
+    from llm_sharding_demo_tpu_torch.serving.tokenizer import ByteTokenizer
+    from llm_sharding_demo_tpu_torch.utils.config import ServingConfig
+
+    prompt = "the spec server, the spec server, the spec server: "
+    greedy = {"prompt": prompt, "max_new_tokens": 24, "mode": "greedy"}
+    sample = {"prompt": prompt, "max_new_tokens": 24, "mode": "sample",
+              "seed": 99}
+    with serving_process("server-spec", MODEL_ID="gpt2",
+                         INFERENCE_DTYPE="int8", MAX_SEQ=str(NPOS),
+                         SPEC_DECODE=str(SPEC_K)) as (base, health):
+        check(health["spec_decode"] == SPEC_K
+              and health["decode_kernel"] == "xla"
+              and "spec_decode_stats" in health, f"healthz {health}")
+        replies = [_http(base + "/generate", b)
+                   for b in (greedy, greedy, sample, sample)]
+        health = _http(base + "/healthz")
+    for r in replies:
+        check(isinstance(r.get("generated"), str)
+              and r["generated"].startswith(prompt), f"bad reply {r}")
+    check(replies[0] == replies[1] and replies[2] == replies[3],
+          f"replies do not replay: {replies}")
+    st = health["spec_decode_stats"]
+    counts = health["kernel_launches"]
+    shapes = {tuple(int(v) for v in key.split("x")): n
+              for key, n in health["forward_shapes"].items()}
+    want = expected_spec_launches(shapes, False)
+    check(st["requests"] == 4 and st["verify_steps"] > 0
+          and counts == want and counts["quant_linear"] > 0
+          and counts["quant_head"] > 0,
+          f"spec server: stats {st}, launches {counts}, expected {want} "
+          f"from {shapes}")
+    cfg = ServingConfig(model_id="gpt2", inference_dtype="int8",
+                        max_seq=NPOS)
+    config, params = loader.resolve_model(cfg, torch.device("cuda"))
+    spec = SpecDecodeEngine(params, config, max_seq=NPOS, dtype="int8",
+                            draft_len=SPEC_K)
+    tok = ByteTokenizer()
+    ref = spec.generate(np.asarray(tok.encode(prompt)), 24)
+    check(replies[0]["generated"] == tok.decode(
+        [int(t) for t in ref.row_tokens(0)]),
+          "spec server greedy reply differs from the in-process spec engine")
+    print(f"  GPT-2 int8 SPEC_DECODE={SPEC_K} server: 4 /generate answered "
+          f"(greedy and seeded replays equal, greedy equal to the "
+          f"in-process spec engine); spec_decode_stats {st}; forwards "
+          f"{health['forward_shapes']}; launches {counts} (as predicted) "
+          f"[{smi}]")
+    del spec, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def spec_phase(smi: str) -> dict:
+    """Speculative decoding (module docstring, phase 10). Returns the
+    launch counts of the spec paths."""
+    t0 = time.perf_counter()
+    spec_fp32(smi)
+    launches = spec_int8(smi)
+    launches["GPT-2 int8 SPEC_DECODE=6 server"] = spec_server(smi)
+    print(f"  [spec] {time.perf_counter() - t0:.1f} s wall [{smi}]")
+    return launches
+
+
 # -- main ----------------------------------------------------------------------
 
 def kernel_name(mangled: str) -> str:
@@ -2876,9 +3306,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases",
                         default="kernels,flash,engine,server,batch,train,"
-                                "paged,prefix",
+                                "paged,prefix,spec",
                         help="comma-separated subset of kernels,flash,engine,"
-                             "server,batch,train,paged,prefix")
+                             "server,batch,train,paged,prefix,spec")
     phases = set(parser.parse_args().phases.split(","))
 
     t_start = time.perf_counter()
@@ -2970,6 +3400,12 @@ def main() -> int:
               "streams through the store, time to first token, the tier's "
               "moves, the tiered iter server, an int8 prefix server")
         prefix_launches = prefix_phase(smi)
+    spec_launches = {}
+    if "spec" in phases:
+        print("[spec] speculative decoding: fp32 streams against the plain "
+              "engine, int8 verify windows on the int8 kernels, timing, a "
+              "SPEC_DECODE server")
+        spec_launches = spec_phase(smi)
 
     sources = {"decode_attention": "csrc/decode_attention.cu",
                "quant_linear": "csrc/quant.cu",
@@ -3014,6 +3450,8 @@ def main() -> int:
                                for where, c in batch_launches.items()},
             "prefix_launches": {where: c[k.name]
                                 for where, c in prefix_launches.items()},
+            "spec_launches": {where: c[k.name]
+                              for where, c in spec_launches.items()},
             "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
             "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
             "bound_by": r.get("bound_by"),

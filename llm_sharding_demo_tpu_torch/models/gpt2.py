@@ -188,7 +188,8 @@ def _block(p: Params, h: torch.Tensor, n_head: int, eps: float,
 
     ``decode_kernel`` ("layer") routes single-token steps on a fused cache
     through the decode-attention kernel and lets the int8 matmuls take
-    their kernels; ``None`` is the plain path. ``attn_impl`` picks the
+    their kernels; "matmul" keeps the int8 matmul kernels alone; ``None``
+    is the plain path. ``attn_impl`` picks the
     no-cache attention (``ops.flash_attention.self_attention``).
     ``flash_prefill`` (a fresh-cache prefill: offset 0, no pad) writes
     the cache, then runs the flash kernel over the new K/V alone."""
@@ -203,7 +204,7 @@ def _block(p: Params, h: torch.Tensor, n_head: int, eps: float,
         write_kv(cache, k, v, layer_idx, offset)
         attn = flash_attention(q, k, v)
     elif cache.fused:
-        if kernels and q.shape[2] == 1:
+        if decode_kernel == "layer" and q.shape[2] == 1:
             attn, _ = decode_attention(q.contiguous(), k.contiguous(),
                                        v.contiguous(), cache.k, layer_idx,
                                        offset, k_valid_from)

@@ -132,7 +132,8 @@ def _block(p: Params, h: torch.Tensor, config: LlamaConfig,
     rotated K and V at ``offset`` in place and attends over the written
     prefix. ``decode_kernel`` ("layer") routes single-token steps on a
     fused cache through the decode-attention kernel and the int8
-    matmuls through theirs; ``None`` is the plain path. The no-cache
+    matmuls through theirs; "matmul" keeps the int8 matmul kernels
+    alone; ``None`` is the plain path. The no-cache
     attention follows ``config.attention_impl``; ``flash_prefill`` (a
     fresh-cache prefill) writes the cache at kv-head width, then runs the
     flash kernel over the new K/V repeated to the query heads."""
@@ -155,7 +156,7 @@ def _block(p: Params, h: torch.Tensor, config: LlamaConfig,
         write_kv(cache, k, v, layer_idx, offset)
         out = flash_attention(q, *repeat_kv(k, v, config.n_head))
     elif cache.fused:
-        if kernels and q.shape[2] == 1:
+        if decode_kernel == "layer" and q.shape[2] == 1:
             out, _ = decode_attention(q.contiguous(), k.contiguous(),
                                       v.contiguous(), cache.k, layer_idx,
                                       offset, k_valid_from)

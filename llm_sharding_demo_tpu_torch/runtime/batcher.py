@@ -24,10 +24,15 @@ and hands each row back truncated to its own ``max_new_tokens``.
   (``prefix.prefill_state``), merges the right-aligned row caches into
   one left-padded cache by a roll (``_merge``) and decodes once
   (``_run_prefix``). Sampled rounds of several rows bypass the store.
+- With a speculative engine (``spec=``, a ``SpecDecodeEngine`` over the
+  same engine) requests whose policy carries ``SamplingConfig.spec``
+  gather into their own rounds (the flag is part of policy equality) and
+  decode through the spec engine's batched verify loop (``_run_spec``),
+  each row byte-equal to its solo speculative run, greedy and seeded;
+  their shapes keep ``draft_len`` slots of verify headroom.
 
 The worker thread enters ``torch.inference_mode`` itself (it is
-thread-local) and owns all device work. Speculative rounds (``spec=``)
-wait for ROADMAP Queue 1 item 11.
+thread-local) and owns all device work.
 """
 
 from __future__ import annotations
@@ -47,9 +52,6 @@ from ..utils.device import device_scope
 from ..utils.metrics import REGISTRY, kv_block_gauges
 from .engine import DecodeEngine, GenerateResult, SamplingConfig
 
-SPEC_ITEM = "ROADMAP Queue 1 item 11 (speculative decoding)"
-
-
 def _round_up(n: int, multiple: int) -> int:
     return ((n + multiple - 1) // multiple) * multiple
 
@@ -61,13 +63,14 @@ def _bucket_batch(n: int, cap: int) -> int:
     return min(b, cap)
 
 
-def check_compositions(engine, prefix, spec, what: str) -> None:
-    """A prefix store must wrap the batcher's own engine; the
-    speculative composition is not ported."""
+def check_compositions(engine, prefix, spec) -> None:
+    """A prefix store and a speculative engine must wrap the batcher's
+    own engine (the same weights)."""
     if prefix is not None and prefix.plain is not engine:
         raise ValueError("prefix must wrap the same engine instance")
-    if spec is not None:
-        raise NotImplementedError(f"{what}: spec= waits for {SPEC_ITEM}")
+    if spec is not None and spec.plain is not engine:
+        raise ValueError("spec must wrap the same DecodeEngine (shared "
+                         "weights/programs), got a different instance")
 
 
 def _merge_impl(solos, pads: np.ndarray, length: int):
@@ -124,9 +127,10 @@ class BatchingEngine:
     def __init__(self, engine: DecodeEngine, max_batch: int = 8,
                  max_wait_ms: float = 5.0, prompt_bucket: int = 16,
                  steps_bucket: int = 32, prefix=None, spec=None):
-        check_compositions(engine, prefix, spec, "BatchingEngine")
+        check_compositions(engine, prefix, spec)
         self.engine = engine
         self.prefix = prefix
+        self.spec = spec
         self.max_batch = max_batch
         self.max_wait_s = max_wait_ms / 1e3
         self.prompt_bucket = prompt_bucket
@@ -160,6 +164,14 @@ class BatchingEngine:
         if sampling.mode != "greedy" and generator is None:
             raise ValueError(
                 "sample-mode requests must carry their own torch.Generator")
+        if sampling.spec:
+            # refused here, with this request's numbers, not mid-round
+            if self.spec is None:
+                raise ValueError(
+                    "sampling.spec requested but this batcher has no "
+                    "speculative engine attached (pass spec= at "
+                    "construction)")
+            self.spec.check_request(len(prompt), max_new_tokens)
         req = _Request(prompt=prompt, max_new_tokens=max_new_tokens,
                        sampling=sampling, generator=generator,
                        trace=tracing.current_trace(),
@@ -194,6 +206,12 @@ class BatchingEngine:
         if first is None:
             first = self._queue.get()
         batch = [first]
+        if (first.sampling.mode != "greedy" and self.prefix is not None
+                and self.prefix.spec is not None):
+            # a solo round through a speculating store rejection-samples,
+            # a batched one would draw per step: keep such requests solo,
+            # so that a seeded stream does not depend on the traffic
+            return batch
         deadline = time.monotonic() + self.max_wait_s
         while len(batch) < self.max_batch:
             remaining = deadline - time.monotonic()
@@ -227,15 +245,17 @@ class BatchingEngine:
     def _shapes(self, batch: List[_Request]):
         """``(s_max, steps)`` of a candidate round, or None when its
         bucketed shapes cannot fit ``max_seq`` together. Prompt bucketing
-        is capped so the bucket alone never passes ``max_seq``."""
+        is capped so the bucket alone never passes ``max_seq``; spec
+        rounds keep ``draft_len`` slots of verify headroom."""
         raw_s = max(len(r.prompt) for r in batch)
         need = max(r.max_new_tokens for r in batch)
+        reserve = self.spec.draft_len if batch[0].sampling.spec else 0
         s_max = min(_round_up(raw_s, self.prompt_bucket),
-                    self.engine.max_seq - need)
+                    self.engine.max_seq - need - reserve)
         if s_max < raw_s:
             return None
         steps = min(_round_up(need, self.steps_bucket),
-                    self.engine.max_seq - s_max)
+                    self.engine.max_seq - s_max - reserve)
         return s_max, steps
 
     def _loop(self):
@@ -263,6 +283,12 @@ class BatchingEngine:
             self._run_inner(batch)
 
     def _run_inner(self, batch: List[_Request]):
+        if batch[0].sampling.spec:
+            # spec rounds, solo included, take the batched verify loop
+            # whether or not a prefix store is attached: the stream is a
+            # function of the request alone
+            self._run_spec(batch)
+            return
         if self.prefix is not None and len(batch) == 1:
             # a solo round keeps the single-stream prefix path and its
             # true shapes
@@ -289,6 +315,26 @@ class BatchingEngine:
                           + [None] * (b - len(batch)))
             result = self.engine.generate(ids, steps, sampling=sampling,
                                           generator=generators, pad=pad)
+        self._deliver(batch, result, padded_rows=b - len(batch))
+
+    def _run_spec(self, batch: List[_Request]):
+        """One bucketed round through ``SpecDecodeEngine.generate``'s
+        batched loop, shaped as a plain round (``_shapes`` keeps the
+        verify headroom). A row past its own ``max_new_tokens`` is bucket
+        over-decode, cut in ``_deliver``; the stats count what callers
+        were served."""
+        s_max, steps = self._shapes(batch)  # planned feasible: not None
+        b = _bucket_batch(len(batch), self.max_batch)
+        ids, pad = self._bucket_rows(batch, b, s_max)
+        generators = None
+        if batch[0].sampling.mode != "greedy":
+            # dummy rows draw nothing
+            generators = ([r.generator for r in batch]
+                          + [None] * (b - len(batch)))
+        result = self.spec.generate(
+            ids, steps, sampling=batch[0].sampling, generator=generators,
+            pad=pad, delivered=(len(batch),
+                                sum(r.max_new_tokens for r in batch)))
         self._deliver(batch, result, padded_rows=b - len(batch))
 
     def _run_prefix(self, batch: List[_Request], ids: np.ndarray,

@@ -67,6 +67,11 @@ class SamplingConfig:
     temperature: float = REF_TEMPERATURE
     top_k: int = REF_TOP_K
     top_p: float = 1.0
+    # routing metadata for the batchers: a policy with ``spec`` batches
+    # only with itself and decodes through the speculative engine
+    # (``runtime.spec_decode``), which normalizes the flag away; it never
+    # changes the sampler's math
+    spec: bool = False
 
     def __post_init__(self):
         if self.mode not in ("greedy", "sample"):
@@ -203,6 +208,8 @@ class GenerateResult:
     new_tokens: int
     decode_steps: int
     pad: Optional[np.ndarray] = None  # [B] left-pad prefix lengths (ragged)
+    # speculative decoding only (``runtime.spec_decode``): verify forwards
+    verify_steps: Optional[int] = None
 
     def row_tokens(self, i: int) -> np.ndarray:
         """Row i's tokens with its left-pad prefix stripped."""
@@ -331,12 +338,22 @@ class DecodeEngine:
     ``prefill_chunk=C`` prefills prompts longer than C as C-wide cached
     forwards (``_align_chunks``, ``_prefill_chunked``), byte-equal to the
     monolithic prefill.
+
+    ``matmul_kernels`` lets the plain path's int8 matmuls take their
+    kernels (``ops.quant``: the linear at every projection and the tied
+    head, at <= 16 rows) while attention stays plain on the plain cache:
+    the JAX package's int8 matmuls pick their Pallas kernel by backend
+    and row count alone, so its speculative engine, pinned to "xla",
+    runs them on every verify window (``runtime.spec_decode``). It does
+    nothing for fp32 and bf16 weights, and a kernel mode runs those
+    kernels already; ``decode_kernel`` keeps its meaning.
     """
 
     def __init__(self, params: Params, config, max_seq: int,
                  dtype="float32", boundaries: Optional[Sequence[int]] = None,
                  decode_kernel: str = "auto", device: DeviceLike = None,
-                 prefill_chunk: Optional[int] = None):
+                 prefill_chunk: Optional[int] = None,
+                 matmul_kernels: bool = False):
         if max_seq > config.n_positions:
             raise ValueError(
                 f"max_seq={max_seq} exceeds n_positions={config.n_positions}")
@@ -381,6 +398,11 @@ class DecodeEngine:
 
         self.decode_kernel, self._cache_seq = resolve_decode_kernel(
             decode_kernel, config, max_seq, self.regime, dev.type == "cuda")
+        self.matmul_kernels = matmul_kernels
+        # the mode the model functions take: "matmul" routes the int8
+        # matmuls through their kernels and leaves attention plain
+        self._model_kernel = self.decode_kernel or (
+            "matmul" if matmul_kernels else None)
         # (batch, tokens) -> cached forwards run: which rows each forward
         # carried decides which kernels it launches (a single token at
         # <= 16 rows: the megakernels; past 16: the per-layer kernels; a
@@ -426,13 +448,13 @@ class DecodeEngine:
         if self.specs is None:
             return self._model.forward_with_cache(
                 self.params, x, self.config, cache, pad,
-                decode_kernel=self.decode_kernel,
+                decode_kernel=self._model_kernel,
                 flash_prefill=flash_prefill)
         from ..parallel import partition as P
         new_caches = []
         for sp, spec, c in zip(self.stage_params, self.specs, cache):
             x, c = P.stage_apply(sp, spec, self.config, x, c, pad,
-                                 decode_kernel=self.decode_kernel)
+                                 decode_kernel=self._model_kernel)
             new_caches.append(c)
         return x, new_caches
 

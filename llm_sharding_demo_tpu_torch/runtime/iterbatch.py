@@ -1,8 +1,8 @@
 """Iteration-level continuous batching: joins and retirements at segment
 boundaries, on contiguous caches or on the paged pool.
 
-Counterpart of ``llm_sharding_demo_tpu/runtime/iterbatch.py`` without
-its speculation. ``runtime.batcher`` batches
+Counterpart of ``llm_sharding_demo_tpu/runtime/iterbatch.py``.
+``runtime.batcher`` batches
 at admission and runs each round to its end; here the decode runs as
 segments of ``seg_steps`` steps (``DecodeEngine._decode_seg``), and
 between two segments the scheduler
@@ -57,9 +57,26 @@ prefills through the store (``prefill_state``), so a joiner whose prompt
 shares a cached prefix forwards only its suffix; the store's cache is
 right-aligned, so the row's content sits at ``[0, plen)`` of it.
 
+Speculative segments (``spec=``, a ``SpecDecodeEngine`` over the same
+engine): a batch whose policy carries ``SamplingConfig.spec`` advances
+by the spec engine's verify segment (``SpecDecodeEngine._seg_b``), up to
+``seg_steps // (draft_len + 1)`` verifies a segment, each row accepting
+its own drafts and the batch re-syncing at one uniform depth, so joins
+and retirements work as in plain batches. The batch keeps the verify
+token buffer on the host (``_BatchState.buf``: prompt and emitted tokens
+per row, content ending at ``depth + 1``); a row's stream is read from
+it. Each row draws from its request's own generator, which carries the
+row's sampling chain across segments and across a park, so every row,
+seeded sampled rows included, is byte-equal to its solo speculative
+run. The ``spec`` flag is part of policy equality: spec and plain
+batches never mix. Spec rows keep ``draft_len`` slots of verify
+headroom. With a pool, a spec segment first owns the blocks its worst
+case can write (``_ensure_blocks``), after it the blocks its re-sync
+rolled content down into (``_extend_blocks_down``), then scatters whole
+rows (``SEG_REWRITES_FULL_CACHE``).
+
 The worker thread owns all device work, under ``torch.inference_mode``
-(which is thread-local). Speculative segments wait for ROADMAP Queue 1
-item 11.
+(which is thread-local).
 """
 
 from __future__ import annotations
@@ -82,6 +99,7 @@ from .batcher import _round_up, check_compositions
 from .engine import (DecodeEngine, GenerateResult, SamplingConfig,
                      select_token)
 from .kv_pool import PoolExhausted
+from .spec_decode import SEG_REWRITES_FULL_CACHE
 
 # a row that keeps faulting past this many transient-fault parks fails
 # typed instead of cycling forever
@@ -172,6 +190,10 @@ class _Slot:
     # len(blk_ids)); every other column points at the trash block
     blk_lo: int = 0
     blk_ids: List[int] = dataclasses.field(default_factory=list)
+    # spec rows: the last segment's token buffer (never written after)
+    # and this row's pad in it; the row's stream is read from there
+    spec_buf: Optional[np.ndarray] = None
+    spec_pad: int = 0
 
 
 def _admit_cache_impl(cache, solo, slot: int, depth: int, sp: int,
@@ -232,6 +254,10 @@ class _BatchState:
         self.slots: List[Optional[_Slot]] = []
         self.closed = False           # True: no more admissions (FIFO)
         self.mem_cache = graftmem.track(self, "cache", "engine_cache", cache)
+        # spec batches: the host token buffer [B, max_seq + K + 1]; an
+        # edit copies it (retired rows read the array they were left)
+        self.spec_mode = False
+        self.buf: Optional[np.ndarray] = None
 
     def active(self) -> bool:
         return any(s is not None for s in self.slots)
@@ -249,7 +275,9 @@ class IterBatchingEngine:
     ``pool`` (a ``runtime.kv_pool.KVBlockPool`` of this engine's cache
     geometry) turns on paged storage, watermark admission and
     preemption. ``queue_limit`` (default ``max_batch``) feeds
-    ``admission_load``, the serving 429 decision.
+    ``admission_load``, the serving 429 decision. ``spec`` (a
+    ``SpecDecodeEngine`` over this engine) runs spec-flagged batches by
+    verify segments.
     """
 
     def __init__(self, engine: DecodeEngine, max_batch: int = 8,
@@ -270,9 +298,10 @@ class IterBatchingEngine:
                 f"pool rows span {pool.max_seq} slots, engine cache is "
                 f"{engine._cache_seq}; gathered segments must match the "
                 "compiled programs' cache width")
-        check_compositions(engine, prefix, spec, "IterBatchingEngine")
+        check_compositions(engine, prefix, spec)
         self.engine = engine
         self.prefix = prefix
+        self.spec = spec
         self.pool = pool
         self.queue_limit = max_batch if queue_limit is None else queue_limit
         self.max_batch = max_batch
@@ -289,6 +318,7 @@ class IterBatchingEngine:
         self.rows_served = 0
         self.joins = 0                # admissions into a live batch
         self.segments_run = 0
+        self.spec_segments_run = 0    # verify segments (spec batches)
         self.eos_retires = 0
         self.grows = 0                # width upgrades of a live batch
         self.resumes = 0              # parked rows recomputed back in
@@ -317,6 +347,14 @@ class IterBatchingEngine:
         if sampling.mode != "greedy" and generator is None:
             raise ValueError(
                 "sample-mode requests must carry their own torch.Generator")
+        if sampling.spec:
+            # refused here, with this request's numbers, not mid-batch
+            if self.spec is None:
+                raise ValueError(
+                    "sampling.spec requested but this scheduler has no "
+                    "speculative engine attached (pass spec= at "
+                    "construction)")
+            self.spec.check_request(len(prompt), max_new_tokens)
         if deadline is not None:
             deadline.raise_if_expired("iter-batched generate")
         req = _Req(prompt=prompt, max_new_tokens=max_new_tokens,
@@ -359,6 +397,7 @@ class IterBatchingEngine:
         with self._stats_lock:
             return {"batches": self.batches_run, "rows": self.rows_served,
                     "joins": self.joins, "segments": self.segments_run,
+                    "spec_segments": self.spec_segments_run,
                     "eos_retires": self.eos_retires, "grows": self.grows,
                     "resumes": self.resumes,
                     "fault_parks": self.fault_parks,
@@ -452,11 +491,12 @@ class IterBatchingEngine:
 
     def _compatible(self, state: _BatchState, ent) -> bool:
         """Can this entry (a fresh ``_Req`` or a ``_Parked`` resume) join
-        the live batch now? Same policy, its prefill fits below the
-        current depth, and its remaining generation fits the cache."""
+        the live batch now? Same policy (the ``spec`` flag included), its
+        prefill fits below the current depth, and its remaining
+        generation fits the cache, with a spec batch's verify headroom."""
         return (self._ent_req(ent).sampling == state.sampling
                 and len(self._ent_ids(ent)) <= state.depth
-                and state.depth + self._ent_need(ent)
+                and state.depth + self._ent_need(ent) + self._reserve(ent)
                 <= self.engine.max_seq)
 
     def _run_batch(self, head):
@@ -589,6 +629,14 @@ class IterBatchingEngine:
         state = _BatchState(sampling, first,
                             cache, torch.as_tensor(pad, device=eng.device),
                             s_max)
+        if sampling.spec:
+            # the verify loop's entry state: prompt, then the live
+            # (unforwarded) token at the depth, per row
+            state.spec_mode = True
+            state.buf = np.zeros((b, eng.max_seq + self.spec.draft_len + 1),
+                                 dtype=np.int64)
+            state.buf[:, :s_max] = ids
+            state.buf[:, s_max] = first.cpu().numpy()
         first_ref = _SegOut(first)          # one shared [B] read
         state.slots = [None] * b
         n_res = 0
@@ -618,7 +666,8 @@ class IterBatchingEngine:
 
     def _fits(self, ents: List) -> bool:
         s_max = self._seed_smax(ents)
-        ok = all(s_max + self._ent_need(e) <= self.engine.max_seq
+        ok = all(s_max + self._ent_need(e) + self._reserve(ents[0])
+                 <= self.engine.max_seq
                  and len(self._ent_ids(e)) <= s_max for e in ents)
         if ok and self.pool is not None:
             # the current footprint only (blocks covering the seed depth):
@@ -632,11 +681,17 @@ class IterBatchingEngine:
             ok = need <= alloc.available()
         return ok
 
+    def _reserve(self, ent) -> int:
+        """Cache slots held back past the generation: ``draft_len`` of
+        verify headroom for a spec row."""
+        return (self.spec.draft_len
+                if self._ent_req(ent).sampling.spec else 0)
+
     def _seed_smax(self, ents: List) -> int:
         raw = max(len(self._ent_ids(e)) for e in ents)
         need = max(self._ent_need(e) for e in ents)
         return min(_round_up(raw, self.prompt_bucket),
-                   self.engine.max_seq - need)
+                   self.engine.max_seq - need - self._reserve(ents[0]))
 
     # -- admission -----------------------------------------------------------
 
@@ -748,6 +803,10 @@ class IterBatchingEngine:
 
         state.token = rep(state.token, 0)
         state.pad = rep(state.pad, 0)
+        if state.buf is not None:
+            # ghost rows copy row 0's lane; with no budget they stay inert
+            state.buf = np.concatenate([state.buf]
+                                       + [state.buf[:1]] * extra)
         if state.cache is not None:
             state.cache = ([grow_cache(c) for c in state.cache]
                            if isinstance(state.cache, list)
@@ -832,6 +891,15 @@ class IterBatchingEngine:
         token = state.token.clone()
         token[slot] = first[0]
         state.token = token
+        if state.spec_mode:
+            # the joiner's lane: what its prefill forwarded at [depth -
+            # plen_eff, depth), the live token at depth; a copy, since a
+            # retired row may still be read from the old buffer
+            buf = state.buf.copy()
+            buf[slot] = 0
+            buf[slot, state.depth - plen_eff:state.depth] = stream
+            buf[slot, state.depth] = int(first[0])
+            state.buf = buf
         self._order += 1
         state.slots[slot] = _Slot(
             req=req, plen=plen, row=slot,
@@ -926,6 +994,31 @@ class IterBatchingEngine:
                 state.tables[s.row, col:p_hi] = ids
                 s.blk_ids.extend(ids)
 
+    def _extend_blocks_down(self, state: _BatchState,
+                            pad: np.ndarray) -> None:
+        """After a spec segment: a re-sync roll that shrank a row's pad
+        moved content into columns below ``blk_lo``; own them before the
+        whole-row scatter, preempting younger rows when the pool is
+        exhausted."""
+        bs = self.pool.block_size
+        for s in sorted((s for s in state.slots if s is not None),
+                        key=lambda s: s.order):
+            if state.slots[s.row] is not s:
+                continue  # preempted by an earlier iteration
+            new_lo = int(pad[s.row]) // bs
+            while new_lo < s.blk_lo:
+                try:
+                    ids = self.pool.allocator.alloc(s.blk_lo - new_lo)
+                except PoolExhausted:
+                    if not self._preempt_lowest(state):
+                        raise
+                    if state.slots[s.row] is not s:
+                        break  # this row was the youngest: it parked
+                    continue
+                state.tables[s.row, new_lo:s.blk_lo] = ids
+                s.blk_ids = ids + s.blk_ids
+                s.blk_lo = new_lo
+
     def _preempt_lowest(self, state: _BatchState) -> bool:
         """Park the youngest live row (the highest admission order),
         whichever row's growth asked; False with no live row."""
@@ -1017,6 +1110,9 @@ class IterBatchingEngine:
             raise graftfault.PermanentFault(
                 "iterbatch.decode_seg", kind,
                 "graftfault: injected permanent engine fault")
+        if state.spec_mode:
+            self._advance_spec(state)
+            return
         eng = self.engine
         d = state.depth
         n = min(self.seg_steps, eng.max_seq - d)
@@ -1065,6 +1161,83 @@ class IterBatchingEngine:
         self._retire_finished(state)
         self._set_gauges(state)
 
+    def _advance_spec(self, state: _BatchState):
+        """One verify segment of a spec batch: up to ``seg_steps //
+        (draft_len + 1)`` verifies (about the device work of
+        ``seg_steps`` single-token steps), each row capped at its own
+        remaining budget, ghost rows at 0. The segment syncs with the
+        host once a verify (``SpecDecodeEngine._fetch``)."""
+        eng = self.engine
+        k = self.spec.draft_len
+        max_verify = max(1, self.seg_steps // (k + 1))
+        pooled = self.pool is not None
+        if pooled:
+            # a verify writes up to depth + K, and the segment emits at
+            # most max_verify * (K + 1): own the worst case first (the
+            # preemption point)
+            self._ensure_blocks(state, min(
+                state.depth + max_verify * (k + 1) + k, eng.max_seq))
+            if not state.active():
+                return  # every row parked
+            cache = self.pool.gather(state.tables, state.depth)
+        else:
+            cache = state.cache
+        # budgets after any preemption above: a row parked here enters
+        # the segment as an inert ghost
+        b = len(state.slots)
+        budgets = np.zeros((b,), dtype=np.int64)
+        for i, s in enumerate(state.slots):
+            if s is not None:
+                budgets[i] = max(s.req.max_new_tokens - s.emitted, 0)
+        generators = None
+        if state.sampling.mode != "greedy":
+            generators = [None if s is None else s.req.generator
+                          for s in state.slots]
+        t0 = time.perf_counter()
+        c = self.spec._seg_b(state.buf, cache, state.depth + 1,
+                             state.pad.cpu().numpy(), generators, budgets,
+                             max_verify, state.sampling)
+        state.buf = c.buf
+        state.depth = c.total - 1
+        state.pad = torch.as_tensor(c.pad, dtype=torch.int32,
+                                    device=eng.device)
+        state.token = eng._ids(c.buf[:, c.total - 1])
+        # progress first: a preemption in the pool handoff below parks a
+        # post-segment snapshot (tokens and generator advanced together)
+        for s in state.slots:
+            if s is not None:
+                s.emitted += int(c.emitted[s.row])
+                s.spec_buf = c.buf
+                s.spec_pad = int(c.pad[s.row])
+        if pooled:
+            # the re-sync rolls whole rows: content may have moved below a
+            # row's first block, and every block of a row may have changed
+            assert SEG_REWRITES_FULL_CACHE
+            self._extend_blocks_down(state, c.pad)
+            self.pool.scatter(c.cache, state.tables)
+        else:
+            state.cache = c.cache
+            graftmem.update(state.mem_cache, c.cache)
+        t1 = time.perf_counter()
+        with self._stats_lock:
+            self.segments_run += 1
+            self.spec_segments_run += 1
+        # requests are counted at retirement (_deliver)
+        self.spec._update_stats(0, int(c.emitted.sum()), c.steps)
+        REGISTRY.inc("iter_segments_total")
+        REGISTRY.inc("iter_spec_segments_total")
+        REGISTRY.observe("decode_step_seconds", (t1 - t0) / max(c.steps, 1),
+                         component="iter_spec")
+        for s in state.slots:
+            if s is not None and s.req.trace is not None:
+                s.req.trace.add_span(
+                    "decode", t0, t1, seg=True, spec=True,
+                    verify_steps=c.steps, emitted=int(c.emitted[s.row]),
+                    width=len(state.slots), depth=state.depth,
+                    **({"blocks": len(s.blk_ids)} if pooled else {}))
+        self._retire_finished(state)
+        self._set_gauges(state)
+
     # -- retirement ----------------------------------------------------------
 
     def _retire_finished(self, state: _BatchState):
@@ -1105,6 +1278,13 @@ class IterBatchingEngine:
                 self._deliver(state, i, s, eos_at)
 
     def _row_tokens(self, s: _Slot) -> np.ndarray:
+        if s.spec_buf is not None:
+            # a spec row's buffer lane is its stream: the prompt at [pad,
+            # pad + plen), every emitted token after it (a resumed row's
+            # lane was rebuilt with them)
+            start = s.spec_pad + s.plen
+            n = min(s.emitted, s.req.max_new_tokens)
+            return s.spec_buf[s.row, start:start + n]
         if s.resumed_prefix is not None:
             # tokens emitted before the park were read then; segments
             # since the resume append after them
@@ -1128,4 +1308,6 @@ class IterBatchingEngine:
         state.slots[i] = None
         with self._stats_lock:
             self.rows_served += 1
+        if state.spec_mode:
+            self.spec._update_stats(1, 0, 0)
         REGISTRY.inc("iter_rows_total")

@@ -30,8 +30,10 @@ streams are byte-identical with the cache on or off. Single-stream
 (``generate`` takes batch 1); the batchers compose through
 ``prefill_state``. Two locks: ``_lock`` serializes device work, and
 ``_store_lock`` guards only the store and its counters, so ``stats()``
-(the ``/healthz`` read) never waits behind a generation. Speculation
-(``spec=``) waits for ROADMAP Queue 1 item 11.
+(the ``/healthz`` read) never waits behind a generation. With a
+speculative engine (``spec=``, a ``SpecDecodeEngine`` over the same
+engine) a request it admits (``spec.eligible``) decodes through
+``spec.run_loop`` off the walk's cache; the others decode plain.
 """
 
 from __future__ import annotations
@@ -49,9 +51,6 @@ from ..utils import graftmem, graftsched, graftscope, tracing
 from ..utils.metrics import REGISTRY
 from .engine import (DecodeEngine, GenerateResult, Generators,
                      SamplingConfig, _sync, prepare_generate, select_token)
-
-SPEC_ITEM = "ROADMAP Queue 1 item 11 (speculative decoding)"
-
 
 def clone_cache(cache):
     """An independent copy of an engine cache (plain, fused or a staged
@@ -86,15 +85,16 @@ class PrefixCachingEngine:
             raise ValueError("capacity must be >= 1")
         if chunk < 1:
             raise ValueError("chunk must be >= 1")
-        if spec is not None:
-            raise NotImplementedError(
-                f"PrefixCachingEngine: spec= waits for {SPEC_ITEM}")
+        if spec is not None and spec.plain is not engine:
+            raise ValueError("spec must wrap the same DecodeEngine (shared "
+                             "weights/programs), got a different instance")
         if pool is not None and pool.max_seq != engine._cache_seq:
             raise ValueError(
                 f"pool rows span {pool.max_seq} slots, engine cache is "
                 f"{engine._cache_seq}; gathered entries must match the "
                 "extend programs' cache width")
         self._eng = engine
+        self.spec = spec
         self._pool = pool
         self.capacity = capacity
         self.chunk = chunk
@@ -311,7 +311,10 @@ class PrefixCachingEngine:
                  sampling: SamplingConfig = SamplingConfig(),
                  generator: Generators = None) -> GenerateResult:
         """One prompt (``[S]`` or ``[1, S]``) through the store, then the
-        engine's decode loop (``DecodeEngine._decode_and_pack``)."""
+        speculative verify loop where ``spec`` admits the request, else
+        the engine's decode loop (``DecodeEngine._decode_and_pack``).
+        The walk's cache is a fresh one or a clone, the loop's to
+        write."""
         eng = self._eng
         ids, batch, prompt_len, pad = prepare_generate(
             prompt_ids, max_new_tokens, eng.max_seq, sampling, generator,
@@ -326,6 +329,14 @@ class PrefixCachingEngine:
             first = select_token(logits[:, -1], sampling, generator)
             _sync(eng.device)
             prefill_seconds = time.perf_counter() - t0
+            if self.spec is not None and self.spec.eligible(prompt_len,
+                                                            max_new_tokens):
+                # the walk's cache is right-aligned with true positions
+                # and no pad, the state the verify loop starts from
+                return self.spec.run_loop(
+                    ids[0], first, cache, prompt_len, generator,
+                    max_new_tokens, sampling,
+                    prefill_seconds=prefill_seconds)
             return eng._decode_and_pack(ids, pad, None, first, cache,
                                         max_new_tokens, sampling, generator,
                                         prompt_len, prefill_seconds)

@@ -25,8 +25,9 @@ batcher (``BATCH_MODE=iter``, ``runtime.iterbatch``).
 unstaged engine, its pool (``KVBlockPool.for_engine``), and
 ``PagedKVRunner`` at ``MAX_BATCH=1`` or the iteration batcher over the
 pool. As in the JAX package, paging takes an engine without a decode
-kernel, so on the card it serves fp32; a bf16 or int8 server refuses at
-startup. A request the pool cannot host while the waiting line is full
+kernel, so on the card it serves fp32, or any dtype on the spec engine's
+plain engine (``SPEC_DECODE``, with ``BATCH_MODE=iter``); another bf16
+or int8 server refuses at startup. A request the pool cannot host while the waiting line is full
 answers 429 with ``Retry-After``. ``KV_HOST_BLOCKS`` hangs a host spill
 tier (``runtime.kv_tier``) below the pool.
 
@@ -35,10 +36,19 @@ chunk ``PREFIX_CHUNK``, else ``PREFILL_CHUNK``, else 64) in front of the
 engine: alone it serves ``/generate``, and it backs the admission
 batcher's rounds, the iteration batcher's admissions and, with a pool,
 ``PagedKVRunner``, whose rows share the store's blocks; ``/healthz``
-serves its ``prefix_cache_stats``. Each request draws
-from its own generator, seeded by its ``seed``, so a seeded request
-replays whether it ran alone or in a batch; a batched request waits at
-most ``GENERATE_TIMEOUT_S`` and then answers 503.
+serves its ``prefix_cache_stats``.
+
+``SPEC_DECODE=K > 0`` builds a ``SpecDecodeEngine`` (``runtime.spec_decode``,
+draft depth K) whose unstaged plain engine serves everything else, as in
+the JAX app: its verify windows run the int8 matmul kernels and plain
+attention. A request speculation can serve (``spec.eligible``) goes to
+the spec engine, or with a batcher carries the ``SamplingConfig.spec``
+flag into spec-only rounds and batches; with a prefix store the store
+decides per request. ``/healthz`` serves ``spec_decode_stats``.
+
+Each request draws from its own generator, seeded by its ``seed``, so a
+seeded request replays whether it ran alone or in a batch; a batched
+request waits at most ``GENERATE_TIMEOUT_S`` and then answers 503.
 """
 
 from __future__ import annotations
@@ -63,6 +73,7 @@ from ..runtime.iterbatch import IterBatchingEngine
 from ..runtime.kv_pool import KVBlockPool, PagedKVRunner
 from ..runtime.kv_tier import HostKVTier
 from ..runtime.prefix_cache import PrefixCachingEngine
+from ..runtime.spec_decode import SpecDecodeEngine
 from ..utils import graftfault
 from ..utils.config import ServingConfig, from_env
 from ..utils.device import DeviceLike, resolve_device
@@ -131,19 +142,26 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
 
     check_batching(cfg, config)
 
-    runner = engine = kv_pool = prefix = None
+    runner = engine = kv_pool = prefix = spec = None
     decode_kernel = None
+    decode_stages = len(cfg.boundaries) + 1
     if cfg.shard_role == "coordinator":
         pchunk = cfg.prefill_chunk or None
-        if cfg.kv_pool_blocks > 0:
+        if cfg.spec_decode > 0:
+            # the spec engine decodes unstaged and wraps the plain engine
+            # every other request takes (the same weights)
+            spec = SpecDecodeEngine(params, config, max_seq=cfg.max_seq,
+                                    dtype=cfg.inference_dtype,
+                                    draft_len=cfg.spec_decode,
+                                    prefill_chunk=pchunk, device=dev)
+            engine = spec.plain
+            decode_stages = 1
+        elif cfg.kv_pool_blocks > 0:
             # paged storage gathers and scatters whole-model cache rows,
             # so the engine runs unstaged
             engine = DecodeEngine(params, config, max_seq=cfg.max_seq,
                                   dtype=cfg.inference_dtype, device=dev)
-            kv_pool = KVBlockPool.for_engine(
-                engine, num_blocks=cfg.kv_pool_blocks,
-                block_size=cfg.kv_block_size,
-                block_dtype=cfg.kv_pool_dtype or None)
+            decode_stages = 1
         elif (cfg.inference_dtype != "float32" or cfg.max_batch > 1
                 or pchunk or cfg.prefix_cache > 0):
             engine = DecodeEngine(params, config, max_seq=cfg.max_seq,
@@ -153,6 +171,11 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
         else:
             engine = PipelineRunner(params, config, list(cfg.boundaries),
                                     max_seq=cfg.max_seq, device=dev)
+        if cfg.kv_pool_blocks > 0:
+            kv_pool = KVBlockPool.for_engine(
+                engine, num_blocks=cfg.kv_pool_blocks,
+                block_size=cfg.kv_block_size,
+                block_dtype=cfg.kv_pool_dtype or None)
         decode_kernel = engine.decode_kernel_mode
         runner = engine
         if kv_pool is not None and cfg.kv_host_blocks > 0:
@@ -163,16 +186,17 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
             prefix = PrefixCachingEngine(
                 engine, capacity=cfg.prefix_cache,
                 chunk=cfg.prefix_chunk or cfg.prefill_chunk or 64,
-                pool=kv_pool)
+                spec=spec, pool=kv_pool)
             runner = prefix
         if cfg.max_batch > 1 and cfg.batch_mode == "iter":
             runner = IterBatchingEngine(engine, max_batch=cfg.max_batch,
                                         max_wait_ms=cfg.batch_wait_ms,
-                                        prefix=prefix, pool=kv_pool)
+                                        spec=spec, prefix=prefix,
+                                        pool=kv_pool)
         elif cfg.max_batch > 1:
             runner = BatchingEngine(engine, max_batch=cfg.max_batch,
                                     max_wait_ms=cfg.batch_wait_ms,
-                                    prefix=prefix)
+                                    prefix=prefix, spec=spec)
         elif kv_pool is not None:
             runner = PagedKVRunner(engine, kv_pool, prefix=prefix)
     # the reference's two-stage wire topology (/forward, /forward_b) is
@@ -208,11 +232,13 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
             live["kv_pool_stats"] = st
         if prefix is not None:
             live["prefix_cache_stats"] = prefix.stats()
+        if spec is not None:
+            live["spec_decode_stats"] = spec.stats()
         return {
             "status": "ok",
             "role": cfg.shard_role,
             "model": cfg.model_id,
-            "n_stages": len(cfg.boundaries) + 1,
+            "n_stages": decode_stages,
             "dispatch": cfg.dispatch,
             "max_batch": cfg.max_batch,
             "batch_mode": cfg.batch_mode,
@@ -223,6 +249,7 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
             "kv_block_size": cfg.kv_block_size,
             "kv_pool_dtype": cfg.kv_pool_dtype,
             "kv_host_blocks": cfg.kv_host_blocks,
+            "spec_decode": cfg.spec_decode,
             "inference_dtype": cfg.inference_dtype,
             "device": str(dev),
             "decode_kernel": decode_kernel,
@@ -332,17 +359,29 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
                                         top_k=req.top_k, top_p=req.top_p))
         seed = req.seed if req.seed is not None else secrets.randbits(31)
         gen = torch.Generator(device=dev).manual_seed(seed)
+        # speculation serves the requests it is exact for (a prompt of at
+        # least ngram tokens, draft_len slots of headroom); behind a
+        # batcher the spec flag routes them, with a prefix store the
+        # store decides, else they go to the spec engine
+        eng = runner
+        batched = isinstance(runner, (BatchingEngine, IterBatchingEngine))
+        if spec is not None and spec.eligible(len(prompt_ids),
+                                              req.max_new_tokens):
+            if batched:
+                sampling = dataclasses.replace(sampling, spec=True)
+            elif prefix is None:
+                eng = spec
         kw = {}
-        if isinstance(runner, (BatchingEngine, IterBatchingEngine)):
+        if batched:
             kw["timeout"] = GENERATE_TIMEOUT_S
         if eos_id is not None and not isinstance(
-                runner, (BatchingEngine, PrefixCachingEngine)):
+                eng, (BatchingEngine, PrefixCachingEngine, SpecDecodeEngine)):
             # the engine, the paged runner and the iteration batcher stop
-            # at EOS checks; the admission batcher's and the prefix
-            # store's rows are cut below, same reply
+            # at EOS checks; the admission batcher's, the prefix store's
+            # and the spec engine's rows are cut below, same reply
             kw["eos_id"] = eos_id
         try:
-            result = runner.generate(np.asarray(prompt_ids),
+            result = eng.generate(np.asarray(prompt_ids),
                                      max_new_tokens=req.max_new_tokens,
                                      sampling=sampling, generator=gen, **kw)
         except graftfault.Unavailable as e:
@@ -370,7 +409,12 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
 
 def check_batching(cfg: ServingConfig, config) -> None:
     """The JAX app's startup refusals that concern the batching,
-    chunked-prefill, prefix-cache and paged-pool knobs."""
+    chunked-prefill, prefix-cache, paged-pool and speculation knobs."""
+    if cfg.spec_decode > 0 and not (cfg.shard_role == "coordinator"
+                                    and cfg.dispatch == "local"):
+        raise ValueError(
+            f"SPEC_DECODE={cfg.spec_decode} applies to the coordinator's "
+            "local decode path only")
     if cfg.prefix_cache > 0 and not (cfg.shard_role == "coordinator"
                                      and cfg.dispatch == "local"):
         raise ValueError(
@@ -385,6 +429,11 @@ def check_batching(cfg: ServingConfig, config) -> None:
                 "KV_POOL_BLOCKS prefills monolithically (one block "
                 "scatter per admission); PREFILL_CHUNK owns another "
                 "prefill program structure")
+        if cfg.spec_decode > 0 and cfg.batch_mode != "iter":
+            raise ValueError(
+                "KV_POOL_BLOCKS composes with SPEC_DECODE through "
+                "BATCH_MODE=iter (paged draft-verify segments); the "
+                "solo paged runner decodes one token per forward")
         if cfg.max_batch > 1 and cfg.batch_mode != "iter":
             raise ValueError(
                 "KV_POOL_BLOCKS batches through BATCH_MODE=iter "

@@ -7,8 +7,10 @@ one validated dataclass. The port honours ``MODEL_ID``, ``SHARD_ROLE``,
 ``MAX_BATCH``, ``BATCH_MODE`` and ``BATCH_WAIT_MS``, ``PREFILL_CHUNK``,
 the paged pool's ``KV_POOL_BLOCKS``, ``KV_BLOCK_SIZE`` and
 ``KV_POOL_DTYPE``, and the prefix store's ``PREFIX_CACHE`` and
-``PREFIX_CHUNK`` with the host tier's ``KV_HOST_BLOCKS``. Every other knob the JAX package accepts refuses at startup when it is set to anything but its
-default, naming the ROADMAP item that will port it: a knob ignored in
+``PREFIX_CHUNK`` with the host tier's ``KV_HOST_BLOCKS``, and
+``SPEC_DECODE`` (speculative decoding's draft depth). Every other knob
+the JAX package accepts refuses at startup when it is set to anything
+but its default, naming the ROADMAP item that will port it: a knob ignored in
 silence would let a deployment believe it runs a configuration it does
 not.
 """
@@ -27,26 +29,15 @@ def _is_off(raw: str) -> bool:
     return raw.strip().lower() in ("", "0", "false", "no", "off")
 
 
-def _is_int(value: int) -> Callable[[str], bool]:
-    def check(raw: str) -> bool:
-        try:
-            return int(raw) == value
-        except ValueError:
-            return False
-    return check
-
-
 def _is_str(*values: str) -> Callable[[str], bool]:
     return lambda raw: raw.strip() in values
 
 
 # knob -> (the ROADMAP item that ports it, "is this value the default?")
-_SPEC = "ROADMAP Queue 1 item 11 (speculative decoding)"
 _MULTI = "ROADMAP Queue 1 item 13 (multi-device decode)"
 _FLEET = "ROADMAP Queue 1 item 15 (fleet, planning and observability)"
 _REMOTE = "ROADMAP Queue 1 item 16 (checkpoints and remote dispatch)"
 REFUSED_KNOBS: Dict[str, Tuple[str, Callable[[str], bool]]] = {
-    "SPEC_DECODE": (_SPEC, _is_int(0)),
     "PP_DECODE": (_MULTI, _is_off),
     "TP_DECODE": (_MULTI, _is_off),
     "EP_DECODE": (_MULTI, _is_off),
@@ -100,6 +91,9 @@ class ServingConfig:
     # > 0: the host spill tier's block budget below the pool
     # (runtime.kv_tier). Requires KV_POOL_BLOCKS > 0.
     kv_host_blocks: int = 0
+    # > 0: prompt-lookup speculative decoding (runtime.spec_decode) with
+    # this draft depth; 0: off
+    spec_decode: int = 0
 
     def __post_init__(self):
         if self.shard_role not in VALID_ROLES:
@@ -130,6 +124,10 @@ class ServingConfig:
             raise ValueError(
                 f"INFERENCE_DTYPE={self.inference_dtype!r} not "
                 "float32|bfloat16|int8")
+        if self.spec_decode < 0:
+            raise ValueError(
+                f"SPEC_DECODE={self.spec_decode} must be >= 0 "
+                "(0 disables, >0 is the speculation draft depth)")
         if self.prefill_chunk < 0:
             raise ValueError(
                 f"PREFILL_CHUNK={self.prefill_chunk} must be >= 0 "
@@ -264,4 +262,5 @@ def from_env() -> ServingConfig:
         prefix_cache=_env_int("PREFIX_CACHE", 0),
         prefix_chunk=_env_int("PREFIX_CHUNK", 0),
         kv_host_blocks=_env_int("KV_HOST_BLOCKS", 0),
+        spec_decode=_env_int("SPEC_DECODE", 0),
     )

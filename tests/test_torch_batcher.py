@@ -37,6 +37,7 @@ from llm_sharding_demo_tpu_torch.runtime.engine import (DecodeEngine,
                                                         SamplingConfig)
 from llm_sharding_demo_tpu_torch.runtime.prefix_cache import (
     PrefixCachingEngine)
+from llm_sharding_demo_tpu_torch.runtime.spec_decode import SpecDecodeEngine
 from llm_sharding_demo_tpu_torch.serving.app import create_app
 from llm_sharding_demo_tpu_torch.serving.http import TestClient
 from llm_sharding_demo_tpu_torch.serving.tokenizer import ByteTokenizer
@@ -250,15 +251,17 @@ def test_round_phases_fan_out_to_every_row_trace(setup):
 
 
 def test_prefix_and_spec_compositions_refuse(weights, setup):
-    """A prefix store over another engine refuses (the JAX batcher's
-    check); speculation waits for its item."""
+    """A prefix store or a speculative engine over another engine refuses
+    (the JAX batcher's checks, with its messages)."""
     engine, _ = setup
     other = DecodeEngine(weights[1], gpt2.GPT2Config(**DIMS),
                          max_seq=MAX_SEQ, device="cpu")
     with pytest.raises(ValueError, match="same engine"):
         BatchingEngine(engine, prefix=PrefixCachingEngine(other))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        BatchingEngine(engine, spec=object())
+    spec = SpecDecodeEngine(weights[1], gpt2.GPT2Config(**DIMS),
+                            max_seq=MAX_SEQ, device="cpu")
+    with pytest.raises(ValueError, match="same DecodeEngine"):
+        BatchingEngine(engine, spec=spec)
 
 
 # -- per-row sampling (engine.select_token's list form) ----------------------

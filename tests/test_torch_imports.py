@@ -50,7 +50,7 @@ def test_port_imports_with_jax_blocked():
                  "ops.flash_attention", "training.train",
                  "ops.paged_attention", "ops.kv_quant", "runtime.kv_pool",
                  "runtime.prefix_cache", "runtime.kv_tier",
-                 "runtime.batcher"):
+                 "runtime.batcher", "runtime.spec_decode"):
         assert f"llm_sharding_demo_tpu_torch.{name}" in modules
     code = "; ".join([
         "import sys",

@@ -38,6 +38,7 @@ from llm_sharding_demo_tpu_torch.runtime.iterbatch import (
     FAULT_PARK_BUDGET, IterBatchingEngine)
 from llm_sharding_demo_tpu_torch.runtime.prefix_cache import (
     PrefixCachingEngine)
+from llm_sharding_demo_tpu_torch.runtime.spec_decode import SpecDecodeEngine
 from llm_sharding_demo_tpu_torch.serving.app import create_app
 from llm_sharding_demo_tpu_torch.serving.http import TestClient
 from llm_sharding_demo_tpu_torch.serving.tokenizer import ByteTokenizer
@@ -450,8 +451,9 @@ def test_refusals(weights):
     with pytest.raises(ValueError, match="same engine"):
         IterBatchingEngine(engine, max_batch=2, prefix=PrefixCachingEngine(
             _engine(weights)))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        IterBatchingEngine(engine, max_batch=2, spec=object())
+    with pytest.raises(ValueError, match="same DecodeEngine"):
+        IterBatchingEngine(engine, max_batch=2, spec=SpecDecodeEngine(
+            weights[1], engine.config, max_seq=MAX_SEQ, device="cpu"))
 
 
 # -- serving -----------------------------------------------------------------

@@ -34,6 +34,7 @@ from llm_sharding_demo_tpu_torch.runtime.engine import (DecodeEngine,
                                                         SamplingConfig)
 from llm_sharding_demo_tpu_torch.runtime.prefix_cache import (
     PrefixCachingEngine, clone_cache)
+from llm_sharding_demo_tpu_torch.runtime.spec_decode import SpecDecodeEngine
 from llm_sharding_demo_tpu_torch.utils import graftmem
 from test_torch_llama import np_llama_params
 from test_torch_model import np_gpt2_params
@@ -164,8 +165,9 @@ def test_guards(models):
         PrefixCachingEngine(eng, capacity=0)
     with pytest.raises(ValueError, match="chunk"):
         PrefixCachingEngine(eng, chunk=0)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        PrefixCachingEngine(eng, spec=object())
+    with pytest.raises(ValueError, match="same DecodeEngine"):
+        PrefixCachingEngine(eng, spec=SpecDecodeEngine(
+            tp, tcfg, max_seq=MAX_SEQ, device="cpu"))
     moe = types.SimpleNamespace(config=JMoEConfig(
         vocab_size=64, n_positions=64, n_embd=32, n_layer=2, n_head=4))
     with pytest.raises(NotImplementedError, match="window-dependent"):

@@ -137,7 +137,7 @@ def test_request_validation(weights):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("AUTO_PLAN_CONTINUOUS", "1"), ("SPEC_DECODE", "3"), ("PP_DECODE", "1"),
+    ("AUTO_PLAN_CONTINUOUS", "1"), ("PP_DECODE", "1"),
     ("TP_DECODE", "true"), ("EP_DECODE", "1"), ("AUTO_PLAN", "1"),
     ("FLEET_ROLE", "decode"), ("CHECKPOINT_DIR", "/ckpt"),
     ("DISPATCH", "remote"),
