@@ -137,6 +137,20 @@ which must pass or the script exits non-zero:
    token beside the mega engine's step and the plain int8 step; a GPT-2
    int8 ``SPEC_DECODE=6`` server answering four /generate requests
    with ``spec_decode_stats`` in /healthz and exact launches.
+11. remote: ``DISPATCH=remote``, the reference's three-role topology:
+   shard a and shard b (GPT-2 124M at full width, ``SPLIT_AT=1``, on the
+   card) and a coordinator relaying ``/forward`` -> ``/forward_b`` to
+   them once a token, which holds no engine. 16-token greedy and seeded
+   sampled requests, each twice and each pair equal: the greedy stream
+   equal, token for token, to the shards' functions run in this process
+   and to the local fp32 path (or parted from it at a near tie), the
+   seeded one to the seed contract (one numpy draw a token from
+   ``sampler_pmf``), both shards' JSON equal to ``stage_apply`` here; no
+   kernel launched in any of the three processes (fp32). The relay's ms
+   a token and the JSON bytes a hop. Then shard b stops: a typed 502
+   naming it, then 503 ``circuit_open`` with Retry-After, and a 1 ms
+   ``X-Deadline-Ms`` 503 ``deadline_exceeded``; ``X-Request-ID`` echoed
+   on every reply.
 
 The last lines are the card's name and power limit, one JSON object with
 the kernels' numbers (each kernel's launches counted on the path that
@@ -144,7 +158,8 @@ runs it: each server for its whole-stack kernel, the GPT-2 "layer" int8
 engine run for the per-layer kernels, with the llama paths' counts
 beside them, each batched server's counts under ``batch_launches``, the prefix
 paths' under ``prefix_launches``, the spec paths' under ``spec_launches``,
-the 5 bf16 train steps for the flash kernels), and
+the three remote processes' under ``remote_launches``, the 5 bf16 train
+steps for the flash kernels), and
 ``{"ok": true, "device": {...}}``. ``--phases`` runs a subset (the
 default runs all).
 """
@@ -1312,24 +1327,43 @@ def _http(url: str, body=None, timeout: float = 300.0) -> dict:
         return json.loads(resp.read())
 
 
+def _stop(proc) -> None:
+    """SIGTERM, then SIGKILL after 30 s; a process already gone is left."""
+    if proc.poll() is not None:
+        return
+    proc.send_signal(signal.SIGTERM)
+    try:
+        proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+
+
 @contextlib.contextmanager
-def serving_process(name: str, **env_vars):
-    """``python -m llm_sharding_demo_tpu_torch.serving`` with ``env_vars``
-    on a free port, its output in ``build/chip_smoke/<name>.log``; yields
-    ``(base url, first /healthz)`` once it answers, and stops it (SIGTERM,
-    then SIGKILL) on the way out."""
-    port = _free_port()
-    env = dict(os.environ, SHARD_PORT=str(port), **env_vars)
+def serving_processes(*specs):
+    """One ``python -m llm_sharding_demo_tpu_torch.serving`` a ``(name,
+    env_vars)`` of ``specs``, all started at once, each on its
+    ``SHARD_PORT`` (a free port where it has none) with its output in
+    ``build/chip_smoke/<name>.log``; yields ``[(base url, first /healthz,
+    stop)]`` once every one answers, and stops them (SIGTERM, then
+    SIGKILL) on the way out."""
     os.makedirs(LOG_DIR, exist_ok=True)
-    log_path = os.path.join(LOG_DIR, f"{name}.log")
-    base = f"http://127.0.0.1:{port}"
-    with open(log_path, "w") as log:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "llm_sharding_demo_tpu_torch.serving",
-             "--host", "127.0.0.1"], cwd=ROOT, env=env, stdout=log,
-            stderr=subprocess.STDOUT)
-        try:
-            deadline = time.monotonic() + 300
+    started = []
+    with contextlib.ExitStack() as stack:
+        for name, env_vars in specs:
+            port = int(env_vars.get("SHARD_PORT") or _free_port())
+            env = dict(os.environ, **dict(env_vars, SHARD_PORT=str(port)))
+            log_path = os.path.join(LOG_DIR, f"{name}.log")
+            log = stack.enter_context(open(log_path, "w"))
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "llm_sharding_demo_tpu_torch.serving",
+                 "--host", "127.0.0.1"], cwd=ROOT, env=env, stdout=log,
+                stderr=subprocess.STDOUT)
+            stack.callback(_stop, proc)
+            started.append((proc, f"http://127.0.0.1:{port}", log_path))
+        deadline = time.monotonic() + 300
+        ready = []
+        for proc, base, log_path in started:
             while True:
                 check(proc.poll() is None,
                       f"server exited early (see {log_path})")
@@ -1340,14 +1374,16 @@ def serving_process(name: str, **env_vars):
                     check(time.monotonic() < deadline,
                           "server not ready after 300 s")
                     time.sleep(1)
-            yield base, health
-        finally:
-            proc.send_signal(signal.SIGTERM)
-            try:
-                proc.wait(timeout=30)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait(timeout=30)
+            ready.append((base, health, lambda p=proc: _stop(p)))
+        yield ready
+
+
+@contextlib.contextmanager
+def serving_process(name: str, **env_vars):
+    """``serving_processes`` of one server: yields ``(base url, first
+    /healthz)``."""
+    with serving_processes((name, env_vars)) as [(base, health, _)]:
+        yield base, health
 
 
 def server_phase(model_id: str, npos: int) -> dict:
@@ -3197,6 +3233,228 @@ def spec_phase(smi: str) -> dict:
     return launches
 
 
+# -- phase 11: remote dispatch ----------------------------------------------
+
+REMOTE_PROMPT = "Hi"   # short: shard B answers the logits of every position
+REMOTE_NEW = 16
+
+
+def _post(url: str, body: dict, headers=None, timeout: float = 300.0):
+    """``(status, body, headers)`` of one POST; an error status is
+    returned, not raised."""
+    import urllib.error
+
+    req = urllib.request.Request(
+        url, data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read()), dict(resp.headers)
+    except urllib.error.HTTPError as e:
+        with e:
+            return e.code, json.loads(e.read()), dict(e.headers)
+
+
+def relay_reference(params, config, prompt_ids, seed: int):
+    """What the three-role topology must answer, computed here with the
+    shards' own functions on the same weights: per token, stage A and
+    stage B (``stage_apply``, the whole sequence re-forwarded) with the
+    hidden states handed over as a fresh float32 tensor, as they arrive
+    from JSON. Returns the greedy ids with each step's last-position
+    logits, the seeded sample ids (one ``default_rng(seed)`` draw a token
+    from ``sampler_pmf``, the coordinator's contract), the last greedy
+    hop's JSON messages (A's request, A's reply, B's reply) and the JSON
+    bytes of a token's four messages (A's request and reply, B's request
+    and reply) at the first and the last token."""
+    import torch
+
+    from llm_sharding_demo_tpu_torch.parallel import partition as P_
+    from llm_sharding_demo_tpu_torch.runtime.engine import (SamplingConfig,
+                                                            sampler_pmf)
+
+    specs = P_.make_stage_specs(config.n_layer, [1])
+    stages = [P_.extract_stage_params(params, s) for s in specs]
+
+    def hops(ids):
+        """The two hops of one token: A's request and reply as JSON
+        values, and B's logits."""
+        with torch.inference_mode():
+            x = torch.tensor([ids], dtype=torch.int64, device="cuda")
+            hidden, _ = P_.stage_apply(stages[0], specs[0], config, x)
+            hidden = hidden.float().cpu().tolist()
+            logits, _ = P_.stage_apply(
+                stages[1], specs[1], config,
+                torch.tensor(hidden, dtype=torch.float32, device="cuda"))
+        return {"input_ids": list(ids)}, {"hidden_states": hidden}, logits
+
+    sampling = SamplingConfig(mode="sample")
+    rng = np.random.default_rng(seed)
+    greedy, sample, steps, hop_bytes = (list(prompt_ids), list(prompt_ids),
+                                        [], [])
+    for step in range(REMOTE_NEW):
+        a_req, a_rep, logits = hops(greedy)
+        # float32 -> double is exact: the values the coordinator parses
+        last = logits[0, -1].cpu().double().numpy()
+        steps.append(last)
+        greedy.append(int(np.argmax(last)))
+        if step in (0, REMOTE_NEW - 1):
+            msgs = (a_req, a_rep, {"logits": logits.cpu().tolist()})
+            h = len(json.dumps(a_rep))
+            hop_bytes.append((len(json.dumps(a_req)), h, h,
+                              len(json.dumps(msgs[2]))))
+        logits = hops(sample)[2][0, -1].cpu().double()
+        probs, top = sampler_pmf(logits, sampling)
+        probs = probs.numpy().astype(np.float64)
+        sample.append(int(rng.choice(top.numpy(), p=probs / probs.sum())))
+    return greedy, steps, sample, msgs, hop_bytes
+
+
+def remote_phase(smi: str) -> dict:
+    """``DISPATCH=remote`` (module docstring, phase 11). Returns each
+    process's launch counts."""
+    import torch
+
+    from llm_sharding_demo_tpu_torch.parallel.pipeline import PipelineRunner
+    from llm_sharding_demo_tpu_torch.serving import loader
+    from llm_sharding_demo_tpu_torch.serving.app import create_app
+    from llm_sharding_demo_tpu_torch.serving.http import TestClient
+    from llm_sharding_demo_tpu_torch.serving.tokenizer import ByteTokenizer
+    from llm_sharding_demo_tpu_torch.utils.config import ServingConfig
+
+    t0 = time.perf_counter()
+    # the servers' weights (seed 0) in this process: the relay's exact
+    # streams, and the local fp32 path's
+    config, params = loader.resolve_model(ServingConfig(model_id="gpt2"),
+                                          torch.device("cuda"))
+    tok = ByteTokenizer()
+    prompt_ids = tok.encode(REMOTE_PROMPT)
+    n = len(prompt_ids)
+    seed = 4321
+    g_ids, steps, s_ids, last_hop, hop_bytes = relay_reference(
+        params, config, prompt_ids, seed)
+    l_ids = [int(t) for t in PipelineRunner(
+        params, config, [1], max_seq=NPOS).generate(
+        np.asarray(prompt_ids), REMOTE_NEW).row_tokens(0)]
+    local = TestClient(create_app(
+        ServingConfig(model_id="gpt2", max_seq=NPOS), model=(config, params),
+        tokenizer=tok))
+    greedy = {"prompt": REMOTE_PROMPT, "max_new_tokens": REMOTE_NEW,
+              "mode": "greedy"}
+    local_reply = local.post("/generate", json=greedy).json()
+    check(local_reply["generated"] == tok.decode(l_ids),
+          "the local fp32 server's reply differs from its runner's stream")
+    del local
+    t_ref = time.perf_counter() - t0
+
+    pa, pb = _free_port(), _free_port()
+    shard = {"MODEL_ID": "gpt2", "SPLIT_AT": "1"}
+    sample = dict(greedy, mode="sample", seed=seed)
+    with serving_processes(
+            ("remote-shard-a", dict(shard, SHARD_ROLE="a",
+                                    SHARD_PORT=str(pa))),
+            ("remote-shard-b", dict(shard, SHARD_ROLE="b",
+                                    SHARD_PORT=str(pb))),
+            ("remote-coordinator", dict(
+                shard, DISPATCH="remote",
+                SHARD_A_SERVICE=f"127.0.0.1:{pa}",
+                SHARD_B_SERVICE=f"127.0.0.1:{pb}")),
+    ) as [(a_url, a_health, _), (b_url, b_health, stop_b),
+          (base, health, _)]:
+        t_up = time.perf_counter() - t0 - t_ref
+        for role, h in (("a", a_health), ("b", b_health)):
+            check(h["role"] == role and h["device"].startswith("cuda"),
+                  f"shard {role} healthz {h}")
+        check(health["dispatch"] == "remote"
+              and health["decode_kernel"] is None
+              and health["forward_shapes"] == {},
+              f"the remote coordinator must hold no engine: {health}")
+        # the first greedy request alone (the relay's ms a token), then
+        # its replay and the two seeded ones at once
+        bodies = (greedy, greedy, sample, sample)
+
+        def ask(i):
+            t = time.perf_counter()
+            status, reply, hdrs = _post(base + "/generate", bodies[i],
+                                        {"X-Request-ID": f"smoke-{i}"})
+            check(status == 200 and hdrs.get("X-Request-ID") == f"smoke-{i}",
+                  f"remote reply {status} {reply} {hdrs}")
+            return reply, time.perf_counter() - t
+
+        out = [ask(0)] + _threads(lambda i: ask(i + 1), 3)
+        replies = [r for r, _ in out]
+        ms_tok = out[0][1] * 1e3 / REMOTE_NEW
+        # the last greedy token's two hops, straight to the shards: the
+        # JSON each answers is exactly what its function gives here
+        hidden = _http(a_url + "/forward", last_hop[0])
+        check(hidden == last_hop[1], "shard a's /forward differs from "
+                                     "stage_apply run here")
+        check(_http(b_url + "/forward_b", hidden) == last_hop[2],
+              "shard b's /forward_b differs from stage_apply run here")
+        counts = {role: _http(url + "/healthz")["kernel_launches"]
+                  for role, url in (("shard a", a_url), ("shard b", b_url),
+                                    ("coordinator", base))}
+        # shard b goes down: 3 failed attempts (a typed 502 naming it),
+        # then the fifth consecutive failure opens its breaker (503 +
+        # Retry-After); a 1 ms budget is spent on the first hop
+        stop_b()
+        failures = []
+        for i, (hdr, want_status, want_error) in enumerate((
+                ({}, 502, "upstream_failure"), ({}, 503, "circuit_open"),
+                ({"X-Deadline-Ms": "1"}, 503, "deadline_exceeded"))):
+            rid = f"smoke-fail-{i}"
+            status, body, hdrs = _post(base + "/generate",
+                                       dict(greedy, max_new_tokens=2),
+                                       dict(hdr, **{"X-Request-ID": rid}))
+            check(status == want_status and body.get("error") == want_error
+                  and hdrs.get("X-Request-ID") == rid
+                  and (status != 503 or int(hdrs["Retry-After"]) >= 1)
+                  and (status != 502 or body.get("shard") == "b"),
+                  f"with shard b down: {status} {body} {hdrs}, expected "
+                  f"{want_status} {want_error}")
+            failures.append(f"{status} {body['error']}"
+                            + (f" (shard {body['shard']})" if status == 502
+                               else f", Retry-After {hdrs['Retry-After']}"))
+    for where, c in counts.items():
+        check(all(v == 0 for v in c.values()),
+              f"the fp32 remote path launched kernels on {where}: {c}")
+    check(replies[0] == replies[1] and replies[2] == replies[3],
+          f"remote replies do not replay: {replies}")
+    check(replies[0]["generated"] == tok.decode(g_ids),
+          "remote greedy reply differs from the shards' functions run here")
+    check(replies[2]["generated"] == tok.decode(s_ids),
+          "remote seeded reply differs from the seed contract run here")
+    same = g_ids == l_ids
+    if not same:
+        # the local path decodes on its KV cache, another GEMM shape than
+        # the relay's re-forward: it may part from it only at a near tie
+        t = next(i for i in range(n, n + REMOTE_NEW) if g_ids[i] != l_ids[i])
+        top2 = np.sort(steps[t - n])[-2:]
+        gap = float(top2[1] - top2[0])
+        bar = 2 * (1e-5 + 1e-5 * float(np.abs(steps[t - n]).max()))
+        print(f"  the relay's greedy stream parts from the local fp32 "
+              f"path at new token {t - n}: its top-2 gap {gap:.3e}, near-tie "
+              f"bar {bar:.3e} [{smi}]")
+        check(gap <= bar, "the remote greedy stream parts from the local "
+                          "fp32 path away from a near tie")
+    print(f"  three-role GPT-2 124M fp32 (SPLIT_AT=1; shards on the card, "
+          f"up in {t_up:.1f} s): greedy x2 equal to the shards' functions "
+          f"run here, token for token"
+          f"{' and equal to the local fp32 server' if same else ''}; seeded "
+          f"sample x2 equal to the seed contract; both shards' JSON equal "
+          f"to stage_apply here; launches 0 on all three processes")
+    print(f"  relay ms a token: {ms_tok:.1f} (one greedy request alone, "
+          f"{REMOTE_NEW} tokens from a {n}-token prompt; the other three "
+          f"at once took {max(w for _, w in out[1:]):.1f} s); JSON bytes "
+          f"a hop (A request, A reply, B request, B reply) at the first "
+          f"token {hop_bytes[0]} and the last {hop_bytes[1]} [{smi}]")
+    print(f"  shard b down: {'; '.join(failures)}; X-Request-ID echoed on "
+          f"every reply [{smi}]")
+    print(f"  [remote] {time.perf_counter() - t0:.1f} s wall [{smi}]")
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
 # -- main ----------------------------------------------------------------------
 
 def kernel_name(mangled: str) -> str:
@@ -3306,9 +3564,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases",
                         default="kernels,flash,engine,server,batch,train,"
-                                "paged,prefix,spec",
+                                "paged,prefix,spec,remote",
                         help="comma-separated subset of kernels,flash,engine,"
-                             "server,batch,train,paged,prefix,spec")
+                             "server,batch,train,paged,prefix,spec,remote")
     phases = set(parser.parse_args().phases.split(","))
 
     t_start = time.perf_counter()
@@ -3406,6 +3664,12 @@ def main() -> int:
               "engine, int8 verify windows on the int8 kernels, timing, a "
               "SPEC_DECODE server")
         spec_launches = spec_phase(smi)
+    remote_launches = {}
+    if "remote" in phases:
+        print("[remote] DISPATCH=remote: two GPT-2 shards on the card and a "
+              "coordinator relaying /forward -> /forward_b, then shard b "
+              "down")
+        remote_launches = remote_phase(smi)
 
     sources = {"decode_attention": "csrc/decode_attention.cu",
                "quant_linear": "csrc/quant.cu",
@@ -3452,6 +3716,8 @@ def main() -> int:
                                 for where, c in prefix_launches.items()},
             "spec_launches": {where: c[k.name]
                               for where, c in spec_launches.items()},
+            "remote_launches": {where: c[k.name]
+                                for where, c in remote_launches.items()},
             "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
             "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
             "bound_by": r.get("bound_by"),

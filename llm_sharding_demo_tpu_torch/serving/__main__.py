@@ -3,6 +3,16 @@
 The port comes from ``SHARD_PORT`` (default 5000) or ``--port``; the
 server runs on ``cuda``. At exit the process logs its kernel launch
 counts (also on ``GET /healthz``).
+
+The reference's three-role topology on one machine (each shard builds
+the same seeded weights; the coordinator holds none and relays every
+token through them)::
+
+    SHARD_ROLE=a SHARD_PORT=5001 python -m llm_sharding_demo_tpu_torch.serving
+    SHARD_ROLE=b SHARD_PORT=5002 python -m llm_sharding_demo_tpu_torch.serving
+    DISPATCH=remote SHARD_A_SERVICE=127.0.0.1:5001 \
+        SHARD_B_SERVICE=127.0.0.1:5002 \
+        python -m llm_sharding_demo_tpu_torch.serving --port 5000
 """
 
 from __future__ import annotations
@@ -37,8 +47,9 @@ def main() -> None:
     # SIGTERM exits through the interpreter, so the atexit line is written
     signal.signal(signal.SIGTERM, lambda *_: sys.exit(0))
     port = args.port if args.port is not None else cfg.shard_port
-    log.info("serving role=%s dtype=%s on %s:%d", cfg.shard_role,
-             cfg.inference_dtype, args.host, port)
+    log.info("serving role=%s dispatch=%s dtype=%s on %s:%d",
+             cfg.shard_role, cfg.dispatch, cfg.inference_dtype, args.host,
+             port)
     serve(app, host=args.host, port=port)
 
 

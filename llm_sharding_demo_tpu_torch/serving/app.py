@@ -49,14 +49,38 @@ decides per request. ``/healthz`` serves ``spec_decode_stats``.
 Each request draws from its own generator, seeded by its ``seed``, so a
 seeded request replays whether it ran alone or in a batch; a batched
 request waits at most ``GENERATE_TIMEOUT_S`` and then answers 503.
+
+``DISPATCH=remote`` is the reference's three-role topology: the
+coordinator holds no weights and, once per token, POSTs the sequence to
+shard A's ``/forward`` and relays the hidden states to shard B's
+``/forward_b`` (``SHARD_A_SERVICE``, ``SHARD_B_SERVICE``), then picks the
+token on the host: greedy argmax, or one ``numpy`` draw a token from
+``sampler_pmf`` on ``np.random.default_rng(seed)``, the JAX app's seed
+contract. Every hop goes through ``graftfault.HopPolicy`` (3 attempts,
+capped backoff, a per-shard breaker); a failed shard answers a typed 502
+naming it, an open breaker or a spent budget 503 with ``Retry-After``,
+never a local answer. The relay is fp32 and runs no kernel.
+
+Request headers: ``X-Request-ID`` is echoed on every ``/generate`` reply
+(one is minted when it is absent or malformed); ``X-Deadline-Ms`` bounds
+the request (400 when malformed, 503 ``deadline_exceeded`` once spent:
+refused before any runner, cancelled at a segment boundary by the
+iteration batcher, the per-attempt timeout of every shard hop). Every
+503 carries ``Retry-After``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import http.client
+import json
 import logging
+import re
 import secrets
-from typing import List, Optional
+import time
+import urllib.error
+import urllib.request
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -68,13 +92,13 @@ from ..parallel import partition as P_
 from ..parallel.pipeline import PipelineRunner
 from ..runtime.batcher import BatchingEngine
 from ..runtime.engine import (REF_TEMPERATURE, REF_TOP_K, DecodeEngine,
-                              SamplingConfig)
+                              SamplingConfig, sampler_pmf)
 from ..runtime.iterbatch import IterBatchingEngine
 from ..runtime.kv_pool import KVBlockPool, PagedKVRunner
 from ..runtime.kv_tier import HostKVTier
 from ..runtime.prefix_cache import PrefixCachingEngine
 from ..runtime.spec_decode import SpecDecodeEngine
-from ..utils import graftfault
+from ..utils import graftfault, tracing
 from ..utils.config import ServingConfig, from_env
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.metrics import REGISTRY
@@ -86,6 +110,81 @@ log = logging.getLogger(__name__)
 
 # how long a request thread waits for its row in a batch
 GENERATE_TIMEOUT_S = 600.0
+
+
+class UpstreamError(Exception):
+    """A shard hop failed (connection, HTTP error, or error body)."""
+
+    def __init__(self, shard: str, url: str, detail: str):
+        super().__init__(f"shard {shard} at {url}: {detail}")
+        self.shard = shard
+        self.url = url
+        self.detail = detail
+
+
+class ShardHTTPError(Exception):
+    """A shard answered an HTTP error status (retried, as the JAX
+    relay's ``requests.exceptions.HTTPError`` is)."""
+
+
+# what one hop attempt can raise on the wire: retried under the hop
+# policy, then answered as a typed 502
+HOP_ERRORS = (ConnectionError, TimeoutError, ShardHTTPError,
+              json.JSONDecodeError)
+
+
+def post_json(url: str, payload: dict, timeout_s: float):
+    """POST ``payload`` as JSON and parse the reply, with the failures
+    mapped onto ``HOP_ERRORS``: a refused or reset connection is a
+    ``ConnectionError``, a socket timeout a ``TimeoutError``, an error
+    status a ``ShardHTTPError``."""
+    req = urllib.request.Request(
+        url, data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout_s) as resp:
+            return json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        raise ShardHTTPError(f"{e.code} {e.reason} for url: {url}") from e
+    except urllib.error.URLError as e:
+        if isinstance(e.reason, TimeoutError):
+            raise TimeoutError(f"{e.reason} for url: {url}") from e
+        raise ConnectionError(f"{e.reason} for url: {url}") from e
+    except http.client.HTTPException as e:
+        raise ConnectionError(f"{type(e).__name__}: {e}") from e
+
+
+_RID_RE = re.compile(r"[A-Za-z0-9._:-]{1,128}")
+_PROFILE_RE = re.compile(r"[A-Za-z0-9._:-]{1,64}")
+DEADLINE_MS_ERROR = ("X-Deadline-Ms must be an integer millisecond "
+                     "budget in [1, 86400000]")
+
+
+def parse_request_identity(headers: dict) -> Tuple[str, Optional[str]]:
+    """``(request id, workload profile label)``: the caller's
+    ``X-Request-ID`` or a minted one, and ``X-Workload-Profile`` or None;
+    each held to a safe charset, since both are echoed and logged."""
+    raw_rid = (headers.get("x-request-id") or "").strip()
+    rid = (raw_rid if _RID_RE.fullmatch(raw_rid)
+           else tracing.new_request_id())
+    raw_prof = (headers.get("x-workload-profile") or "").strip()
+    return rid, (raw_prof if _PROFILE_RE.fullmatch(raw_prof) else None)
+
+
+def parse_deadline_header(headers: dict):
+    """``X-Deadline-Ms`` -> ``(deadline, ms, error)``: ``(None, None,
+    None)`` when absent, ``(None, None, message)`` when malformed or out
+    of range (the caller answers 400)."""
+    raw_dl = (headers.get("x-deadline-ms") or "").strip()
+    if not raw_dl:
+        return None, None, None
+    try:
+        dl_ms = int(raw_dl)
+    except ValueError:
+        dl_ms = 0
+    if not 1 <= dl_ms <= 86_400_000:
+        return None, None, DEADLINE_MS_ERROR
+    return graftfault.Deadline.from_ms(dl_ms), dl_ms, None
 
 
 @dataclasses.dataclass
@@ -123,8 +222,13 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
     ``cuda`` unless given."""
     cfg = cfg or from_env()
     dev = resolve_device(device)
+    # a remote coordinator relays to the shards, which hold the weights:
+    # it reads the configuration only
+    remote = cfg.shard_role == "coordinator" and cfg.dispatch == "remote"
     if model is not None:
         config, params = model
+    elif remote:
+        config, params = loader.resolve_config(cfg), None
     else:
         config, params = loader.resolve_model(cfg, dev)
     tokenizer = tokenizer or get_tokenizer(cfg.model_id)
@@ -134,18 +238,20 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
         if not 1 <= b <= n_layer - 1:
             raise ValueError(
                 f"boundary {b} out of range for n_layer={n_layer}")
-    if cfg.inference_dtype != "float32" and cfg.shard_role != "coordinator":
+    # the reference's two-stage wire topology (/forward, /forward_b) is
+    # dense GPT-2 only; other families answer /generate alone
+    partitionable = is_partitionable(config)
+    if not partitionable and cfg.dispatch == "remote":
         raise ValueError(
-            f"INFERENCE_DTYPE={cfg.inference_dtype} applies to the "
-            "coordinator's decode path only; shard roles serve the fp32 "
-            "parity endpoints")
-
+            "DISPATCH=remote requires the dense GPT-2 stage-shard "
+            f"topology; {type(config).__name__} models serve with "
+            "DISPATCH=local")
     check_batching(cfg, config)
 
     runner = engine = kv_pool = prefix = spec = None
     decode_kernel = None
     decode_stages = len(cfg.boundaries) + 1
-    if cfg.shard_role == "coordinator":
+    if cfg.shard_role == "coordinator" and not remote:
         pchunk = cfg.prefill_chunk or None
         if cfg.spec_decode > 0:
             # the spec engine decodes unstaged and wraps the plain engine
@@ -199,9 +305,6 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
                                     prefix=prefix, spec=spec)
         elif kv_pool is not None:
             runner = PagedKVRunner(engine, kv_pool, prefix=prefix)
-    # the reference's two-stage wire topology (/forward, /forward_b) is
-    # dense GPT-2 only; other families answer /generate alone
-    partitionable = is_partitionable(config)
     decline = {"error": "stage endpoints serve dense GPT-2 only; "
                         f"{type(config).__name__} models generate via "
                         "/generate"}
@@ -299,60 +402,84 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
                                        config, torch.from_numpy(arr).to(dev))
         return {"logits": logits.cpu().tolist()}
 
-    @app.post("/generate")
-    def generate(req: GenerateReq):
-        if cfg.shard_role != "coordinator":
-            return {"error": "This instance is not coordinator."}
-        if req.max_new_tokens < 1:
-            return {"error": "max_new_tokens must be >= 1"}
-        prompt_ids = tokenizer.encode(req.prompt)
-        if not prompt_ids:
-            return {"error": "prompt tokenized to zero tokens"}
-        if len(prompt_ids) + req.max_new_tokens > cfg.max_seq:
-            return {"error": f"prompt ({len(prompt_ids)} tokens) + "
-                             f"max_new_tokens ({req.max_new_tokens}) exceeds "
-                             f"max_seq ({cfg.max_seq})"}
-        if req.mode not in ("sample", "greedy"):
-            return {"error": f"unknown mode {req.mode!r}"}
-        if req.mode == "sample":
-            if req.temperature <= 0:
-                return {"error": "temperature must be > 0"}
-            if not 1 <= req.top_k <= config.vocab_size:
-                return {"error": f"top_k must be in [1, {config.vocab_size}]"}
-            if not 0.0 < req.top_p <= 1.0:
-                return {"error": "top_p must be in (0, 1]"}
-        eos_id = None
-        if req.stop_at_eos or req.eos_token_id is not None:
-            eos_id = (req.eos_token_id if req.eos_token_id is not None
-                      else getattr(tokenizer, "eos_token_id", None))
-            if eos_id is None:
-                return {"error": "stop_at_eos requested but the tokenizer "
-                                 "has no eos_token_id; pass eos_token_id "
-                                 "explicitly"}
-            if not 0 <= eos_id < config.vocab_size:
-                return {"error": f"eos_token_id {eos_id} out of vocab range"}
-        if kv_pool is not None:
-            # a request the pool cannot host, with the waiting line full,
-            # is shed with 429 + Retry-After rather than queued without
-            # bound; the solo paged runner sheds what the pool could not
-            # host right now
-            if isinstance(runner, IterBatchingEngine):
-                ok, retry = runner.admission_load(len(prompt_ids),
-                                                  req.max_new_tokens)
+    # one hop discipline for every coordinator -> shard POST: capped
+    # exponential backoff with seeded jitter, 3 attempts, a per-shard
+    # breaker; an error body from a live shard (a misroute) is fatal
+    hop_policy = graftfault.HopPolicy(
+        attempts=3, timeout_s=30.0, base_backoff_s=0.25,
+        max_backoff_s=2.0, breaker_threshold=5, breaker_cooldown_s=5.0,
+        fatal=(UpstreamError,),
+        on_retry=lambda shard, reason: REGISTRY.inc(
+            "shard_hop_retries_total", stage=shard, reason=reason))
+
+    def _relay(shard: str, url: str, payload: dict, key: str,
+               deadline: Optional[graftfault.Deadline] = None):
+        """One shard hop through the hop policy: ``body[key]`` of the
+        shard's reply. Wire failures are retried, then raised as
+        ``UpstreamError`` (502); a 200 without ``key`` (a role guard's
+        ``{"error": ...}``) is a fatal ``UpstreamError``; an open breaker
+        or a spent budget raises ``graftfault.Unavailable`` (503)."""
+
+        def attempt(timeout_s: float):
+            # seeded fault injection lands here, before the wire call,
+            # so the whole retry and breaker path replays
+            kind = graftfault.inject("serving.shard_hop", "reset",
+                                     "timeout", "http_503", "slow")
+            if kind == "reset":
+                raise ConnectionError("graftfault: injected connection reset")
+            if kind == "timeout":
+                raise TimeoutError("graftfault: injected hop timeout")
+            if kind == "http_503":
+                raise ShardHTTPError("graftfault: injected shard 503")
+            if kind == "slow":
+                time.sleep(min(0.05, timeout_s))
+            body = post_json(url, payload, timeout_s)
+            if key not in body:
+                raise UpstreamError(
+                    shard, url,
+                    str(body.get("error", f"response missing {key!r}")))
+            return body[key]
+
+        try:
+            return hop_policy.call(attempt, shard=shard, deadline=deadline)
+        except HOP_ERRORS as e:
+            raise UpstreamError(shard, url, f"{type(e).__name__}: {e}")
+
+    def _generate_remote(req: GenerateReq, prompt_ids: List[int],
+                         eos_id: Optional[int],
+                         deadline: Optional[graftfault.Deadline],
+                         ) -> List[int]:
+        """The reference's decode: per token, the whole sequence to shard
+        A, its hidden states to shard B, the token picked on the host
+        from the last position's logits. One numpy draw a token from
+        ``sampler_pmf`` (the JAX app's seed contract); stops at EOS."""
+        ids = list(prompt_ids)
+        rng = np.random.default_rng(req.seed)
+        sampling = (None if req.mode == "greedy" else
+                    SamplingConfig(mode="sample", temperature=req.temperature,
+                                   top_k=req.top_k, top_p=req.top_p))
+        for _ in range(req.max_new_tokens):
+            hidden = _relay("a", f"{cfg.shard_a_url}/forward",
+                            {"input_ids": ids}, "hidden_states", deadline)
+            logits = np.asarray(_relay(
+                "b", f"{cfg.shard_b_url}/forward_b",
+                {"hidden_states": hidden}, "logits", deadline))[0, -1]
+            if req.mode == "greedy":
+                ids.append(int(np.argmax(logits)))
             else:
-                need = kv_pool.allocator.blocks_for(
-                    len(prompt_ids) + req.max_new_tokens)
-                spike = graftfault.inject("serving.admission", "pool_spike")
-                ok = (spike is None
-                      and kv_pool.allocator.available() >= need)
-                retry = 1.0
-            if not ok:
-                REGISTRY.inc("kv_pool_admission_rejections_total")
-                return 429, {"error": "kv_pool_saturated",
-                             "detail": "KV memory pool cannot admit this "
-                                       "request; retry after the "
-                                       "indicated backoff"}, {
-                    "Retry-After": str(max(1, int(round(retry))))}
+                probs, top_idx = sampler_pmf(torch.from_numpy(logits),
+                                             sampling)
+                probs = probs.numpy().astype(np.float64)
+                ids.append(int(rng.choice(top_idx.numpy(),
+                                          p=probs / probs.sum())))
+            if eos_id is not None and ids[-1] == eos_id:
+                break
+        return ids
+
+    def _generate_local(req: GenerateReq, prompt_ids: List[int],
+                        eos_id: Optional[int],
+                        deadline: Optional[graftfault.Deadline],
+                        ) -> List[int]:
         sampling = (SamplingConfig(mode="greedy") if req.mode == "greedy"
                     else SamplingConfig(mode="sample",
                                         temperature=req.temperature,
@@ -378,17 +505,107 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
                 eng, (BatchingEngine, PrefixCachingEngine, SpecDecodeEngine)):
             # the engine, the paged runner and the iteration batcher stop
             # at EOS checks; the admission batcher's, the prefix store's
-            # and the spec engine's rows are cut below, same reply
+            # and the spec engine's rows are cut by the caller, same reply
             kw["eos_id"] = eos_id
+        if deadline is not None:
+            # the iteration batcher honours the budget end to end (queue
+            # wait, cancellation at a segment boundary with the row's
+            # blocks freed); every runner refuses a spent one
+            deadline.raise_if_expired("generate")
+            if isinstance(eng, IterBatchingEngine):
+                kw["deadline"] = deadline
+        result = eng.generate(np.asarray(prompt_ids),
+                              max_new_tokens=req.max_new_tokens,
+                              sampling=sampling, generator=gen, **kw)
+        return [int(t) for t in result.row_tokens(0)]
+
+    @app.post("/generate")
+    def generate(req: GenerateReq, headers: dict):
+        # every reply, errors included, echoes the request id
+        rid, _ = parse_request_identity(headers)
+        hdrs = {"X-Request-ID": rid}
+
+        def out(body, status=200):
+            return status, body, hdrs
+
+        if cfg.shard_role != "coordinator":
+            return out({"error": "This instance is not coordinator."})
+        if req.max_new_tokens < 1:
+            return out({"error": "max_new_tokens must be >= 1"})
+        deadline, _, dl_err = parse_deadline_header(headers)
+        if dl_err:
+            return out({"error": dl_err}, status=400)
+        prompt_ids = tokenizer.encode(req.prompt)
+        if not prompt_ids:
+            return out({"error": "prompt tokenized to zero tokens"})
+        if len(prompt_ids) + req.max_new_tokens > cfg.max_seq:
+            return out({"error": f"prompt ({len(prompt_ids)} tokens) + "
+                        f"max_new_tokens ({req.max_new_tokens}) exceeds "
+                        f"max_seq ({cfg.max_seq})"})
+        if req.mode not in ("sample", "greedy"):
+            return out({"error": f"unknown mode {req.mode!r}"})
+        if req.mode == "sample":
+            if req.temperature <= 0:
+                return out({"error": "temperature must be > 0"})
+            if not 1 <= req.top_k <= config.vocab_size:
+                return out(
+                    {"error": f"top_k must be in [1, {config.vocab_size}]"})
+            if not 0.0 < req.top_p <= 1.0:
+                return out({"error": "top_p must be in (0, 1]"})
+        eos_id = None
+        if req.stop_at_eos or req.eos_token_id is not None:
+            eos_id = (req.eos_token_id if req.eos_token_id is not None
+                      else getattr(tokenizer, "eos_token_id", None))
+            if eos_id is None:
+                return out({"error": "stop_at_eos requested but the "
+                            "tokenizer has no eos_token_id; pass "
+                            "eos_token_id explicitly"})
+            if not 0 <= eos_id < config.vocab_size:
+                return out(
+                    {"error": f"eos_token_id {eos_id} out of vocab range"})
+        if kv_pool is not None:
+            # a request the pool cannot host, with the waiting line full,
+            # is shed with 429 + Retry-After rather than queued without
+            # bound; the solo paged runner sheds what the pool could not
+            # host right now
+            if isinstance(runner, IterBatchingEngine):
+                ok, retry = runner.admission_load(len(prompt_ids),
+                                                  req.max_new_tokens)
+            else:
+                need = kv_pool.allocator.blocks_for(
+                    len(prompt_ids) + req.max_new_tokens)
+                spike = graftfault.inject("serving.admission", "pool_spike")
+                ok = (spike is None
+                      and kv_pool.allocator.available() >= need)
+                retry = 1.0
+            if not ok:
+                REGISTRY.inc("kv_pool_admission_rejections_total")
+                hdrs["Retry-After"] = str(max(1, int(round(retry))))
+                return out({"error": "kv_pool_saturated",
+                            "detail": "KV memory pool cannot admit this "
+                                      "request; retry after the "
+                                      "indicated backoff"}, status=429)
         try:
-            result = eng.generate(np.asarray(prompt_ids),
-                                     max_new_tokens=req.max_new_tokens,
-                                     sampling=sampling, generator=gen, **kw)
+            if remote:
+                ids = _generate_remote(req, prompt_ids, eos_id, deadline)
+            else:
+                ids = _generate_local(req, prompt_ids, eos_id, deadline)
+        except UpstreamError as e:
+            # a dead, failing or misrouted shard: typed, never a local
+            # answer
+            log.warning("upstream failure: %s", e)
+            REGISTRY.inc("upstream_failures_total", shard=e.shard)
+            return out({"error": "upstream_failure", "shard": e.shard,
+                        "upstream": e.url, "detail": e.detail}, status=502)
         except graftfault.Unavailable as e:
-            return 503, {"error": e.code, "detail": str(e)}
+            hdrs["Retry-After"] = str(max(1, int(round(e.retry_after))))
+            return out({"error": e.code, "detail": str(e)}, status=503)
         except TimeoutError as e:
-            return 503, {"error": "timeout", "detail": str(e)}
-        ids = [int(t) for t in result.row_tokens(0)]
+            hdrs["Retry-After"] = "1"
+            return out({"error": "timeout", "detail": str(e)}, status=503)
+        except Exception as e:  # noqa: BLE001 - the id is still echoed
+            log.exception("generate failed")
+            return out({"detail": f"{type(e).__name__}: {e}"}, status=500)
         finish_reason = "length"
         if eos_id is not None:
             # truncate at the first EOS among the new tokens
@@ -396,32 +613,38 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
             if eos_id in new:
                 ids = ids[:len(prompt_ids) + new.index(eos_id)]
                 finish_reason = "stop"
-        log.info('{"event": "generate", "mode": "%s", "prompt_tokens": %d, '
-                 '"new_tokens": %d, "finish_reason": "%s"}', req.mode,
-                 len(prompt_ids), len(ids) - len(prompt_ids), finish_reason)
+        log.info('{"event": "generate", "mode": "%s", "request_id": "%s", '
+                 '"prompt_tokens": %d, "new_tokens": %d, '
+                 '"finish_reason": "%s"}', req.mode, rid, len(prompt_ids),
+                 len(ids) - len(prompt_ids), finish_reason)
         body = {"generated": tokenizer.decode(ids)}
         if eos_id is not None:
             body["finish_reason"] = finish_reason
-        return body
+        return out(body)
 
     return app
 
 
 def check_batching(cfg: ServingConfig, config) -> None:
-    """The JAX app's startup refusals that concern the batching,
-    chunked-prefill, prefix-cache, paged-pool and speculation knobs."""
-    if cfg.spec_decode > 0 and not (cfg.shard_role == "coordinator"
-                                    and cfg.dispatch == "local"):
+    """The JAX app's startup refusals that concern the dtype, batching,
+    chunked-prefill, prefix-cache, paged-pool and speculation knobs: each
+    applies to the coordinator's local decode path only."""
+    local = cfg.shard_role == "coordinator" and cfg.dispatch == "local"
+    if cfg.inference_dtype != "float32" and not local:
+        raise ValueError(
+            f"INFERENCE_DTYPE={cfg.inference_dtype} applies to the "
+            "coordinator's local decode path only; shard/remote roles "
+            "serve the fp32 parity endpoints")
+    if cfg.spec_decode > 0 and not local:
         raise ValueError(
             f"SPEC_DECODE={cfg.spec_decode} applies to the coordinator's "
             "local decode path only")
-    if cfg.prefix_cache > 0 and not (cfg.shard_role == "coordinator"
-                                     and cfg.dispatch == "local"):
+    if cfg.prefix_cache > 0 and not local:
         raise ValueError(
             f"PREFIX_CACHE={cfg.prefix_cache} applies to the "
             "coordinator's local decode path only")
     if cfg.kv_pool_blocks > 0:
-        if not (cfg.shard_role == "coordinator" and cfg.dispatch == "local"):
+        if not local:
             raise ValueError("KV_POOL_BLOCKS applies to the coordinator's "
                              "local decode path only")
         if cfg.prefill_chunk > 0:
@@ -445,21 +668,28 @@ def check_batching(cfg: ServingConfig, config) -> None:
                 "KV_POOL_BLOCKS requires window-independent routing "
                 f"(dense families); {type(config).__name__} serves "
                 "unpaged")
-    if cfg.batch_mode != "iter":
-        return
-    if cfg.max_batch <= 1:
-        raise ValueError("BATCH_MODE=iter requires MAX_BATCH > 1 "
-                         "(iteration-level scheduling is a batching "
-                         "policy)")
-    if not (cfg.shard_role == "coordinator" and cfg.dispatch == "local"):
-        raise ValueError("BATCH_MODE=iter applies to the coordinator's "
-                         "local decode path only")
-    if cfg.prefill_chunk > 0:
-        raise ValueError(
-            "BATCH_MODE=iter drives the single-device engine's segment "
-            "loop; PREFILL_CHUNK uses BATCH_MODE=admission")
-    if not is_window_independent(config):
-        raise ValueError(
-            "BATCH_MODE=iter requires window-independent routing "
-            f"(dense families); {type(config).__name__} batches via "
-            "BATCH_MODE=admission")
+    if cfg.batch_mode == "iter":
+        if cfg.max_batch <= 1:
+            raise ValueError("BATCH_MODE=iter requires MAX_BATCH > 1 "
+                             "(iteration-level scheduling is a batching "
+                             "policy)")
+        if not local:
+            raise ValueError("BATCH_MODE=iter applies to the coordinator's "
+                             "local decode path only")
+        if cfg.prefill_chunk > 0:
+            raise ValueError(
+                "BATCH_MODE=iter drives the single-device engine's segment "
+                "loop; PREFILL_CHUNK uses BATCH_MODE=admission")
+        if not is_window_independent(config):
+            raise ValueError(
+                "BATCH_MODE=iter requires window-independent routing "
+                f"(dense families); {type(config).__name__} batches via "
+                "BATCH_MODE=admission")
+    # the JAX app accepts these on a shard or a remote coordinator and
+    # ignores them; refused here, as a knob ignored in silence would be
+    for knob, value, on in (("MAX_BATCH", cfg.max_batch, cfg.max_batch > 1),
+                            ("PREFILL_CHUNK", cfg.prefill_chunk,
+                             cfg.prefill_chunk > 0)):
+        if on and not local:
+            raise ValueError(f"{knob}={value} applies to the "
+                             "coordinator's local decode path only")

@@ -7,8 +7,10 @@ in-process ``TestClient`` that runs the exact dispatch path.
 
 POST handlers may annotate one parameter with a dataclass; the JSON body
 is validated into it (HTTP 422 with ``{"detail": [...]}`` on failure,
-unknown keys ignored). They return a dict (200), ``(status, payload)``
-or ``(status, payload, headers)``; an uncaught exception answers 500.
+unknown keys ignored). A handler that declares a ``headers`` parameter
+receives the request headers as a dict with lower-cased names. Handlers
+return a dict (200), ``(status, payload)`` or ``(status, payload,
+headers)``; an uncaught exception answers 500.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import threading
 import typing
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -106,6 +109,7 @@ class JSONApp:
         return deco
 
     def handle(self, method: str, path: str, body: Optional[bytes],
+               headers: Optional[Dict[str, str]] = None,
                ) -> Tuple[int, Any, Dict[str, str]]:
         """``(status, payload, response headers)`` of one request."""
         route_path = urlsplit(path).path
@@ -115,9 +119,14 @@ class JSONApp:
                 return 405, {"detail": "Method Not Allowed"}, {}
             return 404, {"detail": "Not Found"}, {}
 
+        kwargs = {}
+        code = fn.__code__
+        if "headers" in code.co_varnames[:code.co_argcount]:
+            kwargs["headers"] = {k.lower(): v
+                                 for k, v in (headers or {}).items()}
         args = []
         hints = {k: v for k, v in typing.get_type_hints(fn).items()
-                 if k != "return"}
+                 if k not in ("return", "headers")}
         if hints:
             model = next(iter(hints.values()))
             if dataclasses.is_dataclass(model):
@@ -130,7 +139,7 @@ class JSONApp:
                 except ValidationError as e:
                     return 422, {"detail": e.errors}, {}
         try:
-            result = fn(*args)
+            result = fn(*args, **kwargs)
         except Exception as e:  # uncaught handler error -> 500
             logging.getLogger(__name__).exception("handler %s failed",
                                                   route_path)
@@ -162,24 +171,31 @@ class TestClient:
     def __init__(self, app: JSONApp):
         self.app = app
 
-    def get(self, path: str) -> Response:
-        return Response(*self.app.handle("GET", path, None))
+    def get(self, path: str,
+            headers: Optional[Dict[str, str]] = None) -> Response:
+        return Response(*self.app.handle("GET", path, None, headers))
 
-    def post(self, path: str, json: Any = None) -> Response:  # noqa: A002
+    def post(self, path: str, json: Any = None,  # noqa: A002
+             headers: Optional[Dict[str, str]] = None) -> Response:
         import json as _json
-        return Response(*self.app.handle("POST", path,
-                                         _json.dumps(json).encode()))
+        return Response(*self.app.handle(
+            "POST", path, _json.dumps(json).encode(), headers))
 
 
-def serve(app: JSONApp, host: str = "0.0.0.0", port: int = 5000) -> None:
-    """Serve over real sockets (threaded, one request per thread) until
-    the process ends."""
+def serve(app: JSONApp, host: str = "0.0.0.0", port: int = 5000,
+          block: bool = True) -> ThreadingHTTPServer:
+    """Serve over real sockets (threaded, one request per thread).
+
+    With ``block=False`` the server runs on a daemon thread and is
+    returned at once; the caller stops it with ``shutdown()`` (its bound
+    port is ``server_address[1]``, so ``port=0`` takes a free one)."""
 
     class Handler(BaseHTTPRequestHandler):
         def _dispatch(self, method: str):
             length = int(self.headers.get("Content-Length") or 0)
             body = self.rfile.read(length) if length else None
-            status, payload, headers = app.handle(method, self.path, body)
+            status, payload, headers = app.handle(
+                method, self.path, body, dict(self.headers.items()))
             data = json.dumps(payload).encode()
             self.send_response(status)
             for name, value in headers.items():
@@ -205,5 +221,10 @@ def serve(app: JSONApp, host: str = "0.0.0.0", port: int = 5000) -> None:
         # whole point), which then retry a second later
         request_queue_size = 128
 
-    with Server((host, port), Handler) as server:
-        server.serve_forever()
+    server = Server((host, port), Handler)
+    if block:
+        with server:
+            server.serve_forever()
+        return server
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server

@@ -6,7 +6,8 @@ server always builds the named architecture with seeded random weights
 and logs loudly that its output is untrained noise. ``MODEL_ID=gpt2``
 gives the full GPT-2 124M width, ``MODEL_ID=llama-124m`` the llama
 family's 124M geometry (12 layers, 12 query and 4 kv heads, 4096
-positions).
+positions). A ``DISPATCH=remote`` coordinator takes the configuration
+alone (``resolve_config``): its shards hold the weights.
 """
 
 from __future__ import annotations
@@ -31,15 +32,20 @@ FALLBACK_CONFIGS = {
 }
 
 
-def resolve_model(cfg: ServingConfig, device: torch.device,
-                  seed: int = 0) -> Tuple[object, Params]:
-    """``MODEL_ID`` -> (config, params drawn on ``device`` from ``seed``)."""
+def resolve_config(cfg: ServingConfig):
+    """``MODEL_ID`` -> its architecture's configuration, no weights."""
     if cfg.model_id not in FALLBACK_CONFIGS:
         raise RuntimeError(
             f"cannot load {cfg.model_id!r}: checkpoints and hub downloads "
             "are not ported, and no architecture is registered under that "
             f"name (known: {sorted(FALLBACK_CONFIGS)})")
-    config = FALLBACK_CONFIGS[cfg.model_id]
+    return FALLBACK_CONFIGS[cfg.model_id]
+
+
+def resolve_model(cfg: ServingConfig, device: torch.device,
+                  seed: int = 0) -> Tuple[object, Params]:
+    """``MODEL_ID`` -> (config, params drawn on ``device`` from ``seed``)."""
+    config = resolve_config(cfg)
     log.warning("no checkpoint for %s; using RANDOM-INIT %s weights "
                 "(seed %d) — output will be untrained noise",
                 cfg.model_id, config, seed)

@@ -3,7 +3,9 @@
 The same env names as the JAX package's ``utils/config.py``, parsed into
 one validated dataclass. The port honours ``MODEL_ID``, ``SHARD_ROLE``,
 ``SPLIT_AT``/``BOUNDARIES``, ``SHARD_PORT``, ``MAX_SEQ``,
-``INFERENCE_DTYPE``, ``DISPATCH=local``, the batching knobs
+``INFERENCE_DTYPE``, ``DISPATCH`` (``local``, or ``remote``: the
+coordinator relays each token through the shards named by
+``SHARD_A_SERVICE`` and ``SHARD_B_SERVICE``), the batching knobs
 ``MAX_BATCH``, ``BATCH_MODE`` and ``BATCH_WAIT_MS``, ``PREFILL_CHUNK``,
 the paged pool's ``KV_POOL_BLOCKS``, ``KV_BLOCK_SIZE`` and
 ``KV_POOL_DTYPE``, and the prefix store's ``PREFIX_CACHE`` and
@@ -36,7 +38,7 @@ def _is_str(*values: str) -> Callable[[str], bool]:
 # knob -> (the ROADMAP item that ports it, "is this value the default?")
 _MULTI = "ROADMAP Queue 1 item 13 (multi-device decode)"
 _FLEET = "ROADMAP Queue 1 item 15 (fleet, planning and observability)"
-_REMOTE = "ROADMAP Queue 1 item 16 (checkpoints and remote dispatch)"
+_CKPT = "ROADMAP Queue 1 item 16 (checkpoints)"
 REFUSED_KNOBS: Dict[str, Tuple[str, Callable[[str], bool]]] = {
     "PP_DECODE": (_MULTI, _is_off),
     "TP_DECODE": (_MULTI, _is_off),
@@ -46,10 +48,7 @@ REFUSED_KNOBS: Dict[str, Tuple[str, Callable[[str], bool]]] = {
     "AUTO_PLAN_TRAFFIC": (_FLEET, _is_str("")),
     "AUTO_PLAN_CONTINUOUS": (_FLEET, _is_off),
     "AUTO_PLAN_JOURNAL": (_FLEET, _is_str("")),
-    "CHECKPOINT_DIR": (_REMOTE, _is_str("")),
-    "DISPATCH": (_REMOTE, _is_str("", "local")),
-    "SHARD_A_SERVICE": (_REMOTE, _is_str("", "llm-shard-a")),
-    "SHARD_B_SERVICE": (_REMOTE, _is_str("", "llm-shard-b")),
+    "CHECKPOINT_DIR": (_CKPT, _is_str("")),
 }
 
 
@@ -60,11 +59,17 @@ class ServingConfig:
     model_id: str = "sshleifer/tiny-gpt2"
     shard_role: str = "coordinator"
     boundaries: tuple = (1,)
+    # the shards a DISPATCH=remote coordinator posts to: a host (the port
+    # is SHARD_PORT) or "host:port"
+    shard_a_service: str = "llm-shard-a"
+    shard_b_service: str = "llm-shard-b"
     shard_port: int = 5000
     max_seq: int = 512
     # "float32" (greedy-parity mode), "bfloat16", or "int8" (weight-only
     # int8, bf16 activations; served by the staged DecodeEngine)
     inference_dtype: str = "float32"
+    # "local": this process decodes; "remote": the coordinator relays
+    # /forward -> /forward_b through the shards, once per token
     dispatch: str = "local"
     # concurrent /generate requests share batched decodes when > 1
     max_batch: int = 1
@@ -99,10 +104,8 @@ class ServingConfig:
         if self.shard_role not in VALID_ROLES:
             raise ValueError(
                 f"SHARD_ROLE={self.shard_role!r} not in {VALID_ROLES}")
-        if self.dispatch != "local":
-            raise ValueError(
-                f"DISPATCH={self.dispatch!r}: only local dispatch is "
-                f"ported; remote dispatch waits for {_REMOTE}")
+        if self.dispatch not in ("local", "remote"):
+            raise ValueError(f"DISPATCH={self.dispatch!r} not local|remote")
         if not 1 <= self.shard_port <= 65535:
             raise ValueError(f"SHARD_PORT={self.shard_port} out of range")
         if not self.boundaries or list(self.boundaries) != sorted(
@@ -192,6 +195,21 @@ class ServingConfig:
         """Two-stage compat view (the reference's SPLIT_AT)."""
         return self.boundaries[0]
 
+    def _service_url(self, service: str) -> str:
+        # a service that carries its port ("127.0.0.1:5001") wins over
+        # SHARD_PORT
+        if ":" not in service:
+            service = f"{service}:{self.shard_port}"
+        return f"http://{service}"
+
+    @property
+    def shard_a_url(self) -> str:
+        return self._service_url(self.shard_a_service)
+
+    @property
+    def shard_b_url(self) -> str:
+        return self._service_url(self.shard_b_service)
+
 
 def _env_int(name: str, default: int) -> int:
     raw = os.environ.get(name)
@@ -248,6 +266,8 @@ def from_env() -> ServingConfig:
         model_id=os.environ.get("MODEL_ID", "sshleifer/tiny-gpt2"),
         shard_role=os.environ.get("SHARD_ROLE", "coordinator"),
         boundaries=boundaries,
+        shard_a_service=os.environ.get("SHARD_A_SERVICE", "llm-shard-a"),
+        shard_b_service=os.environ.get("SHARD_B_SERVICE", "llm-shard-b"),
         shard_port=_env_int("SHARD_PORT", 5000),
         max_seq=_env_int("MAX_SEQ", 512),
         inference_dtype=os.environ.get("INFERENCE_DTYPE", "float32"),

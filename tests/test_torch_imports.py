@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: it imports no JAX and nothing of the
-JAX package, and its served path needs neither pydantic nor transformers.
+JAX package, and its served path needs neither pydantic, transformers
+nor requests (remote dispatch relays over ``urllib``).
 """
 
 import ast
@@ -13,7 +14,7 @@ import llm_sharding_demo_tpu_torch as port
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(port.__file__)
 FORBIDDEN = ("jax", "jaxlib", "llm_sharding_demo_tpu", "optax", "pydantic",
-             "transformers")
+             "transformers", "requests")
 
 
 def _sources():
@@ -50,7 +51,8 @@ def test_port_imports_with_jax_blocked():
                  "ops.flash_attention", "training.train",
                  "ops.paged_attention", "ops.kv_quant", "runtime.kv_pool",
                  "runtime.prefix_cache", "runtime.kv_tier",
-                 "runtime.batcher", "runtime.spec_decode"):
+                 "runtime.batcher", "runtime.spec_decode",
+                 "utils.graftfault", "serving.http"):
         assert f"llm_sharding_demo_tpu_torch.{name}" in modules
     code = "; ".join([
         "import sys",
@@ -61,5 +63,47 @@ def test_port_imports_with_jax_blocked():
     ])
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+RELAY = """
+import sys
+for name in {forbidden!r}:
+    sys.modules[name] = None
+import torch
+from llm_sharding_demo_tpu_torch.models import gpt2
+from llm_sharding_demo_tpu_torch.serving.app import create_app
+from llm_sharding_demo_tpu_torch.serving.http import TestClient, serve
+from llm_sharding_demo_tpu_torch.serving.tokenizer import ByteTokenizer
+from llm_sharding_demo_tpu_torch.utils.config import ServingConfig
+cfg = gpt2.GPT2Config(vocab_size=64, n_positions=16, n_embd=32, n_layer=2,
+                      n_head=2)
+model = (cfg, gpt2.init_params(cfg, torch.Generator().manual_seed(0)))
+def app(**kw):
+    return create_app(ServingConfig(model_id="t", max_seq=16, **kw),
+                      model=model, tokenizer=ByteTokenizer(), device="cpu")
+shards = [serve(app(shard_role=r), host="127.0.0.1", port=0, block=False)
+          for r in ("a", "b")]
+a, b = (f"127.0.0.1:{{s.server_address[1]}}" for s in shards)
+coord = TestClient(app(dispatch="remote", shard_a_service=a,
+                       shard_b_service=b))
+body = {{"prompt": "\\x01", "max_new_tokens": 3, "mode": "greedy"}}
+r = coord.post("/generate", json=body, headers={{"X-Request-ID": "r1"}})
+assert r.status_code == 200 and r.headers["X-Request-ID"] == "r1", r.json()
+assert r.json() == TestClient(app()).post("/generate", json=body).json()
+for s in shards:
+    s.shutdown()
+print("ok")
+"""
+
+
+def test_remote_relay_runs_with_jax_blocked():
+    """The three-role topology (two shards over real sockets, a remote
+    coordinator relaying through them) serves a request in an
+    interpreter where the forbidden packages cannot be imported."""
+    out = subprocess.run(
+        [sys.executable, "-c", RELAY.format(forbidden=FORBIDDEN)], cwd=ROOT,
+        capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"

@@ -542,7 +542,8 @@ def test_serving_llama(model):
             ServingConfig(model_id="llama-test", shard_role=role, max_seq=64),
             model=(cfg, tp), tokenizer=ByteTokenizer(), device="cpu"))
         assert "dense GPT-2 only" in c.post(path, json=payload).json()["error"]
-    with pytest.raises(ValueError, match="DISPATCH"):
+    with pytest.raises(ValueError, match="DISPATCH=remote requires the "
+                       "dense GPT-2 stage-shard topology"):
         create_app(ServingConfig(model_id="llama-test", dispatch="remote"),
                    model=(cfg, tp), tokenizer=ByteTokenizer(), device="cpu")
     config, params = loader.resolve_model(ServingConfig(model_id="llama-tiny"),

@@ -140,12 +140,37 @@ def test_request_validation(weights):
     ("AUTO_PLAN_CONTINUOUS", "1"), ("PP_DECODE", "1"),
     ("TP_DECODE", "true"), ("EP_DECODE", "1"), ("AUTO_PLAN", "1"),
     ("FLEET_ROLE", "decode"), ("CHECKPOINT_DIR", "/ckpt"),
-    ("DISPATCH", "remote"),
+    ("AUTO_PLAN_JOURNAL", "/j"),
 ])
 def test_unported_knobs_refuse_at_startup(monkeypatch, knob, value):
     monkeypatch.setenv(knob, value)
     with pytest.raises(ValueError, match="ROADMAP Queue 1 item"):
         tconfig.from_env()
+
+
+@pytest.mark.parametrize("env", [
+    {"DISPATCH": "remote", "SHARD_A_SERVICE": "127.0.0.1:5001",
+     "SHARD_B_SERVICE": "shard-b", "SHARD_PORT": "5002"},
+    {"DISPATCH": "bogus"},
+])
+def test_dispatch_knobs_parse_and_validate_as_jax(monkeypatch, env):
+    """DISPATCH, SHARD_A_SERVICE and SHARD_B_SERVICE are served: they
+    parse as the JAX config parses them, and DISPATCH refuses anything
+    but local|remote with its message."""
+    from llm_sharding_demo_tpu.utils import config as jconfig
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    if env["DISPATCH"] == "bogus":
+        with pytest.raises(ValueError) as jerr:
+            jconfig.from_env()
+        with pytest.raises(ValueError, match="not local|remote") as terr:
+            tconfig.from_env()
+        assert str(terr.value) == str(jerr.value)
+        return
+    cfg, jc = tconfig.from_env(), jconfig.from_env()
+    assert (cfg.dispatch, cfg.shard_a_url, cfg.shard_b_url) == (
+        jc.dispatch, jc.shard_a_url, jc.shard_b_url) == (
+        "remote", "http://127.0.0.1:5001", "http://shard-b:5002")
 
 
 @pytest.mark.parametrize("env,at_startup", [
