@@ -151,6 +151,28 @@ which must pass or the script exits non-zero:
    naming it, then 503 ``circuit_open`` with Retry-After, and a 1 ms
    ``X-Deadline-Ms`` 503 ``deadline_exceeded``; ``X-Request-ID`` echoed
    on every reply.
+12. ckpt: ``utils.checkpoint.save`` writes GPT-2 124M (seed-0 fp32
+   weights) to a temporary directory (bytes and seconds printed); an
+   ``INFERENCE_DTYPE=int8`` coordinator and a ``SHARD_ROLE=a`` shard,
+   both started with ``CHECKPOINT_DIR``: the coordinator's greedy stream
+   (the mega path) equal, token for token, to an in-process int8 engine
+   on the seeded weights, with exact launches; shard a's ``/forward``
+   bit-equal to ``stage_apply`` here, having read only its stage's files
+   (from its log).
+13. moe: GPT-2-MoE at the JAX package's geometry (GPT-2 124M's attention,
+   8 experts, top 2; ~521M parameters) saved as an fp32 checkpoint and
+   loaded; the int8 engine ("auto" resolves to "layer": no whole-stack
+   kernel for the family) teacher-forced 48 positions at batch 1 (the
+   routed experts) and 8 (the dense dispatch) within ``decode.int8`` of
+   the int8 plain path, with exactly the launches its forwards predict
+   (decode attention, the int8 linear at c_attn and c_proj, the tied
+   head; no megakernel, no flash kernel); eager and device ms a token at
+   B 1 and 8 beside the B=1 step's bytes bound; an fp32
+   ``CHECKPOINT_DIR`` server's greedy stream equal to the in-process fp32
+   engine's; an int8 ``MAX_BATCH=8 BATCH_MODE=admission`` server taking a
+   wave of 8 (tokens/s, exact launches); ``BATCH_MODE=iter`` refused at
+   startup; three f32 ``MoETrainStep`` steps at B=2 x 256 tokens (losses
+   falling, step ms, peak memory).
 
 The last lines are the card's name and power limit, one JSON object with
 the kernels' numbers (each kernel's launches counted on the path that
@@ -158,8 +180,9 @@ runs it: each server for its whole-stack kernel, the GPT-2 "layer" int8
 engine run for the per-layer kernels, with the llama paths' counts
 beside them, each batched server's counts under ``batch_launches``, the prefix
 paths' under ``prefix_launches``, the spec paths' under ``spec_launches``,
-the three remote processes' under ``remote_launches``, the 5 bf16 train
-steps for the flash kernels), and
+the three remote processes' under ``remote_launches``, the checkpoint
+coordinator's under ``ckpt_launches``, the MoE paths' under
+``moe_launches``, the 5 bf16 train steps for the flash kernels), and
 ``{"ok": true, "device": {...}}``. ``--phases`` runs a subset (the
 default runs all).
 """
@@ -3455,6 +3478,417 @@ def remote_phase(smi: str) -> dict:
     return counts
 
 
+# -- phase 12: checkpoints ----------------------------------------------------
+
+def ckpt_room(directory: str, need: int) -> None:
+    """Fail clearly where ``directory``'s file system lacks room for a
+    ``need``-byte checkpoint (a quarter to spare)."""
+    import shutil
+
+    free = shutil.disk_usage(directory).free
+    check(free > need * 1.25,
+          f"{directory} has {free} bytes free; the checkpoint needs about "
+          f"{need}")
+
+
+def save_timed(directory: str, params, config):
+    """``checkpoint.save`` -> (bytes written, seconds)."""
+    from llm_sharding_demo_tpu_torch.utils import checkpoint
+
+    t0 = time.perf_counter()
+    checkpoint.save(directory, params, config)
+    secs = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(d, f))
+                 for d, _, files in os.walk(directory) for f in files)
+    return nbytes, secs
+
+
+def files_read(log_path: str):
+    """The files a shard's stage restore read, from its log."""
+    with open(log_path) as f:
+        for line in f:
+            if " read files " in line:
+                return json.loads(line.split(" read files ", 1)[1])
+    return None
+
+
+def ckpt_phase(smi: str) -> dict:
+    """``CHECKPOINT_DIR`` (module docstring, phase 12). Returns the
+    coordinator's launch counts."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from llm_sharding_demo_tpu_torch.parallel import partition as P_
+    from llm_sharding_demo_tpu_torch.runtime.engine import DecodeEngine
+    from llm_sharding_demo_tpu_torch.serving import loader
+    from llm_sharding_demo_tpu_torch.serving.tokenizer import ByteTokenizer
+    from llm_sharding_demo_tpu_torch.utils.config import ServingConfig
+
+    t0 = time.perf_counter()
+    config, params = loader.resolve_model(ServingConfig(model_id="gpt2"),
+                                          torch.device("cuda"))
+    tmp = tempfile.mkdtemp(prefix="smoke-ckpt-")
+    try:
+        ckpt_room(tmp, weight_bytes(params))
+        nbytes, secs = save_timed(tmp, params, config)
+        print(f"  checkpoint.save of GPT-2 124M fp32 (seed 0): {nbytes} bytes "
+              f"in {secs:.2f} s ({nbytes / secs / 1e9:.2f} GB/s) [{smi}]")
+        tok = ByteTokenizer()
+        prompt = "The checkpoint serves: "
+        eng = DecodeEngine(params, config, max_seq=NPOS, dtype="int8",
+                           boundaries=[1])
+        check(eng.decode_kernel_mode == "mega",
+              f"the int8 engine resolved to {eng.decode_kernel_mode}")
+        want = tok.decode([int(t) for t in eng.generate(
+            np.asarray(tok.encode(prompt)), 24).row_tokens(0)])
+        del eng
+        spec = P_.make_stage_specs(L, [1])[0]
+        ids = tok.encode(prompt)
+        with torch.inference_mode():
+            hidden, _ = P_.stage_apply(
+                P_.extract_stage_params(params, spec), spec, config,
+                torch.tensor([ids], device="cuda"))
+        want_hidden = hidden.float().cpu().tolist()
+        del params, hidden
+        torch.cuda.empty_cache()
+        ckpt = {"CHECKPOINT_DIR": tmp, "MODEL_ID": "gpt2"}
+        with serving_processes(
+                ("ckpt-coordinator", dict(ckpt, INFERENCE_DTYPE="int8",
+                                          MAX_SEQ=str(NPOS))),
+                ("ckpt-shard-a", dict(ckpt, SHARD_ROLE="a")),
+        ) as [(base, health, _), (a_url, a_health, _)]:
+            check(health["decode_kernel"] == "mega" and health["n_stages"] == 2
+                  and a_health["role"] == "a", f"healthz {health} {a_health}")
+            got = _http(base + "/generate", {"prompt": prompt,
+                                             "max_new_tokens": 24,
+                                             "mode": "greedy"})
+            got_hidden = _http(a_url + "/forward", {"input_ids": ids})
+            health = _http(base + "/healthz")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(got["generated"] == want,
+          "the CHECKPOINT_DIR int8 coordinator's greedy stream differs from "
+          "the in-process int8 engine on the seeded weights")
+    check(got_hidden["hidden_states"] == want_hidden,
+          "shard a's /forward differs from stage_apply run here")
+    read = files_read(os.path.join(LOG_DIR, "ckpt-shard-a.log"))
+    check(read == ["params/blocks/0.pt", "params/wte.pt", "params/wpe.pt"],
+          f"shard a read {read}")
+    counts = health["kernel_launches"]
+    want_counts = expected_launches(health["forward_shapes"], False, 2)
+    check(counts == want_counts, f"coordinator launches {counts}, expected "
+                                 f"{want_counts}")
+    print(f"  CHECKPOINT_DIR int8 coordinator (mega): greedy 24 tokens equal "
+          f"to the in-process int8 engine on the seeded weights; launches "
+          f"{counts}; shard a: /forward bit-equal to stage_apply, read "
+          f"{read}")
+    print(f"  [ckpt] {time.perf_counter() - t0:.1f} s wall [{smi}]")
+    return {"coordinator": counts}
+
+
+# -- phase 13: the MoE family ------------------------------------------------
+
+# the JAX package's MoE geometry (bench.py): GPT-2 124M's attention with 8
+# experts a block, the top 2 taken
+MOE_CFG = dict(vocab_size=V, n_positions=NPOS, n_embd=D, n_layer=L,
+               n_head=H, n_experts=8, expert_top_k=2, capacity_factor=1.25)
+MOE_WAVE = 8
+MOE_WAVE_TOKENS = 64
+MOE_TRAIN = (2, 256)     # batch, tokens of the f32 train steps
+
+
+def expected_moe_launches(shapes: dict) -> dict:
+    """The launches an int8 MoE "layer" engine's cached forwards must show
+    (``{(B, T) or "BxT": forwards}``): decode attention on every layer of
+    a single-token step; at <= 16 rows in all, the int8 linear at c_attn
+    and c_proj of every layer (the router's 8 outputs and the experts
+    take the plain matmul) and the int8 tied head once."""
+    from llm_sharding_demo_tpu_torch.ops import cuda_build
+    from llm_sharding_demo_tpu_torch.ops.quant import MAX_KERNEL_ROWS
+
+    want = {k.name: 0 for k in cuda_build.KERNELS}
+    for key, n in shapes.items():
+        b, t = ((int(v) for v in key.split("x")) if isinstance(key, str)
+                else key)
+        if t == 1:
+            want["decode_attention"] += L * n
+        if b * t <= MAX_KERNEL_ROWS:
+            want["quant_linear"] += 2 * L * n
+            want["quant_head"] += n
+    return want
+
+
+# a routing flip between two paths is a near tie when the flipped gap
+# between the k-th and the (k+1)-th router logit is at most 4 bf16 ulps
+# of a logit in [1, 2) (the int8 and bf16 paths round router logits to
+# bf16; the kernels and the plain path round earlier activations apart)
+MOE_NEAR_TIE = 2.0 ** -5
+
+
+@contextlib.contextmanager
+def routing_tape(tape: list, replay: bool = False):
+    """Record each ``moe._topk_gates`` call's gates and choices on
+    ``tape``, or, with ``replay``, make each call take the recorded
+    choices in order (the weights from its own gates): teacher-forced
+    routing, so that two paths' logits differ by their numerics alone.
+    A replaying call's own choices are compared with the recorded ones;
+    yields the list of flips ``(call, tokens flipped, largest recorded
+    logit gap among them)``."""
+    from llm_sharding_demo_tpu_torch.models import moe
+
+    real = moe._topk_gates
+    flips, pos = [], [0]
+
+    def record(gates, e, k, token_valid=None):
+        out = real(gates, e, k, token_valid)
+        tape.append((gates.detach().clone(), [i.clone() for i in out[0]]))
+        return out
+
+    def forced(gates, e, k, token_valid=None):
+        want_gates, want = tape[pos[0]]
+        own = real(gates, e, k, token_valid)[0]
+        differ = choices_differ(own, want)
+        if differ is not None:
+            # the recorded path's logit gap between its k-th and (k+1)-th
+            # choice, at each flipped token
+            logits = want_gates.clamp_min(1e-30).log()
+            top = logits.topk(k + 1, dim=-1).values
+            gap = (top[..., k - 1] - top[..., k])[differ]
+            flips.append((pos[0], int(differ.sum()), float(gap.max())))
+        pos[0] += 1
+        sel_gates, idxs, onehots, weights = gates, [], [], []
+        for idx in want:
+            oh = moe._one_hot(idx, e, gates.dtype)
+            if token_valid is not None:
+                oh = oh * token_valid[..., None].to(gates.dtype)
+            idxs.append(idx)
+            onehots.append(oh)
+            weights.append((sel_gates * oh).sum(-1))
+            sel_gates = sel_gates * (1.0 - oh)
+        import torch
+        w = torch.stack(weights)
+        w = w / torch.clamp(w.sum(0, keepdim=True), min=1e-9)
+        return idxs, onehots, w
+
+    moe._topk_gates = forced if replay else record
+    try:
+        yield flips
+    finally:
+        moe._topk_gates = real
+
+
+def choices_differ(own, want):
+    """A ``[B, S]`` mask of the tokens whose choice sets differ, or None."""
+    import torch
+
+    a = torch.sort(torch.stack(own), dim=0).values
+    b = torch.sort(torch.stack(want), dim=0).values
+    mask = (a != b).any(0)
+    return mask if bool(mask.any()) else None
+
+
+def moe_step_bytes(qparams, cfg) -> int:
+    """Bytes a batch-1 routed int8 decode step must stream: every layer's
+    attention, router and k of the E experts, and the head table."""
+    blocks = qparams.get("stacked_blocks", qparams["blocks"])
+    k_of_e = cfg.expert_top_k / cfg.n_experts
+    return int(weight_bytes({n: blocks[n] for n in ("ln_1", "attn", "ln_2")})
+               + weight_bytes(blocks["moe"]["router"])
+               + k_of_e * weight_bytes(blocks["moe"]["experts"])
+               + weight_bytes(qparams["wte"]) + weight_bytes(qparams["ln_f"]))
+
+
+def moe_phase(smi: str) -> dict:
+    """GPT-2-MoE from a checkpoint (module docstring, phase 13). Returns
+    the launch counts of the int8 engine run and of the batched server."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from llm_sharding_demo_tpu_torch.models import moe
+    from llm_sharding_demo_tpu_torch.ops import cuda_build
+    from llm_sharding_demo_tpu_torch.runtime.engine import DecodeEngine
+    from llm_sharding_demo_tpu_torch.serving.app import create_app
+    from llm_sharding_demo_tpu_torch.serving.tokenizer import ByteTokenizer
+    from llm_sharding_demo_tpu_torch.training import train
+    from llm_sharding_demo_tpu_torch.utils import checkpoint, graftnum
+    from llm_sharding_demo_tpu_torch.utils.config import ServingConfig
+
+    t0 = time.perf_counter()
+    cfg = moe.MoEConfig(**MOE_CFG)
+    params = moe.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    n_params = weight_bytes(params) // 4    # fp32
+    tmp = tempfile.mkdtemp(prefix="smoke-moe-")
+    try:
+        ckpt_room(tmp, weight_bytes(params))
+        nbytes, secs = save_timed(tmp, params, cfg)
+        del params
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        lcfg, params = checkpoint.load(tmp)
+        t_load = time.perf_counter() - t1
+        check(lcfg == cfg, f"checkpoint config {lcfg}")
+        print(f"  GPT-2-MoE ({n_params} parameters) fp32 checkpoint: "
+              f"{nbytes} bytes saved in {secs:.2f} s, loaded in "
+              f"{t_load:.2f} s [{smi}]")
+        eng = DecodeEngine(params, cfg, max_seq=NPOS, dtype="int8")
+        plain = DecodeEngine(params, cfg, max_seq=NPOS, dtype="int8",
+                             decode_kernel="xla")
+        check(eng.decode_kernel_mode == "layer",
+              f"int8 MoE 'auto' resolved to {eng.decode_kernel_mode}")
+        bound = moe_step_bytes(eng.params, cfg) / HBM_BYTES_PER_S * 1e3
+        rng = np.random.default_rng(17)
+        runs = {}
+        for batch in (1, 8):
+            prompts = [rng.integers(0, V, 16 if batch == 1 else int(n)
+                                    ).tolist()
+                       for n in rng.integers(8, 17, batch)]
+            forced = rng.integers(0, V, (batch, 48)).tolist()
+            # the plain path's routing, recorded, then replayed on the
+            # kernel path: the logits then differ by numerics alone, and
+            # every choice the kernel path would make otherwise must sit
+            # at a near tie
+            tape = []
+            with routing_tape(tape):
+                lp = tf_rows(plain, prompts, forced)
+            cuda_build.reset_launch_counts()
+            eng._forward_shapes.clear()
+            with routing_tape(tape, replay=True) as flips:
+                lk = tf_rows(eng, prompts, forced)
+            counts = cuda_build.launch_counts()
+            want = expected_moe_launches(eng.forward_shapes())
+            check(counts == want, f"MoE int8 B={batch} launches {counts}, "
+                                  f"expected {want}")
+            check(bool(torch.isfinite(lk).all())
+                  and tuple(lk.shape) == (batch, 48, V),
+                  f"MoE B={batch}: logits {tuple(lk.shape)} not finite")
+            rep = graftnum.compare("decode.int8", lk.reshape(-1, V),
+                                   lp.reshape(-1, V))
+            wide = [f for f in flips if f[2] > MOE_NEAR_TIE]
+            check(not wide, f"MoE B={batch}: routing flips away from a near "
+                            f"tie (call, tokens, logit gap): {wide}")
+            runs[batch] = counts
+            print(f"  MoE int8 'layer' vs the int8 plain path, B={batch} "
+                  f"({'routed' if batch * 2 <= 8 else 'dense dispatch'}), "
+                  f"{rep['n_positions']} teacher-forced positions, the plain "
+                  f"path's routing replayed ({len(tape)} routings): "
+                  f"logit_mse={rep['logit_mse']:.3e} (cap "
+                  f"{rep['policy']['logit_mse']:.0e}) top1_agreement="
+                  f"{rep['top1_agreement']:.4f}; the kernel path's own "
+                  f"choices part from it in {len(flips)} routings, "
+                  f"{sum(f[1] for f in flips)} tokens, largest logit gap "
+                  f"{max((f[2] for f in flips), default=0.0):.3e} (near tie "
+                  f"<= {MOE_NEAR_TIE:.3e}); launches {counts} [{smi}]")
+            # unforced, both paths route themselves: printed, not held
+            lu = tf_rows(eng, prompts, forced)
+            mse = float(((lu - lp) ** 2).mean())
+            print(f"  MoE int8 B={batch} unforced routing: logit_mse "
+                  f"{mse:.3e} against the plain path [{smi}]")
+        for batch in (1, 8):
+            ids = rng.integers(0, V, (batch, 32))
+            times = {}
+            for mode, e in (("layer", eng), ("xla", plain)):
+                e.generate(ids, 8)   # warm-up
+                r = e.generate(ids, 33)
+                eager, device = step_ms(e, ids)
+                times[mode] = (r.per_token_latency * 1e3, eager, device)
+            print(f"  MoE int8 decode B={batch}, 33 new tokens after 32: "
+                  + "; ".join(
+                      f"{mode} {t:.3f} ms/token, one step {e:.3f} ms eager "
+                      f"vs {d:.3f} ms device (busy {d / e:.1%})"
+                      for mode, (t, e, d) in times.items())
+                  + (f"; the B=1 step's bytes bound {bound:.4f} ms"
+                     if batch == 1 else "") + f" [{smi}]")
+        del eng, plain
+        torch.cuda.empty_cache()
+        # the servers on the checkpoint, and the fp32 stream in process
+        tok = ByteTokenizer()
+        prompt = "Experts route: "
+        ref = DecodeEngine(params, cfg, max_seq=NPOS, dtype="float32")
+        want = tok.decode([int(t) for t in ref.generate(
+            np.asarray(tok.encode(prompt)), 24).row_tokens(0)])
+        del ref
+        torch.cuda.empty_cache()
+        ckpt = {"CHECKPOINT_DIR": tmp, "MODEL_ID": "gpt2-moe",
+                "MAX_SEQ": str(NPOS)}
+        wave = [f"Wave request {i}: " + "x" * i for i in range(MOE_WAVE)]
+        with serving_processes(
+                ("moe-fp32", ckpt),
+                ("moe-int8-admission", dict(
+                    ckpt, INFERENCE_DTYPE="int8", MAX_BATCH=str(MOE_WAVE),
+                    BATCH_MODE="admission", BATCH_WAIT_MS="50")),
+        ) as [(f_url, f_health, _), (b_url, b_health, _)]:
+            check(f_health["decode_kernel"] == "xla"
+                  and f_health["n_stages"] == 1
+                  and b_health["decode_kernel"] == "layer"
+                  and b_health["n_stages"] == 1,
+                  f"healthz {f_health} {b_health}")
+            got = _http(f_url + "/generate", {"prompt": prompt,
+                                              "max_new_tokens": 24,
+                                              "mode": "greedy"})
+            _http(b_url + "/generate", {"prompt": wave[0],
+                                        "max_new_tokens": 8,
+                                        "mode": "greedy"})   # warm-up
+            tw = time.perf_counter()
+            replies = _threads(lambda i: _http(b_url + "/generate", {
+                "prompt": wave[i], "max_new_tokens": MOE_WAVE_TOKENS,
+                "mode": "greedy"}), MOE_WAVE)
+            wall = time.perf_counter() - tw
+            health = _http(b_url + "/healthz")
+        check(got["generated"] == want,
+              "the fp32 CHECKPOINT_DIR MoE server's greedy stream differs "
+              "from the in-process fp32 engine's")
+        for p, r in zip(wave, replies):
+            check(r["generated"].startswith(p), f"bad wave reply {r}")
+        server_counts = health["kernel_launches"]
+        want = expected_moe_launches(health["forward_shapes"])
+        check(server_counts == want, f"MoE int8 server launches "
+                                     f"{server_counts}, expected {want}")
+        print(f"  fp32 CHECKPOINT_DIR MoE server: greedy 24 tokens equal to "
+              f"the in-process fp32 engine; int8 MAX_BATCH={MOE_WAVE} "
+              f"admission server ('layer'): a wave of {MOE_WAVE} x "
+              f"{MOE_WAVE_TOKENS} tokens in {wall:.2f} s = "
+              f"{MOE_WAVE * MOE_WAVE_TOKENS / wall:.1f} tokens/s, forwards "
+              f"{health['forward_shapes']}, launches {server_counts} [{smi}]")
+        try:
+            create_app(ServingConfig(model_id="moe", max_batch=8,
+                                     batch_mode="iter", max_seq=NPOS),
+                       model=(cfg, params), tokenizer=tok)
+            check(False, "BATCH_MODE=iter with MoE started")
+        except ValueError as e:
+            check("window-independent" in str(e), f"iter refusal: {e}")
+        # three f32 train steps at full width
+        step = train.MoETrainStep(cfg, train.adamw(1e-3), device="cuda")
+        p, s = step.init(params)
+        del params
+        ids = rng.integers(0, V, MOE_TRAIN)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for _ in range(3):
+            ts = time.perf_counter()
+            p, s, loss = step(p, s, ids)
+            losses.append(float(loss))
+            times.append((time.perf_counter() - ts) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        check(all(np.isfinite(losses)) and losses[2] < losses[0],
+              f"MoE train losses {losses}")
+        print(f"  MoETrainStep f32, B={MOE_TRAIN[0]} x {MOE_TRAIN[1]} tokens: "
+              f"losses {[round(x, 4) for x in losses]}, step ms "
+              f"{[round(x, 1) for x in times]}, peak memory {peak} bytes "
+              f"[{smi}]")
+        del p, s, step
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"  [moe] {time.perf_counter() - t0:.1f} s wall [{smi}]")
+    return {"int8 engine B=1": runs[1], "int8 engine B=8": runs[8],
+            "int8 admission server": server_counts}
+
+
 # -- main ----------------------------------------------------------------------
 
 def kernel_name(mangled: str) -> str:
@@ -3564,9 +3998,10 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases",
                         default="kernels,flash,engine,server,batch,train,"
-                                "paged,prefix,spec,remote",
+                                "paged,prefix,spec,remote,ckpt,moe",
                         help="comma-separated subset of kernels,flash,engine,"
-                             "server,batch,train,paged,prefix,spec,remote")
+                             "server,batch,train,paged,prefix,spec,remote,"
+                             "ckpt,moe")
     phases = set(parser.parse_args().phases.split(","))
 
     t_start = time.perf_counter()
@@ -3670,6 +4105,16 @@ def main() -> int:
               "coordinator relaying /forward -> /forward_b, then shard b "
               "down")
         remote_launches = remote_phase(smi)
+    ckpt_launches = {}
+    if "ckpt" in phases:
+        print("[ckpt] CHECKPOINT_DIR: GPT-2 124M saved, an int8 coordinator "
+              "and shard a serving it")
+        ckpt_launches = ckpt_phase(smi)
+    moe_launches = {}
+    if "moe" in phases:
+        print("[moe] GPT-2-MoE from a checkpoint: int8 'layer' vs plain, "
+              "timing, fp32 and batched int8 servers, train steps")
+        moe_launches = moe_phase(smi)
 
     sources = {"decode_attention": "csrc/decode_attention.cu",
                "quant_linear": "csrc/quant.cu",
@@ -3718,6 +4163,10 @@ def main() -> int:
                               for where, c in spec_launches.items()},
             "remote_launches": {where: c[k.name]
                                 for where, c in remote_launches.items()},
+            "ckpt_launches": {where: c[k.name]
+                              for where, c in ckpt_launches.items()},
+            "moe_launches": {where: c[k.name]
+                             for where, c in moe_launches.items()},
             "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
             "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
             "bound_by": r.get("bound_by"),

@@ -1,37 +1,43 @@
 """Model families and the family registry.
 
-GPT-2 and the llama family are ported; the JAX package's MoE family
-waits for the MoE half of ROADMAP Queue 1 item 12.
+Every family module exposes ``init_params`` / ``forward`` /
+``forward_with_cache`` / ``make_cache`` over a stacked-block parameter
+dict, so the runtime dispatches on the config object alone
+(``family_module``). GPT-2, the llama family and GPT-2-MoE are ported.
 """
 
 from __future__ import annotations
 
-MOE_ITEM = "ROADMAP Queue 1 item 12 (its MoE half: models/moe.py)"
-
 
 def family_module(config):
-    """Config dataclass -> the model module implementing it."""
-    from . import gpt2, llama
+    """Config dataclass -> the model module implementing it. MoEConfig
+    subclasses GPT2Config, so it is tested first."""
+    from . import gpt2, llama, moe
+    if isinstance(config, moe.MoEConfig):
+        return moe
     if isinstance(config, llama.LlamaConfig):
         return llama
     if isinstance(config, gpt2.GPT2Config):
         return gpt2
-    raise NotImplementedError(
-        f"model family {type(config).__name__} is not ported to PyTorch "
-        f"yet; it waits for {MOE_ITEM}")
+    raise TypeError(f"unknown model config type {type(config).__name__}")
+
+
+def is_moe(config) -> bool:
+    from . import moe
+    return isinstance(config, moe.MoEConfig)
 
 
 def is_partitionable(config) -> bool:
     """Whether the reference's GPT-2 stage-shard wire topology applies
-    (``/forward`` + ``/forward_b``, remote dispatch): dense GPT-2 only,
-    by design."""
+    (``/forward`` + ``/forward_b``, remote dispatch, a shard's partial
+    restore): dense GPT-2 only, by design."""
     from . import gpt2
-    return isinstance(config, gpt2.GPT2Config)
+    return isinstance(config, gpt2.GPT2Config) and not is_moe(config)
 
 
 def is_stage_partitionable(config) -> bool:
     """Whether ``parallel.partition`` can stage this family's tree (the
-    one staging predicate): GPT-2 and llama."""
+    one staging predicate): GPT-2 and llama; MoE decodes unstaged."""
     from . import llama
     return is_partitionable(config) or isinstance(config, llama.LlamaConfig)
 
@@ -39,9 +45,9 @@ def is_stage_partitionable(config) -> bool:
 def is_window_independent(config) -> bool:
     """Whether a token's logits do not depend on which other tokens share
     its forward window: the property behind every exactness contract
-    that replays tokens in other window shapes (chunked prefill, a
-    batcher's joins). The dense families are; the JAX package's MoE
-    family, whose capacity routing makes tokens compete within a window,
-    is not, and ``family_module`` refuses it."""
+    that replays tokens in other window shapes (chunked prefill,
+    speculation, the prefix store, a batcher's joins). The dense
+    families are; MoE's capacity routing makes tokens compete within a
+    window, so it is not."""
     family_module(config)
-    return True
+    return not is_moe(config)

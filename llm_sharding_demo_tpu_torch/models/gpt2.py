@@ -182,7 +182,7 @@ def _block(p: Params, h: torch.Tensor, n_head: int, eps: float,
            cache: Optional[KVCache] = None, layer_idx: int = 0,
            offset: int = 0, k_valid_from: Optional[torch.Tensor] = None,
            decode_kernel: Optional[str] = None, attn_impl: str = "xla",
-           flash_prefill: bool = False) -> torch.Tensor:
+           flash_prefill: bool = False, mlp_fn=None) -> torch.Tensor:
     """One pre-LN transformer block; with ``cache``, writes this layer's
     K/V at ``offset`` in place and attends over the written prefix.
 
@@ -192,7 +192,10 @@ def _block(p: Params, h: torch.Tensor, n_head: int, eps: float,
     is the plain path. ``attn_impl`` picks the
     no-cache attention (``ops.flash_attention.self_attention``).
     ``flash_prefill`` (a fresh-cache prefill: offset 0, no pad) writes
-    the cache, then runs the flash kernel over the new K/V alone."""
+    the cache, then runs the flash kernel over the new K/V alone.
+    ``mlp_fn(p, m) -> mlp_out`` swaps the dense MLP for another
+    feed-forward (``models.moe`` passes its expert MLP), so the attention
+    half exists once for both families."""
     kernels = decode_kernel is not None
     a = layer_norm(h, p["ln_1"]["scale"], p["ln_1"]["bias"], eps)
     qkv = linear(a, p["attn"]["c_attn"]["kernel"], p["attn"]["c_attn"]["bias"],
@@ -218,6 +221,8 @@ def _block(p: Params, h: torch.Tensor, n_head: int, eps: float,
                   p["attn"]["c_proj"]["bias"], kernels)
     h = h + attn
     m = layer_norm(h, p["ln_2"]["scale"], p["ln_2"]["bias"], eps)
+    if mlp_fn is not None:
+        return h + mlp_fn(p, m)
     m = linear(gelu_new(linear(m, p["mlp"]["c_fc"]["kernel"],
                                p["mlp"]["c_fc"]["bias"], kernels)),
                p["mlp"]["c_proj"]["kernel"], p["mlp"]["c_proj"]["bias"],

@@ -34,7 +34,8 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..models import family_module, is_window_independent, llama
+from ..models import (family_module, gpt2, is_stage_partitionable,
+                      is_window_independent, llama)
 from ..models.gpt2 import Params, map_params, unstack_params
 from ..ops.attention import create_fused_cache
 from ..ops import decode_layer as DL
@@ -268,7 +269,8 @@ def resolve_decode_kernel(decode_kernel: str, config, max_seq: int,
     on the CPU both run the kernels' plain versions. Kernel modes round
     the cache up to whole 256-slot blocks, capped at ``n_positions``.
     The megakernel's rule is the family's: ``decode_layer.eligible`` for
-    GPT-2, ``decode_layer.llama_eligible`` for llama."""
+    GPT-2, ``decode_layer.llama_eligible`` for llama; MoE has none, so
+    "auto" gives it "layer"."""
     check_decode_kernel(decode_kernel)
     want = decode_kernel in ("layer", "mega") or (
         decode_kernel == "auto" and on_cuda and regime != "float32")
@@ -279,9 +281,18 @@ def resolve_decode_kernel(decode_kernel: str, config, max_seq: int,
     # rule is the per-layer kernel's plus a 128-aligned width
     layer_ok = eligible(rounded, config.head_dim, 1) and (
         not on_cuda or config.head_dim == KERNEL_HEAD_DIM)
-    mega_ok = (DL.llama_eligible if isinstance(config, llama.LlamaConfig)
-               else DL.eligible)(config, rounded)
+    # the megakernel rule keys on the family module: MoE subclasses the
+    # GPT-2 config but has no whole-stack kernel
+    model = family_module(config)
+    mega_ok = ((model is gpt2 and DL.eligible(config, rounded))
+               or (model is llama and DL.llama_eligible(config, rounded)))
     if decode_kernel == "mega":
+        if model not in (gpt2, llama):
+            raise ValueError(
+                "decode_kernel='mega' requested but the megakernel is "
+                f"ineligible here: it needs a GPT-2/llama engine, and "
+                f"{type(config).__name__} has no whole-stack kernel "
+                "('layer' runs its per-layer kernels)")
         if not mega_ok:
             raise ValueError(
                 f"decode_kernel='mega' requested but the megakernel is "
@@ -312,9 +323,10 @@ def resolve_decode_kernel(decode_kernel: str, config, max_seq: int,
 
 
 class DecodeEngine:
-    """Single-model decode engine for either ported family (``config`` a
-    ``GPT2Config`` or a ``LlamaConfig``; ``models.family_module`` picks
-    the model functions).
+    """Single-model decode engine for every ported family (``config`` a
+    ``GPT2Config``, ``LlamaConfig`` or ``MoEConfig``;
+    ``models.family_module`` picks the model functions). MoE decodes
+    unstaged, prefills monolithically and has no whole-stack kernel.
 
     ``dtype`` is the inference regime: ``float32`` (the greedy-parity
     mode), ``bfloat16``, or ``int8`` (weight-only int8 with per-channel
@@ -365,10 +377,16 @@ class DecodeEngine:
                 # a window-dependent router would route C-token windows
                 # differently from the monolithic prefill
                 raise NotImplementedError(
-                    "prefill_chunk requires window-independent routing")
+                    "prefill_chunk requires window-independent routing; "
+                    "MoE models prefill monolithically")
         self.prefill_chunk = prefill_chunk
         check_decode_kernel(decode_kernel)
         self._model = family_module(config)
+        if boundaries is not None and not is_stage_partitionable(config):
+            raise NotImplementedError(
+                "pipeline stage partitioning (boundaries) covers the "
+                "dense GPT-2 and llama param trees; "
+                f"{type(config).__name__} models decode unstaged")
         self.device = resolve_device(device)
         self.regime = regime_of(dtype)
         self.dtype = torch_dtype(self.regime)

@@ -287,7 +287,9 @@ class IterBatchingEngine:
         if not is_window_independent(engine.config):
             raise NotImplementedError(
                 "iteration-level batching requires window-independent "
-                "routing")
+                "routing (a joined MoE row's tokens could depend on "
+                "batch composition); MoE serves via the admission "
+                "batcher")
         if engine.prefill_chunk:
             raise NotImplementedError(
                 "iteration-level batching prefills admissions solo at "

@@ -74,8 +74,7 @@ class PrefixCachingEngine:
 
     def __init__(self, engine: DecodeEngine, capacity: int = 4,
                  chunk: int = 64, spec=None, pool=None):
-        if (hasattr(engine.config, "n_experts")
-                or not is_window_independent(engine.config)):
+        if not is_window_independent(engine.config):
             raise NotImplementedError(
                 "prefix caching replays the prompt in chunk windows; MoE "
                 "capacity-factor routing is window-dependent, so the "

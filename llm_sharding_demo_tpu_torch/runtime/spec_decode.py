@@ -128,7 +128,7 @@ class SpecDecodeEngine:
                  draft_len: int = 6, ngram: int = 2,
                  prefill_chunk: Optional[int] = None,
                  device: DeviceLike = None):
-        if hasattr(config, "n_experts") or not is_window_independent(config):
+        if not is_window_independent(config):
             # a semantic gap, not an unported piece: a (K+1)-token verify
             # must route as the plain engine's single-token steps do
             raise NotImplementedError(

@@ -21,6 +21,14 @@ takes the engine so that its decode steps run the kernels.) With
 (``BATCH_MODE=admission``, ``runtime.batcher``) or the iteration-level
 batcher (``BATCH_MODE=iter``, ``runtime.iterbatch``).
 
+``CHECKPOINT_DIR`` serves a ``utils.checkpoint`` directory and its
+tokenizer assets (``serving.loader``). A GPT-2-MoE model decodes on an
+unstaged ``DecodeEngine`` in every dtype (the per-layer kernels for bf16
+and int8 on the card); its stage endpoints decline, and
+``DISPATCH=remote``, ``BATCH_MODE=iter``, ``KV_POOL_BLOCKS``,
+``PREFILL_CHUNK``, ``PREFIX_CACHE`` and ``SPEC_DECODE`` refuse it, as in
+the JAX app.
+
 ``KV_POOL_BLOCKS > 0`` pages the KV cache (``runtime.kv_pool``): an
 unstaged engine, its pool (``KVBlockPool.for_engine``), and
 ``PagedKVRunner`` at ``MAX_BATCH=1`` or the iteration batcher over the
@@ -85,7 +93,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models import is_partitionable, is_window_independent
+from ..models import (is_partitionable, is_stage_partitionable,
+                      is_window_independent)
 from ..models.gpt2 import map_params
 from ..ops import cuda_build
 from ..parallel import partition as P_
@@ -218,20 +227,21 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
                tokenizer=None, device: DeviceLike = None) -> JSONApp:
     """Build the app. ``model=(config, params)`` and ``tokenizer`` are
     injectable for tests; by default the model comes from
-    ``serving.loader`` and the byte tokenizer serves. ``device`` is
+    ``serving.loader`` (role-aware: a shard with a checkpoint restores
+    only its stage, a remote coordinator only the configuration) and the
+    tokenizer from the checkpoint's assets, else bytes. ``device`` is
     ``cuda`` unless given."""
     cfg = cfg or from_env()
     dev = resolve_device(device)
-    # a remote coordinator relays to the shards, which hold the weights:
-    # it reads the configuration only
+    # a remote coordinator relays to the shards, which hold the weights
     remote = cfg.shard_role == "coordinator" and cfg.dispatch == "remote"
+    stage_only = None
     if model is not None:
         config, params = model
-    elif remote:
-        config, params = loader.resolve_config(cfg), None
     else:
-        config, params = loader.resolve_model(cfg, dev)
-    tokenizer = tokenizer or get_tokenizer(cfg.model_id)
+        config, params, stage_only = loader.resolve_for_role(cfg, dev)
+    tokenizer = tokenizer or get_tokenizer(cfg.model_id,
+                                           checkpoint_dir=cfg.checkpoint_dir)
 
     n_layer = config.n_layer
     for b in cfg.boundaries:
@@ -239,8 +249,11 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
             raise ValueError(
                 f"boundary {b} out of range for n_layer={n_layer}")
     # the reference's two-stage wire topology (/forward, /forward_b) is
-    # dense GPT-2 only; other families answer /generate alone
+    # dense GPT-2 only; other families answer /generate alone.
+    # ``stageable``: whether the engine can stage the family at all (GPT-2
+    # and llama; MoE decodes unstaged)
     partitionable = is_partitionable(config)
+    stageable = is_stage_partitionable(config)
     if not partitionable and cfg.dispatch == "remote":
         raise ValueError(
             "DISPATCH=remote requires the dense GPT-2 stage-shard "
@@ -261,6 +274,13 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
                                     draft_len=cfg.spec_decode,
                                     prefill_chunk=pchunk, device=dev)
             engine = spec.plain
+            decode_stages = 1
+        elif not stageable:
+            # MoE's expert tree is not stage-partitionable: the whole
+            # model decodes unstaged, in every dtype
+            engine = DecodeEngine(params, config, max_seq=cfg.max_seq,
+                                  dtype=cfg.inference_dtype, device=dev,
+                                  prefill_chunk=pchunk)
             decode_stages = 1
         elif cfg.kv_pool_blocks > 0:
             # paged storage gathers and scatters whole-model cache rows,
@@ -312,8 +332,11 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
     compat_params = {}
     for i, role in enumerate(("a", "b")):
         if cfg.shard_role == role and partitionable:
-            compat_params[role] = P_.extract_stage_params(
-                map_params(lambda x: x.to(dev), params), compat_specs[i])
+            compat_params[role] = (
+                stage_only if stage_only is not None
+                else P_.extract_stage_params(
+                    map_params(lambda x: x.to(dev), params),
+                    compat_specs[i]))
 
     app = JSONApp(title="llm-sharding-demo-tpu-torch", version="0.1.0")
 

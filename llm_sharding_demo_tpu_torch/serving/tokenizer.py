@@ -2,10 +2,11 @@
 
 Counterpart of ``llm_sharding_demo_tpu/serving/tokenizer.py`` without its
 Hugging Face path: a pure-Python GPT-2 byte-level BPE that reads the
-standard ``vocab.json`` + ``merges.txt`` pair, and the byte-level
-fallback (ids 0-255 are raw bytes). The repository ships no BPE assets,
-so the server resolves to the byte tokenizer, as the JAX package does
-without assets.
+standard ``vocab.json`` + ``merges.txt`` pair, read from a checkpoint's
+``tokenizer`` directory, and the byte-level fallback (ids 0-255 are raw
+bytes). The repository ships no BPE assets, so without a checkpoint that
+carries them the server resolves to the byte tokenizer, as the JAX
+package does without assets.
 """
 
 from __future__ import annotations
@@ -14,9 +15,12 @@ import json
 import logging
 import os
 import re
-from typing import List, Protocol
+from typing import List, Optional, Protocol
 
 log = logging.getLogger(__name__)
+
+# a checkpoint's tokenizer assets live in this subdirectory
+TOKENIZER_SUBDIR = "tokenizer"
 
 # stdlib-re approximation of GPT-2's \p{L}/\p{N} split pattern
 RE_FALLBACK_PATTERN = (r"'s|'t|'re|'ve|'m|'ll|'d| ?[^\W\d_]+| ?\d+"
@@ -138,9 +142,19 @@ class ByteTokenizer:
         return "".join(out)
 
 
-def get_tokenizer(model_id: str) -> Tokenizer:
-    """The byte-level tokenizer, with a warning: no BPE assets ship with
-    the repository, so generations do not match a GPT-2 BPE vocab."""
+def get_tokenizer(model_id: str,
+                  checkpoint_dir: Optional[str] = None) -> Tokenizer:
+    """The checkpoint's BPE assets (``<ckpt>/tokenizer/vocab.json`` and
+    ``merges.txt``, which ``tools.convert_hf`` writes) where they are,
+    else the byte-level tokenizer with a warning: its ids do not match a
+    GPT-2 BPE vocab."""
+    if checkpoint_dir:
+        tok_dir = os.path.join(checkpoint_dir, TOKENIZER_SUBDIR)
+        if os.path.exists(os.path.join(tok_dir, "vocab.json")):
+            try:
+                return BPETokenizer.from_dir(tok_dir)
+            except Exception as e:  # noqa: BLE001 - falls back, loudly
+                log.warning("BPE load from %s failed (%s)", tok_dir, e)
     log.warning("no tokenizer assets for %s; using the byte-level "
                 "tokenizer — generations will NOT match the model's BPE "
                 "vocab", model_id)

@@ -17,20 +17,21 @@ parameters and moments in place (a step allocates no second copy of
 either) and returns the same dicts.
 
 The step runs on the card unless the caller passes ``device="cpu"``.
-Sharded training (``mesh=``), the GPipe and 1F1B pipeline steps and the
-MoE step refuse, naming their ROADMAP items.
+``MoETrainStep`` trains GPT-2-MoE on the CE loss plus the weighted router
+aux loss (``moe_lm_loss``). Sharded training (``mesh=``) and the GPipe
+and 1F1B pipeline steps refuse, naming their ROADMAP items.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..models import MOE_ITEM, family_module
+from ..models import family_module, is_moe
 from ..models.gpt2 import Params
 from ..utils.device import DeviceLike, resolve_device
 
@@ -79,6 +80,17 @@ def lm_loss(params: Params, ids: torch.Tensor, config,
                                            remat=remat)
     return F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
                            ids[:, 1:].reshape(-1))
+
+
+def moe_lm_loss(params: Params, ids: torch.Tensor, config,
+                aux_weight: float = 0.01) -> torch.Tensor:
+    """Next-token CE plus ``aux_weight`` times the router load-balance
+    loss (``models.moe.forward``)."""
+    from ..models import moe
+    logits, aux = moe.forward(params, ids[:, :-1], config)
+    ce = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
+                         ids[:, 1:].reshape(-1))
+    return ce + aux_weight * aux
 
 
 def _linear_value(init: float, end: float, steps: int,
@@ -188,20 +200,26 @@ class TrainStep:
     ``init(params)`` copies the parameters to the device and builds the
     optimizer state there; ``__call__(params, opt_state, ids)`` runs one
     step and returns ``(params, opt_state, loss)`` (the parameters and
-    moments updated in place, the loss an f32 scalar tensor)."""
+    moments updated in place, the loss an f32 scalar tensor).
+    ``loss_fn(params, ids)`` replaces ``lm_loss`` (``MoETrainStep``
+    binds the MoE loss)."""
 
     config: Any
     optimizer: AdamW
     mesh: Any = None
     remat: bool = False
     device: DeviceLike = "cuda"
+    loss_fn: Optional[Callable[[Params, torch.Tensor], torch.Tensor]] = None
 
     def __post_init__(self):
         if self.mesh is not None:
             raise NotImplementedError(
                 f"TrainStep(mesh=...) is not ported; sharded training waits "
                 f"for {MESH_ITEM}")
-        family_module(self.config)  # refuses an unported family
+        family_module(self.config)  # refuses an unknown family
+        if is_moe(self.config) and self.loss_fn is None:
+            raise ValueError("MoE models train through MoETrainStep (its "
+                             "loss adds the router's aux term)")
         self.device = resolve_device(self.device)
 
     def init(self, params: Params) -> Tuple[Params, Dict[str, Any]]:
@@ -224,7 +242,9 @@ class TrainStep:
         items = [(path, x.detach().requires_grad_())
                  for path, x in _flatten(params)]
         with torch.enable_grad():
-            loss = lm_loss(_unflatten(items), ids, self.config, self.remat)
+            tree = _unflatten(items)
+            loss = (lm_loss(tree, ids, self.config, self.remat)
+                    if self.loss_fn is None else self.loss_fn(tree, ids))
             grads = torch.autograd.grad(loss, [x for _, x in items])
         return loss.detach(), list(grads)
 
@@ -244,10 +264,13 @@ def LlamaTrainStep(config, optimizer: AdamW, mesh: Any = None,
 
 
 def MoETrainStep(config, optimizer: AdamW, mesh: Any = None,
-                 aux_weight: float = 0.01):
-    """Refuses: the MoE family is not ported."""
-    raise NotImplementedError(
-        f"MoETrainStep is not ported; the MoE family waits for {MOE_ITEM}")
+                 aux_weight: float = 0.01,
+                 device: DeviceLike = "cuda") -> TrainStep:
+    """GPT-2-MoE's train step: a ``TrainStep`` with ``moe_lm_loss`` bound.
+    ``mesh`` (expert-parallel training) refuses as ``TrainStep``'s does."""
+    return TrainStep(config, optimizer, mesh=mesh, device=device,
+                     loss_fn=lambda p, ids: moe_lm_loss(p, ids, config,
+                                                        aux_weight))
 
 
 def GPipeTrainStep(config, optimizer: AdamW, mesh: Any = None,

@@ -10,7 +10,9 @@ coordinator relays each token through the shards named by
 the paged pool's ``KV_POOL_BLOCKS``, ``KV_BLOCK_SIZE`` and
 ``KV_POOL_DTYPE``, and the prefix store's ``PREFIX_CACHE`` and
 ``PREFIX_CHUNK`` with the host tier's ``KV_HOST_BLOCKS``, and
-``SPEC_DECODE`` (speculative decoding's draft depth). Every other knob
+``SPEC_DECODE`` (speculative decoding's draft depth), and
+``CHECKPOINT_DIR`` (a checkpoint written by ``utils.checkpoint``: the
+model, its config and its tokenizer assets). Every other knob
 the JAX package accepts refuses at startup when it is set to anything
 but its default, naming the ROADMAP item that will port it: a knob ignored in
 silence would let a deployment believe it runs a configuration it does
@@ -21,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 VALID_ROLES = ("coordinator", "a", "b")
 VALID_DTYPES = ("float32", "bfloat16", "int8")
@@ -38,7 +40,6 @@ def _is_str(*values: str) -> Callable[[str], bool]:
 # knob -> (the ROADMAP item that ports it, "is this value the default?")
 _MULTI = "ROADMAP Queue 1 item 13 (multi-device decode)"
 _FLEET = "ROADMAP Queue 1 item 15 (fleet, planning and observability)"
-_CKPT = "ROADMAP Queue 1 item 16 (checkpoints)"
 REFUSED_KNOBS: Dict[str, Tuple[str, Callable[[str], bool]]] = {
     "PP_DECODE": (_MULTI, _is_off),
     "TP_DECODE": (_MULTI, _is_off),
@@ -48,7 +49,6 @@ REFUSED_KNOBS: Dict[str, Tuple[str, Callable[[str], bool]]] = {
     "AUTO_PLAN_TRAFFIC": (_FLEET, _is_str("")),
     "AUTO_PLAN_CONTINUOUS": (_FLEET, _is_off),
     "AUTO_PLAN_JOURNAL": (_FLEET, _is_str("")),
-    "CHECKPOINT_DIR": (_CKPT, _is_str("")),
 }
 
 
@@ -57,6 +57,8 @@ class ServingConfig:
     """Everything the serving process needs, resolved once at startup."""
 
     model_id: str = "sshleifer/tiny-gpt2"
+    # a utils.checkpoint directory: the model and its config come from it
+    checkpoint_dir: Optional[str] = None
     shard_role: str = "coordinator"
     boundaries: tuple = (1,)
     # the shards a DISPATCH=remote coordinator posts to: a host (the port
@@ -264,6 +266,7 @@ def from_env() -> ServingConfig:
         boundaries = (_env_int("SPLIT_AT", 1),)
     return ServingConfig(
         model_id=os.environ.get("MODEL_ID", "sshleifer/tiny-gpt2"),
+        checkpoint_dir=os.environ.get("CHECKPOINT_DIR") or None,
         shard_role=os.environ.get("SHARD_ROLE", "coordinator"),
         boundaries=boundaries,
         shard_a_service=os.environ.get("SHARD_A_SERVICE", "llm-shard-a"),

@@ -52,7 +52,9 @@ def test_port_imports_with_jax_blocked():
                  "ops.paged_attention", "ops.kv_quant", "runtime.kv_pool",
                  "runtime.prefix_cache", "runtime.kv_tier",
                  "runtime.batcher", "runtime.spec_decode",
-                 "utils.graftfault", "serving.http"):
+                 "utils.graftfault", "serving.http", "models.moe",
+                 "models.hf_convert", "utils.checkpoint",
+                 "tools.convert_hf", "serving.loader"):
         assert f"llm_sharding_demo_tpu_torch.{name}" in modules
     code = "; ".join([
         "import sys",

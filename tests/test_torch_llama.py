@@ -185,9 +185,14 @@ def test_config_and_family_registry():
         llama.LlamaConfig(attention_impl="flash")
     with pytest.raises(ValueError, match="multiple"):
         llama.LlamaConfig(n_head=12, n_kv_head=5)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        family_module(JMoEConfig(vocab_size=64, n_positions=32, n_embd=32,
-                                 n_layer=2, n_head=2))
+    # the port's MoEConfig resolves to its family; the JAX package's
+    # config object is foreign to the port and refuses
+    from llm_sharding_demo_tpu_torch.models import moe
+    dims = dict(vocab_size=64, n_positions=32, n_embd=32, n_layer=2,
+                n_head=2)
+    assert family_module(moe.MoEConfig(**dims)) is moe
+    with pytest.raises(TypeError, match="unknown model config type"):
+        family_module(JMoEConfig(**dims))
 
 
 def test_params_round_trip_from_jax_init():

@@ -24,7 +24,7 @@ import torch
 
 from llm_sharding_demo_tpu.models import gpt2 as jgpt2
 from llm_sharding_demo_tpu.models import llama as jllama
-from llm_sharding_demo_tpu.models.moe import MoEConfig as JMoEConfig
+from llm_sharding_demo_tpu_torch.models.moe import MoEConfig
 from llm_sharding_demo_tpu.runtime import engine as jengine
 from llm_sharding_demo_tpu.runtime.prefix_cache import (
     PrefixCachingEngine as JPrefixCachingEngine)
@@ -168,7 +168,8 @@ def test_guards(models):
     with pytest.raises(ValueError, match="same DecodeEngine"):
         PrefixCachingEngine(eng, spec=SpecDecodeEngine(
             tp, tcfg, max_seq=MAX_SEQ, device="cpu"))
-    moe = types.SimpleNamespace(config=JMoEConfig(
+    # the port's own MoE family (ported) is window-dependent
+    moe = types.SimpleNamespace(config=MoEConfig(
         vocab_size=64, n_positions=64, n_embd=32, n_layer=2, n_head=4))
     with pytest.raises(NotImplementedError, match="window-dependent"):
         PrefixCachingEngine(moe)

@@ -143,7 +143,14 @@ def test_request_validation(weights):
     ("AUTO_PLAN_JOURNAL", "/j"),
 ])
 def test_unported_knobs_refuse_at_startup(monkeypatch, knob, value):
+    """Each knob the port does not serve refuses, naming its ROADMAP item;
+    CHECKPOINT_DIR is served now (checkpoints are ported): it parses into
+    the config instead."""
     monkeypatch.setenv(knob, value)
+    if knob == "CHECKPOINT_DIR":
+        assert knob not in tconfig.REFUSED_KNOBS
+        assert tconfig.from_env().checkpoint_dir == value
+        return
     with pytest.raises(ValueError, match="ROADMAP Queue 1 item"):
         tconfig.from_env()
 
@@ -288,18 +295,21 @@ def test_batching_and_chunk_knobs_parse_and_validate(monkeypatch):
 
 
 def test_unported_models_refuse(monkeypatch):
-    """llama-tiny resolves (the llama family is ported); the JAX
-    package's MoE family still refuses, naming its ROADMAP item."""
-    from llm_sharding_demo_tpu.models.moe import MoEConfig
-    from llm_sharding_demo_tpu_torch.models import family_module, llama
+    """llama-tiny resolves (the llama family is ported), and so does the
+    port's MoEConfig (the MoE family is ported); a config object of
+    another package (the JAX package's MoEConfig) still refuses."""
+    from llm_sharding_demo_tpu.models.moe import MoEConfig as JMoEConfig
+    from llm_sharding_demo_tpu_torch.models import family_module, llama, moe
     from llm_sharding_demo_tpu_torch.serving import loader
     import torch
     cfg, params = loader.resolve_model(ServingConfig(model_id="llama-tiny"),
                                        torch.device("cpu"))
     assert cfg == llama.CONFIGS["llama-tiny"] and "lm_head" in params
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
-        family_module(MoEConfig(vocab_size=64, n_positions=32, n_embd=32,
-                                n_layer=2, n_head=2))
+    dims = dict(vocab_size=64, n_positions=32, n_embd=32, n_layer=2,
+                n_head=2)
+    assert family_module(moe.MoEConfig(**dims)) is moe
+    with pytest.raises(TypeError, match="unknown model config type"):
+        family_module(JMoEConfig(**dims))
     cfg, params = loader.resolve_model(
         ServingConfig(model_id="sshleifer/tiny-gpt2"), torch.device("cpu"))
     assert cfg.n_embd == 2 and params["wte"].shape == (50257, 2)

@@ -24,7 +24,7 @@ import torch
 
 from llm_sharding_demo_tpu.models import gpt2 as jgpt2
 from llm_sharding_demo_tpu.models import llama as jllama
-from llm_sharding_demo_tpu.models.moe import MoEConfig as JMoEConfig
+from llm_sharding_demo_tpu_torch.models.moe import MoEConfig
 from llm_sharding_demo_tpu.ops.attention import KVCache as JKVCache
 from llm_sharding_demo_tpu.runtime import engine as jengine
 from llm_sharding_demo_tpu.runtime.spec_decode import (
@@ -352,8 +352,9 @@ def test_guards_and_messages(models, gpt):
         SpecDecodeEngine(tp, tcfg, max_seq=64, draft_len=0, device="cpu")
     with pytest.raises(ValueError, match="ngram must be >= 1"):
         SpecDecodeEngine(tp, tcfg, max_seq=64, ngram=0, device="cpu")
-    moe = JMoEConfig(vocab_size=64, n_positions=64, n_embd=32, n_layer=2,
-                     n_head=4)
+    # the port's own MoE family (ported) is window-dependent
+    moe = MoEConfig(vocab_size=64, n_positions=64, n_embd=32, n_layer=2,
+                    n_head=4)
     with pytest.raises(NotImplementedError, match="window-independent"):
         SpecDecodeEngine(tp, moe, max_seq=64, device="cpu")
     # check_request names the request's numbers, as JAX's does

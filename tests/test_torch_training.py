@@ -190,12 +190,21 @@ def test_refusals():
     opt = train.adamw()
     with pytest.raises(NotImplementedError, match="item 13"):
         train.TrainStep(cfg, opt, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        train.MoETrainStep(cfg, opt)
+    # the MoE step is ported: it runs (test_torch_moe holds it to the JAX
+    # step) and refuses a mesh as TrainStep does
+    from llm_sharding_demo_tpu_torch.models import moe
+    mcfg = moe.MoEConfig(**DIMS["gpt2"], n_experts=4)
+    mstep = train.MoETrainStep(mcfg, opt, device="cpu")
+    mp, ms = mstep.init(moe.init_params(mcfg, torch.Generator()
+                                        .manual_seed(0)))
+    _, ms, loss = mstep(mp, ms, _ids())
+    assert ms["count"] == 1 and bool(torch.isfinite(loss))
+    with pytest.raises(NotImplementedError, match="item 13"):
+        train.MoETrainStep(mcfg, opt, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="items 13-14"):
         train.GPipeTrainStep(cfg, opt, mesh=None, schedule="1f1b")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        train.TrainStep(jcfg, opt, device="cpu")  # a family not ported
+    with pytest.raises(TypeError, match="unknown model config type"):
+        train.TrainStep(jcfg, opt, device="cpu")  # another package's config
     with pytest.raises(ValueError, match="total_steps"):
         train.adamw(warmup_steps=5, total_steps=5)
     if not torch.cuda.is_available():
