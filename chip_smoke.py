@@ -160,19 +160,25 @@ which must pass or the script exits non-zero:
    bit-equal to ``stage_apply`` here, having read only its stage's files
    (from its log).
 13. moe: GPT-2-MoE at the JAX package's geometry (GPT-2 124M's attention,
-   8 experts, top 2; ~521M parameters) saved as an fp32 checkpoint and
-   loaded; the int8 engine ("auto" resolves to "layer": no whole-stack
-   kernel for the family) teacher-forced 48 positions at batch 1 (the
-   routed experts) and 8 (the dense dispatch) within ``decode.int8`` of
-   the int8 plain path, with exactly the launches its forwards predict
-   (decode attention, the int8 linear at c_attn and c_proj, the tied
-   head; no megakernel, no flash kernel); eager and device ms a token at
-   B 1 and 8 beside the B=1 step's bytes bound; an fp32
+   8 experts, top 2; ~521M parameters) saved as an fp32 checkpoint, with
+   tokenizer assets that give every id a string of its own, and loaded;
+   the int8 engine ("auto" resolves to "layer": no whole-stack kernel for
+   the family) teacher-forced 48 positions at batch 1 (the routed
+   experts) and 8 (the dense dispatch) on the plain path's replayed
+   routing within ``decode.int8`` of the int8 plain path, its own routing
+   choices held to the flip bars (``MOE_NEAR_TIE``, ``MOE_FLIP_SHARE``),
+   which planted faults cross, with exactly the launches its forwards
+   predict (decode attention, the int8 linear at c_attn and c_proj, the
+   tied head; no megakernel, no flash kernel); eager and device ms a
+   token at B 1 and 8 beside the B=1 step's bytes bound; an fp32
    ``CHECKPOINT_DIR`` server's greedy stream equal to the in-process fp32
    engine's; an int8 ``MAX_BATCH=8 BATCH_MODE=admission`` server taking a
-   wave of 8 (tokens/s, exact launches); ``BATCH_MODE=iter`` refused at
-   startup; three f32 ``MoETrainStep`` steps at B=2 x 256 tokens (losses
-   falling, step ms, peak memory).
+   wave of 8 (tokens/s, exact launches), each reply equal, token for
+   token, to the same round run in process, whose tokens are the kernel
+   path's teacher-forced argmax and within ``decode.int8`` of the plain
+   path on its routing; ``BATCH_MODE=iter`` refused at startup; three f32
+   ``MoETrainStep`` steps at B=2 x 256 tokens (losses falling, step ms,
+   peak memory).
 
 The last lines are the card's name and power limit, one JSON object with
 the kernels' numbers (each kernel's launches counted on the path that
@@ -1517,11 +1523,17 @@ def tf_rows(eng, prompts, forced):
     row b's position t predicts ``forced[b][t]`` after its prompt and
     ``forced[b][:t]``. The prefill is the engine's: chunked where it has
     ``prefill_chunk`` (and chunking applies), else monolithic."""
-    import torch
-
     from llm_sharding_demo_tpu_torch.runtime.engine import left_pad
 
     ids, pad = left_pad(prompts)
+    return tf_padded(eng, ids, pad, forced)
+
+
+def tf_padded(eng, ids: np.ndarray, pad: np.ndarray, forced):
+    """``tf_rows`` of a batch already left-padded: ``ids`` ``[B, S]``,
+    ``pad`` ``[B]`` pad columns a row."""
+    import torch
+
     with torch.inference_mode():
         ids, pad, _, chunk = eng._align_chunks(ids, pad, ids.shape[1],
                                                len(forced[0]))
@@ -3620,22 +3632,40 @@ def expected_moe_launches(shapes: dict) -> dict:
     return want
 
 
-# a routing flip between two paths is a near tie when the flipped gap
-# between the k-th and the (k+1)-th router logit is at most 4 bf16 ulps
-# of a logit in [1, 2) (the int8 and bf16 paths round router logits to
-# bf16; the kernels and the plain path round earlier activations apart)
+# Routing flips. Router logits are bf16 on the int8 paths, and the
+# kernels round earlier activations apart from the plain path, so a token
+# whose k-th and (k+1)-th router logits sit close may choose otherwise on
+# the two paths. Such a flip is held to two bars: its gap (absolute, in
+# router logits, as the recording path saw it) at most MOE_NEAR_TIE, and
+# the flipped tokens at most MOE_FLIP_SHARE of all token routings of a
+# run. On an H100 80GB HBM3 (700 W) the three held runs flip 0.52-0.66%
+# of their token routings (5 of 756, 29 of 5628, 43 of 7920), at gaps of
+# at most 2.54e-2; 2^-5 is 4 bf16 ulps of a logit in [1, 2) and 16 of
+# one in [0.25, 0.5). Of the planted faults (MOE_FAULT_NOISE) at B=1,
+# the wrong c_attn scale tile flips 2.51% and router noise of 2^-6 RMS
+# 3.17% (the share bar catches both); noise of 2^-4 flips 8.60%, 23
+# tokens past the gap bar (largest gap 0.127); noise of 2^-8, about a
+# bf16 rounding, flips 1.98% and passes.
 MOE_NEAR_TIE = 2.0 ** -5
+MOE_FLIP_SHARE = 0.02
+# planted faults on the int8 kernel path (moe_fault): gaussian noise on
+# the router's input at these RMS fractions of the input's RMS, and the
+# c_attn kernel's first 128-column tile scaled with its neighbour's
+# scales (a wrong scale index)
+MOE_FAULT_NOISE = (2.0 ** -8, 2.0 ** -6, 2.0 ** -4)
 
 
 @contextlib.contextmanager
 def routing_tape(tape: list, replay: bool = False):
-    """Record each ``moe._topk_gates`` call's gates and choices on
-    ``tape``, or, with ``replay``, make each call take the recorded
-    choices in order (the weights from its own gates): teacher-forced
-    routing, so that two paths' logits differ by their numerics alone.
-    A replaying call's own choices are compared with the recorded ones;
-    yields the list of flips ``(call, tokens flipped, largest recorded
-    logit gap among them)``."""
+    """Record each ``moe._topk_gates`` call's gates, choices and valid
+    tokens on ``tape``, or, with ``replay``, make each call take the
+    recorded choices in order (the weights from its own gates):
+    teacher-forced routing, so that two paths' logits differ by their
+    numerics alone. A replaying call's own choices are compared with the
+    recorded ones at the valid tokens; yields the list of flips ``(call,
+    tokens flipped, largest recorded logit gap among them)``."""
+    import torch
+
     from llm_sharding_demo_tpu_torch.models import moe
 
     real = moe._topk_gates
@@ -3643,13 +3673,14 @@ def routing_tape(tape: list, replay: bool = False):
 
     def record(gates, e, k, token_valid=None):
         out = real(gates, e, k, token_valid)
-        tape.append((gates.detach().clone(), [i.clone() for i in out[0]]))
+        tape.append((gates.detach().clone(), [i.clone() for i in out[0]],
+                     None if token_valid is None else token_valid.clone()))
         return out
 
     def forced(gates, e, k, token_valid=None):
-        want_gates, want = tape[pos[0]]
+        want_gates, want, _ = tape[pos[0]]
         own = real(gates, e, k, token_valid)[0]
-        differ = choices_differ(own, want)
+        differ = choices_differ(own, want, token_valid)
         if differ is not None:
             # the recorded path's logit gap between its k-th and (k+1)-th
             # choice, at each flipped token
@@ -3667,7 +3698,6 @@ def routing_tape(tape: list, replay: bool = False):
             onehots.append(oh)
             weights.append((sel_gates * oh).sum(-1))
             sel_gates = sel_gates * (1.0 - oh)
-        import torch
         w = torch.stack(weights)
         w = w / torch.clamp(w.sum(0, keepdim=True), min=1e-9)
         return idxs, onehots, w
@@ -3679,14 +3709,100 @@ def routing_tape(tape: list, replay: bool = False):
         moe._topk_gates = real
 
 
-def choices_differ(own, want):
-    """A ``[B, S]`` mask of the tokens whose choice sets differ, or None."""
+def choices_differ(own, want, token_valid=None):
+    """A ``[B, S]`` mask of the valid tokens whose choice sets differ, or
+    None."""
     import torch
 
     a = torch.sort(torch.stack(own), dim=0).values
     b = torch.sort(torch.stack(want), dim=0).values
     mask = (a != b).any(0)
+    if token_valid is not None:
+        mask = mask & token_valid
     return mask if bool(mask.any()) else None
+
+
+def routed_tokens(tape: list) -> int:
+    """Token routings on ``tape``: its valid tokens, summed over calls."""
+    return sum(g.shape[0] * g.shape[1] if v is None else int(v.sum())
+               for g, _, v in tape)
+
+
+def flip_reading(flips: list, tape: list) -> dict:
+    """The flips of a replay against its tape, under both bars."""
+    tokens = sum(f[1] for f in flips)
+    share = tokens / routed_tokens(tape)
+    wide = [f for f in flips if f[2] > MOE_NEAR_TIE]
+    return {"calls": len(flips), "tokens": tokens, "share": share,
+            "largest_gap": max((f[2] for f in flips), default=0.0),
+            "past_bar": sum(f[1] for f in wide),
+            "held": not wide and share <= MOE_FLIP_SHARE}
+
+
+def flip_text(r: dict) -> str:
+    return (f"{r['tokens']} flipped tokens in {r['calls']} routings "
+            f"(share {r['share']:.4%}, bar {MOE_FLIP_SHARE:.0%}), largest "
+            f"gap {r['largest_gap']:.3e}, {r['past_bar']} past "
+            f"{MOE_NEAR_TIE:.3e}")
+
+
+@contextlib.contextmanager
+def moe_fault(kind: str, cfg, level: float = 0.0):
+    """A planted fault on the int8 kernel path: ``"router"`` adds seeded
+    gaussian noise at ``level`` times the input's RMS to the router's
+    input; ``"c_attn"`` scales the c_attn kernel's first 128 output
+    columns by the next 128 columns' scales over their own."""
+    import torch
+
+    from llm_sharding_demo_tpu_torch.models import gpt2, moe
+    from llm_sharding_demo_tpu_torch.ops.quant import is_quantized
+
+    mod = moe if kind == "router" else gpt2
+    real = mod.linear
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def noisy(x, kernel, bias=None, kernels=False):
+        xf = x.float()
+        rms = xf.pow(2).mean(-1, keepdim=True).sqrt()
+        noise = torch.randn(x.shape, generator=gen, device=x.device)
+        return real((xf + level * rms * noise).to(x.dtype), kernel, bias,
+                    kernels)
+
+    def wrong_scale(x, kernel, bias=None, kernels=False):
+        y = real(x, kernel, None, kernels)
+        if kernels and is_quantized(kernel) and y.shape[-1] == 3 * cfg.n_embd:
+            s = kernel.scale.float()
+            y = y.clone()
+            y[..., :128] = (y[..., :128].float() * (s[128:256] / s[:128])
+                            ).to(y.dtype)
+        return y if bias is None else y + bias
+
+    mod.linear = noisy if kind == "router" else wrong_scale
+    try:
+        yield
+    finally:
+        mod.linear = real
+
+
+def write_id_tokenizer(directory: str, vocab_size: int) -> None:
+    """Byte-level BPE assets under ``<directory>/tokenizer`` in which
+    every id decodes to a string of its own: ids 0-255 are the bytes, id
+    i >= 256 is ``<i>``, and there are no merges, so text encodes to
+    byte ids. A served reply then names its token ids (the byte
+    tokenizer prints every id past 255 as the same mark)."""
+    from llm_sharding_demo_tpu_torch.serving.tokenizer import (
+        TOKENIZER_SUBDIR, _bytes_to_unicode)
+
+    enc = _bytes_to_unicode()
+    vocab = {enc[b]: b for b in range(256)}
+    vocab.update({"".join(enc[c] for c in f"<{i}>".encode()): i
+                  for i in range(256, vocab_size)})
+    out = os.path.join(directory, TOKENIZER_SUBDIR)
+    os.makedirs(out)
+    with open(os.path.join(out, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(out, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n")
 
 
 def moe_step_bytes(qparams, cfg) -> int:
@@ -3712,12 +3828,14 @@ def moe_phase(smi: str) -> dict:
     from llm_sharding_demo_tpu_torch.ops import cuda_build
     from llm_sharding_demo_tpu_torch.runtime.engine import DecodeEngine
     from llm_sharding_demo_tpu_torch.serving.app import create_app
-    from llm_sharding_demo_tpu_torch.serving.tokenizer import ByteTokenizer
+    from llm_sharding_demo_tpu_torch.serving.tokenizer import (
+        BPETokenizer, get_tokenizer)
     from llm_sharding_demo_tpu_torch.training import train
     from llm_sharding_demo_tpu_torch.utils import checkpoint, graftnum
     from llm_sharding_demo_tpu_torch.utils.config import ServingConfig
 
     t0 = time.perf_counter()
+    misses = []     # the flip bars and the wave, held at the phase's end
     cfg = moe.MoEConfig(**MOE_CFG)
     params = moe.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     n_params = weight_bytes(params) // 4    # fp32
@@ -3725,12 +3843,15 @@ def moe_phase(smi: str) -> dict:
     try:
         ckpt_room(tmp, weight_bytes(params))
         nbytes, secs = save_timed(tmp, params, cfg)
+        write_id_tokenizer(tmp, V)
         del params
         torch.cuda.empty_cache()
         t1 = time.perf_counter()
         lcfg, params = checkpoint.load(tmp)
         t_load = time.perf_counter() - t1
         check(lcfg == cfg, f"checkpoint config {lcfg}")
+        tok = get_tokenizer("gpt2-moe", checkpoint_dir=tmp)
+        check(isinstance(tok, BPETokenizer), f"checkpoint tokenizer {tok}")
         print(f"  GPT-2-MoE ({n_params} parameters) fp32 checkpoint: "
               f"{nbytes} bytes saved in {secs:.2f} s, loaded in "
               f"{t_load:.2f} s [{smi}]")
@@ -3749,8 +3870,8 @@ def moe_phase(smi: str) -> dict:
             forced = rng.integers(0, V, (batch, 48)).tolist()
             # the plain path's routing, recorded, then replayed on the
             # kernel path: the logits then differ by numerics alone, and
-            # every choice the kernel path would make otherwise must sit
-            # at a near tie
+            # the choices the kernel path makes itself (the path as
+            # served) are held to the flip bars
             tape = []
             with routing_tape(tape):
                 lp = tf_rows(plain, prompts, forced)
@@ -3767,26 +3888,88 @@ def moe_phase(smi: str) -> dict:
                   f"MoE B={batch}: logits {tuple(lk.shape)} not finite")
             rep = graftnum.compare("decode.int8", lk.reshape(-1, V),
                                    lp.reshape(-1, V))
-            wide = [f for f in flips if f[2] > MOE_NEAR_TIE]
-            check(not wide, f"MoE B={batch}: routing flips away from a near "
-                            f"tie (call, tokens, logit gap): {wide}")
+            fr = flip_reading(flips, tape)
+            if not fr["held"]:
+                misses.append(f"B={batch} flips: {flip_text(fr)}")
             runs[batch] = counts
-            print(f"  MoE int8 'layer' vs the int8 plain path, B={batch} "
-                  f"({'routed' if batch * 2 <= 8 else 'dense dispatch'}), "
-                  f"{rep['n_positions']} teacher-forced positions, the plain "
-                  f"path's routing replayed ({len(tape)} routings): "
-                  f"logit_mse={rep['logit_mse']:.3e} (cap "
-                  f"{rep['policy']['logit_mse']:.0e}) top1_agreement="
-                  f"{rep['top1_agreement']:.4f}; the kernel path's own "
-                  f"choices part from it in {len(flips)} routings, "
-                  f"{sum(f[1] for f in flips)} tokens, largest logit gap "
-                  f"{max((f[2] for f in flips), default=0.0):.3e} (near tie "
-                  f"<= {MOE_NEAR_TIE:.3e}); launches {counts} [{smi}]")
             # unforced, both paths route themselves: printed, not held
             lu = tf_rows(eng, prompts, forced)
             mse = float(((lu - lp) ** 2).mean())
-            print(f"  MoE int8 B={batch} unforced routing: logit_mse "
-                  f"{mse:.3e} against the plain path [{smi}]")
+            top1 = float((lu.argmax(-1) == lp.argmax(-1)).float().mean())
+            print(f"  MoE int8 'layer' vs the int8 plain path, B={batch} "
+                  f"({'routed' if batch * 2 <= 8 else 'dense dispatch'}), "
+                  f"{rep['n_positions']} teacher-forced positions, the plain "
+                  f"path's routing replayed ({len(tape)} routings, "
+                  f"{routed_tokens(tape)} tokens): logit_mse="
+                  f"{rep['logit_mse']:.3e} (cap "
+                  f"{rep['policy']['logit_mse']:.0e}) top1_agreement="
+                  f"{rep['top1_agreement']:.4f}; the kernel path's own "
+                  f"choices: {flip_text(fr)}; unforced logit_mse {mse:.3e} "
+                  f"top1 {top1:.4f}; launches {counts} [{smi}]")
+            if batch == 1:
+                # planted faults on the kernel path, replayed against the
+                # same tape: each should cross a bar
+                faults = [("router", lv) for lv in MOE_FAULT_NOISE]
+                faults.append(("c_attn", 0.0))
+                for kind, lv in faults:
+                    with moe_fault(kind, cfg, lv), routing_tape(
+                            tape, replay=True) as ff:
+                        lf = tf_rows(eng, prompts, forced)
+                    fr = flip_reading(ff, tape)
+                    fmse = float(((lf - lp) ** 2).mean(-1).mean())
+                    caught = (not fr["held"]
+                              or fmse > rep["policy"]["logit_mse"])
+                    if fr["held"] and (kind == "c_attn"
+                                       or lv == MOE_FAULT_NOISE[-1]):
+                        misses.append(f"the planted {kind} fault ({lv}) "
+                                      "crosses no flip bar")
+                    print(f"  planted fault {kind}"
+                          + (f" noise {lv:.3e}" if kind == "router" else
+                             " wrong scale tile")
+                          + f", B=1 replayed: {flip_text(fr)}; logit_mse "
+                          f"{fmse:.3e}; caught {caught} [{smi}]")
+        # the wave the admission server gets below, run here as its
+        # batcher runs it (one round: prompts right-aligned to its
+        # 16-token bucket, 64 steps) on the kernel engine; rows do not
+        # interact, so their order in the round does not matter
+        wave = [f"Wave request {i}: " + "x" * i for i in range(MOE_WAVE)]
+        wave_ids = [tok.encode(w) for w in wave]
+        s_max = -(-max(map(len, wave_ids)) // 16) * 16
+        ids = np.zeros((MOE_WAVE, s_max), dtype=np.int64)
+        pad = np.array([s_max - len(w) for w in wave_ids], dtype=np.int32)
+        for i, w in enumerate(wave_ids):
+            ids[i, pad[i]:] = w
+        served = eng.generate(ids, MOE_WAVE_TOKENS, pad=pad).tokens[:, s_max:]
+        wave_text = [tok.decode(w + served[i].tolist())
+                     for i, w in enumerate(wave_ids)]
+        # those tokens teacher-forced: the kernel path's own argmax at
+        # every step, and within decode.int8 of the plain path replaying
+        # its routing
+        tape = []
+        with routing_tape(tape):
+            lkw = tf_padded(eng, ids, pad, served.tolist())
+        top = lkw.topk(2, dim=-1).values
+        own = lkw.argmax(-1).cpu().numpy() == served
+        with routing_tape(tape, replay=True) as wflips:
+            lpw = tf_padded(plain, ids, pad, served.tolist())
+        wrep = graftnum.compare("decode.int8", lkw.reshape(-1, V),
+                                lpw.reshape(-1, V))
+        fr = flip_reading(wflips, tape)
+        if not own.all():
+            gaps = (top[..., 0] - top[..., 1]).cpu().numpy()[~own]
+            misses.append(f"wave: {int((~own).sum())} served tokens are not "
+                          f"the teacher-forced argmax (top-2 gaps {gaps})")
+        if not fr["held"]:
+            misses.append(f"wave flips (plain vs kernel routing): "
+                          f"{flip_text(fr)}")
+        print(f"  the wave's round in process ({MOE_WAVE} x "
+              f"{MOE_WAVE_TOKENS} greedy tokens after {s_max}-column "
+              f"prompts): {int(own.sum())} of {own.size} tokens are the "
+              f"teacher-forced argmax; vs the int8 plain path on the "
+              f"kernel path's routing logit_mse={wrep['logit_mse']:.3e} "
+              f"top1_agreement={wrep['top1_agreement']:.4f}; the plain "
+              f"path's own choices: {flip_text(fr)} [{smi}]")
+        del lkw, lpw, top
         for batch in (1, 8):
             ids = rng.integers(0, V, (batch, 32))
             times = {}
@@ -3805,7 +3988,6 @@ def moe_phase(smi: str) -> dict:
         del eng, plain
         torch.cuda.empty_cache()
         # the servers on the checkpoint, and the fp32 stream in process
-        tok = ByteTokenizer()
         prompt = "Experts route: "
         ref = DecodeEngine(params, cfg, max_seq=NPOS, dtype="float32")
         want = tok.decode([int(t) for t in ref.generate(
@@ -3814,12 +3996,13 @@ def moe_phase(smi: str) -> dict:
         torch.cuda.empty_cache()
         ckpt = {"CHECKPOINT_DIR": tmp, "MODEL_ID": "gpt2-moe",
                 "MAX_SEQ": str(NPOS)}
-        wave = [f"Wave request {i}: " + "x" * i for i in range(MOE_WAVE)]
         with serving_processes(
                 ("moe-fp32", ckpt),
+                # a wait long enough that the wave's 8 requests meet in
+                # one round (it starts once 8 are in)
                 ("moe-int8-admission", dict(
                     ckpt, INFERENCE_DTYPE="int8", MAX_BATCH=str(MOE_WAVE),
-                    BATCH_MODE="admission", BATCH_WAIT_MS="50")),
+                    BATCH_MODE="admission", BATCH_WAIT_MS="2000")),
         ) as [(f_url, f_health, _), (b_url, b_health, _)]:
             check(f_health["decode_kernel"] == "xla"
                   and f_health["n_stages"] == 1
@@ -3841,18 +4024,23 @@ def moe_phase(smi: str) -> dict:
         check(got["generated"] == want,
               "the fp32 CHECKPOINT_DIR MoE server's greedy stream differs "
               "from the in-process fp32 engine's")
-        for p, r in zip(wave, replies):
-            check(r["generated"].startswith(p), f"bad wave reply {r}")
+        same = [r["generated"] == w for r, w in zip(replies, wave_text)]
+        if not all(same):
+            misses.append(f"wave replies equal to the in-process round: "
+                          f"{same}; server forwards "
+                          f"{health['forward_shapes']}")
         server_counts = health["kernel_launches"]
         want = expected_moe_launches(health["forward_shapes"])
         check(server_counts == want, f"MoE int8 server launches "
                                      f"{server_counts}, expected {want}")
         print(f"  fp32 CHECKPOINT_DIR MoE server: greedy 24 tokens equal to "
               f"the in-process fp32 engine; int8 MAX_BATCH={MOE_WAVE} "
-              f"admission server ('layer'): a wave of {MOE_WAVE} x "
-              f"{MOE_WAVE_TOKENS} tokens in {wall:.2f} s = "
-              f"{MOE_WAVE * MOE_WAVE_TOKENS / wall:.1f} tokens/s, forwards "
-              f"{health['forward_shapes']}, launches {server_counts} [{smi}]")
+              f"admission server ('layer'): {sum(same)} of {MOE_WAVE} "
+              f"replies equal, token for token, to the round in process; "
+              f"a wave of {MOE_WAVE} x {MOE_WAVE_TOKENS} tokens in "
+              f"{wall:.2f} s = {MOE_WAVE * MOE_WAVE_TOKENS / wall:.1f} "
+              f"tokens/s, forwards {health['forward_shapes']}, launches "
+              f"{server_counts} [{smi}]")
         try:
             create_app(ServingConfig(model_id="moe", max_batch=8,
                                      batch_mode="iter", max_seq=NPOS),
@@ -3885,6 +4073,7 @@ def moe_phase(smi: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     print(f"  [moe] {time.perf_counter() - t0:.1f} s wall [{smi}]")
+    check(not misses, "MoE: " + "; ".join(misses))
     return {"int8 engine B=1": runs[1], "int8 engine B=8": runs[8],
             "int8 admission server": server_counts}
 

@@ -11,10 +11,9 @@ layout, so those copy as they are; llama's ``nn.Linear`` weights are
 ``[out, in]`` and are transposed. GPT-2's head is tied to ``wte``.
 
 ``read_hf_dir`` reads a local HF model directory (``config.json`` and
-``model.safetensors``, its sharded index, or ``pytorch_model.bin``)
-without ``transformers``; ``find_hf_dir`` resolves a model id to such a
-directory: a path, or an entry of the local HF cache. Nothing is
-downloaded.
+one ``model.safetensors``, as ``save_pretrained`` writes a small model)
+without ``transformers``; ``find_hf_dir`` accepts a path to such a
+directory. Nothing is downloaded.
 """
 
 from __future__ import annotations
@@ -225,23 +224,10 @@ def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
 
 
 def _read_weights(directory: str) -> Dict[str, torch.Tensor]:
-    index = os.path.join(directory, "model.safetensors.index.json")
-    if os.path.exists(index):
-        with open(index) as f:
-            files = sorted(set(json.load(f)["weight_map"].values()))
-        sd: Dict[str, torch.Tensor] = {}
-        for name in files:
-            sd.update(read_safetensors(os.path.join(directory, name)))
-        return sd
     single = os.path.join(directory, "model.safetensors")
-    if os.path.exists(single):
-        return read_safetensors(single)
-    binary = os.path.join(directory, "pytorch_model.bin")
-    if os.path.exists(binary):
-        return torch.load(binary, map_location="cpu", weights_only=True)
-    raise FileNotFoundError(
-        f"{directory}: no model.safetensors, sharded index or "
-        "pytorch_model.bin")
+    if not os.path.exists(single):
+        raise FileNotFoundError(f"{directory}: no model.safetensors")
+    return read_safetensors(single)
 
 
 def _is_llama(hf_config) -> bool:
@@ -284,26 +270,9 @@ def convert_hf_dir(directory: str, dtype=torch.float32):
     return config, params_from_state_dict(sd, config, dtype)
 
 
-def _hub_cache() -> str:
-    """The local HF hub cache: ``HF_HUB_CACHE``, else ``HF_HOME/hub``,
-    else ``~/.cache/huggingface/hub``."""
-    if os.environ.get("HF_HUB_CACHE"):
-        return os.environ["HF_HUB_CACHE"]
-    home = os.environ.get("HF_HOME") or os.path.join(
-        os.path.expanduser("~"), ".cache", "huggingface")
-    return os.path.join(home, "hub")
-
-
 def find_hf_dir(model_id: str) -> Optional[str]:
-    """``model_id`` as a local HF model directory: the path itself when it
-    holds a ``config.json``, else the local cache's snapshot of that id
-    (its ``refs/main``), else None."""
+    """``model_id`` when it is a local HF model directory (it holds a
+    ``config.json``), else None."""
     if os.path.isfile(os.path.join(model_id, "config.json")):
         return model_id
-    entry = os.path.join(_hub_cache(), "models--" + model_id.replace("/", "--"))
-    try:
-        with open(os.path.join(entry, "refs", "main")) as f:
-            snap = os.path.join(entry, "snapshots", f.read().strip())
-    except OSError:
-        return None
-    return snap if os.path.isfile(os.path.join(snap, "config.json")) else None
+    return None

@@ -258,18 +258,17 @@ def _moe_block(p: Params, h: torch.Tensor, config: MoEConfig,
                offset: Union[int, torch.Tensor] = 0,
                k_valid_from: Optional[torch.Tensor] = None,
                decode_kernel: Optional[str] = None,
-               routed_mlp: bool = True,
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One pre-LN MoE block (GPT-2's attention half, the expert MLP via
     ``mlp_fn``). Returns ``(h, aux)``. Left-pad columns
     (``k_valid_from``) are kept out of routing; a single-token step with
-    ``B * k <= E`` takes the routed path unless ``routed_mlp`` is False."""
+    ``B * k <= E`` takes the routed path."""
     token_valid = None
     if k_valid_from is not None:
         s = h.shape[1]
         token_valid = ((offset + torch.arange(s, device=h.device))[None, :]
                        >= k_valid_from[:, None])
-    use_routed = (routed_mlp and h.shape[1] == 1
+    use_routed = (h.shape[1] == 1
                   and h.shape[0] * config.expert_top_k <= config.n_experts)
     aux_cell: List[torch.Tensor] = []
 
@@ -291,7 +290,6 @@ def apply_blocks(blocks: Union[Params, List[Params]], h: torch.Tensor,
                  config: MoEConfig, cache: Optional[KVCache] = None,
                  k_valid_from: Optional[torch.Tensor] = None,
                  decode_kernel: Optional[str] = None,
-                 routed_mlp: bool = True,
                  ) -> Tuple[torch.Tensor, torch.Tensor, Optional[KVCache]]:
     """The block stack (stacked dict or its ``unstack_blocks`` list):
     ``(h, summed f32 aux, cache one window longer or None)``."""
@@ -300,7 +298,7 @@ def apply_blocks(blocks: Union[Params, List[Params]], h: torch.Tensor,
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for li, p in enumerate(layers):
         h, layer_aux = _moe_block(p, h, config, cache, li, offset,
-                                  k_valid_from, decode_kernel, routed_mlp)
+                                  k_valid_from, decode_kernel)
         aux = aux + layer_aux
     if cache is not None:
         cache = KVCache(k=cache.k, v=cache.v, length=offset + h.shape[1])
@@ -323,7 +321,6 @@ def forward_with_cache(params: Params, input_ids: torch.Tensor,
                        pad: Optional[torch.Tensor] = None,
                        decode_kernel: Optional[str] = None,
                        flash_prefill: bool = False,
-                       routed_mlp: bool = True,
                        ) -> Tuple[torch.Tensor, KVCache]:
     """Cached MoE forward with ``gpt2.forward_with_cache``'s contract (the
     aux loss is dropped). ``decode_kernel`` is "layer", "matmul" or None:
@@ -337,7 +334,7 @@ def forward_with_cache(params: Params, input_ids: torch.Tensor,
     offset = cache.length if pad is None else cache.length - pad[:, None]
     h = embed(params, input_ids, offset)
     h, _, cache = apply_blocks(params["blocks"], h, config, cache, pad,
-                               decode_kernel, routed_mlp)
+                               decode_kernel)
     return final_logits(params, h, config.layer_norm_epsilon,
                         kernels=decode_kernel is not None), cache
 

@@ -5,8 +5,8 @@ Counterpart of ``llm_sharding_demo_tpu/serving/loader.py``. The order:
 
 1. ``CHECKPOINT_DIR`` set: ``utils.checkpoint`` restores it. A set
    directory that fails to load is an error, never a random init;
-2. ``MODEL_ID`` names a local HF model directory or an entry of the local
-   HF cache: ``models.hf_convert`` converts it;
+2. ``MODEL_ID`` is the path of a local HF model directory:
+   ``models.hf_convert`` converts it;
 3. otherwise the named architecture (``FALLBACK_CONFIGS``) with seeded
    random weights, logged loudly: the output is untrained noise.
 

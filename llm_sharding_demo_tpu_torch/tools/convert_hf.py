@@ -4,11 +4,11 @@ Counterpart of the repository's ``tools/convert_hf.py`` (which writes the
 JAX package's Orbax form)::
 
     python -m llm_sharding_demo_tpu_torch.tools.convert_hf MODEL_DIR OUT_DIR
-    python -m llm_sharding_demo_tpu_torch.tools.convert_hf gpt2 OUT_DIR \\
+    python -m llm_sharding_demo_tpu_torch.tools.convert_hf MODEL_DIR OUT_DIR \\
         --dtype bfloat16
 
-``MODEL_DIR`` is a local HF model directory (``save_pretrained`` output)
-or a model id present in the local HF cache; nothing is downloaded and
+``MODEL_DIR`` is a local HF model directory (``save_pretrained`` output
+with one ``model.safetensors``); nothing is downloaded and
 ``transformers`` is not needed. It writes ``utils.checkpoint``'s layout
 and copies the tokenizer assets it finds (``vocab.json``, ``merges.txt``
 and the rest) to ``OUT_DIR/tokenizer``; serve it with
@@ -35,15 +35,15 @@ TOKENIZER_FILES = ("vocab.json", "merges.txt", "tokenizer.json",
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("model", help="local HF model dir or cached HF id")
+    parser.add_argument("model", help="local HF model directory")
     parser.add_argument("out_dir", help="checkpoint directory to write")
     parser.add_argument("--dtype", default="float32",
                         choices=("float32", "bfloat16"))
     args = parser.parse_args(argv)
     src = find_hf_dir(args.model)
     if src is None:
-        print(f"{args.model!r} is neither a local HF model directory nor in "
-              "the local HF cache (nothing is downloaded)", file=sys.stderr)
+        print(f"{args.model!r} is not a local HF model directory (no "
+              "config.json; nothing is downloaded)", file=sys.stderr)
         return 1
     dtype = torch.float32 if args.dtype == "float32" else torch.bfloat16
     config, params = convert_hf_dir(src, dtype)

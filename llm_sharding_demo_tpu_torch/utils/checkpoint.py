@@ -43,6 +43,9 @@ PARAMS_DIR = "params"
 BLOCKS_DIR = "blocks"
 TRAIN_DIR = "train_state"
 TRAIN_FILE = "state.pt"
+# what a checkpoint directory may hold (``tokenizer``: the assets that
+# ``tools.convert_hf`` copies beside the weights)
+CHECKPOINT_ENTRIES = {CONFIG_FILE, PARAMS_DIR, TRAIN_DIR, "tokenizer"}
 
 
 def _config_family(config) -> str:
@@ -71,10 +74,25 @@ def _owned(tree):
     return map_params(lambda x: x.detach().cpu().clone(), tree)
 
 
+def _refuse_foreign(directory: str) -> None:
+    """Raise unless ``directory`` is missing, empty or a checkpoint: a
+    ``config.json`` and nothing outside ``CHECKPOINT_ENTRIES``."""
+    if not os.path.isdir(directory):
+        return
+    entries = set(os.listdir(directory))
+    if entries and (CONFIG_FILE not in entries
+                    or entries - CHECKPOINT_ENTRIES):
+        raise ValueError(
+            f"{directory} is not empty and not a checkpoint (it holds "
+            f"{sorted(entries)}); refusing to overwrite it")
+
+
 def save(directory: str, params: Params, config) -> None:
     """Write the config and the params (one file per leaf group and per
-    layer). Overwrites an existing checkpoint."""
+    layer). Overwrites an existing checkpoint, and refuses a non-empty
+    directory that is not one before writing anything."""
     directory = os.path.abspath(directory)
+    _refuse_foreign(directory)
     os.makedirs(directory, exist_ok=True)
     payload = {"family": _config_family(config), **dataclasses.asdict(config)}
     with open(os.path.join(directory, CONFIG_FILE), "w") as f:

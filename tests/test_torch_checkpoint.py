@@ -39,7 +39,8 @@ from llm_sharding_demo_tpu_torch.training import train
 from llm_sharding_demo_tpu_torch.utils import checkpoint as ckpt
 from llm_sharding_demo_tpu_torch.utils.config import ServingConfig
 from test_torch_llama import np_llama_params
-from test_torch_model import np_gpt2_params
+from test_torch_model import (gc_between_modules,  # noqa: F401
+                              gc_only_in_test_bodies, np_gpt2_params)
 from test_torch_moe import np_moe_params
 
 GPT2_DIMS = dict(vocab_size=256, n_positions=64, n_embd=32, n_layer=4,
@@ -288,3 +289,38 @@ def test_a_set_checkpoint_that_fails_to_load_is_an_error(tmp_path):
         create_app(ServingConfig(model_id="gpt2",
                                  checkpoint_dir=str(tmp_path / "none")),
                    device="cpu")
+
+
+@pytest.mark.parametrize("foreign", [
+    ["config.json", "model.safetensors"],        # an HF model directory
+    ["params/blocks/0.pt", "notes.txt"],         # params/ with no config
+])
+def test_save_refuses_a_directory_that_is_not_a_checkpoint(tmp_path,
+                                                           foreign):
+    for name in foreign:
+        (tmp_path / name).parent.mkdir(parents=True, exist_ok=True)
+        (tmp_path / name).write_text(name)
+    params = params_from_numpy(np_gpt2_params(seed=2, dims=GPT2_DIMS),
+                               device="cpu")
+    with pytest.raises(ValueError, match="not a checkpoint"):
+        ckpt.save(str(tmp_path), params, gpt2.GPT2Config(**GPT2_DIMS))
+    for name in foreign:  # nothing removed, nothing rewritten
+        assert (tmp_path / name).read_text() == name
+
+
+def test_save_over_a_checkpoint_replaces_it(tmp_path):
+    big = dict(GPT2_DIMS, n_layer=4)
+    small = dict(GPT2_DIMS, n_layer=2)
+    ckpt.save(str(tmp_path), params_from_numpy(
+        np_gpt2_params(seed=2, dims=big), device="cpu"),
+        gpt2.GPT2Config(**big))
+    (tmp_path / "tokenizer").mkdir()
+    params = params_from_numpy(np_gpt2_params(seed=3, dims=small),
+                               device="cpu")
+    ckpt.save(str(tmp_path), params, gpt2.GPT2Config(**small))
+    config, got = ckpt.load(str(tmp_path))
+    assert config == gpt2.GPT2Config(**small)
+    assert_bit_equal(got, params)
+    # the larger checkpoint's layer files went with it
+    assert sorted(os.listdir(tmp_path / "params" / "blocks")) == [
+        "0.pt", "1.pt"]

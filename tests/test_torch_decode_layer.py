@@ -56,7 +56,8 @@ from llm_sharding_demo_tpu_torch.ops.cuda_build import launch_counts
 from llm_sharding_demo_tpu_torch.runtime.engine import (DecodeEngine,
                                                         resolve_decode_kernel)
 from llm_sharding_demo_tpu_torch.utils import graftnum
-from test_torch_model import np_gpt2_params
+from test_torch_model import (gc_between_modules,  # noqa: F401
+                              gc_only_in_test_bodies, np_gpt2_params)
 
 DIMS = dict(vocab_size=211, n_positions=1024, n_embd=128, n_layer=2,
             n_head=2)

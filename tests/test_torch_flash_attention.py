@@ -31,6 +31,8 @@ from llm_sharding_demo_tpu_torch.models.convert import params_from_numpy
 from llm_sharding_demo_tpu_torch.ops import flash_attention as fa
 from llm_sharding_demo_tpu_torch.ops.attention import causal_attention
 from llm_sharding_demo_tpu_torch.runtime.engine import DecodeEngine
+from test_torch_model import (gc_between_modules,  # noqa: F401
+                              gc_only_in_test_bodies)
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 CASES = [(64, 16, 32), (128, 32, 64), (96, 32, 96), (64, 256, 256),

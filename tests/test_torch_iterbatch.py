@@ -46,7 +46,8 @@ from llm_sharding_demo_tpu_torch.utils import (graftfault, graftmem,
                                                graftscope, tracing)
 from llm_sharding_demo_tpu_torch.utils.config import ServingConfig
 from llm_sharding_demo_tpu_torch.utils.metrics import REGISTRY
-from test_torch_model import np_gpt2_params
+from test_torch_model import (gc_between_modules,  # noqa: F401
+                              gc_only_in_test_bodies, np_gpt2_params)
 
 DIMS = dict(vocab_size=211, n_positions=512, n_embd=128, n_layer=2,
             n_head=2)

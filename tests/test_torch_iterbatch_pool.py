@@ -43,7 +43,8 @@ from llm_sharding_demo_tpu_torch.utils.config import ServingConfig
 from llm_sharding_demo_tpu_torch.utils.metrics import REGISTRY
 from test_torch_iterbatch import WAIT, _after_segments, _staggered
 from test_torch_kv_pool import DIMS
-from test_torch_model import np_gpt2_params
+from test_torch_model import (gc_between_modules,  # noqa: F401
+                              gc_only_in_test_bodies, np_gpt2_params)
 
 MAX_SEQ = 200            # tests/test_iterbatch.py's pool scenarios
 BS = 8

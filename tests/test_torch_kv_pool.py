@@ -40,7 +40,8 @@ from llm_sharding_demo_tpu_torch.runtime.prefix_cache import (
     PrefixCachingEngine)
 from llm_sharding_demo_tpu_torch.utils import graftnum
 from llm_sharding_demo_tpu_torch.utils.metrics import REGISTRY
-from test_torch_model import np_gpt2_params
+from test_torch_model import (gc_between_modules,  # noqa: F401
+                              gc_only_in_test_bodies, np_gpt2_params)
 
 # tests/test_kv_pool.py's shapes
 DIMS = dict(vocab_size=211, n_positions=256, n_embd=32, n_layer=2, n_head=4)

@@ -46,7 +46,8 @@ from llm_sharding_demo_tpu_torch.runtime.prefix_cache import (
 from llm_sharding_demo_tpu_torch.utils import config as tconfig
 from llm_sharding_demo_tpu_torch.utils import graftmem
 from llm_sharding_demo_tpu_torch.utils.metrics import REGISTRY
-from test_torch_model import np_gpt2_params
+from test_torch_model import (gc_between_modules,  # noqa: F401
+                              gc_only_in_test_bodies, np_gpt2_params)
 
 # tests/test_kv_tier.py's shapes
 DIMS = dict(vocab_size=211, n_positions=256, n_embd=32, n_layer=2, n_head=4)

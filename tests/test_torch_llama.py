@@ -46,6 +46,8 @@ from llm_sharding_demo_tpu_torch.serving.http import TestClient
 from llm_sharding_demo_tpu_torch.serving.tokenizer import ByteTokenizer
 from llm_sharding_demo_tpu_torch.utils import graftnum
 from llm_sharding_demo_tpu_torch.utils.config import ServingConfig
+from test_torch_model import (gc_between_modules,  # noqa: F401
+                              gc_only_in_test_bodies)
 
 DIMS = dict(vocab_size=211, n_positions=1024, n_embd=256, n_layer=2,
             n_head=4, n_kv_head=2, intermediate_size=256)

@@ -8,6 +8,8 @@ vocab 211). The weight std (0.04) keeps greedy argmax margins wide
 while bf16/int8 stay inside their declared budgets.
 """
 
+import gc
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +28,29 @@ from llm_sharding_demo_tpu_torch.runtime import engine
 from llm_sharding_demo_tpu_torch.runtime.engine import (DecodeEngine,
                                                         SamplingConfig)
 from llm_sharding_demo_tpu_torch.utils import graftnum
+
+# The JAX package's memory ledger retires a holding from a weakref
+# finalizer that samples graftscope under its lock, and the per-test
+# metrics isolation in tests/conftest.py holds that same lock while it
+# copies the rings: a cyclic collection inside that copy that frees a JAX
+# engine deadlocks the worker. These two fixtures, imported by every
+# port test module that builds JAX engines, keep the collector off from
+# the end of a test's body to the start of the next one's, and collect
+# once when the module ends.
+@pytest.fixture(scope="module", autouse=True)
+def gc_between_modules():
+    gc.disable()
+    yield
+    gc.collect()
+    gc.enable()
+
+
+@pytest.fixture(autouse=True)
+def gc_only_in_test_bodies():
+    gc.enable()
+    yield
+    gc.disable()
+
 
 DIMS = dict(vocab_size=211, n_positions=512, n_embd=128, n_layer=2,
             n_head=2)

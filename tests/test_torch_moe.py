@@ -40,6 +40,8 @@ from llm_sharding_demo_tpu_torch.serving.tokenizer import ByteTokenizer
 from llm_sharding_demo_tpu_torch.training import train
 from llm_sharding_demo_tpu_torch.utils import graftnum
 from llm_sharding_demo_tpu_torch.utils.config import ServingConfig
+from test_torch_model import (gc_between_modules,  # noqa: F401
+                              gc_only_in_test_bodies)
 
 # head_dim 64 and 256 positions: the "layer" kernel path applies
 DIMS = dict(vocab_size=256, n_positions=256, n_embd=128, n_layer=2,

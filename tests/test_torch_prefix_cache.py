@@ -37,7 +37,8 @@ from llm_sharding_demo_tpu_torch.runtime.prefix_cache import (
 from llm_sharding_demo_tpu_torch.runtime.spec_decode import SpecDecodeEngine
 from llm_sharding_demo_tpu_torch.utils import graftmem
 from test_torch_llama import np_llama_params
-from test_torch_model import np_gpt2_params
+from test_torch_model import (gc_between_modules,  # noqa: F401
+                              gc_only_in_test_bodies, np_gpt2_params)
 
 GPT2_DIMS = dict(vocab_size=211, n_positions=1024, n_embd=128, n_layer=2,
                  n_head=2)

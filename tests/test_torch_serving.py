@@ -28,7 +28,8 @@ from llm_sharding_demo_tpu_torch.utils.config import ServingConfig
 import jax
 import jax.numpy as jnp
 from llm_sharding_demo_tpu.models import gpt2 as jgpt2
-from test_torch_model import np_gpt2_params
+from test_torch_model import (gc_between_modules,  # noqa: F401
+                              gc_only_in_test_bodies, np_gpt2_params)
 
 DIMS = dict(vocab_size=256, n_positions=128, n_embd=128, n_layer=4,
             n_head=2)

@@ -50,7 +50,8 @@ from llm_sharding_demo_tpu_torch.serving.tokenizer import ByteTokenizer
 from llm_sharding_demo_tpu_torch.utils import config as tconfig
 from llm_sharding_demo_tpu_torch.utils import graftfault
 from test_torch_iterbatch import _after_segments, _staggered
-from test_torch_model import np_gpt2_params
+from test_torch_model import (gc_between_modules,  # noqa: F401
+                              gc_only_in_test_bodies, np_gpt2_params)
 
 DIMS = dict(vocab_size=211, n_positions=256, n_embd=32, n_layer=2, n_head=4)
 MAX_SEQ = 200
