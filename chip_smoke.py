@@ -179,6 +179,34 @@ which must pass or the script exits non-zero:
    path on its routing; ``BATCH_MODE=iter`` refused at startup; three f32
    ``MoETrainStep`` steps at B=2 x 256 tokens (losses falling, step ms,
    peak memory).
+14. obs: the observability surfaces, on servers built in this process
+   (``create_app`` behind ``serve``). An int8 GPT-2 admission server
+   with the store (MAX_BATCH=8 PREFIX_CACHE=8; decode on the megakernel,
+   prefill on the per-layer kernels, exact launches from its forwards):
+   three solo 64-token requests, a wave of 8, two requests on one system
+   prompt, and a burst of 4 whose 1 ms X-Deadline-Ms is spent by a
+   tokenizer slowed to 5 ms. ``/metrics`` parses as Prometheus text
+   and counts the answered requests, their tokens, the burst's 503s and
+   the TTFT/TPOT observations; ``/debug/requests`` holds every request,
+   each span inside its request, and ``?errors=1`` exactly the burst;
+   after a synchronize ``/debug/profile`` has no CUDA event pair pending
+   and every window above 0, and the batch-1 decode step's mean stream
+   window is at least 0.9 x the graph-replay device step of an engine
+   like the server's; ``/debug/memory`` is conserved and its
+   engine_cache + prefix_store bytes on the card are at most
+   ``torch.cuda.memory_allocated``; ``/debug/trend`` trips
+   ``slo_deadline_burn`` once, latched on a second scrape and in
+   ``/healthz``. Then ms a decode step at batch 1 (a server's decode
+   span) with GRAFTTIME, GRAFTSCOPE and GRAFTMEM on and off in turns, on
+   a server in a process of its own (``--obs-overhead``), held to
+   ``OBS_OVERHEAD_BAR``, which a planted 50 us ``time.sleep`` in every
+   ``grafttime.emit`` must cross (a 50 us busy wait there is printed). A tiered fp32 GPT-2 iter server
+   (KV_POOL_BLOCKS=256 PREFIX_CACHE=8, a host tier of 24 blocks): 16
+   waves of four on 512- and 128-token system prompts; its timeline,
+   read through the cursor after each wave, carries admissions, spans,
+   evictions, demotions and promotions, as many as the pool and tier
+   count, and its Chrome export validates; the ledger's pool_codes are
+   the planes' bytes on the card and the host tier's bytes on the host.
 
 The last lines are the card's name and power limit, one JSON object with
 the kernels' numbers (each kernel's launches counted on the path that
@@ -188,7 +216,8 @@ beside them, each batched server's counts under ``batch_launches``, the prefix
 paths' under ``prefix_launches``, the spec paths' under ``spec_launches``,
 the three remote processes' under ``remote_launches``, the checkpoint
 coordinator's under ``ckpt_launches``, the MoE paths' under
-``moe_launches``, the 5 bf16 train steps for the flash kernels), and
+``moe_launches``, the observability server's under ``obs_launches``,
+the 5 bf16 train steps for the flash kernels), and
 ``{"ok": true, "device": {...}}``. ``--phases`` runs a subset (the
 default runs all).
 """
@@ -196,7 +225,9 @@ default runs all).
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
+import gc
 import json
 import os
 import re
@@ -4078,6 +4109,488 @@ def moe_phase(smi: str) -> dict:
             "int8 admission server": server_counts}
 
 
+# -- phase 14: observability -------------------------------------------------
+
+OBS_NEW = 64          # new tokens of the solo and overhead requests
+OBS_TURNS = 30        # overhead turns of each kind
+# the overhead bar: the least ms a decode step with the three recorders
+# on over the least with them off, on the int8 mega server at batch 1
+# (set from the card readings in PERF.md §6); a 50 us time.sleep in
+# every grafttime.emit must cross it
+OBS_OVERHEAD_BAR = 1.12
+OBS_HOST_BLOCKS = 24  # the tiered server's host tier: a 128-token entry
+                      # (8 blocks) demotes, a 512-token one (32) is evicted
+
+
+class SlowTokenizer:
+    """The server's tokenizer, slowed on demand: with ``delay`` set an
+    encode takes that long, so an X-Deadline-Ms of 1 is spent before any
+    runner sees the request (the refusal path of the deadline tests)."""
+
+    def __init__(self, tok):
+        self.tok = tok
+        self.delay = 0.0
+
+    def encode(self, text):
+        if self.delay:
+            time.sleep(self.delay)
+        return self.tok.encode(text)
+
+    def __getattr__(self, name):
+        return getattr(self.tok, name)
+
+
+@contextlib.contextmanager
+def inprocess_server(cfg, tokenizer=None, recorder=None):
+    """``create_app`` on the card behind ``serve(block=False)`` on a free
+    port in this process; yields the base url, and shuts the listener
+    down on the way out."""
+    from llm_sharding_demo_tpu_torch.serving.app import create_app
+    from llm_sharding_demo_tpu_torch.serving.http import serve
+
+    app = create_app(cfg, tokenizer=tokenizer, device="cuda",
+                     recorder=recorder)
+    server = serve(app, host="127.0.0.1", port=0, block=False)
+    try:
+        yield f"http://127.0.0.1:{server.server_address[1]}"
+    finally:
+        server.shutdown()
+        server.server_close()
+
+
+def _get_text(url: str) -> str:
+    with urllib.request.urlopen(url, timeout=60) as resp:
+        return resp.read().decode()
+
+
+def parse_prometheus(text: str) -> dict:
+    """Prometheus text -> ``{(name, labels without le): value}`` (a
+    histogram's buckets collapse to their largest, the +Inf one); fails
+    on a line that does not parse."""
+    line_re = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(.*)\})? (\S+)$')
+    label_re = re.compile(r'([a-zA-Z_]+)="((?:[^"\\]|\\.)*)"')
+    out = {}
+    for line in text.strip().splitlines():
+        if line.startswith("# TYPE "):
+            check(len(line.split()) == 4, f"bad TYPE line {line!r}")
+            continue
+        m = line_re.match(line)
+        check(m is not None, f"/metrics line does not parse: {line!r}")
+        labels = tuple(sorted((k, v) for k, v in label_re.findall(
+            m.group(3) or "") if k != "le"))
+        key = (m.group(1), labels)
+        out[key] = max(out.get(key, float("-inf")), float(m.group(4)))
+    return out
+
+
+def _series(metrics: dict, name: str) -> float:
+    """The sum of a parsed series over its label sets."""
+    return sum(v for (n, _), v in metrics.items() if n == name)
+
+
+def obs_int8(smi: str) -> dict:
+    """The int8 GPT-2 admission server with the prefix store (MAX_BATCH=8
+    PREFIX_CACHE=8, the mega decode) in this process: solo requests, a
+    wave of 8, two requests on one system prompt, a burst whose
+    X-Deadline-Ms is spent; then each /metrics, /debug/* and /healthz
+    check (module docstring, phase 14) and the overhead turns. Returns
+    the script's launch counts."""
+    import torch
+    from llm_sharding_demo_tpu_torch.ops import cuda_build
+    from llm_sharding_demo_tpu_torch.runtime.engine import DecodeEngine
+    from llm_sharding_demo_tpu_torch.serving import loader
+    from llm_sharding_demo_tpu_torch.serving.tokenizer import get_tokenizer
+    from llm_sharding_demo_tpu_torch.utils import (graftmem, graftscope,
+                                                   grafttime, metrics,
+                                                   tracing)
+    from llm_sharding_demo_tpu_torch.utils.config import ServingConfig
+
+    cfg = ServingConfig(model_id="gpt2", inference_dtype="int8",
+                        max_seq=NPOS, max_batch=8, batch_mode="admission",
+                        batch_wait_ms=100.0, prefix_cache=8)
+    metrics.REGISTRY.restore_state(({}, {}, {}))
+    grafttime.clear()
+    grafttime.clear_blackbox()
+    graftscope.clear()
+    gc.collect()
+    tok = SlowTokenizer(get_tokenizer(cfg.model_id))
+    rng = np.random.default_rng(43)
+
+    def text(n):
+        return "".join(chr(int(c)) for c in rng.integers(97, 123, n))
+
+    recorder = tracing.FlightRecorder(capacity=256)
+    with inprocess_server(cfg, tokenizer=tok, recorder=recorder) as base:
+        health = _http(base + "/healthz")
+        check(health["decode_kernel"] == "mega"
+              and health["device"].startswith("cuda"), f"healthz {health}")
+        check(_http(base + "/debug/trend")["alerts"] == [],
+              "a trend alert before any request")
+        cuda_build.reset_launch_counts()
+        h0 = _http(base + "/healthz")
+        answered, sent = [], []
+
+        def generate(body, rid, headers=None):
+            status, out, hdrs = _post(base + "/generate", body,
+                                      {"X-Request-ID": rid,
+                                       **(headers or {})})
+            check(hdrs.get("X-Request-ID") == rid, f"{rid}: id not echoed")
+            sent.append(rid)
+            if status == 200:
+                answered.append((rid, body["max_new_tokens"]))
+            return status, out
+
+        solo = [text(32) for _ in range(3)]
+        for i, p in enumerate(solo):
+            status, out = generate({"prompt": p, "mode": "greedy",
+                                    "max_new_tokens": OBS_NEW}, f"solo-{i}")
+            check(status == 200, f"solo-{i}: {status} {out}")
+        torch.cuda.synchronize()
+        prof = _http(base + f"/debug/profile?n={graftscope.RING_CAPACITY}")
+        ring = prof["dispatch"]["engine._decode_step"]["ring"]
+        solo_stream = [r["stream_ms"] for r in ring if r["key"] == "(1,)"]
+        check(len(solo_stream) == 3 * (OBS_NEW - 1)
+              and all(isinstance(v, float) and v > 0 for v in solo_stream),
+              f"batch-1 decode steps' stream windows: {solo_stream[:8]}")
+        host = [r["ms"] for r in ring if r["key"] == "(1,)"]
+        bodies = [{"prompt": text(24 + 3 * i), "mode": "greedy",
+                   "max_new_tokens": 24} for i in range(8)]
+        res = _threads(lambda i: generate(bodies[i], f"wave-{i}"), 8)
+        check(all(s == 200 for s, _ in res), f"wave: {res}")
+        system = "You answer briefly and exactly. " + text(200)
+        for i, q in enumerate(("What is a shard?", "Why so few?")):
+            status, out = generate({"prompt": system + " " + q,
+                                    "mode": "greedy", "max_new_tokens": 24},
+                                   f"prefix-{i}")
+            check(status == 200, f"prefix-{i}: {status} {out}")
+        tok.delay = 0.005
+        burst = _threads(lambda i: generate(
+            {"prompt": text(16), "mode": "greedy", "max_new_tokens": 24},
+            f"burst-{i}", {"X-Deadline-Ms": "1"}), 4)
+        tok.delay = 0.0
+        misses = sum(s == 503 and o.get("error") == "deadline_exceeded"
+                     for s, o in burst)
+        check(misses == 4, f"the 1 ms burst: {burst}")
+        h1 = _http(base + "/healthz")
+        torch.cuda.synchronize()
+
+        # /metrics
+        m = parse_prometheus(_get_text(base + "/metrics"))
+        n_ok = len(answered)
+        checks = {
+            "generate_requests_total": (_series(m, "generate_requests_total"),
+                                        n_ok),
+            "generated_tokens_total": (_series(m, "generated_tokens_total"),
+                                       sum(n for _, n in answered)),
+            "deadline_misses_total": (_series(m, "deadline_misses_total"),
+                                      misses),
+            "ttft_seconds_count": (_series(m, "ttft_seconds_count"), n_ok),
+            "tpot_seconds_count": (_series(m, "tpot_seconds_count"), n_ok),
+        }
+        for name, (got, want) in checks.items():
+            check(got == want, f"/metrics {name} {got}, expected {want}")
+        print(f"  obs /metrics: {len(m)} series parse as Prometheus text; "
+              + ", ".join(f"{k} {int(g)} = {int(w)}"
+                          for k, (g, w) in checks.items()) + f" [{smi}]")
+
+        # /debug/requests
+        reqs = _http(base + "/debug/requests?n=256")["requests"]
+        check(sorted(t["request_id"] for t in reqs) == sorted(sent),
+              "/debug/requests does not hold every request")
+        for t in reqs:
+            def walk(spans, rid=t["request_id"], wall=t["duration_ms"]):
+                for s in spans:
+                    check(s["start_ms"] >= -1e-3 and s["start_ms"]
+                          + s["duration_ms"] <= wall + 1e-3,
+                          f"{rid}: span {s['name']} outside the request")
+                    walk(s.get("spans", []))
+            walk(t["spans"])
+        errs = _http(base + "/debug/requests?n=256&errors=1")["requests"]
+        check(sorted(t["request_id"] for t in errs)
+              == sorted(f"burst-{i}" for i in range(4)),
+              f"?errors=1 holds {[t['request_id'] for t in errs]}")
+        rounds = {}
+        for t in reqs:
+            for s in t["spans"]:
+                if s["name"] == "decode":
+                    # a batch's decode span is shared by its rows' traces
+                    lab = s["labels"]
+                    rounds[(s["duration_ms"], lab["steps"],
+                            lab["batch"])] = lab["steps"] - 1
+        launches = {k: h1["kernel_launches"][k] - h0["kernel_launches"][k]
+                    for k in h1["kernel_launches"]}
+        shapes = {k: v - h0["forward_shapes"].get(k, 0)
+                  for k, v in h1["forward_shapes"].items()
+                  if v != h0["forward_shapes"].get(k, 0)}
+        want = expected_launches(shapes, False, 2)
+        check(launches == want, f"obs server launches {launches}, "
+                                f"expected {want} from {shapes}")
+        print(f"  obs /debug/requests: {len(reqs)} traces, every span "
+              f"inside its request; ?errors=1 = the burst's 4; "
+              f"decode_layers launched {launches['decode_layers']} times "
+              f"(healthz delta) beside {sum(rounds.values())} decode steps "
+              f"in {len(rounds)} decode spans of the traces (2 stages: "
+              f"{2 * sum(rounds.values())}); launches {launches} [{smi}]")
+
+        # /debug/profile after the final synchronize
+        prof = _http(base + f"/debug/profile?n={graftscope.RING_CAPACITY}")
+        for scope, d in prof["dispatch"].items():
+            check(d["stream"]["pending"] == 0,
+                  f"{scope}: {d['stream']['pending']} event pairs pending "
+                  "after the synchronize")
+            check(all(r["ms"] > 0 for r in d["ring"]),
+                  f"{scope}: a host window of 0")
+            check(all(r["stream_ms"] > 0 for r in d["ring"]
+                      if r["stream_ms"] is not None),
+                  f"{scope}: a stream window of 0")
+        # the device's own step at the same shape: one decode step of an
+        # engine like the server's, replayed from a CUDA graph
+        config, params, _ = loader.resolve_for_role(cfg, torch.device("cuda"))
+        eng = DecodeEngine(params, config, max_seq=NPOS,
+                           boundaries=list(cfg.boundaries), dtype="int8",
+                           device="cuda")
+        ids = np.asarray([tok.encode(solo[0])], dtype=np.int64)
+        eager_ms, device_ms = step_ms(eng, ids)
+        del eng, params
+        mean_stream = statistics.mean(solo_stream)
+        check(mean_stream >= 0.9 * device_ms,
+              f"batch-1 decode step: mean stream window {mean_stream:.4f} "
+              f"ms < 0.9 x the graph-replay device step {device_ms:.4f} ms")
+        print(f"  obs /debug/profile: {len(prof['dispatch'])} scopes, no "
+              f"event pair pending, every window > 0; batch-1 decode step "
+              f"(engine._decode_step, {len(solo_stream)} steps): host "
+              f"window {statistics.mean(host):.4f} ms, stream window "
+              f"{mean_stream:.4f} ms (median "
+              f"{statistics.median(solo_stream):.4f}) beside the "
+              f"graph-replay device step {device_ms:.4f} ms (eager "
+              f"{eager_ms:.4f}) [{smi}]")
+
+        # /debug/memory
+        mem = _http(base + "/debug/memory")
+        check(mem["conserved"], "/debug/memory is not conserved")
+        card = "cuda:0"
+        alloc = mem["allocator"][card]
+        held = sum(mem["components"].get(c, {}).get("devices", {})
+                   .get(card, 0) for c in ("engine_cache", "prefix_store"))
+        check(held <= alloc["memory_allocated"],
+              f"ledger {held} > memory_allocated {alloc}")
+        print(f"  obs /debug/memory: conserved; on {card} the ledger holds "
+              f"{held} bytes of engine_cache + prefix_store "
+              f"({mem['devices'].get(card, 0)} with the weights) <= "
+              f"torch.cuda.memory_allocated {alloc['memory_allocated']} "
+              f"(max {alloc['max_memory_allocated']}) [{smi}]")
+
+        # /debug/trend
+        first = _http(base + "/debug/trend")
+        second = _http(base + "/debug/trend")
+        trips = [a["watch"] for a in first["alerts"]]
+        check(trips == ["slo_deadline_burn"], f"trend alerts {trips}")
+        check(second["alerts"] == first["alerts"]
+              and second["watches"]["slo_deadline_burn"]["latched"],
+              "a second scrape raised another alert")
+        hz = _http(base + "/healthz")
+        check(hz["trend"]["latched"] == ["slo_deadline_burn"],
+              f"/healthz trend {hz['trend']}")
+        print(f"  obs /debug/trend: slo_deadline_burn tripped once (burn "
+              f"{first['alerts'][0]['value']} x the budget), latched on "
+              f"the second scrape and in /healthz; black-box dumps "
+              f"{[d['reason'] for d in grafttime.blackbox_dumps()]} "
+              f"[{smi}]")
+
+    obs_overhead(smi)
+    return launches
+
+
+def obs_overhead_child() -> None:
+    """``--obs-overhead``: run by ``obs_overhead`` as a process of its own,
+    so that no earlier phase's state is in it. An int8 server like the
+    obs server (``create_app`` on the card, driven through its
+    ``TestClient``); ms a decode step, from its trace's decode span (which
+    leaves out the round's wait for peers, the prefill and the reply), of
+    64-token greedy requests with GRAFTTIME, GRAFTSCOPE and GRAFTMEM on,
+    off, on with a 50 us ``time.sleep`` planted in every timeline event
+    (it sleeps ~0.9 ms on the card's host), and on with a 50 us busy
+    wait planted there instead, in turns. Prints one JSON line of the
+    readings."""
+    from llm_sharding_demo_tpu_torch.serving.app import create_app
+    from llm_sharding_demo_tpu_torch.serving.http import TestClient
+    from llm_sharding_demo_tpu_torch.utils import (graftmem, graftscope,
+                                                   grafttime)
+    from llm_sharding_demo_tpu_torch.utils.config import ServingConfig
+
+    cfg = ServingConfig(model_id="gpt2", inference_dtype="int8",
+                        max_seq=NPOS, max_batch=8, batch_mode="admission",
+                        batch_wait_ms=100.0, prefix_cache=8)
+    client = TestClient(create_app(cfg, device="cuda"))
+    rng = np.random.default_rng(53)
+    prompt = "".join(chr(int(c)) for c in rng.integers(97, 123, 32))
+    toggles = (grafttime.set_enabled, graftscope.set_enabled,
+               graftmem.set_enabled)
+    emit = grafttime.BUS.emit
+
+    def sleeping(*a, **k):
+        time.sleep(50e-6)
+        emit(*a, **k)
+
+    def busy(*a, **k):
+        t_end = time.perf_counter() + 50e-6
+        while time.perf_counter() < t_end:
+            pass
+        emit(*a, **k)
+
+    emits = {"on": emit, "off": emit, "planted": sleeping, "busy": busy}
+
+    def decode_ms(mode: str) -> float:
+        for f in toggles:
+            f(mode != "off")
+        grafttime.BUS.emit = emits[mode]
+        r = client.post("/generate", json={
+            "prompt": prompt, "mode": "greedy", "max_new_tokens": OBS_NEW})
+        check(r.status_code == 200, f"overhead turn: {r.json()}")
+        trace = client.get("/debug/requests?n=1").json()["requests"][0]
+        dec = [s for s in trace["spans"] if s["name"] == "decode"][0]
+        return dec["duration_ms"] / (dec["labels"]["steps"] - 1)
+
+    modes = tuple(emits)
+    readings = {m: [] for m in modes}
+    for m in modes:
+        decode_ms(m)                      # warm
+    for _ in range(OBS_TURNS):
+        for m in modes:
+            readings[m].append(decode_ms(m))
+    print(json.dumps(readings))
+
+
+def obs_overhead(smi: str) -> None:
+    """The recorders' cost (``obs_overhead_child`` in a process of its
+    own): the least ms a decode step of each kind, on / off held to
+    ``OBS_OVERHEAD_BAR``, which planted / off must cross; the medians
+    printed beside. The least: a request's ms a step spreads up to 1.7x
+    on the card's host (0.59-1.01 ms, 15 turns of one server) above a
+    floor that a few turns reach; and in the smoke's own process, after
+    every other phase, on / off read 1.16-1.34 (``PERF.md``)."""
+    out = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--obs-overhead"],
+        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    check(out.returncode == 0,
+          f"the overhead process failed: {out.stderr[-2000:]}")
+    readings = json.loads(out.stdout.strip().splitlines()[-1])
+    least = {m: min(v) for m, v in readings.items()}
+    med = {m: statistics.median(v) for m, v in readings.items()}
+    on, off, planted = least["on"], least["off"], least["planted"]
+    print(f"  obs overhead, an int8 mega server in a process of its own, "
+          f"batch 1, {OBS_NEW} new tokens, the decode span's ms a step, "
+          f"{OBS_TURNS} turns of each: least on {on:.4f}, off {off:.4f} "
+          f"(ratio {on / off:.4f}), with a 50 us time.sleep planted in "
+          f"grafttime.emit {planted:.4f} (ratio {planted / off:.4f}), with "
+          f"a 50 us busy wait there {least['busy']:.4f} (ratio "
+          f"{least['busy'] / off:.4f}, a reading); medians on "
+          f"{med['on']:.4f}, off {med['off']:.4f}, sleep "
+          f"{med['planted']:.4f}, busy wait {med['busy']:.4f}; bar "
+          f"{OBS_OVERHEAD_BAR} [{smi}]")
+    check(on / off <= OBS_OVERHEAD_BAR,
+          f"recorders cost {on / off:.4f}x, over the bar {OBS_OVERHEAD_BAR}")
+    check(planted / off > OBS_OVERHEAD_BAR,
+          f"the planted fault ({planted / off:.4f}x) does not cross the bar")
+
+
+def obs_tier(smi: str) -> None:
+    """The tiered fp32 GPT-2 iter server in this process (MAX_BATCH=4
+    KV_POOL_BLOCKS=256 PREFIX_CACHE=8, a host tier of
+    ``OBS_HOST_BLOCKS``): eight system prompts of 512 and 128 tokens in
+    turn, cycled twice, a wave of four on each (a lead, three joiners
+    through the store), the timeline read after each wave through its
+    cursor. The
+    stream carries admissions, spans, evictions, demotions and
+    promotions, as many as the pool and tier count; its Chrome export
+    validates; the ledger holds the pool planes at their nbytes on the
+    card and the host tier's bytes on the host."""
+    from llm_sharding_demo_tpu_torch.utils import grafttime
+    from llm_sharding_demo_tpu_torch.utils.config import ServingConfig
+
+    cfg = ServingConfig(model_id="gpt2", inference_dtype="float32",
+                        max_seq=NPOS, max_batch=4, batch_mode="iter",
+                        batch_wait_ms=5.0, kv_block_size=PAGED_BS,
+                        kv_pool_blocks=TIER_BLOCKS, prefix_cache=8,
+                        kv_host_blocks=OBS_HOST_BLOCKS)
+    rng = np.random.default_rng(47)
+
+    def text(n):
+        return "".join(chr(int(c)) for c in rng.integers(97, 123, n))
+
+    systems = [f"System {i}: " + text((512 if i % 2 == 0 else 128) - 10)
+               for i in range(8)]
+    grafttime.clear()
+    events, cursor = [], 0
+    t0 = time.perf_counter()
+    with inprocess_server(cfg) as base:
+        for w in range(16):
+            s = systems[w % 8]
+            bodies = [{"prompt": s + text(48 if j == 0 else 24),
+                       "mode": "greedy",
+                       "max_new_tokens": 96 if j == 0 else 24}
+                      for j in range(4)]
+            res = _threads(lambda i: _post(base + "/generate", bodies[i]),
+                           4, [0.0, 0.1, 0.1, 0.1])
+            check(all(r[0] == 200 for r in res), f"tier wave {w}: {res}")
+            tl = _http(base + f"/debug/timeline?since_seq={cursor}")
+            new = tl["events"]
+            if tl["cursor"] > cursor:
+                check(new and min(e["seq"] for e in new) == cursor + 1,
+                      f"wave {w}: events dropped between reads")
+            events.extend(new)
+            cursor = tl["cursor"]
+        deadline = time.monotonic() + 10
+        while True:
+            h = _http(base + "/healthz")
+            ps = h["kv_pool_stats"]
+            if ps["blocks_in_use"] == ps["blocks_evictable"]:
+                break
+            check(time.monotonic() < deadline, f"rows left in the pool {ps}")
+            time.sleep(0.05)
+        mem = _http(base + "/debug/memory")
+    kinds = collections.Counter(e["kind"] for e in events)
+    tier = ps["tier"]
+    for kind, want in (("tier_demote", tier["demotions"]),
+                       ("tier_promote", tier["promotions"]),
+                       ("eviction", ps["evictions"])):
+        check(kinds[kind] == want > 0,
+              f"{kind}: {kinds[kind]} events, the pool counts {want}")
+    for kind in ("admission", "span_open", "span_close"):
+        check(kinds[kind] > 0, f"no {kind} event")
+    problems = grafttime.validate_chrome(grafttime.export_chrome(events))
+    check(problems == [], f"export_chrome: {problems[:3]}")
+    # [L, N + 1, 2, H, block, head_dim] f32; component totals are the
+    # process's, so the pool is read by its own holding
+    planes = L * (TIER_BLOCKS + 1) * 2 * H * PAGED_BS * HD * 4
+    codes = [h for h in mem["holdings"] if h["component"] == "pool_codes"
+             and h["owner"] == "KVBlockPool" and h["bytes"] == planes]
+    check(mem["pool"]["pool_bytes"] == planes and codes
+          and codes[0]["devices"] == {"cuda:0": planes},
+          f"pool_codes {codes}, pool {mem['pool']}, the planes hold "
+          f"{planes} bytes")
+    spill = mem["components"].get("host_spill", {"bytes": 0, "devices": {}})
+    check(set(spill["devices"]) <= {"cpu"}, f"host_spill on {spill}")
+    check(mem["conserved"], "/debug/memory is not conserved")
+    print(f"  obs tiered fp32 iter server, 16 waves of 4 on 512/128-token "
+          f"system prompts, host tier {OBS_HOST_BLOCKS} blocks: "
+          f"{len(events)} events read through the cursor, {dict(kinds)}; "
+          f"tier {tier}; evictions {ps['evictions']}; the Chrome export "
+          f"validates; pool_codes {planes} bytes on cuda:0 = the planes; "
+          f"host_spill {spill['devices']}; "
+          f"{time.perf_counter() - t0:.1f} s with startup [{smi}]")
+
+
+def obs_phase(smi: str) -> dict:
+    """Observability (module docstring, phase 14). Returns the launch
+    counts of the int8 server's script."""
+    t0 = time.perf_counter()
+    launches = {"GPT-2 int8 obs server": obs_int8(smi)}
+    obs_tier(smi)
+    print(f"  [obs] {time.perf_counter() - t0:.1f} s wall [{smi}]")
+    return launches
+
+
 # -- main ----------------------------------------------------------------------
 
 def kernel_name(mangled: str) -> str:
@@ -4185,13 +4698,16 @@ def flash_sass(lib_path: str) -> dict:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--obs-overhead", action="store_true",
+                        help=argparse.SUPPRESS)   # obs_overhead's process
     parser.add_argument("--phases",
                         default="kernels,flash,engine,server,batch,train,"
-                                "paged,prefix,spec,remote,ckpt,moe",
+                                "paged,prefix,spec,remote,ckpt,moe,obs",
                         help="comma-separated subset of kernels,flash,engine,"
                              "server,batch,train,paged,prefix,spec,remote,"
-                             "ckpt,moe")
-    phases = set(parser.parse_args().phases.split(","))
+                             "ckpt,moe,obs")
+    args = parser.parse_args()
+    phases = set(args.phases.split(","))
 
     t_start = time.perf_counter()
     import torch
@@ -4201,6 +4717,9 @@ def main() -> int:
         return 1
     from llm_sharding_demo_tpu_torch.ops import cuda_build
 
+    if args.obs_overhead:
+        obs_overhead_child()
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
@@ -4304,6 +4823,14 @@ def main() -> int:
         print("[moe] GPT-2-MoE from a checkpoint: int8 'layer' vs plain, "
               "timing, fp32 and batched int8 servers, train steps")
         moe_launches = moe_phase(smi)
+    obs_launches = {}
+    if "obs" in phases:
+        print("[obs] observability: /metrics and /debug/* of an int8 server "
+              "(CUDA-event scopes on the mega decode, the ledger beside the "
+              "allocator, a tripped burn watch, the recorders' overhead) "
+              "and of a tiered fp32 iter server (the timeline's tier "
+              "events)")
+        obs_launches = obs_phase(smi)
 
     sources = {"decode_attention": "csrc/decode_attention.cu",
                "quant_linear": "csrc/quant.cu",
@@ -4356,6 +4883,8 @@ def main() -> int:
                               for where, c in ckpt_launches.items()},
             "moe_launches": {where: c[k.name]
                              for where, c in moe_launches.items()},
+            "obs_launches": {where: c[k.name]
+                             for where, c in obs_launches.items()},
             "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
             "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
             "bound_by": r.get("bound_by"),

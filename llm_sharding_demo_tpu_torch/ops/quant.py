@@ -24,6 +24,7 @@ dequantize-then-matmul form, as the JAX package leaves them to XLA.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any, Dict, Optional, Tuple
 
@@ -39,16 +40,17 @@ _ALIGN = 128          # contraction/output alignment the kernels assume
 VOCAB_PAD = 2048      # head table row padding
 
 
+@dataclasses.dataclass(eq=False)
 class QuantizedTensor:
     """An int8 weight plus its per-channel scale. ``rows`` is the real row
     count of a padded head table (``None`` for block kernels). Indexing
-    slices both tensors along their leading (layer) axes."""
+    slices both tensors along their leading (layer) axes. A dataclass,
+    so that walkers of parameter trees (the memory ledger) reach its
+    tensors."""
 
-    def __init__(self, q: torch.Tensor, scale: torch.Tensor,
-                 rows: Optional[int] = None):
-        self.q = q
-        self.scale = scale
-        self.rows = rows
+    q: torch.Tensor
+    scale: torch.Tensor
+    rows: Optional[int] = None
 
     def __getitem__(self, idx) -> "QuantizedTensor":
         return QuantizedTensor(self.q[idx], self.scale[idx], self.rows)

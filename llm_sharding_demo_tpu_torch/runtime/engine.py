@@ -42,9 +42,9 @@ from ..ops import decode_layer as DL
 from ..ops.decode_attention import BLOCK_S, KERNEL_HEAD_DIM, eligible
 from ..ops.flash_attention import flash_eligible, flash_profitable
 from ..ops.quant import quantize_params
-from ..utils import tracing
+from ..utils import graftmem, graftscope, tracing
 from ..utils.device import DeviceLike, regime_of, resolve_device, torch_dtype
-from ..utils.metrics import kv_block_gauges
+from ..utils.metrics import REGISTRY, kv_block_gauges
 
 # Reference sampler constants.
 REF_TEMPERATURE = 0.6
@@ -234,6 +234,16 @@ def eos_chunks(steps: int) -> List[int]:
         steps -= take
         cap = min(cap * 2, _EOS_CAP_MAX)
     return out
+
+
+def _rows_tokens_key(ids, *args, **kwargs) -> tuple:
+    """graftscope key of a prefill: (rows, tokens)."""
+    return tuple(ids.shape[:2])
+
+
+def _rows_key(token, *args, **kwargs) -> tuple:
+    """graftscope key of a decode step: (rows,)."""
+    return (token.shape[0],)
 
 
 def _sync(device: torch.device) -> None:
@@ -428,6 +438,10 @@ class DecodeEngine:
         # the launch counts a run must show. Unlocked: exact when one
         # thread drives the engine, as a batcher's worker does
         self._forward_shapes: collections.Counter = collections.Counter()
+        # the weights as the forwards read them, in the memory ledger
+        graftmem.track(self, "params", "params",
+                       self.params if self.params is not None
+                       else self.stage_params)
 
     def forward_shapes(self) -> dict:
         """``{(batch, tokens): cached forwards run}`` so far."""
@@ -486,15 +500,20 @@ class DecodeEngine:
                 and seq_len > 1 and self.specs is None
                 and flash_eligible(seq_len) and flash_profitable(seq_len))
 
-    def _prefill(self, ids: torch.Tensor, pad: Optional[torch.Tensor]):
+    def _prefill_impl(self, ids: torch.Tensor, pad: Optional[torch.Tensor]):
         """``(logits [B, S, vocab], cache)`` of a prompt into a fresh
         cache."""
         cache = self._fresh_cache(ids.shape[0])
         return self._forward_cached(
             ids, cache, pad, self._flash_prefill(ids.shape[1], pad))
 
-    def _prefill_chunked(self, ids: torch.Tensor, pad: Optional[torch.Tensor],
-                         chunk: int):
+    # each prefill and each decode step timed into its graftscope ring:
+    # the host window and, on the card, the stream window
+    _prefill = graftscope.instrument(_prefill_impl, "engine._prefill",
+                                     key_fn=_rows_tokens_key)
+
+    def _prefill_chunked_impl(self, ids: torch.Tensor,
+                              pad: Optional[torch.Tensor], chunk: int):
         """``(last logits [B, vocab], cache)``: ``ids`` [B, n*chunk]
         (left-pad aligned by ``_align_chunks``; ``pad`` includes the
         alignment pad) as one ``chunk``-wide cached forward per chunk into
@@ -505,6 +524,10 @@ class DecodeEngine:
             logits, cache = self._forward_cached(ids[:, c0:c0 + chunk],
                                                  cache, pad)
         return logits[:, -1], cache
+
+    _prefill_chunked = graftscope.instrument(
+        _prefill_chunked_impl, "engine._prefill_chunked",
+        key_fn=_rows_tokens_key)
 
     def _align_chunks(self, ids: np.ndarray, pad: np.ndarray,
                       prompt_len: int, reserve: int):
@@ -551,10 +574,21 @@ class DecodeEngine:
         out = torch.empty((token.shape[0], n), dtype=torch.int64,
                           device=self.device)
         for i in range(n):
-            logits, cache = self._forward_cached(token[:, None], cache, pad)
-            token = select_token(logits[:, -1], sampling, generator)
+            token, cache = self._decode_step(token, cache, pad, sampling,
+                                             generator)
             out[:, i] = token
         return out, cache
+
+    def _decode_step_impl(self, token: torch.Tensor, cache,
+                          pad: Optional[torch.Tensor],
+                          sampling: SamplingConfig, generator: Generators):
+        """One cached single-token step: ``(next token [B], cache)``."""
+        logits, cache = self._forward_cached(token[:, None], cache, pad)
+        return select_token(logits[:, -1], sampling, generator), cache
+
+    _decode_step = graftscope.instrument(_decode_step_impl,
+                                         "engine._decode_step",
+                                         key_fn=_rows_key)
 
     def _ids(self, ids: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(ids, dtype=np.int64),
@@ -614,10 +648,14 @@ class DecodeEngine:
         every row has emitted it."""
         t1 = time.perf_counter()
         batch = ids.shape[0]
+        # the cache is this call's for the whole decode
+        mem_h = graftmem.track(self, "cache", "engine_cache", cache)
         parts = [token[:, None]]
+        segments = 0
         done = None if eos_id is None else (token == eos_id)
         if done is None or not bool(done.all()):
             for take in eos_chunks(max_new_tokens - 1):
+                segments += 1
                 out, cache = self._decode_seg(token, cache, pad_t, take,
                                               sampling, generator)
                 token = out[:, -1]
@@ -629,8 +667,16 @@ class DecodeEngine:
         # an owning host copy: nothing later writes these tokens
         new = torch.cat(parts, dim=1).cpu().numpy().copy()
         t2 = time.perf_counter()
+        graftmem.release(mem_h)
         n = new.shape[1]
-        tracing.record("decode", t1, t2, batch=batch, steps=n)
+        tracing.record("decode", t1, t2, batch=batch, steps=n,
+                       segments=segments,
+                       step_ms=round((t2 - t1) / max(n - 1, 1) * 1e3, 3))
+        if n > 1:
+            # a decode step's time, the device's included: the window
+            # ends after the tokens' copy to the host
+            REGISTRY.observe("decode_step_seconds", (t2 - t1) / (n - 1),
+                             component="engine")
         kv_block_gauges("engine", 0, batch * self._cache_seq)
         return GenerateResult(tokens=np.concatenate([ids, new], axis=1),
                               prompt_len=prompt_len,

@@ -76,7 +76,11 @@ rolled content down into (``_extend_blocks_down``), then scatters whole
 rows (``SEG_REWRITES_FULL_CACHE``).
 
 The worker thread owns all device work, under ``torch.inference_mode``
-(which is thread-local).
+(which is thread-local). It publishes its decisions on the timeline
+(utils.grafttime): ``admission`` (a seed or a join), ``resume``,
+``preempt``, ``park`` and the fault-park budget's ``breaker``; the
+events of a shared prefill or segment carry the rids of its rows, and
+``replica`` labels every event of the worker.
 """
 
 from __future__ import annotations
@@ -92,7 +96,8 @@ import torch
 
 from ..models import is_window_independent
 from ..ops.attention import KVCache
-from ..utils import graftfault, graftmem, graftsched, graftscope, tracing
+from ..utils import (graftfault, graftmem, graftsched, graftscope,
+                     grafttime, tracing)
 from ..utils.metrics import REGISTRY, kv_block_gauges
 from ..utils.device import device_scope
 from .batcher import _round_up, check_compositions
@@ -104,6 +109,11 @@ from .spec_decode import SEG_REWRITES_FULL_CACHE
 # a row that keeps faulting past this many transient-fault parks fails
 # typed instead of cycling forever
 FAULT_PARK_BUDGET = 3
+
+
+def _rid_of(req) -> Optional[str]:
+    """The request's timeline correlation: its trace's X-Request-ID."""
+    return getattr(req.trace, "request_id", None)
 
 
 def _next_pow2(n: int) -> int:
@@ -283,7 +293,8 @@ class IterBatchingEngine:
     def __init__(self, engine: DecodeEngine, max_batch: int = 8,
                  seg_steps: int = 32, max_wait_ms: float = 2.0,
                  prompt_bucket: int = 16, spec=None, prefix=None,
-                 pool=None, queue_limit: Optional[int] = None):
+                 pool=None, queue_limit: Optional[int] = None,
+                 replica: Optional[str] = None):
         if not is_window_independent(engine.config):
             raise NotImplementedError(
                 "iteration-level batching requires window-independent "
@@ -305,6 +316,7 @@ class IterBatchingEngine:
         self.prefix = prefix
         self.spec = spec
         self.pool = pool
+        self.replica = replica
         self.queue_limit = max_batch if queue_limit is None else queue_limit
         self.max_batch = max_batch
         self.seg_steps = seg_steps
@@ -472,6 +484,9 @@ class IterBatchingEngine:
         return False
 
     def _loop(self):
+        if self.replica is not None:
+            # the worker's events carry the app's replica label
+            grafttime.set_thread_replica(self.replica)
         with torch.inference_mode(), device_scope(self.engine.device):
             while True:
                 # parked rows outrank every queued request (they were
@@ -508,7 +523,12 @@ class IterBatchingEngine:
                 if not state.closed:
                     self._admit(state)
                 try:
-                    self._advance(state)
+                    # the segment serves every live row: its events carry
+                    # their rids
+                    with grafttime.correlate([_rid_of(s.req)
+                                              for s in state.slots
+                                              if s is not None]):
+                        self._advance(state)
                 except graftfault.TransientFault as e:
                     self._fault_park_all(state, e)
         except Exception as e:  # noqa: BLE001
@@ -602,9 +622,19 @@ class IterBatchingEngine:
             row = rows[min(i, len(seed) - 1)]  # free rows copy the last
             ids[i, s_max - len(row):] = row
             pad[i] = s_max - len(row)
+        # the admission (or resume) decision, before the prefill it causes
+        for e in seed:
+            r = self._ent_req(e)
+            if isinstance(e, _Parked):
+                grafttime.emit("resume", rid=_rid_of(r), emitted=e.emitted,
+                               mode="seed", width=b)
+            else:
+                grafttime.emit("admission", rid=_rid_of(r), mode="seed",
+                               width=b, prompt_len=len(r.prompt))
         t0 = time.monotonic()
         sp0 = time.perf_counter()
-        logits, cache = eng._prefill(eng._ids(ids), eng._pad(pad))
+        with grafttime.correlate([_rid_of(self._ent_req(e)) for e in seed]):
+            logits, cache = eng._prefill(eng._ids(ids), eng._pad(pad))
         # a resumed row's live token is its last emitted one, known: it
         # draws nothing here; free rows draw nothing either
         generators = None
@@ -622,12 +652,13 @@ class IterBatchingEngine:
                 if isinstance(e, _Parked):
                     r.trace.add_span("preempted", e.park_t, sp0,
                                      scheduler="iter")
+                    r.trace.add_span("prefill", sp0, sp1, kind="resume",
+                                     width=b, emitted=e.emitted)
                 else:
                     r.trace.add_span("queue_wait", r.t_submit, sp0,
                                      scheduler="iter")
-                r.trace.add_span(
-                    "prefill", sp0, sp1, width=b,
-                    kind="resume" if isinstance(e, _Parked) else "seed")
+                    r.trace.add_span("prefill", sp0, sp1, kind="seed",
+                                     width=b, prompt_len=len(r.prompt))
         state = _BatchState(sampling, first,
                             cache, torch.as_tensor(pad, device=eng.device),
                             s_max)
@@ -662,6 +693,8 @@ class IterBatchingEngine:
             self.batches_run += 1
             self.resumes += n_res
         REGISTRY.inc("iter_batches_total")
+        if n_res:
+            REGISTRY.inc("kv_pool_resumes_total", value=n_res)
         self._retire_finished(state)      # max_new_tokens == 1 rows
         self._set_gauges(state)
         return state
@@ -844,6 +877,13 @@ class IterBatchingEngine:
         eng = self.engine
         stream = self._ent_ids(resume) if resume is not None else req.prompt
         plen_eff = len(stream)            # tokens the prefill forwards
+        # the join (or resume) decision, before the prefill it causes
+        if resume is not None:
+            grafttime.emit("resume", rid=_rid_of(req), emitted=resume.emitted,
+                           mode="join", depth=state.depth)
+        else:
+            grafttime.emit("admission", rid=_rid_of(req), mode="join",
+                           depth=state.depth, prompt_len=plen_eff)
         plen = resume.plen if resume is not None else plen_eff
         t0 = resume.t0 if resume is not None else time.monotonic()
         p0 = time.perf_counter()
@@ -865,9 +905,10 @@ class IterBatchingEngine:
             sp = max(sp, plen_eff)  # a bucket past the depth: exact length
             ids = np.zeros((1, sp), dtype=np.int64)
             ids[0, sp - plen_eff:] = stream
-            logits, solo = eng._prefill(
-                eng._ids(ids),
-                eng._pad(np.asarray([sp - plen_eff], np.int32)))
+            with grafttime.correlate([_rid_of(req)]):
+                logits, solo = eng._prefill(
+                    eng._ids(ids),
+                    eng._pad(np.asarray([sp - plen_eff], np.int32)))
             last = logits[:, -1]
             if req.trace is not None:
                 req.trace.add_span(
@@ -918,7 +959,7 @@ class IterBatchingEngine:
                 self.resumes += 1
             else:
                 self.joins += 1
-        REGISTRY.inc("iter_resumes_total" if resume is not None
+        REGISTRY.inc("kv_pool_resumes_total" if resume is not None
                      else "iter_joins_total")
         if req.max_new_tokens <= (resume.emitted if resume is not None
                                   else 1):
@@ -1028,6 +1069,7 @@ class IterBatchingEngine:
         if not live:
             return False
         victim = max(live, key=lambda s: s.order)
+        grafttime.emit("preempt", rid=_rid_of(victim.req), order=victim.order)
         self._park_slot(state, victim, victim.fault_budget_used)
         if victim.req.trace is not None:
             victim.req.trace.labels["preempted"] = (
@@ -1040,7 +1082,7 @@ class IterBatchingEngine:
     # -- degraded mode -------------------------------------------------------
 
     def _park_slot(self, state: _BatchState, s: _Slot,
-                   fault_budget_used: int) -> None:
+                   fault_budget_used: int, reason: str = "preempt") -> None:
         """Park one live row for recompute-resume (a preemption or a
         fault): read its emitted tokens (a host sync: parking is the slow
         path), free its blocks and its row, queue it oldest first."""
@@ -1053,6 +1095,8 @@ class IterBatchingEngine:
         self._release_blocks(state, s.row)
         state.slots[s.row] = None
         self._park(parked)
+        grafttime.emit("park", rid=_rid_of(s.req), reason=reason,
+                       emitted=parked.emitted)
 
     def _fault_park_all(self, state: _BatchState,
                         fault: Exception) -> None:
@@ -1064,6 +1108,17 @@ class IterBatchingEngine:
             if s is None:
                 continue
             if s.fault_budget_used + 1 > FAULT_PARK_BUDGET:
+                if s.req.trace is not None:
+                    t = time.perf_counter()
+                    s.req.trace.add_span("fault_budget_exhausted", t, t,
+                                         scheduler="iter",
+                                         parks=s.fault_budget_used)
+                # the row's park budget opens its breaker: no more
+                # recovery
+                grafttime.emit("breaker", state="open", rid=_rid_of(s.req),
+                               scope="iterbatch.fault_park_budget",
+                               used=s.fault_budget_used,
+                               budget=FAULT_PARK_BUDGET)
                 s.req.fail(graftfault.FaultBudgetError(
                     f"row exhausted its transient-fault park budget "
                     f"({FAULT_PARK_BUDGET}); last fault: {fault}"))
@@ -1073,7 +1128,11 @@ class IterBatchingEngine:
             if s.req.trace is not None:
                 s.req.trace.labels["fault_parks"] = (
                     s.req.trace.labels.get("fault_parks", 0) + 1)
-            self._park_slot(state, s, s.fault_budget_used + 1)
+            grafttime.emit("breaker", state="closed", rid=_rid_of(s.req),
+                           scope="iterbatch.fault_park_budget",
+                           used=s.fault_budget_used + 1,
+                           budget=FAULT_PARK_BUDGET)
+            self._park_slot(state, s, s.fault_budget_used + 1, reason="fault")
         with self._stats_lock:
             self.fault_parks += 1
         REGISTRY.inc("iter_fault_parks_total")
@@ -1159,6 +1218,7 @@ class IterBatchingEngine:
                     s.req.trace.add_span(
                         "decode", t0, t1, seg=True, steps=n,
                         width=len(state.slots), depth=state.depth,
+                        step_ms=round((t1 - t0) / n * 1e3, 3),
                         **({"blocks": len(s.blk_ids)} if pooled else {}))
         self._retire_finished(state)
         self._set_gauges(state)

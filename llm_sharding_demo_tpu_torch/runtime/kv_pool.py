@@ -63,7 +63,8 @@ import torch
 from ..ops import kv_quant as KVQ
 from ..ops import paged_attention as PA
 from ..ops.attention import KVCache
-from ..utils import graftfault, graftmem, graftsched, graftscope, tracing
+from ..utils import (graftfault, graftmem, graftsched, graftscope,
+                     grafttime, tracing)
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.graftnum import regime_of
 from ..utils.metrics import DEFAULT_KV_BLOCK_SIZE, REGISTRY
@@ -570,6 +571,8 @@ class BlockAllocator:
         freed = self._deref_prefix_locked(ids)
         self.evictions += 1
         REGISTRY.inc("kv_pool_evictions_total")
+        grafttime.emit("eviction", blocks=len(ids), freed=len(freed),
+                       prefix_entries=len(self._prefix))
         if self.sanitize:
             self._san_check_locked("eviction")
         return freed
@@ -676,12 +679,6 @@ class KVBlockPool:
             graftmem.track(self, "scales", "pool_scales", self.scales)
         if self.allocator.sanitize:
             self.allocator._on_free = self._graftsan_poison
-        self._gather_timed = graftscope.instrument(
-            self._gather_impl, "kv_pool._gather",
-            key_fn=lambda tables: tuple(np.asarray(tables).shape))
-        self._scatter_timed = graftscope.instrument(
-            self._scatter_impl, "kv_pool._scatter",
-            key_fn=lambda k, v, tables: tuple(np.asarray(tables).shape))
 
     # -- movers (the caller holds _dev_lock) ---------------------------------
 
@@ -695,6 +692,14 @@ class KVBlockPool:
             self._scatter_fn(self.data, self.scales, k, v, tables)
         else:
             PA.scatter_kv(self.data, k, v, tables)
+
+    # the movers timed into their graftscope rings by table shape
+    _gather_timed = graftscope.instrument(
+        _gather_impl, "kv_pool._gather",
+        key_fn=lambda tables: tuple(np.asarray(tables).shape))
+    _scatter_timed = graftscope.instrument(
+        _scatter_impl, "kv_pool._scatter",
+        key_fn=lambda k, v, tables: tuple(np.asarray(tables).shape))
 
     def _copy(self, src, dst) -> None:
         if self.block_dtype is not None:
@@ -828,7 +833,10 @@ class KVBlockPool:
         instead of evicting them, and the prefix store promotes them
         back on a hit."""
         self.tier = tier
-        self.allocator._tier_demote = lambda: tier.demote_lru(self)
+        # weakly: a cycle through the allocator would keep a dropped pool
+        # (and its ledger holdings) alive until a collection
+        pool = weakref.ref(self)
+        self.allocator._tier_demote = lambda: tier.demote_lru(pool())
 
     def spill_blocks(self, ids) -> Tuple[torch.Tensor,
                                          Optional[torch.Tensor]]:

@@ -37,8 +37,9 @@ Locks: the tier's ``_lock`` is a leaf, never held across allocator or
 device work. A demotion goes lease (allocator) -> spill (device) -> pop
 (allocator) -> install (tier); a promote pops the host entry first, so
 the allocation it makes may demote other entries without deadlock. The
-timeline events (``tier_demote``, ``tier_promote``) wait for ROADMAP
-Queue 1 item 15; the moves are counted in ``stats()`` and ``REGISTRY``.
+moves are counted in ``stats()`` and ``REGISTRY`` and land on the
+timeline (utils.grafttime) as ``tier_demote`` and ``tier_promote``,
+emitted outside the tier's lock.
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from ..utils import graftmem, graftsched
+from ..utils import graftmem, graftsched, grafttime
 from ..utils.metrics import REGISTRY
 from .kv_pool import GraftsanError, PoolExhausted
 
@@ -145,11 +146,15 @@ class HostKVTier:
             self._entries[key] = _HostEntry(codes, scales, n, handle)
             self._blocks_in_use += n
             self.demotions += 1
+            in_use = self._blocks_in_use
+            n_entries = len(self._entries)
             if alloc.sanitize:
                 self._check_locked("demote")
         for old in dropped:
             graftmem.release(old.mem_handle)
         REGISTRY.inc("tier_demotions_total")
+        grafttime.emit("tier_demote", blocks=n, host_blocks=in_use,
+                       host_entries=n_entries)
         return True
 
     def has(self, key: bytes) -> bool:
@@ -200,10 +205,13 @@ class HostKVTier:
         with self._lock:
             self.promotions += 1
             self._promote_ms += dur_ms
+            in_use = self._blocks_in_use
             if alloc.sanitize:
                 self._check_locked("promote")
         graftmem.release(entry.mem_handle)
         REGISTRY.inc("tier_promotions_total")
+        grafttime.emit("tier_promote", blocks=entry.n_blocks,
+                       host_blocks=in_use, dur_ms=round(dur_ms, 3))
         return tuple(ids)
 
     def note_gauges(self, component: str = "pool") -> None:

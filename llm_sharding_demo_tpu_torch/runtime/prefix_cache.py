@@ -173,7 +173,6 @@ class PrefixCachingEngine:
         try:
             fresh = alloc.alloc(nb_new - n_share)
         except PoolExhausted:
-            REGISTRY.inc("prefix_cache_insert_skipped_total")
             return
         try:
             table = np.full((1, self._pool.nbm), self._pool.trash, np.int32)
@@ -229,6 +228,9 @@ class PrefixCachingEngine:
             REGISTRY.inc("prefix_cache_hits_total")
             REGISTRY.inc("prefix_cache_reused_tokens_total",
                          value=m_hit * self.chunk)
+            # the hit depth on the enclosing prefill span
+            tracing.annotate_span(prefix_hit=True,
+                                  reused_tokens=m_hit * self.chunk)
             if self._pool is not None:
                 hit_ids = entry
                 try:
@@ -242,6 +244,7 @@ class PrefixCachingEngine:
             with self._store_lock:
                 self.misses += 1
             REGISTRY.inc("prefix_cache_misses_total")
+            tracing.annotate_span(prefix_hit=False)
             cache = eng._fresh_cache(1)
 
         # extend chunk by chunk, inserting the deepest full-chunk state
@@ -267,14 +270,11 @@ class PrefixCachingEngine:
             cache, eng._ids(prompt[None, m_total * self.chunk:]))
         return logits, cache, m_hit * self.chunk
 
-    def _walk_timed(self, prompt: np.ndarray):
-        """``_prefill_walk`` with its ``prefill`` span (hit depth
-        labelled) on the ambient trace."""
-        t0 = time.perf_counter()
-        logits, cache, reused = self._prefill_walk(prompt)
-        tracing.record("prefill", t0, time.perf_counter(), prefix=True,
-                       prompt_len=len(prompt), prefix_hit=reused > 0,
-                       reused_tokens=reused)
+    def _walk_traced(self, prompt: np.ndarray):
+        """``_prefill_walk`` inside its ``prefill`` span on the ambient
+        trace (the walk labels the hit depth)."""
+        with tracing.span("prefill", prefix=True, prompt_len=len(prompt)):
+            logits, cache, _ = self._prefill_walk(prompt)
         return logits, cache
 
     @torch.inference_mode()
@@ -285,7 +285,7 @@ class PrefixCachingEngine:
         caller's to write."""
         prompt = np.asarray(prompt, dtype=np.int64).reshape(-1)
         with self._lock:
-            logits, cache = self._walk_timed(prompt)
+            logits, cache = self._walk_traced(prompt)
         return logits[:, -1], cache, len(prompt)
 
     @torch.inference_mode()
@@ -301,7 +301,7 @@ class PrefixCachingEngine:
                              "store (pass pool= at construction)")
         prompt = np.asarray(prompt, dtype=np.int64).reshape(-1)
         with self._lock:
-            logits, cache = self._walk_timed(prompt)
+            logits, cache = self._walk_traced(prompt)
             m, ids = self._lookup(prompt)
         return logits[:, -1], cache, list(ids or ()), m * self.chunk
 
@@ -324,9 +324,10 @@ class PrefixCachingEngine:
                              "DecodeEngine / runtime.batcher")
         with self._lock:
             t0 = time.perf_counter()
-            logits, cache = self._walk_timed(ids[0])
-            first = select_token(logits[:, -1], sampling, generator)
-            _sync(eng.device)
+            with tracing.span("prefill", prefix=True, prompt_len=prompt_len):
+                logits, cache, _ = self._prefill_walk(ids[0])
+                first = select_token(logits[:, -1], sampling, generator)
+                _sync(eng.device)
             prefill_seconds = time.perf_counter() - t0
             if self.spec is not None and self.spec.eligible(prompt_len,
                                                             max_new_tokens):

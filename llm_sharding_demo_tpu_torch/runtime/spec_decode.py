@@ -59,7 +59,7 @@ import torch
 
 from ..models import is_window_independent
 from ..ops.attention import KVCache
-from ..utils import graftsched, tracing
+from ..utils import graftsched, graftscope, tracing
 from ..utils.device import DeviceLike
 from ..utils.metrics import REGISTRY
 from .engine import (DecodeEngine, GenerateResult, Generators,
@@ -409,9 +409,10 @@ class SpecDecodeEngine:
                         pad=new_pad, emitted=c.emitted + n_emit,
                         steps=c.steps + 1)
 
-    def _seg_b(self, buf: np.ndarray, cache, total: int, pad: np.ndarray,
-               generators: Optional[Sequence], budgets: np.ndarray,
-               max_verify: int, sampling: SamplingConfig) -> SegCarry:
+    def _seg_b_impl(self, buf: np.ndarray, cache, total: int,
+                    pad: np.ndarray, generators: Optional[Sequence],
+                    budgets: np.ndarray, max_verify: int,
+                    sampling: SamplingConfig) -> SegCarry:
         """A bounded verify SEGMENT over a live batch (the iteration
         batcher's spec segment): up to ``max_verify`` verifies, stopping
         once every row's ``budgets`` [B] are spent. The carry it returns
@@ -425,6 +426,12 @@ class SpecDecodeEngine:
         while c.steps < max_verify and (c.emitted < budgets).any():
             c = self._step_b(sampling, budgets, c, generators)
         return c
+
+    # each verify segment of the iteration batcher, timed into its
+    # graftscope ring under (rows, verifies allowed)
+    _seg_b = graftscope.instrument(
+        _seg_b_impl, "spec_decode._seg_b",
+        key_fn=lambda buf, *a, **k: (buf.shape[0], a[5]))
 
     def _run_loop_batched(self, ids: np.ndarray, first: torch.Tensor, cache,
                           prompt_len: int, generators, pad: np.ndarray,

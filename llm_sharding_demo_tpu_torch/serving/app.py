@@ -7,8 +7,16 @@ Counterpart of the core of ``llm_sharding_demo_tpu/serving/app.py``
 - ``POST /forward``   {"input_ids": [int]}       -> {"hidden_states": [[[f]]]}
 - ``POST /forward_b`` {"hidden_states": [[[f]]]} -> {"logits": [[[f]]]}
 - ``GET /healthz``    readiness, the serving composition, the device, the
-  resolved decode kernel mode, the kernels' launch counts and, with a
-  paged pool, its block stats.
+  resolved decode kernel mode, the kernels' launch counts, the trend
+  watches' state and, with a paged pool, its block stats;
+- ``GET /metrics``    the registry as Prometheus text;
+- ``GET /debug``      the index of the ``/debug/*`` surfaces:
+  ``/debug/requests`` (the flight recorder's span trees),
+  ``/debug/profile`` (graftscope's call rings, host and CUDA-event
+  stream windows, and occupancy series), ``/debug/memory`` (the memory
+  ledger beside the CUDA allocator), ``/debug/timeline`` (grafttime's
+  event stream), ``/debug/trend`` (grafttrend's watches) and
+  ``/debug/plan`` (``mode: "off"``: the port has no planner yet).
 
 Role guards answer HTTP 200 with ``{"error": ...}`` as the reference does.
 Runner choice: ``INFERENCE_DTYPE=int8`` or ``bfloat16``, ``MAX_BATCH >
@@ -74,7 +82,19 @@ Request headers: ``X-Request-ID`` is echoed on every ``/generate`` reply
 the request (400 when malformed, 503 ``deadline_exceeded`` once spent:
 refused before any runner, cancelled at a segment boundary by the
 iteration batcher, the per-attempt timeout of every shard hop). Every
-503 carries ``Retry-After``.
+503 carries ``Retry-After``. ``X-Workload-Profile`` labels the request's
+trace.
+
+Every ``/generate`` request builds a ``RequestTrace`` (tokenize, queue
+wait, prefill, decode, detokenize spans) that the flight recorder keeps,
+failed requests with an ``error`` label; from it the app observes
+``ttft_seconds`` (arrival to the end of the prefill) and
+``tpot_seconds`` (the decode spans over the steps decoded after the
+first), beside ``generate_request_seconds``, and it counts
+``generate_requests_total{mode}``, ``generated_tokens_total`` and
+``deadline_misses_total``. A typed 503 journals the timeline
+(``grafttime.blackbox``). ``create_app(registry=, recorder=)`` takes a
+registry and a flight recorder of the caller's.
 """
 
 from __future__ import annotations
@@ -103,11 +123,12 @@ from ..runtime.batcher import BatchingEngine
 from ..runtime.engine import (REF_TEMPERATURE, REF_TOP_K, DecodeEngine,
                               SamplingConfig, sampler_pmf)
 from ..runtime.iterbatch import IterBatchingEngine
-from ..runtime.kv_pool import KVBlockPool, PagedKVRunner
+from ..runtime.kv_pool import GraftsanError, KVBlockPool, PagedKVRunner
 from ..runtime.kv_tier import HostKVTier
 from ..runtime.prefix_cache import PrefixCachingEngine
 from ..runtime.spec_decode import SpecDecodeEngine
-from ..utils import graftfault, tracing
+from ..utils import (graftfault, graftmem, graftscope, grafttime,
+                     grafttrend, tracing)
 from ..utils.config import ServingConfig, from_env
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.metrics import REGISTRY
@@ -224,15 +245,24 @@ class GenerateReq:
 
 
 def create_app(cfg: Optional[ServingConfig] = None, model=None,
-               tokenizer=None, device: DeviceLike = None) -> JSONApp:
+               tokenizer=None, device: DeviceLike = None, registry=None,
+               recorder=None, replica: Optional[str] = None) -> JSONApp:
     """Build the app. ``model=(config, params)`` and ``tokenizer`` are
     injectable for tests; by default the model comes from
     ``serving.loader`` (role-aware: a shard with a checkpoint restores
     only its stage, a remote coordinator only the configuration) and the
     tokenizer from the checkpoint's assets, else bytes. ``device`` is
-    ``cuda`` unless given."""
+    ``cuda`` unless given. ``registry`` (a ``MetricsRegistry``) and
+    ``recorder`` (a ``FlightRecorder``) default to the process's;
+    ``replica`` labels the app's timeline events (default "solo")."""
     cfg = cfg or from_env()
     dev = resolve_device(device)
+    reg = registry if registry is not None else REGISTRY
+    rec = recorder if recorder is not None else tracing.RECORDER
+    replica_label = replica or "solo"
+    # the trend watches over this app's registry, polled on each read
+    # of /debug/trend
+    trend_reducer = grafttrend.TrendReducer(registry=reg)
     # a remote coordinator relays to the shards, which hold the weights
     remote = cfg.shard_role == "coordinator" and cfg.dispatch == "remote"
     stage_only = None
@@ -318,7 +348,7 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
             runner = IterBatchingEngine(engine, max_batch=cfg.max_batch,
                                         max_wait_ms=cfg.batch_wait_ms,
                                         spec=spec, prefix=prefix,
-                                        pool=kv_pool)
+                                        pool=kv_pool, replica=replica_label)
         elif cfg.max_batch > 1:
             runner = BatchingEngine(engine, max_batch=cfg.max_batch,
                                     max_wait_ms=cfg.batch_wait_ms,
@@ -340,11 +370,45 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
 
     app = JSONApp(title="llm-sharding-demo-tpu-torch", version="0.1.0")
 
+    @app.get("/metrics")
+    def metrics():
+        return reg.prometheus()
+
+    def _topology() -> dict:
+        """The composition serving /generate: the one header of
+        /healthz and of every /debug surface."""
+        return {
+            "role": cfg.shard_role,
+            "model": cfg.model_id,
+            "n_stages": decode_stages,
+            "dispatch": cfg.dispatch,
+            "max_batch": cfg.max_batch,
+            "batch_mode": cfg.batch_mode,
+            "inference_dtype": cfg.inference_dtype,
+            "spec_decode": cfg.spec_decode,
+            "prefill_chunk": cfg.prefill_chunk,
+            "prefix_cache": cfg.prefix_cache,
+            "prefix_chunk": cfg.prefix_chunk,
+            "kv_pool_blocks": cfg.kv_pool_blocks,
+            "kv_block_size": cfg.kv_block_size,
+            "kv_pool_dtype": cfg.kv_pool_dtype,
+            "kv_host_blocks": cfg.kv_host_blocks,
+            "device": str(dev),
+            "decode_kernel": decode_kernel,
+        }
+
+    def _pool_stats() -> dict:
+        st = kv_pool.stats()
+        # the planes' bytes from the ledger, never from shapes
+        st["pool_bytes"] = (graftmem.holding_bytes(kv_pool, "data")
+                            + graftmem.holding_bytes(kv_pool, "scales"))
+        return st
+
     @app.get("/healthz")
     def healthz():
         live = {}
         if kv_pool is not None:
-            st = kv_pool.stats()
+            st = _pool_stats()
             # every block is free or referenced: drift is an accounting
             # bug, answered 500 rather than a wrong gauge
             if st["blocks_in_use"] + st["blocks_free"] != st["blocks_total"]:
@@ -360,25 +424,18 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
             live["prefix_cache_stats"] = prefix.stats()
         if spec is not None:
             live["spec_decode_stats"] = spec.stats()
+        # the ledger's entry table against its running totals: drift
+        # answers 500
+        mem = graftmem.snapshot()
+        if graftmem.enabled() and not mem["conserved"]:
+            raise AssertionError(
+                "graftmem byte conservation violated: component sum "
+                f"{mem['components']} disagrees with ledger total "
+                f"{mem['total_bytes']}")
         return {
             "status": "ok",
-            "role": cfg.shard_role,
-            "model": cfg.model_id,
-            "n_stages": decode_stages,
-            "dispatch": cfg.dispatch,
-            "max_batch": cfg.max_batch,
-            "batch_mode": cfg.batch_mode,
-            "prefill_chunk": cfg.prefill_chunk,
-            "prefix_cache": cfg.prefix_cache,
-            "prefix_chunk": cfg.prefix_chunk,
-            "kv_pool_blocks": cfg.kv_pool_blocks,
-            "kv_block_size": cfg.kv_block_size,
-            "kv_pool_dtype": cfg.kv_pool_dtype,
-            "kv_host_blocks": cfg.kv_host_blocks,
-            "spec_decode": cfg.spec_decode,
-            "inference_dtype": cfg.inference_dtype,
-            "device": str(dev),
-            "decode_kernel": decode_kernel,
+            **_topology(),
+            "trend": trend_reducer.health_view(),
             "kernel_launches": cuda_build.launch_counts(),
             # the engine's cached forwards by "BATCHxTOKENS"
             "forward_shapes": ({} if engine is None else {
@@ -389,6 +446,70 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
                else {}),
             **live,
         }
+
+    @app.get("/debug")
+    def debug_index():
+        return {
+            "serving": _topology(),
+            "surfaces": {
+                "/debug/requests": (
+                    "flight recorder: span trees of the last N requests "
+                    "(?n, ?slowest=1, ?errors=1, ?profile=)"),
+                "/debug/profile": (
+                    "graftscope: per-scope call rings with host and "
+                    "CUDA-event stream windows, occupancy series (?n)"),
+                "/debug/plan": (
+                    "continuous planning's state: off (the port has no "
+                    "planner)"),
+                "/debug/timeline": (
+                    "grafttime's causal event stream, one clock over "
+                    "spans, calls, faults, admissions and tier moves "
+                    "(?rid=, ?since=, ?since_seq=, ?kinds=, ?n=)"),
+                "/debug/trend": (
+                    "grafttrend: the WATCH_POLICY verdicts, windowed "
+                    "series reductions, the alert journal (?eval=0 "
+                    "reads without polling or evaluating)"),
+                "/debug/memory": (
+                    "graftmem: per-component live bytes, peaks, "
+                    "per-device attribution beside the CUDA allocator, "
+                    "pool geometry, the conservation verdict"),
+            },
+        }
+
+    @app.get("/debug/requests")
+    def debug_requests(query: dict):
+        return tracing.debug_requests_payload(rec, query, _topology())
+
+    @app.get("/debug/profile")
+    def debug_profile(query: dict):
+        try:
+            n = int(query.get("n", "32"))
+        except ValueError:
+            return 422, {"detail": "n must be an integer"}
+        return {"serving": _topology(), **graftscope.snapshot(n=n)}
+
+    @app.get("/debug/plan")
+    def debug_plan():
+        # AUTO_PLAN refuses at startup: there is no planner to describe
+        return {"serving": _topology(), "mode": "off", "auto_plan": None}
+
+    @app.get("/debug/memory")
+    def debug_memory():
+        body = {"serving": _topology(), **graftmem.snapshot()}
+        if kv_pool is not None:
+            body["pool"] = _pool_stats()
+        return body
+
+    @app.get("/debug/timeline")
+    def debug_timeline(query: dict):
+        return grafttime.debug_timeline_payload(query, _topology())
+
+    @app.get("/debug/trend")
+    def debug_trend(query: dict):
+        if query.get("eval", "1") != "0":
+            trend_reducer.poll()
+            trend_reducer.evaluate()
+        return {"serving": _topology(), **trend_reducer.describe()}
 
     @app.post("/forward")
     def forward_a(req: InputIDs):
@@ -431,8 +552,8 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
     hop_policy = graftfault.HopPolicy(
         attempts=3, timeout_s=30.0, base_backoff_s=0.25,
         max_backoff_s=2.0, breaker_threshold=5, breaker_cooldown_s=5.0,
-        fatal=(UpstreamError,),
-        on_retry=lambda shard, reason: REGISTRY.inc(
+        fatal=(UpstreamError,), registry=reg,
+        on_retry=lambda shard, reason: reg.inc(
             "shard_hop_retries_total", stage=shard, reason=reason))
 
     def _relay(shard: str, url: str, payload: dict, key: str,
@@ -544,8 +665,13 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
 
     @app.post("/generate")
     def generate(req: GenerateReq, headers: dict):
+        # the replica label rides every timeline event of the request
+        with grafttime.use_replica(replica_label):
+            return _generate(req, headers)
+
+    def _generate(req: GenerateReq, headers: dict):
         # every reply, errors included, echoes the request id
-        rid, _ = parse_request_identity(headers)
+        rid, profile_label = parse_request_identity(headers)
         hdrs = {"X-Request-ID": rid}
 
         def out(body, status=200):
@@ -555,10 +681,17 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
             return out({"error": "This instance is not coordinator."})
         if req.max_new_tokens < 1:
             return out({"error": "max_new_tokens must be >= 1"})
-        deadline, _, dl_err = parse_deadline_header(headers)
+        deadline, dl_ms, dl_err = parse_deadline_header(headers)
         if dl_err:
             return out({"error": dl_err}, status=400)
-        prompt_ids = tokenizer.encode(req.prompt)
+        trace = tracing.RequestTrace(rid, mode=req.mode,
+                                     dispatch=cfg.dispatch)
+        if profile_label is not None:
+            trace.labels.update(profile=profile_label)
+        if deadline is not None:
+            trace.labels.update(deadline_ms=dl_ms)
+        with trace.span("tokenize"):
+            prompt_ids = tokenizer.encode(req.prompt)
         if not prompt_ids:
             return out({"error": "prompt tokenized to zero tokens"})
         if len(prompt_ids) + req.max_new_tokens > cfg.max_seq:
@@ -602,49 +735,105 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
                       and kv_pool.allocator.available() >= need)
                 retry = 1.0
             if not ok:
-                REGISTRY.inc("kv_pool_admission_rejections_total")
+                reg.inc("kv_pool_admission_rejections_total")
                 hdrs["Retry-After"] = str(max(1, int(round(retry))))
+                trace.labels.update(error="kv_pool_saturated")
+                rec.record(trace)
                 return out({"error": "kv_pool_saturated",
                             "detail": "KV memory pool cannot admit this "
                                       "request; retry after the "
                                       "indicated backoff"}, status=429)
+        # the runners record their phases on the ambient trace; a
+        # batcher carries it across its queue to its worker
         try:
-            if remote:
-                ids = _generate_remote(req, prompt_ids, eos_id, deadline)
-            else:
-                ids = _generate_local(req, prompt_ids, eos_id, deadline)
+            with tracing.timed("generate_request_seconds", registry=reg,
+                               mode=req.mode, dispatch=cfg.dispatch):
+                with tracing.use_trace(trace):
+                    if remote:
+                        ids = _generate_remote(req, prompt_ids, eos_id,
+                                               deadline)
+                    else:
+                        ids = _generate_local(req, prompt_ids, eos_id,
+                                              deadline)
+            finish_reason = "length"
+            # the steps decoded, counted before the EOS cut: TPOT divides
+            # the decode time by the steps the device ran
+            n_decoded = len(ids) - len(prompt_ids)
+            if eos_id is not None:
+                # truncate at the first EOS among the new tokens
+                new = ids[len(prompt_ids):]
+                if eos_id in new:
+                    ids = ids[:len(prompt_ids) + new.index(eos_id)]
+                    finish_reason = "stop"
+            n_new = len(ids) - len(prompt_ids)
+            reg.inc("generate_requests_total", mode=req.mode)
+            reg.inc("generated_tokens_total", value=n_new)
+            log.info('{"event": "generate", "mode": "%s", '
+                     '"request_id": "%s", "prompt_tokens": %d, '
+                     '"new_tokens": %d, "finish_reason": "%s"}', req.mode,
+                     rid, len(prompt_ids), n_new, finish_reason)
+            with trace.span("detokenize"):
+                text = tokenizer.decode(ids)
+            trace.finish()
+            # TTFT: arrival through the prefill (queue wait included),
+            # the whole request where no prefill span was recorded;
+            # TPOT: the decode spans over the steps after the first
+            pre = trace.find("prefill")
+            ttft = (pre.t1 - trace.t0) if pre is not None else trace.duration
+            reg.observe("ttft_seconds", ttft, mode=req.mode)
+            if n_decoded > 1:
+                decode_spans = trace.find_all("decode")
+                decode_wall = sum(sp.duration for sp in decode_spans)
+                if not decode_spans:
+                    decode_wall = max(trace.duration - ttft, 0.0)
+                reg.observe("tpot_seconds", decode_wall / (n_decoded - 1),
+                            mode=req.mode)
+            trace.labels.update(prompt_tokens=len(prompt_ids),
+                                new_tokens=n_new,
+                                finish_reason=finish_reason,
+                                ttft_ms=round(ttft * 1e3, 3))
+            rec.record(trace)
         except UpstreamError as e:
             # a dead, failing or misrouted shard: typed, never a local
             # answer
             log.warning("upstream failure: %s", e)
-            REGISTRY.inc("upstream_failures_total", shard=e.shard)
+            reg.inc("upstream_failures_total", shard=e.shard)
+            trace.labels.update(error="upstream_failure", shard=e.shard)
+            rec.record(trace)
             return out({"error": "upstream_failure", "shard": e.shard,
                         "upstream": e.url, "detail": e.detail}, status=502)
         except graftfault.Unavailable as e:
             hdrs["Retry-After"] = str(max(1, int(round(e.retry_after))))
+            if e.code == "deadline_exceeded":
+                # accepted work that died on its budget: the deadline
+                # SLO's source series
+                reg.inc("deadline_misses_total")
+            trace.labels.update(error=e.code)
+            rec.record(trace)
+            # the events that led here outlive the ring
+            grafttime.blackbox(e.code, rid=rid)
             return out({"error": e.code, "detail": str(e)}, status=503)
         except TimeoutError as e:
             hdrs["Retry-After"] = "1"
+            trace.labels.update(error="timeout")
+            rec.record(trace)
+            grafttime.blackbox("timeout", rid=rid)
             return out({"error": "timeout", "detail": str(e)}, status=503)
         except Exception as e:  # noqa: BLE001 - the id is still echoed
             log.exception("generate failed")
+            trace.labels.update(error=f"{type(e).__name__}: {e}")
+            rec.record(trace)
+            if isinstance(e, GraftsanError):
+                # a sanitizer trap on the serving path: journal the
+                # events that led to it
+                grafttime.blackbox(f"graftsan:{type(e).__name__}", rid=rid)
             return out({"detail": f"{type(e).__name__}: {e}"}, status=500)
-        finish_reason = "length"
-        if eos_id is not None:
-            # truncate at the first EOS among the new tokens
-            new = ids[len(prompt_ids):]
-            if eos_id in new:
-                ids = ids[:len(prompt_ids) + new.index(eos_id)]
-                finish_reason = "stop"
-        log.info('{"event": "generate", "mode": "%s", "request_id": "%s", '
-                 '"prompt_tokens": %d, "new_tokens": %d, '
-                 '"finish_reason": "%s"}', req.mode, rid, len(prompt_ids),
-                 len(ids) - len(prompt_ids), finish_reason)
-        body = {"generated": tokenizer.decode(ids)}
+        body = {"generated": text}
         if eos_id is not None:
             body["finish_reason"] = finish_reason
         return out(body)
 
+    app.trend_reducer = trend_reducer
     return app
 
 

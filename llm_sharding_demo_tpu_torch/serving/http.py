@@ -8,9 +8,11 @@ in-process ``TestClient`` that runs the exact dispatch path.
 POST handlers may annotate one parameter with a dataclass; the JSON body
 is validated into it (HTTP 422 with ``{"detail": [...]}`` on failure,
 unknown keys ignored). A handler that declares a ``headers`` parameter
-receives the request headers as a dict with lower-cased names. Handlers
-return a dict (200), ``(status, payload)`` or ``(status, payload,
-headers)``; an uncaught exception answers 500.
+receives the request headers as a dict with lower-cased names, one that
+declares ``query`` the query string's parameters. Handlers return a
+payload (200), ``(status, payload)`` or ``(status, payload, headers)``:
+a dict is sent as JSON, a string as text (the Prometheus exposition);
+an uncaught exception answers 500.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import threading
 import typing
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, List, Optional, Tuple
-from urllib.parse import urlsplit
+from urllib.parse import parse_qsl, urlsplit
 
 
 class ValidationError(Exception):
@@ -112,7 +114,8 @@ class JSONApp:
                headers: Optional[Dict[str, str]] = None,
                ) -> Tuple[int, Any, Dict[str, str]]:
         """``(status, payload, response headers)`` of one request."""
-        route_path = urlsplit(path).path
+        parts = urlsplit(path)
+        route_path = parts.path
         fn = self._routes.get((method, route_path))
         if fn is None:
             if any(p == route_path for (_, p) in self._routes):
@@ -121,12 +124,15 @@ class JSONApp:
 
         kwargs = {}
         code = fn.__code__
-        if "headers" in code.co_varnames[:code.co_argcount]:
+        arg_names = code.co_varnames[:code.co_argcount]
+        if "headers" in arg_names:
             kwargs["headers"] = {k.lower(): v
                                  for k, v in (headers or {}).items()}
+        if "query" in arg_names:
+            kwargs["query"] = dict(parse_qsl(parts.query))
         args = []
         hints = {k: v for k, v in typing.get_type_hints(fn).items()
-                 if k not in ("return", "headers")}
+                 if k not in ("return", "headers", "query")}
         if hints:
             model = next(iter(hints.values()))
             if dataclasses.is_dataclass(model):
@@ -158,8 +164,12 @@ class Response:
         self.status_code = status_code
         self._payload = payload
         self.headers = dict(headers or {})
+        self.text = (payload if isinstance(payload, str)
+                     else json.dumps(payload))
 
     def json(self) -> Any:
+        if isinstance(self._payload, str):
+            raise ValueError("response is text, not JSON")
         return self._payload
 
 
@@ -196,11 +206,16 @@ def serve(app: JSONApp, host: str = "0.0.0.0", port: int = 5000,
             body = self.rfile.read(length) if length else None
             status, payload, headers = app.handle(
                 method, self.path, body, dict(self.headers.items()))
-            data = json.dumps(payload).encode()
+            if isinstance(payload, str):
+                data = payload.encode()
+                ctype = "text/plain; version=0.0.4"  # Prometheus text
+            else:
+                data = json.dumps(payload).encode()
+                ctype = "application/json"
             self.send_response(status)
             for name, value in headers.items():
                 self.send_header(name, value)
-            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(data)))
             self.end_headers()
             self.wfile.write(data)

@@ -21,7 +21,9 @@ The port's sites: ``iterbatch.decode_seg`` (``decode_transient``,
 pool's grant (``kv_pool.admit_alloc``) and at the two 429 gates
 (``iterbatch.admission_load``, ``serving.admission``), and
 ``serving.shard_hop`` (``reset``, ``timeout``, ``http_503``, ``slow``)
-inside each hop attempt, before the wire call.
+inside each hop attempt, before the wire call. Each fired fault is a
+``fault_inject`` event on the timeline (utils.grafttime), each breaker
+transition a ``breaker`` event beside its ``hop_breaker_open`` gauge.
 
 The plan built from ``GRAFTFAULT*`` environment variables waits for
 ROADMAP Queue 1 item 15.
@@ -172,9 +174,13 @@ class FaultPlan:
                     and len(self._log) >= self.max_injections):
                 return None
             kind = self._decide(site, n, tuple(kinds))
-            if kind is not None:
-                self._log.append(Injection(site, kind, n))
-            return kind
+            if kind is None:
+                return None
+            self._log.append(Injection(site, kind, n))
+        # on the timeline, correlated with the ambient request or rows
+        from . import grafttime
+        grafttime.emit("fault_inject", site=site, fault=kind, seq=n)
+        return kind
 
     @property
     def injections(self) -> List[Injection]:
@@ -213,11 +219,18 @@ def inject(site: str, *kinds: str) -> Optional[str]:
 # -- the hop policy -----------------------------------------------------------
 
 
-def _sample_breaker(target: str, value: float) -> None:
-    """The ``hop_breaker_open`` gauge of one breaker, labelled by its
-    target: 1.0 when it opens, 0.0 when a probe closes it."""
+def _sample_breaker(target: str, value: float, registry=None) -> None:
+    """One breaker's transition, labelled by its target (1.0 when it
+    opens, 0.0 when a probe closes it): the ``hop_breaker_open`` gauge
+    (of ``registry``, else the process's), its occupancy point and a
+    ``breaker`` event."""
+    from . import graftscope, grafttime
     from .metrics import REGISTRY
-    REGISTRY.gauge("hop_breaker_open", value, target=target)
+    (REGISTRY if registry is None else registry).gauge(
+        "hop_breaker_open", value, target=target)
+    graftscope.sample("hop_breaker_open", value, target=target)
+    grafttime.emit("breaker", state="open" if value else "closed",
+                   target=target)
 
 
 @dataclasses.dataclass
@@ -238,7 +251,9 @@ class HopPolicy:
     between tries; each attempt's timeout comes from the remaining
     deadline budget, capped at ``timeout_s``. Exceptions in ``fatal``
     propagate at once (a misroute does not heal by repetition).
-    ``on_retry(shard, reason)`` fires before each re-attempt.
+    ``on_retry(shard, reason)`` fires before each re-attempt;
+    ``registry`` takes the ``hop_breaker_open`` gauge (default: the
+    process's).
 
     The breaker opens after ``breaker_threshold`` consecutive failures;
     calls then fail fast with ``CircuitOpenError`` (``retry_after`` the
@@ -251,7 +266,7 @@ class HopPolicy:
                  breaker_threshold: int = 5,
                  breaker_cooldown_s: float = 5.0,
                  jitter_seed: int = 0, fatal: Tuple[type, ...] = (),
-                 on_retry=None, sleep=time.sleep):
+                 on_retry=None, sleep=time.sleep, registry=None):
         if attempts < 1:
             raise ValueError("attempts must be >= 1")
         self.attempts = attempts
@@ -262,6 +277,7 @@ class HopPolicy:
         self.breaker_cooldown_s = float(breaker_cooldown_s)
         self.fatal = tuple(fatal)
         self.on_retry = on_retry
+        self._registry = registry
         self._sleep = sleep
         self._lock = graftsched.lock("graftfault.HopPolicy._lock")
         self._rng = random.Random(jitter_seed)
@@ -298,7 +314,7 @@ class HopPolicy:
             if opened:
                 b.opened_at = now
                 b.probing = False
-                _sample_breaker(shard, 1.0)
+                _sample_breaker(shard, 1.0, self._registry)
         return opened
 
     def _note_success(self, shard: str) -> None:
@@ -307,7 +323,7 @@ class HopPolicy:
             was_open = b is not None and b.opened_at is not None
             self._breakers[shard] = _Breaker()
             if was_open:
-                _sample_breaker(shard, 0.0)
+                _sample_breaker(shard, 0.0, self._registry)
 
     def _probe_release(self, shard: str) -> None:
         """Drop a probe claim that ended without a verdict (a deadline

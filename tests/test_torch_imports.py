@@ -54,7 +54,8 @@ def test_port_imports_with_jax_blocked():
                  "runtime.batcher", "runtime.spec_decode",
                  "utils.graftfault", "serving.http", "models.moe",
                  "models.hf_convert", "utils.checkpoint",
-                 "tools.convert_hf", "serving.loader"):
+                 "tools.convert_hf", "serving.loader", "utils.grafttime",
+                 "utils.grafttrend", "loadgen.profiles"):
         assert f"llm_sharding_demo_tpu_torch.{name}" in modules
     code = "; ".join([
         "import sys",
