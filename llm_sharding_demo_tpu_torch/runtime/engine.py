@@ -241,9 +241,9 @@ def _rows_tokens_key(ids, *args, **kwargs) -> tuple:
     return tuple(ids.shape[:2])
 
 
-def _rows_key(token, *args, **kwargs) -> tuple:
-    """graftscope key of a decode step: (rows,)."""
-    return (token.shape[0],)
+def _seg_key(token, cache, pad, n, *args, **kwargs) -> tuple:
+    """graftscope key of a decode segment: (rows, steps)."""
+    return (token.shape[0], n)
 
 
 def _sync(device: torch.device) -> None:
@@ -507,8 +507,8 @@ class DecodeEngine:
         return self._forward_cached(
             ids, cache, pad, self._flash_prefill(ids.shape[1], pad))
 
-    # each prefill and each decode step timed into its graftscope ring:
-    # the host window and, on the card, the stream window
+    # each prefill timed into its graftscope ring: the host window and,
+    # on the card, the stream window
     _prefill = graftscope.instrument(_prefill_impl, "engine._prefill",
                                      key_fn=_rows_tokens_key)
 
@@ -562,9 +562,9 @@ class DecodeEngine:
         logits, cache = self._prefill(self._ids(ids), pad)
         return logits[:, -1], cache
 
-    def _decode_seg(self, token: torch.Tensor, cache,
-                    pad: Optional[torch.Tensor], n: int,
-                    sampling: SamplingConfig, generator: Generators):
+    def _decode_seg_impl(self, token: torch.Tensor, cache,
+                         pad: Optional[torch.Tensor], n: int,
+                         sampling: SamplingConfig, generator: Generators):
         """``n`` cached single-token steps from ``token`` [B]: returns
         ``(tokens [B, n] on the device, cache)``. The one decode loop:
         ``generate`` and both batchers run every decode step through it.
@@ -574,21 +574,16 @@ class DecodeEngine:
         out = torch.empty((token.shape[0], n), dtype=torch.int64,
                           device=self.device)
         for i in range(n):
-            token, cache = self._decode_step(token, cache, pad, sampling,
-                                             generator)
+            logits, cache = self._forward_cached(token[:, None], cache, pad)
+            token = select_token(logits[:, -1], sampling, generator)
             out[:, i] = token
         return out, cache
 
-    def _decode_step_impl(self, token: torch.Tensor, cache,
-                          pad: Optional[torch.Tensor],
-                          sampling: SamplingConfig, generator: Generators):
-        """One cached single-token step: ``(next token [B], cache)``."""
-        logits, cache = self._forward_cached(token[:, None], cache, pad)
-        return select_token(logits[:, -1], sampling, generator), cache
-
-    _decode_step = graftscope.instrument(_decode_step_impl,
-                                         "engine._decode_step",
-                                         key_fn=_rows_key)
+    # each segment timed into its graftscope ring, as the JAX package
+    # times its compiled segment: a step's stream window is the
+    # segment's over its steps
+    _decode_seg = graftscope.instrument(_decode_seg_impl, "engine._decode_seg",
+                                        key_fn=_seg_key)
 
     def _ids(self, ids: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(ids, dtype=np.int64),

@@ -10,7 +10,10 @@ holding reaches (through lists, tuples, dicts and dataclasses such as
 its ``nbytes``, attributed to its tensor's ``device``. The owner is held
 weakly: a collected owner's entries release themselves at the ledger's
 next call (the finalizer only queues the handle, so a collection that
-runs while a lock of this package is held takes no lock).
+runs while a lock of this package is held takes no lock). ``release``
+detaches its holding's finalizer, so an owner that lives as long as the
+server (an engine, the prefix store, the host tier) keeps no finalizer
+per holding it once had.
 
 Every change sets the ``hbm_bytes{component}`` gauge, samples it into
 graftscope's series and emits a ``mem_alloc``/``mem_free`` event on the
@@ -137,6 +140,8 @@ class MemoryLedger:
         self.t0 = time.perf_counter()
         # handles of collected owners, released at the next call
         self._collected: collections.deque = collections.deque()
+        # handle -> the weakref.finalize of its owner, detached on release
+        self._finalizers: Dict[int, weakref.finalize] = {}
 
     def _drain(self) -> None:
         while self._collected:
@@ -187,7 +192,8 @@ class MemoryLedger:
             self._total += nbytes
             total = self._total
             self._note_peaks_locked(component, comp_total, total)
-        weakref.finalize(owner, self._collected.append, handle)
+        self._finalizers[handle] = weakref.finalize(
+            owner, self._collected.append, handle)
         self._emit(component, nbytes, comp_total, total)
         return handle
 
@@ -217,6 +223,9 @@ class MemoryLedger:
         explicit release may both come)."""
         if not handle:
             return
+        fin = self._finalizers.pop(handle, None)
+        if fin is not None:
+            fin.detach()
         with self._lock:
             e = self._entries.pop(handle, None)
             if e is None:

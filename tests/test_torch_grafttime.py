@@ -467,25 +467,25 @@ def test_cuda_event_pairs_resolve_at_read_time(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
                         lambda: capturing[0])
     graftscope.clear()
-    fn = graftscope.instrument(lambda x: x + 1, "engine._decode_step",
+    fn = graftscope.instrument(lambda x: x + 1, "engine._decode_seg",
                                key_fn=lambda x: (1,))
     assert fn(1) == 2
     assert _Event.log == [("record", "stream0"), ("record", "stream0")]
-    snap = graftscope.snapshot()["dispatch"]["engine._decode_step"]
+    snap = graftscope.snapshot()["dispatch"]["engine._decode_seg"]
     assert snap["stream"]["pending"] == 1 and snap["ring"][0][
         "stream_ms"] == "pending"
-    ring = graftscope.STATE._rings["engine._decode_step"]["samples"]
+    ring = graftscope.STATE._rings["engine._decode_seg"]["samples"]
     for ev in ring[0][3]:
         ev.done = True
-    snap = graftscope.snapshot()["dispatch"]["engine._decode_step"]
+    snap = graftscope.snapshot()["dispatch"]["engine._decode_seg"]
     assert snap["stream"] == {"resolved": 1, "pending": 0, "none": 0,
                               "ms_total": 2.5}
-    ring = graftscope.snapshot()["dispatch"]["engine._decode_step"]["ring"]
+    ring = graftscope.snapshot()["dispatch"]["engine._decode_seg"]["ring"]
     assert [(r["key"], r["stream_ms"]) for r in ring] == [("(1,)", 2.5)]
     capturing[0] = True
     fn(1)
     assert len(_Event.log) == 2          # no pair inside a capture
-    ring = graftscope.snapshot()["dispatch"]["engine._decode_step"]["ring"]
+    ring = graftscope.snapshot()["dispatch"]["engine._decode_seg"]["ring"]
     assert ring[-1]["stream_ms"] is None
     kinds = [e["kind"] for e in grafttime.events(
         kinds=["dispatch_begin", "dispatch_end"])]

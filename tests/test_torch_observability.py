@@ -28,6 +28,7 @@ import json
 import os
 import re
 import time
+import weakref
 
 import numpy as np
 import pytest
@@ -75,19 +76,19 @@ CONFIGS = {
 JAX_ONLY_METRICS = {"compile_events_total", "jit_program_cache_size"}
 # the JAX spec engine's device token buffers; the port drafts on the host
 JAX_ONLY_HBM = {"spec_buffers"}
-# the dispatch scopes of each script: (JAX, port). The port times each
-# decode step (a Python loop) where the JAX package times a compiled
-# segment, and has no donation to avoid (no _extend_keep)
+# the dispatch scopes of each script: (JAX, port). Both packages time
+# each prefill and each decode segment; the port has no donation to
+# avoid (no _extend_keep)
 SCOPES = {
     "plain": ({"engine._prefill", "engine._decode_seg"},
-              {"engine._prefill", "engine._decode_step"}),
+              {"engine._prefill", "engine._decode_seg"}),
     "admission": ({"engine._prefill", "engine._decode_seg"},
-                  {"engine._prefill", "engine._decode_step"}),
+                  {"engine._prefill", "engine._decode_seg"}),
     "iter_spec": ({"engine._prefill", "spec_decode._seg_b"},
                   {"engine._prefill", "spec_decode._seg_b"}),
     "prefix": ({"prefix_cache._extend", "prefix_cache._extend_keep",
                 "engine._decode_seg"},
-               {"prefix_cache._extend", "engine._decode_step"}),
+               {"prefix_cache._extend", "engine._decode_seg"}),
 }
 DISPATCH_KINDS = ("dispatch_begin", "dispatch_end")
 
@@ -116,22 +117,28 @@ class _Tok:
         return getattr(self.tok, name)
 
 
-def apps(weights, **kw):
+def apps(weights, sides=("jax", "port"), **kw):
     """``{"jax": (client, registry, recorder, tokenizer, app), "port":
-    ...}`` of one configuration, each with its own registry and
-    recorder."""
+    ...}`` of one configuration (the apps of ``sides`` only), each with
+    its own registry and recorder."""
     (jcfg, jp), (tcfg, tp) = weights
-    jreg, jrec = jmetrics.MetricsRegistry(), jtracing.FlightRecorder()
-    treg, trec = metrics.MetricsRegistry(), tracing.FlightRecorder()
-    jtok, ttok = _Tok(JByteTokenizer()), _Tok(ByteTokenizer())
-    japp = jcreate_app(JServingConfig(model_id="test", max_seq=MAX_SEQ, **kw),
-                       model=(jcfg, jp), tokenizer=jtok, registry=jreg,
-                       recorder=jrec)
-    tapp = create_app(ServingConfig(model_id="test", max_seq=MAX_SEQ, **kw),
-                      model=(tcfg, tp), tokenizer=ttok, device="cpu",
-                      registry=treg, recorder=trec)
-    return {"jax": (JTestClient(japp), jreg, jrec, jtok, japp),
-            "port": (TestClient(tapp), treg, trec, ttok, tapp)}
+    out = {}
+    if "jax" in sides:
+        jreg, jrec = jmetrics.MetricsRegistry(), jtracing.FlightRecorder()
+        jtok = _Tok(JByteTokenizer())
+        japp = jcreate_app(
+            JServingConfig(model_id="test", max_seq=MAX_SEQ, **kw),
+            model=(jcfg, jp), tokenizer=jtok, registry=jreg, recorder=jrec)
+        out["jax"] = (JTestClient(japp), jreg, jrec, jtok, japp)
+    if "port" in sides:
+        treg, trec = metrics.MetricsRegistry(), tracing.FlightRecorder()
+        ttok = _Tok(ByteTokenizer())
+        tapp = create_app(
+            ServingConfig(model_id="test", max_seq=MAX_SEQ, **kw),
+            model=(tcfg, tp), tokenizer=ttok, device="cpu", registry=treg,
+            recorder=trec)
+        out["port"] = (TestClient(tapp), treg, trec, ttok, tapp)
+    return out
 
 
 def prom(text: str) -> dict:
@@ -196,11 +203,20 @@ def run_script(pair, name):
 
 
 @pytest.fixture(scope="module")
-def scripted(weights):
-    runs = {}
+def scripted_pairs(weights):
+    """Each configuration's apps, after the script ran on them, and what
+    the script saw: ``(pairs, runs)``. Later tests reuse the apps (the
+    JAX package compiles once a configuration)."""
+    pairs, runs = {}, {}
     for name, kw in CONFIGS.items():
-        runs[name] = run_script(apps(weights, **kw), name)
-    return runs
+        pairs[name] = apps(weights, **kw)
+        runs[name] = run_script(pairs[name], name)
+    return pairs, runs
+
+
+@pytest.fixture(scope="module")
+def scripted(scripted_pairs):
+    return scripted_pairs[1]
 
 
 def _tree(spans):
@@ -305,11 +321,12 @@ def test_metrics_text_parses_and_matches_the_registry(scripted, name):
                                    (("mode", "greedy"),))] == len(PROMPTS)
 
 
-def test_deadline_burst_trips_the_burn_watch_once(weights):
-    """Five answered requests and three spent budgets: both apps' trend
-    reducers trip ``slo_deadline_burn`` on the same numbers, once; the
-    second scrape raises nothing new; ``/healthz`` shows the latch."""
-    pair = apps(weights, **CONFIGS["admission"])
+def test_deadline_burst_trips_the_burn_watch_once(scripted_pairs):
+    """The admission apps after the script: five more answered requests
+    and three spent budgets; both apps' trend reducers trip
+    ``slo_deadline_burn`` on the same numbers, once; the second scrape
+    raises nothing new; ``/healthz`` shows the latch."""
+    pair = scripted_pairs[0]["admission"]
     alerts, dumps = {}, {}
     for side in ("jax", "port"):
         client, reg, rec, tok, app = pair[side]
@@ -360,7 +377,7 @@ def test_deadline_burst_trips_the_burn_watch_once(weights):
 
 def test_typed_503_writes_a_blackbox_file(weights, tmp_path, monkeypatch):
     monkeypatch.setenv("GRAFTTIME_DIR", str(tmp_path))
-    client, _, rec, tok, _ = apps(weights)["port"]
+    client, _, rec, tok, _ = apps(weights, sides=("port",))["port"]
     grafttime.clear_blackbox()
     tok.delay = 0.005
     r = client.post("/generate", json={"prompt": "hi", "max_new_tokens": 2,
@@ -376,8 +393,8 @@ def test_typed_503_writes_a_blackbox_file(weights, tmp_path, monkeypatch):
         "deadline_exceeded"
 
 
-def test_debug_index_pinned_to_healthz_topology(weights):
-    pair = apps(weights, **CONFIGS["admission"])
+def test_debug_index_pinned_to_healthz_topology(scripted_pairs):
+    pair = scripted_pairs[0]["admission"]
     hz = pair["port"][0].get("/healthz").json()
     idx = pair["port"][0].get("/debug").json()
     assert idx["serving"] == {k: hz[k] for k in idx["serving"]}
@@ -392,12 +409,17 @@ def test_debug_index_pinned_to_healthz_topology(weights):
     assert plan["port"] == plan["jax"] == {"mode": "off", "auto_plan": None}
 
 
+@pytest.fixture(scope="module")
+def default_pair(weights):
+    return apps(weights)
+
+
 @pytest.mark.parametrize("path", [
     "/debug/requests?n=abc", "/debug/profile?n=x",
     "/debug/timeline?since=soon", "/debug/timeline?since_seq=1.5",
     "/debug/timeline?kinds=span_open,bogus", "/debug/timeline?n=many"])
-def test_bad_queries_answer_422_as_jax(weights, path):
-    pair = apps(weights)
+def test_bad_queries_answer_422_as_jax(default_pair, path):
+    pair = default_pair
     j = pair["jax"][0].get(path)
     t = pair["port"][0].get(path)
     assert t.status_code == j.status_code == 422
@@ -408,17 +430,18 @@ def test_bad_queries_answer_422_as_jax(weights, path):
 
 
 def test_debug_views_of_a_served_request(weights):
-    client = apps(weights, **CONFIGS["plain"])["port"][0]
+    client = apps(weights, sides=("port",), **CONFIGS["plain"])["port"][0]
     _clean_globals()
     client.post("/generate", json={"prompt": PROMPTS[0],
                                    "max_new_tokens": NEW, "mode": "greedy"},
                 headers={"X-Request-ID": "v-0"})
     prof = client.get("/debug/profile?n=8").json()
-    step = prof["dispatch"]["engine._decode_step"]
-    assert step["calls"] == NEW - 1
+    seg = prof["dispatch"]["engine._decode_seg"]
+    # the NEW - 1 decode steps in one segment
+    assert seg["calls"] == 1 and seg["ring"][0]["key"] == repr((1, NEW - 1))
     # CPU tensors: host windows only, no event pair
-    assert step["stream"] == {"resolved": 0, "pending": 0,
-                              "none": NEW - 1, "ms_total": 0.0}
+    assert seg["stream"] == {"resolved": 0, "pending": 0,
+                             "none": 1, "ms_total": 0.0}
     assert "stream window" in prof["truth"]
     mem = client.get("/debug/memory").json()
     assert mem["conserved"] and mem["allocator"] == {}
@@ -432,6 +455,29 @@ def test_debug_views_of_a_served_request(weights):
         "events"] == []
     found = client.get("/debug/requests?n=1&slowest=1").json()
     assert found["order"] == "slowest" and len(found["requests"]) == 1
+
+
+@pytest.mark.parametrize("config", ["plain", "prefix"])
+def test_ledger_finalizers_stay_flat_over_requests(weights, config):
+    """Each decode tracks its cache and each store insert its copy, on
+    owners that live as long as the server: a release detaches the
+    holding's finalizer, so their number does not grow with requests."""
+    client = apps(weights, sides=("port",), **CONFIGS[config])["port"][0]
+
+    def serve(i):
+        r = client.post("/generate", json={
+            "prompt": f"prompt {i:03d}, a distinct one", "max_new_tokens": NEW,
+            "mode": "greedy"})
+        assert r.status_code == 200
+
+    for i in range(5):          # the store fills and starts to evict
+        serve(i)
+    gc.collect()
+    before = len(weakref.finalize._registry)
+    for i in range(5, 9):
+        serve(i)
+    gc.collect()
+    assert len(weakref.finalize._registry) == before
 
 
 # the solo paged runner: its prefills go through the store (the
@@ -598,7 +644,8 @@ def test_every_emitted_name_is_in_both_catalogs():
 def test_tpot_counts_decoded_steps_not_truncated(weights):
     """EOS keeps one token of a 6-token decode: TPOT still divides by the
     steps decoded (the JAX app's test)."""
-    client, reg, _, _, _ = apps(weights, **CONFIGS["plain"])["port"]
+    client, reg, _, _, _ = apps(weights, sides=("port",),
+                                **CONFIGS["plain"])["port"]
     full = client.post("/generate", json={
         "prompt": "abc", "max_new_tokens": 6,
         "mode": "greedy"}).json()["generated"]
@@ -615,7 +662,8 @@ def test_tpot_counts_decoded_steps_not_truncated(weights):
 
 def test_failed_generate_recorded_and_id_echoed(weights, monkeypatch):
     from llm_sharding_demo_tpu_torch.runtime.engine import DecodeEngine
-    client, _, rec, _, _ = apps(weights, **CONFIGS["plain"])["port"]
+    client, _, rec, _, _ = apps(weights, sides=("port",),
+                               **CONFIGS["plain"])["port"]
 
     def boom(self, *a, **k):
         raise RuntimeError("synthetic device loss")
