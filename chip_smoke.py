@@ -102,8 +102,9 @@ which must pass or the script exits non-zero:
    solo runs' text, blocks conserved, preemptions > 0 at 32), 429 with
    Retry-After once 32 requests wait on a saturated pool, tokens/s and
    p50 per-token latency beside the same server without the pool;
-   ``KV_POOL_BLOCKS`` with ``INFERENCE_DTYPE=int8`` refused at startup
-   with the JAX package's reason.
+   ``KV_POOL_BLOCKS`` with ``INFERENCE_DTYPE=bfloat16`` refused at
+   startup with the JAX package's reason (the engine would run a decode
+   kernel; int8 pages on its matmul kernels, phase 15).
 9. prefix: the prefix cache (``runtime.prefix_cache``, chunk 64) and the
    host tier (``runtime.kv_tier``). GPT-2 124M and llama-124m at full
    width: fp32 greedy streams through the store (cold, exact hit,
@@ -210,6 +211,22 @@ which must pass or the script exits non-zero:
    evictions, demotions and promotions, as many as the pool and tier
    count, and its Chrome export validates; the ledger's pool_codes are
    the planes' bytes on the card and the host tier's bytes on the host.
+15. fleet: ``fleet.build_fleet`` at GPT-2 124M width (seeded weights, a
+   tokenizer whose replies name their token ids): a router in front of
+   one prefill and two decode replicas over one ``KVBlockPool``, chunk
+   16. fp32: serial ``bursty_chat`` and ``long_context`` (12 arrivals
+   each) through the router, every reply byte-equal to
+   ``fleet.build_single``'s on the same schedule, no kernel launched.
+   int8 (the pool sanitizing, ``GRAFTSAN``): the same drive, whose
+   launches equal what its forwards predict (paged replicas run the int8
+   linear at every projection and the tied head on each forward of <= 16
+   rows, and no attention or whole-stack kernel); each reply equal to the
+   int8 single replica's, or held teacher-forced within ``decode.int8``
+   of the int8 plain path; then 16 open-loop ``bursty_chat`` arrivals at
+   rate_scale 2: every outcome 200 or a typed 429/503, affinity hits,
+   fallbacks and sheds, ``prefix_len()``, the pool conserved at
+   ``/healthz`` during the run and after it, no leaked ref, tokens/s and
+   one stitched ``/debug/requests`` tree.
 
 The last lines are the card's name and power limit, one JSON object with
 the kernels' numbers (each kernel's launches counted on the path that
@@ -220,7 +237,8 @@ paths' under ``prefix_launches``, the spec paths' under ``spec_launches``,
 the three remote processes' under ``remote_launches``, the checkpoint
 coordinator's under ``ckpt_launches``, the MoE paths' under
 ``moe_launches``, the observability server's under ``obs_launches``,
-the 5 bf16 train steps for the flash kernels), and
+the int8 fleet's runs under ``fleet_launches``, the 5 bf16 train steps
+for the flash kernels), and
 ``{"ok": true, "device": {...}}``. ``--phases`` runs a subset (the
 default runs all).
 """
@@ -2411,9 +2429,9 @@ def paged_server(smi: str, eng) -> None:
 
 
 def paged_refusal(smi: str) -> None:
-    """KV_POOL_BLOCKS with INFERENCE_DTYPE=int8 on the card: the engine
-    runs a decode kernel, and the app refuses at startup with the JAX
-    package's reason."""
+    """KV_POOL_BLOCKS with INFERENCE_DTYPE=bfloat16 on the card: the
+    engine runs a decode kernel, and the app refuses at startup with the
+    JAX package's reason."""
     from llm_sharding_demo_tpu_torch.serving.app import create_app
     from llm_sharding_demo_tpu_torch.utils.config import ServingConfig
 
@@ -2421,15 +2439,16 @@ def paged_refusal(smi: str) -> None:
               "decode kernel owns its fused in-place cache "
               "(decode_kernel='xla' composes)")
     try:
-        create_app(ServingConfig(model_id="gpt2", inference_dtype="int8",
-                                 max_seq=NPOS, kv_pool_blocks=PAGED_BLOCKS,
+        create_app(ServingConfig(model_id="gpt2",
+                                 inference_dtype="bfloat16", max_seq=NPOS,
+                                 kv_pool_blocks=PAGED_BLOCKS,
                                  kv_block_size=PAGED_BS))
     except NotImplementedError as e:
-        check(str(e) == reason, f"int8 + KV_POOL_BLOCKS refused with {e}")
+        check(str(e) == reason, f"bf16 + KV_POOL_BLOCKS refused with {e}")
     else:
-        raise SmokeError("int8 + KV_POOL_BLOCKS started on the card")
-    print(f"  KV_POOL_BLOCKS with INFERENCE_DTYPE=int8 refuses at startup: "
-          f"{reason} [{smi}]")
+        raise SmokeError("bf16 + KV_POOL_BLOCKS started on the card")
+    print(f"  KV_POOL_BLOCKS with INFERENCE_DTYPE=bfloat16 refuses at "
+          f"startup: {reason} [{smi}]")
 
 
 def paged_phase(smi: str) -> None:
@@ -4602,6 +4621,269 @@ def obs_phase(smi: str) -> dict:
     return launches
 
 
+# -- fleet ---------------------------------------------------------------------
+
+FLEET_CHUNK = 16      # PREFIX_CHUNK of every replica and the router's key width
+FLEET_N = 12          # arrivals of each serial profile
+FLEET_OPEN_N = 16     # arrivals of the open-loop run
+FLEET_PROFILES = ("bursty_chat", "long_context")
+
+
+class IdTokenizer:
+    """Text to its UTF-8 byte ids, ids back to ``<id>`` each: a reply then
+    names its token ids (the byte tokenizer prints every id past 255 as
+    the same mark)."""
+
+    eos_token_id = None
+
+    def encode(self, text):
+        return list(text.encode("utf-8"))
+
+    def decode(self, ids):
+        return "".join(f"<{int(i)}>" for i in ids)
+
+
+def reply_ids(text: str) -> list:
+    return [int(x) for x in re.findall(r"<(\d+)>", text)]
+
+
+def fleet_shapes(fleet) -> dict:
+    """``{"BxT": forwards}`` summed over the fleet's replicas, from each
+    one's /healthz ``forward_shapes``."""
+    total = collections.Counter()
+    for r in fleet.topology.replicas:
+        total.update(r.client.get("/healthz").json()["forward_shapes"])
+    return dict(total)
+
+
+def shapes_delta(after: dict, before: dict) -> dict:
+    return {k: n - before.get(k, 0) for k, n in after.items()
+            if n != before.get(k, 0)}
+
+
+def fleet_drive(client, recorder) -> dict:
+    """Each of ``FLEET_PROFILES`` driven serially (``FLEET_N`` arrivals of
+    seed 6) at ``client``: ``{profile: load report}``."""
+    from llm_sharding_demo_tpu_torch import loadgen
+
+    return {name: loadgen.run_load(client, loadgen.profile(name), seed=6,
+                                   n=FLEET_N, mode="serial",
+                                   recorder=recorder)
+            for name in FLEET_PROFILES}
+
+
+def fleet_tree(fleet, rid: str) -> str:
+    """A request's stitched span tree at the router, as nested names."""
+    tree = next(t for t in fleet.client.get("/debug/requests?n=64")
+                .json()["requests"] if t["request_id"] == rid)
+
+    def names(spans):
+        return ", ".join(
+            s["name"] + (f" [{names(s['spans'])}]" if s.get("spans") else "")
+            for s in spans)
+    return names(tree["spans"])
+
+
+def fleet_phase(smi: str) -> dict:
+    """The fleet (module docstring, phase 15). Returns the int8 fleet's
+    launch counts."""
+    import threading
+
+    import torch
+
+    from llm_sharding_demo_tpu_torch import loadgen
+    from llm_sharding_demo_tpu_torch.fleet import build_fleet, build_single
+    from llm_sharding_demo_tpu_torch.models import gpt2
+    from llm_sharding_demo_tpu_torch.ops import cuda_build
+    from llm_sharding_demo_tpu_torch.runtime import kv_pool
+    from llm_sharding_demo_tpu_torch.runtime.engine import DecodeEngine
+    from llm_sharding_demo_tpu_torch.utils import graftnum
+
+    t_phase = time.perf_counter()
+    cfg = gpt2.CONFIGS["gpt2"]
+    params = gpt2.init_params(cfg, torch.Generator(device="cuda")
+                              .manual_seed(0))
+    tok = IdTokenizer()
+    kw = dict(max_seq=NPOS, chunk=FLEET_CHUNK, model=(cfg, params),
+              device="cuda", tokenizer=tok)
+
+    # (a) fp32: the fleet byte-equal to the single replica, no kernel
+    fleet = build_fleet(n_decode=2, n_prefill=1, **kw)
+    single = build_single(**kw)
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    rf = fleet_drive(fleet.client, fleet.recorder)
+    t1 = time.perf_counter()
+    rs = fleet_drive(*single[:2])
+    walls = (t1 - t0, time.perf_counter() - t1)
+    counts = cuda_build.launch_counts()
+    check(not any(counts.values()), f"fp32 fleet launched kernels: {counts}")
+    rows = [(name, of, os_) for name in FLEET_PROFILES
+            for of, os_ in zip(rf[name]["outcomes"], rs[name]["outcomes"])]
+    for name, of, os_ in rows:
+        check(of.status == 200 and os_.status == 200,
+              f"fp32 {name} {of.k}: {of.status} {of.code} / {os_.status} "
+              f"{os_.code}")
+        check(of.generated == os_.generated,
+              f"fp32 {name} request {of.k}: the fleet's reply differs from "
+              "the single replica's")
+    new = sum(of.new_tokens for _, of, _ in rows)
+    drives = ", ".join(f"{FLEET_N} {n}" for n in FLEET_PROFILES)
+    print(f"  fp32 fleet (router, 1 prefill + 2 decode replicas, one pool "
+          f"of {fleet.pool.allocator.stats().blocks_total} blocks, chunk "
+          f"{FLEET_CHUNK}): {len(rows)} serial replies ({drives}) "
+          f"byte-equal to the single replica, {new} new tokens, "
+          f"{walls[0]:.2f} s wall (single replica {walls[1]:.2f} s); affinity "
+          f"{fleet.app.router.affinity_stats()}, registry entries "
+          f"{fleet.pool.allocator.prefix_len()}; no kernel launched [{smi}]")
+    del fleet, single
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) int8 on the kernels: launches predicted from the forwards, each
+    # reply held against the int8 single replica
+    os.environ["GRAFTSAN"] = "1"
+    try:
+        fleet = build_fleet(n_decode=2, n_prefill=1,
+                            inference_dtype="int8", **kw)
+    finally:
+        os.environ.pop("GRAFTSAN")
+    check(fleet.pool.allocator.sanitize, "the int8 fleet's pool sanitizes")
+    single = build_single(inference_dtype="int8", **kw)
+    modes = {r.client.get("/healthz").json()["decode_kernel"]
+             for r in fleet.topology.replicas}
+    check(modes == {"xla"}, f"paged int8 replicas run {modes}")
+    shapes0 = fleet_shapes(fleet)
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    rf = fleet_drive(fleet.client, fleet.recorder)
+    wall = time.perf_counter() - t0
+    counts = cuda_build.launch_counts()
+    shapes = shapes_delta(fleet_shapes(fleet), shapes0)
+    want = expected_spec_launches(
+        {tuple(int(v) for v in k.split("x")): n for k, n in shapes.items()},
+        False)
+    check(counts == want, f"int8 fleet: launches {counts}, predicted {want} "
+                          f"from the forwards {shapes}")
+    check(counts["quant_linear"] > 0 and counts["quant_head"] > 0,
+          f"int8 fleet: {counts}")
+    launches = {"int8 fleet, serial": counts}
+    n_fwd = sum(shapes.values())
+    print(f"  int8 fleet serial ({wall:.2f} s wall, {wall / n_fwd * 1e3:.2f} "
+          f"ms a forward): forwards {shapes}; "
+          f"launches {counts} = the forwards' prediction (the int8 linear "
+          f"at 4 x {L} projections and the tied head once a forward of "
+          f"<= 16 rows; paged replicas run no decode-attention or "
+          f"whole-stack kernel) [{smi}]")
+    t0 = time.perf_counter()
+    rs = fleet_drive(*single[:2])
+    single_wall = time.perf_counter() - t0
+    kern = DecodeEngine(params, cfg, max_seq=NPOS, dtype="int8",
+                        decode_kernel="xla", matmul_kernels=True,
+                        device="cuda")
+    plain = DecodeEngine(params, cfg, max_seq=NPOS, dtype="int8",
+                         decode_kernel="xla", device="cuda")
+    equal = held = 0
+    worst = 0.0
+    for name in FLEET_PROFILES:
+        prof = loadgen.profile(name)
+        arrivals = loadgen.schedule(prof, 6, FLEET_N)
+        for a, of, os_ in zip(arrivals, rf[name]["outcomes"],
+                              rs[name]["outcomes"]):
+            check(of.status == 200 and os_.status == 200,
+                  f"int8 {name} {a.k}: {of.status} {of.code} / "
+                  f"{os_.status} {os_.code}")
+            if of.generated == os_.generated:
+                equal += 1
+                continue
+            prompt = tok.encode(a.prompt)
+            forced = reply_ids(of.generated)[len(prompt):]
+            lk = teacher_forced_logits(kern, prompt, forced)
+            lp = teacher_forced_logits(plain, prompt, forced)
+            check(bool(torch.isfinite(lk).all()), "int8: non-finite logits")
+            rep = graftnum.compare("decode.int8", lk, lp)
+            worst = max(worst, rep["logit_mse"])
+            held += 1
+    first = loadgen.schedule(loadgen.profile(FLEET_PROFILES[0]), 6, 1)[0]
+    eager, device = step_ms(kern, np.asarray([tok.encode(first.prompt)]))
+    del kern, plain
+    print(f"  a paged int8 replica's decode step (its engine alone, after "
+          f"a {len(tok.encode(first.prompt))}-token prompt): eager "
+          f"{eager:.3f} ms, device {fmt_ms(device)} ms (CUDA-graph replay),"
+          f" busy {device / eager:.1%} [{smi}]")
+    print(f"  int8 fleet replies against the int8 single replica ("
+          f"{single_wall:.2f} s wall for the same drive): {equal} byte-equal, "
+          f"{held} held teacher-forced within decode.int8 (worst logit_mse "
+          f"{worst:.3e}) [{smi}]")
+
+    # (c) open loop at twice the profile's rate on the same fleet
+    prof = loadgen.profile("bursty_chat")
+    polls, stop = [], threading.Event()
+
+    def watch():
+        d0 = fleet.topology.by_name("decode0").client
+        while not stop.is_set():
+            polls.append(d0.get("/healthz").json()["kv_pool_stats"])
+            time.sleep(0.02)
+
+    stats0 = fleet.app.router.affinity_stats()
+    shapes0 = fleet_shapes(fleet)
+    watcher = threading.Thread(target=watch, daemon=True)
+    cuda_build.reset_launch_counts()
+    watcher.start()
+    try:
+        rep = loadgen.run_load(fleet.client, prof, seed=3, n=FLEET_OPEN_N,
+                               rate_scale=2.0, mode="open",
+                               recorder=fleet.recorder)
+    finally:
+        stop.set()
+        watcher.join(timeout=30)
+    counts = cuda_build.launch_counts()
+    shapes = shapes_delta(fleet_shapes(fleet), shapes0)
+    want = expected_spec_launches(
+        {tuple(int(v) for v in k.split("x")): n for k, n in shapes.items()},
+        False)
+    check(counts == want, f"int8 open loop: launches {counts}, predicted "
+                          f"{want} from {shapes}")
+    launches["int8 fleet, open loop"] = counts
+    stats1 = fleet.app.router.affinity_stats()
+    delta = {k: stats1[k] - stats0[k] for k in stats1}
+    by_status = collections.Counter(o.status for o in rep["outcomes"])
+    check(set(by_status) <= {200, 429, 503},
+          f"open loop: untyped outcomes {dict(by_status)}")
+    check(all(o.code for o in rep["outcomes"] if o.status != 200),
+          "open loop: an untyped shed")
+    check(polls and all(p["blocks_in_use"] + p["blocks_free"]
+                        == p["blocks_total"] for p in polls),
+          "open loop: pool conservation broke at /healthz")
+    st = fleet.pool.allocator.stats()
+    check(st.blocks_in_use + st.blocks_free == st.blocks_total,
+          "open loop: pool conservation broke after the run")
+    kv_pool.graftsan_sweep(timeout=10.0)
+    check(fleet.pool.allocator.prefix_len() > 0 and stats1["hits"] > 0,
+          f"open loop: no affinity ({stats1}, "
+          f"{fleet.pool.allocator.prefix_len()} entries)")
+    rid = next(o.request_id for o in rep["outcomes"] if o.status == 200)
+    print(f"  int8 fleet open loop ({FLEET_OPEN_N} bursty_chat arrivals at "
+          f"rate_scale 2, {rep['wall_s']} s wall): outcomes "
+          f"{dict(sorted(by_status.items()))} (every non-200 typed: "
+          f"{sorted({o.code for o in rep['outcomes'] if o.status != 200})}); "
+          f"affinity hits {delta['hits']}, fallbacks {delta['fallbacks']}, "
+          f"sheds {delta['sheds']}; prefix_len() "
+          f"{fleet.pool.allocator.prefix_len()}; pool conserved at "
+          f"{len(polls)} /healthz polls during the run and after it, "
+          f"GRAFTSAN refs balanced; {rep['throughput_tokens_per_sec']} "
+          f"tokens/s, p50 e2e {rep['p50_e2e_ms']} ms, p99 {rep['p99_e2e_ms']}"
+          f" ms; launches {counts} = the forwards' prediction [{smi}]")
+    print(f"  stitched /debug/requests tree of {rid}: "
+          f"{fleet_tree(fleet, rid)} [{smi}]")
+    del fleet, single
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  [fleet] {time.perf_counter() - t_phase:.1f} s wall [{smi}]")
+    return launches
+
+
 # -- main ----------------------------------------------------------------------
 
 def kernel_name(mangled: str) -> str:
@@ -4711,10 +4993,10 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases",
                         default="kernels,flash,engine,server,batch,train,"
-                                "paged,prefix,spec,remote,ckpt,moe,obs",
+                                "paged,prefix,spec,remote,ckpt,moe,obs,fleet",
                         help="comma-separated subset of kernels,flash,engine,"
                              "server,batch,train,paged,prefix,spec,remote,"
-                             "ckpt,moe,obs")
+                             "ckpt,moe,obs,fleet")
     args = parser.parse_args()
     phases = set(args.phases.split(","))
 
@@ -4837,6 +5119,12 @@ def main() -> int:
               "and of a tiered fp32 iter server (the timeline's tier "
               "events)")
         obs_launches = obs_phase(smi)
+    fleet_launches = {}
+    if "fleet" in phases:
+        print("[fleet] the replica fleet: a router, one prefill and two "
+              "decode replicas over one pool; fp32 byte-equal to the single "
+              "replica, int8 on the int8 kernels, an open-loop run")
+        fleet_launches = fleet_phase(smi)
 
     sources = {"decode_attention": "csrc/decode_attention.cu",
                "quant_linear": "csrc/quant.cu",
@@ -4891,6 +5179,8 @@ def main() -> int:
                              for where, c in moe_launches.items()},
             "obs_launches": {where: c[k.name]
                              for where, c in obs_launches.items()},
+            "fleet_launches": {where: c[k.name]
+                               for where, c in fleet_launches.items()},
             "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
             "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
             "bound_by": r.get("bound_by"),

@@ -756,10 +756,27 @@ class KVBlockPool:
                    block_dtype: Optional[str] = None,
                    device: DeviceLike = None) -> "KVBlockPool":
         """A pool matching an engine's cache geometry, on the engine's
-        device. The paged path runs the engine's own decode on gathered
-        views, so the engine must keep the plain single-device layout: no
-        decode kernel (fused in-place cache), no stages, no chunked
-        prefill."""
+        device (the engine as ``check_engine`` takes it)."""
+        cls.check_engine(engine)
+        dev = engine.device if device is None else torch.device(device)
+        if dev != engine.device:
+            raise ValueError(
+                f"pool device {dev} differs from the engine's "
+                f"{engine.device}: gathered views feed the engine's own "
+                "decode, on its device")
+        cfg = engine.config
+        heads = getattr(cfg, "n_kv_head", cfg.n_head)
+        return cls(cfg.n_layer, num_blocks, heads, block_size,
+                   cfg.head_dim, engine._cache_seq, dtype=engine.dtype,
+                   watermark=watermark, sanitize=sanitize,
+                   block_dtype=block_dtype, device=dev)
+
+    @staticmethod
+    def check_engine(engine: DecodeEngine) -> None:
+        """Refuse an engine the paged path cannot drive. It runs the
+        engine's own decode on gathered views, so the engine must keep
+        the plain single-device layout: no decode kernel (fused in-place
+        cache), no stages, no chunked prefill."""
         if engine.decode_kernel is not None:
             raise NotImplementedError(
                 "KV pool paging drives the XLA cache layout; the Pallas "
@@ -773,18 +790,6 @@ class KVBlockPool:
             raise NotImplementedError(
                 "KV pool paging prefills monolithically (one scatter per "
                 "admission); build the engine without prefill_chunk")
-        dev = engine.device if device is None else torch.device(device)
-        if dev != engine.device:
-            raise ValueError(
-                f"pool device {dev} differs from the engine's "
-                f"{engine.device}: gathered views feed the engine's own "
-                "decode, on its device")
-        cfg = engine.config
-        heads = getattr(cfg, "n_kv_head", cfg.n_head)
-        return cls(cfg.n_layer, num_blocks, heads, block_size,
-                   cfg.head_dim, engine._cache_seq, dtype=engine.dtype,
-                   watermark=watermark, sanitize=sanitize,
-                   block_dtype=block_dtype, device=dev)
 
     # -- device ops (all under _dev_lock) ------------------------------------
 

@@ -41,11 +41,29 @@ the JAX app.
 unstaged engine, its pool (``KVBlockPool.for_engine``), and
 ``PagedKVRunner`` at ``MAX_BATCH=1`` or the iteration batcher over the
 pool. As in the JAX package, paging takes an engine without a decode
-kernel, so on the card it serves fp32, or any dtype on the spec engine's
-plain engine (``SPEC_DECODE``, with ``BATCH_MODE=iter``); another bf16
-or int8 server refuses at startup. A request the pool cannot host while the waiting line is full
-answers 429 with ``Retry-After``. ``KV_HOST_BLOCKS`` hangs a host spill
-tier (``runtime.kv_tier``) below the pool.
+kernel (a decode kernel owns its fused in-place cache): fp32 pages on
+the plain path, int8 on the plain cache with its matmuls on the int8
+linear and head kernels (``matmul_kernels``, the spec engine's
+composition; the JAX package's plain int8 path takes its Pallas matmul
+kernels the same way), and any dtype on the spec engine's plain engine
+(``SPEC_DECODE``, with ``BATCH_MODE=iter``); a bf16 pooled server on the
+card refuses at startup. A request the pool cannot host while the
+waiting line is full answers 429 with ``Retry-After``.
+``KV_HOST_BLOCKS`` hangs a host spill tier (``runtime.kv_tier``) below
+the pool. ``create_app(kv_pool=)`` serves from an injected pool instead
+of building one: the fleet's replicas share one (``fleet/harness.py``),
+whose geometry and block storage each replica checks against its own
+engine.
+
+``FLEET_ROLE`` makes the app a fleet replica (``fleet/topology.py``):
+``/healthz`` reports the role, the replica label of its timeline events
+defaults to it, and a ``prefill`` replica serves ``POST /prefill``
+{"prompt"} -> {"registered_tokens", "prefix_entries", "chunk"}: the
+prompt's chunk-aligned prefill through the prefix store, whose walk
+registers the prefix states in the pool's content-keyed registry for
+the decode replicas to adopt. A fill the pool cannot host answers 429
+with ``Retry-After``, a spent X-Deadline-Ms 503; a wrong role or a
+prompt that leaves no room 400.
 
 ``PREFIX_CACHE > 0`` puts the prefix store (``runtime.prefix_cache``,
 chunk ``PREFIX_CHUNK``, else ``PREFILL_CHUNK``, else 64) in front of the
@@ -131,6 +149,7 @@ from ..utils import (graftfault, graftmem, graftscope, grafttime,
                      grafttrend, tracing)
 from ..utils.config import ServingConfig, from_env
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.graftnum import regime_of
 from ..utils.metrics import REGISTRY
 from . import loader
 from .http import JSONApp
@@ -244,22 +263,35 @@ class GenerateReq:
     seed: Optional[int] = None
 
 
+@dataclasses.dataclass
+class PrefillReq:
+    """The ``/prefill`` body: the prompt alone. The prefill replica fills
+    shared pool blocks; block ids never cross the wire."""
+
+    prompt: str
+
+
 def create_app(cfg: Optional[ServingConfig] = None, model=None,
                tokenizer=None, device: DeviceLike = None, registry=None,
-               recorder=None, replica: Optional[str] = None) -> JSONApp:
+               recorder=None, kv_pool: Optional[KVBlockPool] = None,
+               replica: Optional[str] = None) -> JSONApp:
     """Build the app. ``model=(config, params)`` and ``tokenizer`` are
     injectable for tests; by default the model comes from
     ``serving.loader`` (role-aware: a shard with a checkpoint restores
     only its stage, a remote coordinator only the configuration) and the
     tokenizer from the checkpoint's assets, else bytes. ``device`` is
     ``cuda`` unless given. ``registry`` (a ``MetricsRegistry``) and
-    ``recorder`` (a ``FlightRecorder``) default to the process's;
-    ``replica`` labels the app's timeline events (default "solo")."""
+    ``recorder`` (a ``FlightRecorder``) default to the process's.
+    ``kv_pool`` (a ``KVBlockPool`` matching this app's engine) makes the
+    app serve from a shared pool instead of building its own: the
+    fleet's replicas hand blocks off through one allocator's registry.
+    ``replica`` labels the app's timeline events (default: the fleet
+    role, else "solo")."""
     cfg = cfg or from_env()
     dev = resolve_device(device)
     reg = registry if registry is not None else REGISTRY
     rec = recorder if recorder is not None else tracing.RECORDER
-    replica_label = replica or "solo"
+    replica_label = replica or cfg.fleet_role or "solo"
     # the trend watches over this app's registry, polled on each read
     # of /debug/trend
     trend_reducer = grafttrend.TrendReducer(registry=reg)
@@ -290,8 +322,16 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
             f"topology; {type(config).__name__} models serve with "
             "DISPATCH=local")
     check_batching(cfg, config)
+    if kv_pool is not None:
+        if remote or cfg.shard_role != "coordinator":
+            raise ValueError("kv_pool injection applies to the "
+                             "coordinator's local decode path only")
+        if cfg.kv_pool_blocks == 0:
+            raise ValueError("kv_pool injected but KV_POOL_BLOCKS=0 — "
+                             "a silently unused pool would misreport "
+                             "the serving composition")
 
-    runner = engine = kv_pool = prefix = spec = None
+    runner = engine = prefix = spec = None
     decode_kernel = None
     decode_stages = len(cfg.boundaries) + 1
     if cfg.shard_role == "coordinator" and not remote:
@@ -314,9 +354,13 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
             decode_stages = 1
         elif cfg.kv_pool_blocks > 0:
             # paged storage gathers and scatters whole-model cache rows,
-            # so the engine runs unstaged
+            # so the engine runs unstaged, on the plain cache; int8 takes
+            # its matmul kernels there
+            kernels = ({"decode_kernel": "xla", "matmul_kernels": True}
+                       if cfg.inference_dtype == "int8" else {})
             engine = DecodeEngine(params, config, max_seq=cfg.max_seq,
-                                  dtype=cfg.inference_dtype, device=dev)
+                                  dtype=cfg.inference_dtype, device=dev,
+                                  **kernels)
             decode_stages = 1
         elif (cfg.inference_dtype != "float32" or cfg.max_batch > 1
                 or pchunk or cfg.prefix_cache > 0):
@@ -327,16 +371,20 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
         else:
             engine = PipelineRunner(params, config, list(cfg.boundaries),
                                     max_seq=cfg.max_seq, device=dev)
-        if cfg.kv_pool_blocks > 0:
+        if kv_pool is not None:
+            check_shared_pool(kv_pool, engine, cfg)
+        elif cfg.kv_pool_blocks > 0:
             kv_pool = KVBlockPool.for_engine(
                 engine, num_blocks=cfg.kv_pool_blocks,
                 block_size=cfg.kv_block_size,
                 block_dtype=cfg.kv_pool_dtype or None)
         decode_kernel = engine.decode_kernel_mode
         runner = engine
-        if kv_pool is not None and cfg.kv_host_blocks > 0:
+        if (kv_pool is not None and cfg.kv_host_blocks > 0
+                and kv_pool.tier is None):
             # cold prefix entries demote to host memory instead of being
-            # evicted, and promote back on a hit
+            # evicted, and promote back on a hit (an injected pool may
+            # come with its tier: the fleet's replicas share both)
             kv_pool.attach_tier(HostKVTier(cfg.kv_host_blocks))
         if cfg.prefix_cache > 0:
             prefix = PrefixCachingEngine(
@@ -393,6 +441,9 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
             "kv_block_size": cfg.kv_block_size,
             "kv_pool_dtype": cfg.kv_pool_dtype,
             "kv_host_blocks": cfg.kv_host_blocks,
+            # the fleet role, and the prefix chunk above is the width the
+            # router's affinity keys must match
+            "fleet_role": cfg.fleet_role,
             "device": str(dev),
             "decode_kernel": decode_kernel,
         }
@@ -510,6 +561,112 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
             trend_reducer.poll()
             trend_reducer.evaluate()
         return {"serving": _topology(), **trend_reducer.describe()}
+
+    @app.post("/prefill")
+    def prefill(req: PrefillReq, headers: dict):
+        # the replica label rides every timeline event of the request
+        with grafttime.use_replica(replica_label):
+            return _prefill(req, headers)
+
+    def _prefill(req: PrefillReq, headers: dict):
+        """The prefill replica's endpoint: the prompt's chunk-aligned
+        prefill through the prefix store, whose walk registers every
+        full-chunk prefix state in the pool's content-keyed registry
+        (the registry holding its own refs), where the decode replicas
+        adopt them zero-copy. Only the prompt crosses the hop, and only
+        block ids change hands afterwards (``fleet/topology.py``
+        ``HANDOFF_POLICY``)."""
+        rid, _profile = parse_request_identity(headers)
+        hdrs = {"X-Request-ID": rid}
+
+        def out(body, status=200):
+            return status, body, hdrs
+
+        if cfg.fleet_role != "prefill":
+            return out({"error": "This instance is not a fleet "
+                                 "prefill replica."}, status=400)
+        # unreachable through from_env (FLEET_ROLE requires the
+        # pool-backed store); a config built by hand may lack it
+        if prefix is None or kv_pool is None:
+            return out({"error": "prefill replicas need the pool-backed "
+                                 "prefix store (KV_POOL_BLOCKS + "
+                                 "PREFIX_CACHE)"}, status=400)
+        deadline, _dl_ms, dl_err = parse_deadline_header(headers)
+        if dl_err:
+            return out({"error": dl_err}, status=400)
+        trace = tracing.RequestTrace(rid, fleet="prefill")
+
+        def reject(msg: str):
+            # a 400, flight-recorded: the router counts a warm by the
+            # status, so a 200 with an error body would pass for one
+            trace.labels.update(error=msg)
+            rec.record(trace)
+            return out({"error": msg}, status=400)
+
+        with trace.span("tokenize"):
+            prompt_ids = tokenizer.encode(req.prompt)
+        if not prompt_ids:
+            return reject("prompt tokenized to zero tokens")
+        if len(prompt_ids) >= cfg.max_seq:
+            return reject(f"prompt ({len(prompt_ids)} tokens) leaves "
+                          f"no forward room under max_seq "
+                          f"({cfg.max_seq})")
+        chunk = prefix.chunk
+        m_total = (len(prompt_ids) - 1) // chunk
+        alloc = kv_pool.allocator
+        # a fill the pool cannot host is shed before the prefill runs.
+        # Registered prefixes share blocks, so the gate counts the
+        # marginal need: nothing for a registered prompt, the new chunks'
+        # blocks past the deepest registered prefix. ``has_prefix`` takes
+        # no leases (the walk takes its own)
+        need = alloc.blocks_for(m_total * chunk)
+        if need:
+            arr = np.asarray(prompt_ids, dtype=np.int32)
+            if alloc.has_prefix(prefix._key(arr, m_total, chunk)):
+                need = 0
+            else:
+                for m in range(m_total - 1, 0, -1):
+                    if alloc.has_prefix(prefix._key(arr, m, chunk)):
+                        need -= (m * chunk) // kv_pool.block_size
+                        break
+        if need > 0 and alloc.available() < need:
+            reg.inc("kv_pool_admission_rejections_total")
+            hdrs["Retry-After"] = "1"
+            trace.labels.update(error="kv_pool_saturated")
+            rec.record(trace)
+            return out({"error": "kv_pool_saturated",
+                        "detail": "pool cannot host this prefix fill; "
+                                  "retry after the indicated backoff"},
+                       status=429)
+        try:
+            if deadline is not None:
+                deadline.raise_if_expired("prefill")
+            with tracing.use_trace(trace):
+                _logits, _cache, shared_ids, depth = prefix.prefill_shared(
+                    np.asarray(prompt_ids, dtype=np.int32))
+            # the walk's caller refs go at once: the registry holds the
+            # entry's own, and the hop hands ids off by content key
+            alloc.free(shared_ids)
+        except graftfault.Unavailable as e:
+            hdrs["Retry-After"] = str(max(1, int(round(e.retry_after))))
+            if e.code == "deadline_exceeded":
+                reg.inc("deadline_misses_total")
+            trace.labels.update(error=e.code)
+            rec.record(trace)
+            grafttime.blackbox(e.code, rid=rid)
+            return out({"error": e.code, "detail": str(e)}, status=503)
+        except Exception as e:  # noqa: BLE001 - the id is still echoed
+            log.exception("prefill failed")
+            trace.labels.update(error=f"{type(e).__name__}: {e}")
+            rec.record(trace)
+            if isinstance(e, GraftsanError):
+                grafttime.blackbox(f"graftsan:{type(e).__name__}", rid=rid)
+            return out({"detail": f"{type(e).__name__}: {e}"}, status=500)
+        trace.labels.update(registered_tokens=depth)
+        rec.record(trace)
+        return out({"registered_tokens": depth,
+                    "prefix_entries": alloc.prefix_len(),
+                    "chunk": chunk})
 
     @app.post("/forward")
     def forward_a(req: InputIDs):
@@ -835,6 +992,41 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
 
     app.trend_reducer = trend_reducer
     return app
+
+
+def check_shared_pool(kv_pool: KVBlockPool, engine: DecodeEngine,
+                      cfg: ServingConfig) -> None:
+    """An injected pool against the engine that will page on it: the
+    engine as the paged path takes it (``KVBlockPool.check_engine``), then
+    the JAX app's width and block-regime checks, and the geometry, dtype
+    and device the port's movers need. One pool serves a whole fleet, so
+    every replica's engine must match it."""
+    KVBlockPool.check_engine(engine)
+    if kv_pool.max_seq != engine._cache_seq:
+        raise ValueError(
+            f"injected kv_pool spans {kv_pool.max_seq} slots, engine "
+            f"cache is {engine._cache_seq} — shared-pool replicas must "
+            "agree on geometry")
+    c = engine.config
+    heads = getattr(c, "n_kv_head", c.n_head)
+    layers, _, _, pool_heads, _, head_dim = kv_pool.data.shape
+    if (layers, pool_heads, head_dim) != (c.n_layer, heads, c.head_dim):
+        raise ValueError(
+            f"injected kv_pool holds {layers} layers x {pool_heads} kv "
+            f"heads x {head_dim}, the engine {c.n_layer} x {heads} x "
+            f"{c.head_dim} — shared-pool replicas must agree on geometry")
+    want = regime_of(cfg.kv_pool_dtype) if cfg.kv_pool_dtype else None
+    if kv_pool.block_dtype != want:
+        raise ValueError(
+            f"injected kv_pool stores {kv_pool.block_regime} blocks, "
+            f"KV_POOL_DTYPE={cfg.kv_pool_dtype!r} — shared-pool replicas "
+            "must agree on block storage")
+    if (kv_pool.dtype, kv_pool.device) != (engine.dtype, engine.device):
+        raise ValueError(
+            f"injected kv_pool holds {kv_pool.dtype} blocks on "
+            f"{kv_pool.device}, the engine's cache is {engine.dtype} on "
+            f"{engine.device} — shared-pool replicas must agree on block "
+            "storage")
 
 
 def check_batching(cfg: ServingConfig, config) -> None:

@@ -186,7 +186,11 @@ class TestClient:
         return Response(*self.app.handle("GET", path, None, headers))
 
     def post(self, path: str, json: Any = None,  # noqa: A002
-             headers: Optional[Dict[str, str]] = None) -> Response:
+             headers: Optional[Dict[str, str]] = None,
+             timeout_s: Optional[float] = None) -> Response:
+        """``timeout_s`` is the wire timeout a socket client takes; the
+        in-process call is synchronous and ignores it."""
+        del timeout_s
         import json as _json
         return Response(*self.app.handle(
             "POST", path, _json.dumps(json).encode(), headers))

@@ -10,9 +10,11 @@ coordinator relays each token through the shards named by
 the paged pool's ``KV_POOL_BLOCKS``, ``KV_BLOCK_SIZE`` and
 ``KV_POOL_DTYPE``, and the prefix store's ``PREFIX_CACHE`` and
 ``PREFIX_CHUNK`` with the host tier's ``KV_HOST_BLOCKS``, and
-``SPEC_DECODE`` (speculative decoding's draft depth), and
+``SPEC_DECODE`` (speculative decoding's draft depth),
 ``CHECKPOINT_DIR`` (a checkpoint written by ``utils.checkpoint``: the
-model, its config and its tokenizer assets). Every other knob
+model, its config and its tokenizer assets), and ``FLEET_ROLE`` (a fleet
+replica's role: ``prefill`` serves ``/prefill``, ``decode`` serves
+``/generate``; both need the pool-backed prefix store). Every other knob
 the JAX package accepts refuses at startup when it is set to anything
 but its default, naming the ROADMAP item that will port it: a knob ignored in
 silence would let a deployment believe it runs a configuration it does
@@ -39,16 +41,15 @@ def _is_str(*values: str) -> Callable[[str], bool]:
 
 # knob -> (the ROADMAP item that ports it, "is this value the default?")
 _MULTI = "ROADMAP Queue 1 item 13 (multi-device decode)"
-_FLEET = "ROADMAP Queue 1 item 15 (fleet, planning and observability)"
+_PLAN = "ROADMAP Queue 1 item 15c (planning)"
 REFUSED_KNOBS: Dict[str, Tuple[str, Callable[[str], bool]]] = {
     "PP_DECODE": (_MULTI, _is_off),
     "TP_DECODE": (_MULTI, _is_off),
     "EP_DECODE": (_MULTI, _is_off),
-    "FLEET_ROLE": (_FLEET, _is_str("")),
-    "AUTO_PLAN": (_FLEET, _is_off),
-    "AUTO_PLAN_TRAFFIC": (_FLEET, _is_str("")),
-    "AUTO_PLAN_CONTINUOUS": (_FLEET, _is_off),
-    "AUTO_PLAN_JOURNAL": (_FLEET, _is_str("")),
+    "AUTO_PLAN": (_PLAN, _is_off),
+    "AUTO_PLAN_TRAFFIC": (_PLAN, _is_str("")),
+    "AUTO_PLAN_CONTINUOUS": (_PLAN, _is_off),
+    "AUTO_PLAN_JOURNAL": (_PLAN, _is_str("")),
 }
 
 
@@ -101,6 +102,13 @@ class ServingConfig:
     # > 0: prompt-lookup speculative decoding (runtime.spec_decode) with
     # this draft depth; 0: off
     spec_decode: int = 0
+    # the fleet role (llm_sharding_demo_tpu_torch/fleet): "" serves
+    # standalone; "prefill" serves /prefill (fills shared pool blocks
+    # through the content-keyed prefix registry); "decode" serves
+    # /generate, adopting registered blocks zero-copy. Both need the
+    # pool-backed prefix store (KV_POOL_BLOCKS + PREFIX_CACHE): the
+    # registry is the handoff medium.
+    fleet_role: str = ""
 
     def __post_init__(self):
         if self.shard_role not in VALID_ROLES:
@@ -185,6 +193,22 @@ class ServingConfig:
                 "PREFIX_CHUNK tunes the prefix store's alignment; it "
                 "needs PREFIX_CACHE > 0 (a silently ignored knob would "
                 "misreport the serving composition)")
+        if self.fleet_role not in ("", "prefill", "decode"):
+            raise ValueError(
+                f"FLEET_ROLE={self.fleet_role!r} not ''|prefill|decode")
+        if self.fleet_role:
+            if not (self.shard_role == "coordinator"
+                    and self.dispatch == "local"):
+                raise ValueError(
+                    "FLEET_ROLE applies to coordinator + local dispatch "
+                    "replicas (the fleet router fronts whole replicas, "
+                    "not stage shards)")
+            if self.kv_pool_blocks == 0 or self.prefix_cache == 0:
+                raise ValueError(
+                    f"FLEET_ROLE={self.fleet_role!r} requires the "
+                    "pool-backed prefix store (KV_POOL_BLOCKS > 0 and "
+                    "PREFIX_CACHE > 0): the content-keyed registry is "
+                    "the prefill->decode block-handoff medium")
         if self.kv_pool_blocks > 0 and self.max_seq % self.kv_block_size:
             raise ValueError(
                 f"MAX_SEQ={self.max_seq} must be a multiple of "
@@ -286,4 +310,5 @@ def from_env() -> ServingConfig:
         prefix_chunk=_env_int("PREFIX_CHUNK", 0),
         kv_host_blocks=_env_int("KV_HOST_BLOCKS", 0),
         spec_decode=_env_int("SPEC_DECODE", 0),
+        fleet_role=os.environ.get("FLEET_ROLE", ""),
     )

@@ -21,12 +21,14 @@ The port's sites: ``iterbatch.decode_seg`` (``decode_transient``,
 pool's grant (``kv_pool.admit_alloc``) and at the two 429 gates
 (``iterbatch.admission_load``, ``serving.admission``), and
 ``serving.shard_hop`` (``reset``, ``timeout``, ``http_503``, ``slow``)
-inside each hop attempt, before the wire call. Each fired fault is a
+inside each hop attempt, before the wire call, and the fleet router's
+``router.replica_hop`` (the same kinds) inside each replica hop attempt
+(``serving/router.py``). Each fired fault is a
 ``fault_inject`` event on the timeline (utils.grafttime), each breaker
 transition a ``breaker`` event beside its ``hop_breaker_open`` gauge.
 
 The plan built from ``GRAFTFAULT*`` environment variables waits for
-ROADMAP Queue 1 item 15.
+ROADMAP Queue 1 item 15c; plans are installed in process.
 """
 
 from __future__ import annotations
@@ -253,7 +255,7 @@ class HopPolicy:
     propagate at once (a misroute does not heal by repetition).
     ``on_retry(shard, reason)`` fires before each re-attempt;
     ``registry`` takes the ``hop_breaker_open`` gauge (default: the
-    process's).
+    process's; the fleet router sets its own on a policy without one).
 
     The breaker opens after ``breaker_threshold`` consecutive failures;
     calls then fail fast with ``CircuitOpenError`` (``retry_after`` the
@@ -277,7 +279,7 @@ class HopPolicy:
         self.breaker_cooldown_s = float(breaker_cooldown_s)
         self.fatal = tuple(fatal)
         self.on_retry = on_retry
-        self._registry = registry
+        self.registry = registry
         self._sleep = sleep
         self._lock = graftsched.lock("graftfault.HopPolicy._lock")
         self._rng = random.Random(jitter_seed)
@@ -314,7 +316,7 @@ class HopPolicy:
             if opened:
                 b.opened_at = now
                 b.probing = False
-                _sample_breaker(shard, 1.0, self._registry)
+                _sample_breaker(shard, 1.0, self.registry)
         return opened
 
     def _note_success(self, shard: str) -> None:
@@ -323,7 +325,7 @@ class HopPolicy:
             was_open = b is not None and b.opened_at is not None
             self._breakers[shard] = _Breaker()
             if was_open:
-                _sample_breaker(shard, 0.0, self._registry)
+                _sample_breaker(shard, 0.0, self.registry)
 
     def _probe_release(self, shard: str) -> None:
         """Drop a probe claim that ended without a verdict (a deadline

@@ -14,7 +14,8 @@ Counterpart of ``llm_sharding_demo_tpu/utils/graftscope.py``:
   cannot be recorded in a capture);
 - ``sample(name, value)`` appends an occupancy point (batch occupancy,
   queue depth, pool blocks, ledger bytes) to a bounded series;
-- ``snapshot(n)`` is the ``GET /debug/profile`` body.
+- ``snapshot(n)`` is the ``GET /debug/profile`` body; ``now_ms()`` is
+  the instant on its clock.
 
 Each call also emits ``dispatch_begin``/``dispatch_end`` on the timeline
 (utils.grafttime), and each sample an ``occupancy`` event.
@@ -371,6 +372,14 @@ def calls(scope: str) -> List[Tuple[tuple, float]]:
 
 def series(name: str) -> List[Tuple[float, float, dict]]:
     return STATE.series(name)
+
+
+def now_ms() -> float:
+    """The current instant on the snapshot clock (ms since the state's
+    start, the clock of ``snapshot``'s ``t_ms`` and series points): a
+    caller windows the series to one run with it (the load driver's
+    occupancy summary) without touching the rings."""
+    return (time.perf_counter() - STATE.t0) * 1e3
 
 
 def program_keys(scope: str) -> Dict[tuple, Tuple[int, float]]:

@@ -25,7 +25,9 @@ for chrome://tracing or Perfetto and ``validate_chrome`` checks one.
 ring of dumps, and a file each under ``$GRAFTTIME_DIR`` when set).
 
 ``EVENT_KINDS`` and ``KIND_FIELDS`` are the JAX package's vocabulary.
-The kinds whose producers are not ported (``arrival``, ``lock_acquire``,
+``arrival`` comes from the load driver (``loadgen.driver``), once a
+fired request, as in the JAX package, where the router emits none
+either. The kinds whose producers are not ported (``lock_acquire``,
 ``lock_contend``, ``plan_eval``, ``plan_switch``) are never emitted
 here. ``replay_view`` is the projection two runs of one seeded schedule
 must agree on: per-rid streams without the wall-clock fields and the

@@ -71,9 +71,19 @@ METRIC_CATALOG: Dict[str, str] = {
     "kv_pool_preemptions_total": "counter",
     "kv_pool_resumes_total": "counter",
     "kv_pool_admission_rejections_total": "counter",
-    # remote dispatch's shard hops (graftfault.HopPolicy)
+    # remote dispatch's shard hops and the fleet router's replica hops
+    # (graftfault.HopPolicy); the breaker gauge is labelled by target
     "shard_hop_retries_total": "counter",
     "hop_breaker_open": "gauge",
+    # the fleet router (serving/router.py): routes per target and role,
+    # affinity accounting (ring-owner routes vs fallback placements),
+    # typed per-replica sheds met walking the candidates, and prefill
+    # hops that degraded to a cold decode-side prefill
+    "fleet_requests_total": "counter",
+    "fleet_affinity_hits_total": "counter",
+    "fleet_affinity_fallbacks_total": "counter",
+    "fleet_sheds_total": "counter",
+    "fleet_prefill_degraded_total": "counter",
     # accepted requests that died on their X-Deadline-Ms budget (503
     # deadline_exceeded): the source series of the deadline SLO
     "deadline_misses_total": "counter",

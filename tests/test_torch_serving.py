@@ -15,6 +15,7 @@ from llm_sharding_demo_tpu.serving.tokenizer import (
     ByteTokenizer as JByteTokenizer)
 from llm_sharding_demo_tpu.utils.config import (
     ServingConfig as JServingConfig)
+from llm_sharding_demo_tpu.utils.config import from_env as jfrom_env
 from llm_sharding_demo_tpu_torch.models import gpt2
 from llm_sharding_demo_tpu_torch.models.convert import params_from_numpy
 from llm_sharding_demo_tpu_torch.serving import app as tapp
@@ -146,11 +147,25 @@ def test_request_validation(weights):
 def test_unported_knobs_refuse_at_startup(monkeypatch, knob, value):
     """Each knob the port does not serve refuses, naming its ROADMAP item;
     CHECKPOINT_DIR is served now (checkpoints are ported): it parses into
-    the config instead."""
+    the config instead. So is FLEET_ROLE (the fleet is ported): it parses,
+    and without the pool-backed prefix store it raises the JAX config's
+    validation message, naming no ROADMAP item."""
     monkeypatch.setenv(knob, value)
     if knob == "CHECKPOINT_DIR":
         assert knob not in tconfig.REFUSED_KNOBS
         assert tconfig.from_env().checkpoint_dir == value
+        return
+    if knob == "FLEET_ROLE":
+        assert knob not in tconfig.REFUSED_KNOBS
+        monkeypatch.delenv("KV_POOL_BLOCKS", raising=False)
+        monkeypatch.delenv("PREFIX_CACHE", raising=False)
+        with pytest.raises(ValueError) as e:
+            tconfig.from_env()
+        with pytest.raises(ValueError) as jerr:
+            jfrom_env()
+        assert str(e.value) == str(jerr.value)
+        assert "pool-backed prefix store" in str(e.value)
+        assert "ROADMAP Queue 1 item" not in str(e.value)
         return
     with pytest.raises(ValueError, match="ROADMAP Queue 1 item"):
         tconfig.from_env()
