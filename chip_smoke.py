@@ -227,6 +227,25 @@ which must pass or the script exits non-zero:
    fallbacks and sheds, ``prefix_len()``, the pool conserved at
    ``/healthz`` during the run and after it, no leaked ref, tokens/s and
    one stitched ``/debug/requests`` tree.
+16. plan: an in-process GPT-2 124M int8 server from the env contract
+   ``AUTO_PLAN_CONTINUOUS=1 KV_POOL_BLOCKS=256 KV_BLOCK_SIZE=16
+   MAX_BATCH=8 BATCH_MODE=iter MAX_SEQ=1024``, ``AUTO_PLAN_TRAFFIC``
+   from the agentic schedule's own classes (seeded weights, the id
+   tokenizer): 10 agentic arrivals serial, open at 60x the profile's
+   rate, serial, then the whole mix again. A switch each way (the
+   switcher's events); every reply 200; launches equal to what the
+   forwards predict (the int8 linear at every projection and the tied
+   head on each forward of <= 16 rows, every other kernel 0); every
+   forward shape inside the certified set and none of one row new on
+   the replay; the pool conserved at ``/healthz``; tokens/s and p50 e2e
+   of each run and the switcher's host cost an admission. Replies
+   against the first run and against the same schedule on each static
+   plan (solo paged at MAX_BATCH=1, pooled iter at MAX_BATCH=8): equal,
+   or held teacher-forced within ``decode.int8``. The same burst under
+   ``GRAFTSCHED=trace`` (per lock: wait seconds, acquisitions,
+   contended), and a serial pass on the pooled iter plan with
+   ``GRAFTFAULT=1`` (injections by site; its 200 replies against the
+   unfaulted run's).
 
 The last lines are the card's name and power limit, one JSON object with
 the kernels' numbers (each kernel's launches counted on the path that
@@ -237,7 +256,8 @@ paths' under ``prefix_launches``, the spec paths' under ``spec_launches``,
 the three remote processes' under ``remote_launches``, the checkpoint
 coordinator's under ``ckpt_launches``, the MoE paths' under
 ``moe_launches``, the observability server's under ``obs_launches``,
-the int8 fleet's runs under ``fleet_launches``, the 5 bf16 train steps
+the int8 fleet's runs under ``fleet_launches``, the continuous server's
+runs under ``plan_launches``, the 5 bf16 train steps
 for the flash kernels), and
 ``{"ok": true, "device": {...}}``. ``--phases`` runs a subset (the
 default runs all).
@@ -4629,20 +4649,6 @@ FLEET_OPEN_N = 16     # arrivals of the open-loop run
 FLEET_PROFILES = ("bursty_chat", "long_context")
 
 
-class IdTokenizer:
-    """Text to its UTF-8 byte ids, ids back to ``<id>`` each: a reply then
-    names its token ids (the byte tokenizer prints every id past 255 as
-    the same mark)."""
-
-    eos_token_id = None
-
-    def encode(self, text):
-        return list(text.encode("utf-8"))
-
-    def decode(self, ids):
-        return "".join(f"<{int(i)}>" for i in ids)
-
-
 def reply_ids(text: str) -> list:
     return [int(x) for x in re.findall(r"<(\d+)>", text)]
 
@@ -4697,6 +4703,7 @@ def fleet_phase(smi: str) -> dict:
     from llm_sharding_demo_tpu_torch.ops import cuda_build
     from llm_sharding_demo_tpu_torch.runtime import kv_pool
     from llm_sharding_demo_tpu_torch.runtime.engine import DecodeEngine
+    from llm_sharding_demo_tpu_torch.tools.plan_drive import IdTokenizer
     from llm_sharding_demo_tpu_torch.utils import graftnum
 
     t_phase = time.perf_counter()
@@ -4884,6 +4891,225 @@ def fleet_phase(smi: str) -> dict:
     return launches
 
 
+# -- plan ----------------------------------------------------------------------
+
+PLAN_FAULT_ENV = {"GRAFTFAULT": "1", "GRAFTFAULT_SEED": "5",
+                  "GRAFTFAULT_RATE": "0.2"}
+
+
+def plan_hold(got: list, want: list, what: str, engines, tok,
+              ks=None) -> tuple:
+    """``(equal, held, worst logit_mse)``: each reply of ``got`` (arrivals
+    ``ks``, default all) a 200 byte-equal to ``want``'s, or held
+    teacher-forced within ``decode.int8`` of the int8 plain path (a row's
+    numbers differ with the forward's shape, so a greedy row may part at
+    a near tie)."""
+    import torch
+
+    from llm_sharding_demo_tpu_torch import loadgen
+    from llm_sharding_demo_tpu_torch.tools.plan_drive import PLAN_N, PLAN_SEED
+    from llm_sharding_demo_tpu_torch.utils import graftnum
+
+    arrivals = loadgen.schedule(loadgen.profile("agentic"), PLAN_SEED, PLAN_N)
+    if ks is not None:
+        arrivals = [arrivals[k] for k in ks]
+    equal = held = 0
+    worst = 0.0
+    for a, (st, text), (st2, text2) in zip(arrivals, got, want):
+        check(st == 200 and st2 == 200, f"{what} {a.k}: {st} / {st2}")
+        if text == text2:
+            equal += 1
+            continue
+        kern, plain = engines()
+        prompt = tok.encode(a.prompt)
+        forced = reply_ids(text)[len(prompt):]
+        lk = teacher_forced_logits(kern, prompt, forced)
+        lp = teacher_forced_logits(plain, prompt, forced)
+        check(bool(torch.isfinite(lk).all()), f"{what}: non-finite logits")
+        worst = max(worst, graftnum.compare("decode.int8", lk, lp)["logit_mse"])
+        held += 1
+    return equal, held, worst
+
+
+def plan_phase(smi: str) -> dict:
+    """Continuous planning (module docstring, phase 16). Returns the
+    continuous server's launch counts."""
+    import torch
+
+    from llm_sharding_demo_tpu_torch.models import gpt2
+    from llm_sharding_demo_tpu_torch.ops import cuda_build
+    from llm_sharding_demo_tpu_torch.runtime import kv_pool
+    from llm_sharding_demo_tpu_torch.runtime.engine import DecodeEngine
+    from llm_sharding_demo_tpu_torch.tools.plan_drive import (
+        MIX, PLAN_N, PLAN_RATE, IdTokenizer, environ, expected_launches,
+        plan_traffic, replies)
+    from llm_sharding_demo_tpu_torch.tools import plan_drive
+    from llm_sharding_demo_tpu_torch.utils import graftfault, graftsched
+
+    def plan_app(model, tok, **env):
+        return plan_drive.plan_app(model, tok, "cuda", **env)
+
+    def plan_run(client, recorder, mode, rate=1.0):
+        try:
+            return plan_drive.plan_run(client, recorder, mode, rate)
+        except AssertionError as e:
+            raise SmokeError(f"plan {mode} run: {e}") from e
+
+    t_phase = time.perf_counter()
+    cfg = gpt2.CONFIGS["gpt2"]
+    params = gpt2.init_params(cfg, torch.Generator(device="cuda")
+                              .manual_seed(0))
+    tok = IdTokenizer()
+    model = (cfg, params)
+    made = {}
+
+    def engines():
+        if not made:
+            kw = dict(max_seq=NPOS, dtype="int8", decode_kernel="xla",
+                      device="cuda")
+            made["kern"] = DecodeEngine(params, cfg, matmul_kernels=True, **kw)
+            made["plain"] = DecodeEngine(params, cfg, **kw)
+        return made["kern"], made["plain"]
+
+    # (a) the continuous server: serial, the open burst, serial; the mix
+    # again; every admission's host cost through the switcher timed
+    client, recorder, reg = plan_app(model, tok)
+    sw = client.app.plan_switcher
+    check(sw is not None and sw.health_view()["active"] == "solo",
+          "the continuous server starts on the solo plan")
+    eng = sw.plans["solo"].engine
+    check(sw.plans["batched"].engine is eng and eng.decode_kernel_mode == "xla",
+          "both plans share the paged int8 engine (matmul kernels)")
+    admit_us = []
+    admit = sw.admit
+
+    def timed_admit(prompt_len, max_new):
+        t0 = time.perf_counter()
+        out = admit(prompt_len, max_new)
+        admit_us.append((time.perf_counter() - t0) * 1e6)
+        return out
+
+    sw.admit = timed_admit
+    shapes0 = dict(eng.forward_shapes())
+    cuda_build.reset_launch_counts()
+    reports, first = [], None
+    for _ in range(2):
+        for mode, rate in MIX:
+            reports.append(plan_run(client, recorder, mode, rate))
+        if first is None:
+            first = dict(eng.forward_shapes())
+    counts = cuda_build.launch_counts()
+    shapes = dict(eng.forward_shapes())
+    delta = shapes_delta(shapes, shapes0)
+    want = expected_launches(delta, L)
+    check(counts == want, f"plan: launches {counts}, predicted {want} from "
+                          f"the forwards {delta}")
+    check(counts["quant_linear"] > 0 and counts["quant_head"] > 0,
+          f"plan: the int8 kernels never ran: {counts}")
+    flips = [(e["from"], e["to"]) for e in sw.events() if e["switched"]]
+    check(("solo", "batched") in flips and ("batched", "solo") in flips,
+          f"plan: no switch each way: {flips}")
+    outside = sw.uncertified_shapes(shapes)
+    check(not outside, f"plan: forward shapes outside the certified set: "
+                       f"{outside}")
+    replay_new = sorted(k for k in shapes if k not in first)
+    check(all(b > 1 for b, _ in replay_new),
+          f"plan: the replay added single-row shapes {replay_new}")
+    runs = [replies(r) for r in reports]
+    for i, r in enumerate(runs):
+        check(all(st == 200 for st, _ in r),
+              f"plan run {i}: outcomes {[st for st, _ in r]}")
+    h = client.get("/healthz").json()
+    check(h["auto_plan"] == sw.health_view()
+          and h["auto_plan"]["switches"] == len(flips),
+          f"plan: /healthz auto_plan {h['auto_plan']}")
+    kv_pool.graftsan_sweep(timeout=10.0)
+    phase_rows = [f"{mode} {rep['throughput_tokens_per_sec']} tokens/s, "
+                  f"p50 e2e {rep['p50_e2e_ms']} ms"
+                  for (mode, _), rep in zip(MIX * 2, reports)]
+    n_fwd = sum(delta.values())
+    cert = {lb: row["shape_total"] for lb, row in sw.certified.items()}
+    print(f"  continuous int8 server (AUTO_PLAN_TRAFFIC={plan_traffic()}): "
+          f"6 agentic runs of {PLAN_N} (serial, open at {PLAN_RATE:g}x, "
+          f"serial; twice): {'; '.join(phase_rows)} [{smi}]")
+    print(f"  switches {flips} (events {len(sw.events())}, wave "
+          f"{sw.wave}); forwards {delta} ({n_fwd}); launches {counts} = the "
+          f"forwards' prediction; every shape inside the certified set "
+          f"(certified shapes {cert}); the replay's new shapes "
+          f"{replay_new or 'none'}; switcher host cost a admission: median "
+          f"{statistics.median(admit_us):.1f} us, max {max(admit_us):.1f} us "
+          f"over {len(admit_us)} [{smi}]")
+    launches = {"continuous server, 6 runs": counts}
+
+    # replies: across the runs, and against each static plan
+    eq = [plan_hold(r, runs[0], f"plan run {i}", engines, tok)
+          for i, r in enumerate(runs[1:], 1)]
+    statics = {}
+    for label, env in (("solo paged, MAX_BATCH=1",
+                        {"AUTO_PLAN_CONTINUOUS": None, "MAX_BATCH": "1",
+                         "BATCH_MODE": "admission"}),
+                       ("pooled iter, MAX_BATCH=8",
+                        {"AUTO_PLAN_CONTINUOUS": None})):
+        c2, r2, _ = plan_app(model, tok, **env)
+        check(c2.app.plan_switcher is None, f"{label} is static")
+        statics[label] = plan_hold(replies(plan_run(c2, r2, "serial")),
+                                   runs[0], label, engines, tok)
+        del c2, r2
+    print(f"  replies (equal, held teacher-forced, worst logit_mse): runs "
+          f"2-6 against run 1 {eq}; static plans against run 1 {statics} "
+          f"[{smi}]")
+
+    # (b) the same burst under GRAFTSCHED=trace: lock contention
+    graftsched.clear()
+    c3, r3, _ = plan_app(model, tok, GRAFTSCHED="trace")
+    plan_run(c3, r3, "serial")
+    burst = plan_run(c3, r3, "open", PLAN_RATE)
+    check(graftsched.findings() == [],
+          f"GRAFTSCHED findings: {[f.format() for f in graftsched.findings()]}")
+    check(c3.app.plan_switcher.health_view()["active"] == "batched",
+          "the traced burst switched to the batched plan")
+    cont = graftsched.contention()
+    top = sorted(cont.items(), key=lambda kv: -kv[1]["wait_seconds"])
+    print(f"  GRAFTSCHED=trace, serial then the open burst ("
+          f"{burst['throughput_tokens_per_sec']} tokens/s, p50 e2e "
+          f"{burst['p50_e2e_ms']} ms): per lock (wait s, acquisitions, "
+          f"contended > 1 ms): " + "; ".join(
+              f"{name} {c['wait_seconds']} / {c['acquisitions']} / "
+              f"{c['contended']}" for name, c in top) + f" [{smi}]")
+    del c3, r3
+    graftsched.clear()
+
+    # (c) a serial pass with the env fault plan armed, on the pooled iter
+    # plan (every one of its sites: admission load, block grants, decode
+    # segments)
+    c4, r4, _ = plan_app(model, tok, AUTO_PLAN_CONTINUOUS=None)
+    with environ(PLAN_FAULT_ENV):
+        graftfault.reset()
+        try:
+            faulted = replies(plan_run(c4, r4, "serial"))
+            injections = collections.Counter(
+                (i.site, i.kind) for i in graftfault.plan().injections)
+        finally:
+            graftfault.reset()
+    check(injections, "the env fault plan fired nothing")
+    check(all(st in (200, 429, 503) for st, _ in faulted),
+          f"faulted pass: untyped outcomes {[st for st, _ in faulted]}")
+    ok = [k for k, (st, _) in enumerate(faulted) if st == 200]
+    f_eq = plan_hold([faulted[k] for k in ok], [runs[0][k] for k in ok],
+                     "faulted pass", engines, tok, ks=ok)
+    print(f"  GRAFTFAULT=1 seed {PLAN_FAULT_ENV['GRAFTFAULT_SEED']} rate "
+          f"{PLAN_FAULT_ENV['GRAFTFAULT_RATE']}, serial on the pooled iter "
+          f"plan: injections by (site, kind) {dict(sorted(injections.items()))}"
+          f"; outcomes {collections.Counter(st for st, _ in faulted)}; the "
+          f"200 replies against the unfaulted run (equal, held, worst) "
+          f"{f_eq} [{smi}]")
+    del client, recorder, c4, r4, made
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  [plan] {time.perf_counter() - t_phase:.1f} s wall [{smi}]")
+    return launches
+
+
 # -- main ----------------------------------------------------------------------
 
 def kernel_name(mangled: str) -> str:
@@ -4993,10 +5219,11 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases",
                         default="kernels,flash,engine,server,batch,train,"
-                                "paged,prefix,spec,remote,ckpt,moe,obs,fleet",
+                                "paged,prefix,spec,remote,ckpt,moe,obs,fleet,"
+                                "plan",
                         help="comma-separated subset of kernels,flash,engine,"
                              "server,batch,train,paged,prefix,spec,remote,"
-                             "ckpt,moe,obs,fleet")
+                             "ckpt,moe,obs,fleet,plan")
     args = parser.parse_args()
     phases = set(args.phases.split(","))
 
@@ -5125,6 +5352,13 @@ def main() -> int:
               "decode replicas over one pool; fp32 byte-equal to the single "
               "replica, int8 on the int8 kernels, an open-loop run")
         fleet_launches = fleet_phase(smi)
+    plan_launches = {}
+    if "plan" in phases:
+        print("[plan] continuous planning: an int8 AUTO_PLAN_CONTINUOUS "
+              "server switching between the solo paged and pooled iter "
+              "plans under agentic bursts, the static plans, lock "
+              "contention under GRAFTSCHED=trace, a GRAFTFAULT pass")
+        plan_launches = plan_phase(smi)
 
     sources = {"decode_attention": "csrc/decode_attention.cu",
                "quant_linear": "csrc/quant.cu",
@@ -5181,6 +5415,8 @@ def main() -> int:
                              for where, c in obs_launches.items()},
             "fleet_launches": {where: c[k.name]
                                for where, c in fleet_launches.items()},
+            "plan_launches": {where: c[k.name]
+                              for where, c in plan_launches.items()},
             "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
             "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
             "bound_by": r.get("bound_by"),

@@ -40,11 +40,12 @@ from ..utils import graftscope, grafttime
 from .profiles import SLO_POLICY, WorkloadProfile
 from .schedule import Arrival, schedule
 
-# graftscope series the occupancy summary reduces (queue, batch, pool
-# and breaker: the serving stack's internal state under load)
+# graftscope series the occupancy summary reduces (queue, batch, pool,
+# breaker and the active plan: the serving stack's internal state under
+# load)
 OCCUPANCY_SERIES = ("queue_depth", "batch_occupancy",
                     "kv_cache_blocks_in_use", "iter_live_rows",
-                    "hop_breaker_open")
+                    "hop_breaker_open", "auto_plan_active")
 
 
 @dataclasses.dataclass

@@ -960,8 +960,11 @@ class PagedKVRunner:
         self.pool = pool
         self.prefix = prefix
         # one generation at a time: the allocator's alloc/free pairs of
-        # two generates must not interleave
-        self._gen_lock = graftsched.lock("kv_pool.PagedKVRunner._gen_lock")
+        # two generates must not interleave. It is held for a whole
+        # generation's device time, so the tracer's deadlock timeout is
+        # the JAX package's 600 s for it
+        self._gen_lock = graftsched.lock("kv_pool.PagedKVRunner._gen_lock",
+                                         timeout=600.0)
 
     @torch.inference_mode()
     def generate(self, prompt_ids, max_new_tokens: int,

@@ -100,7 +100,11 @@ class PrefixCachingEngine:
         self._store: "OrderedDict[bytes, object]" = OrderedDict()
         # store key -> graftmem handle of the entry's bytes (no pool)
         self._mem_handles: dict = {}
-        self._lock = graftsched.lock("prefix_cache.PrefixCachingEngine._lock")
+        # the device lock (held across a generation: the tracer's
+        # deadlock timeout is the JAX package's 600 s for it); the store
+        # lock guards the entry table alone
+        self._lock = graftsched.lock("prefix_cache.PrefixCachingEngine._lock",
+                                     timeout=600.0)
         self._store_lock = graftsched.lock(
             "prefix_cache.PrefixCachingEngine._store_lock")
         self.hits = 0

@@ -16,7 +16,8 @@ Counterpart of the core of ``llm_sharding_demo_tpu/serving/app.py``
   stream windows, and occupancy series), ``/debug/memory`` (the memory
   ledger beside the CUDA allocator), ``/debug/timeline`` (grafttime's
   event stream), ``/debug/trend`` (grafttrend's watches) and
-  ``/debug/plan`` (``mode: "off"``: the port has no planner yet).
+  ``/debug/plan`` (continuous planning's state; ``mode: "off"`` without
+  it).
 
 Role guards answer HTTP 200 with ``{"error": ...}`` as the reference does.
 Runner choice: ``INFERENCE_DTYPE=int8`` or ``bfloat16``, ``MAX_BATCH >
@@ -54,6 +55,19 @@ the pool. ``create_app(kv_pool=)`` serves from an injected pool instead
 of building one: the fleet's replicas share one (``fleet/harness.py``),
 whose geometry and block storage each replica checks against its own
 engine.
+
+``AUTO_PLAN_CONTINUOUS=1`` (with ``KV_POOL_BLOCKS``, ``MAX_BATCH > 1``,
+``BATCH_MODE=iter``) serves through ``utils.graftwatch``: the paged
+branch's engine and one pool back two plans built at start-up, the solo
+``PagedKVRunner`` and the pooled ``IterBatchingEngine``, and a
+``PlanSwitcher`` routes each admission to the active one, re-scoring the
+plans every wave of admissions against the traffic estimate (weights
+from ``AUTO_PLAN_JOURNAL`` when given; plans certified against
+``AUTO_PLAN_TRAFFIC``'s classes). A request keeps the plan it was
+admitted to; its trace carries the plan's label. ``/healthz`` serves
+the live ``auto_plan`` block and the batched plan's ``iter_batch_stats``,
+``/debug/plan`` the switcher's state, ``app.plan_switcher`` the
+switcher.
 
 ``FLEET_ROLE`` makes the app a fleet replica (``fleet/topology.py``):
 ``/healthz`` reports the role, the replica label of its timeline events
@@ -146,7 +160,7 @@ from ..runtime.kv_tier import HostKVTier
 from ..runtime.prefix_cache import PrefixCachingEngine
 from ..runtime.spec_decode import SpecDecodeEngine
 from ..utils import (graftfault, graftmem, graftscope, grafttime,
-                     grafttrend, tracing)
+                     grafttrend, graftwatch, tracing)
 from ..utils.config import ServingConfig, from_env
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.graftnum import regime_of
@@ -331,7 +345,7 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
                              "a silently unused pool would misreport "
                              "the serving composition")
 
-    runner = engine = prefix = spec = None
+    runner = engine = prefix = spec = switcher = None
     decode_kernel = None
     decode_stages = len(cfg.boundaries) + 1
     if cfg.shard_role == "coordinator" and not remote:
@@ -372,6 +386,8 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
             engine = PipelineRunner(params, config, list(cfg.boundaries),
                                     max_seq=cfg.max_seq, device=dev)
         if kv_pool is not None:
+            if cfg.auto_plan_continuous:
+                check_continuous_pool(kv_pool, engine)
             check_shared_pool(kv_pool, engine, cfg)
         elif cfg.kv_pool_blocks > 0:
             kv_pool = KVBlockPool.for_engine(
@@ -392,7 +408,13 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
                 chunk=cfg.prefix_chunk or cfg.prefill_chunk or 64,
                 spec=spec, pool=kv_pool)
             runner = prefix
-        if cfg.max_batch > 1 and cfg.batch_mode == "iter":
+        if cfg.auto_plan_continuous:
+            # the two plans share the engine and the pool, built here
+            # once: a switch only re-routes admissions between them
+            switcher = continuous_switcher(cfg, config, engine, kv_pool,
+                                           reg, trend_reducer)
+            runner = None
+        elif cfg.max_batch > 1 and cfg.batch_mode == "iter":
             runner = IterBatchingEngine(engine, max_batch=cfg.max_batch,
                                         max_wait_ms=cfg.batch_wait_ms,
                                         spec=spec, prefix=prefix,
@@ -446,6 +468,9 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
             "fleet_role": cfg.fleet_role,
             "device": str(dev),
             "decode_kernel": decode_kernel,
+            # continuous planning: the live plan, not the start-up one
+            **({"auto_plan": switcher.health_view()}
+               if switcher is not None else {}),
         }
 
     def _pool_stats() -> dict:
@@ -473,6 +498,9 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
             live["kv_pool_stats"] = st
         if prefix is not None:
             live["prefix_cache_stats"] = prefix.stats()
+        if switcher is not None:
+            # the pooled batcher's stats whichever plan is active
+            live["iter_batch_stats"] = switcher.plans["batched"].stats()
         if spec is not None:
             live["spec_decode_stats"] = spec.stats()
         # the ledger's entry table against its running totals: drift
@@ -510,8 +538,10 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
                     "graftscope: per-scope call rings with host and "
                     "CUDA-event stream windows, occupancy series (?n)"),
                 "/debug/plan": (
-                    "continuous planning's state: off (the port has no "
-                    "planner)"),
+                    "continuous planning: the active plan, each plan's "
+                    "score, cost terms and certified forward shapes, "
+                    "the weights, the switch journal, the signals (?n); "
+                    "mode off without AUTO_PLAN_CONTINUOUS"),
                 "/debug/timeline": (
                     "grafttime's causal event stream, one clock over "
                     "spans, calls, faults, admissions and tier moves "
@@ -540,9 +570,16 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
         return {"serving": _topology(), **graftscope.snapshot(n=n)}
 
     @app.get("/debug/plan")
-    def debug_plan():
-        # AUTO_PLAN refuses at startup: there is no planner to describe
-        return {"serving": _topology(), "mode": "off", "auto_plan": None}
+    def debug_plan(query: dict):
+        # without continuous mode the payload still answers, mode "off"
+        # (static AUTO_PLAN refuses at startup in the port)
+        if switcher is None:
+            return {"serving": _topology(), "mode": "off", "auto_plan": None}
+        try:
+            n = int(query.get("n", "16"))
+        except ValueError:
+            return 422, {"detail": "n must be an integer"}
+        return {"serving": _topology(), **switcher.describe(n=n)}
 
     @app.get("/debug/memory")
     def debug_memory():
@@ -787,12 +824,34 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
                                         top_k=req.top_k, top_p=req.top_p))
         seed = req.seed if req.seed is not None else secrets.randbits(31)
         gen = torch.Generator(device=dev).manual_seed(seed)
+        eng = runner
+        if switcher is not None:
+            # continuous mode: one admission observation a request, a
+            # re-plan at wave boundaries, and the plan that serves this
+            # request (it keeps it across a switch)
+            eng, plan_label = switcher.admit(len(prompt_ids),
+                                             req.max_new_tokens)
+            tr = tracing.current_trace()
+            if tr is not None:
+                tr.labels.update(plan=plan_label)
+        # the release is in the finally from here on: the deadline check
+        # below raises routinely, and a leaked in-flight count would bias
+        # every later plan decision wide
+        try:
+            return _run_local(eng, req, prompt_ids, sampling, gen, eos_id,
+                              deadline)
+        finally:
+            if switcher is not None:
+                switcher.release()
+
+    def _run_local(eng, req: GenerateReq, prompt_ids: List[int], sampling,
+                   gen, eos_id: Optional[int],
+                   deadline: Optional[graftfault.Deadline]) -> List[int]:
         # speculation serves the requests it is exact for (a prompt of at
         # least ngram tokens, draft_len slots of headroom); behind a
         # batcher the spec flag routes them, with a prefix store the
         # store decides, else they go to the spec engine
-        eng = runner
-        batched = isinstance(runner, (BatchingEngine, IterBatchingEngine))
+        batched = isinstance(eng, (BatchingEngine, IterBatchingEngine))
         if spec is not None and spec.eligible(len(prompt_ids),
                                               req.max_new_tokens):
             if batched:
@@ -880,10 +939,12 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
             # a request the pool cannot host, with the waiting line full,
             # is shed with 429 + Retry-After rather than queued without
             # bound; the solo paged runner sheds what the pool could not
-            # host right now
-            if isinstance(runner, IterBatchingEngine):
-                ok, retry = runner.admission_load(len(prompt_ids),
-                                                  req.max_new_tokens)
+            # host right now. Continuous mode gates on the active plan
+            # (advisory: the worker's grant is the atomic admit_alloc)
+            gate = runner if switcher is None else switcher.peek()
+            if isinstance(gate, IterBatchingEngine):
+                ok, retry = gate.admission_load(len(prompt_ids),
+                                                req.max_new_tokens)
             else:
                 need = kv_pool.allocator.blocks_for(
                     len(prompt_ids) + req.max_new_tokens)
@@ -991,7 +1052,53 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
         return out(body)
 
     app.trend_reducer = trend_reducer
+    # continuous mode's switcher (its plans, certified shapes, journal)
+    app.plan_switcher = switcher
     return app
+
+
+def check_continuous_pool(kv_pool: KVBlockPool, engine: DecodeEngine
+                          ) -> None:
+    """The JAX app's checks of a pool injected into a continuous-planning
+    app: the engine's cache width, and full-precision blocks (the plans
+    are certified over the full-precision movers)."""
+    if kv_pool.max_seq != engine._cache_seq:
+        raise ValueError(
+            f"injected kv_pool spans {kv_pool.max_seq} slots, engine "
+            f"cache is {engine._cache_seq} — shared-pool replicas must "
+            "agree on geometry")
+    if kv_pool.block_dtype is not None:
+        raise ValueError(
+            f"injected kv_pool stores {kv_pool.block_regime} blocks — "
+            "AUTO_PLAN_CONTINUOUS certifies the full-precision mover "
+            "programs only")
+
+
+def continuous_switcher(cfg: ServingConfig, config, engine: DecodeEngine,
+                        kv_pool: KVBlockPool, reg, trend_reducer):
+    """The plan set over ``engine`` and ``kv_pool`` and its switcher:
+    weights fitted from ``AUTO_PLAN_JOURNAL`` (a malformed journal raises
+    ``CalibrationError`` at start-up), plans certified against
+    ``AUTO_PLAN_TRAFFIC``, the switcher sizing the batched plan from
+    ``trend_reducer`` between waves."""
+    # (a family that is not window-independent was refused with
+    # KV_POOL_BLOCKS by check_batching)
+    weights = graftwatch.CostWeights.apriori()
+    if cfg.auto_plan_journal:
+        with open(cfg.auto_plan_journal, encoding="utf-8") as f:
+            weights = graftwatch.fit_cost_weights(json.load(f))
+    plans, costs, certified = graftwatch.build_plan_set(
+        engine, kv_pool, config, max_seq=cfg.max_seq,
+        max_batch=cfg.max_batch, traffic=cfg.auto_plan_traffic or None,
+        batch_wait_ms=cfg.batch_wait_ms)
+    switcher = graftwatch.PlanSwitcher(
+        plans, costs, certified, graftwatch.TelemetryWatcher(registry=reg),
+        weights=weights, registry=reg)
+    switcher.attach_trend(trend_reducer)
+    log.info('{"event": "auto_plan_continuous", "plans": %s, '
+             '"active": "%s", "weights": "%s"}', sorted(plans),
+             switcher.health_view()["active"], weights.source)
+    return switcher
 
 
 def check_shared_pool(kv_pool: KVBlockPool, engine: DecodeEngine,

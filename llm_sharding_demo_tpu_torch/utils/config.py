@@ -14,11 +14,19 @@ the paged pool's ``KV_POOL_BLOCKS``, ``KV_BLOCK_SIZE`` and
 ``CHECKPOINT_DIR`` (a checkpoint written by ``utils.checkpoint``: the
 model, its config and its tokenizer assets), and ``FLEET_ROLE`` (a fleet
 replica's role: ``prefill`` serves ``/prefill``, ``decode`` serves
-``/generate``; both need the pool-backed prefix store). Every other knob
-the JAX package accepts refuses at startup when it is set to anything
-but its default, naming the ROADMAP item that will port it: a knob ignored in
-silence would let a deployment believe it runs a configuration it does
-not.
+``/generate``; both need the pool-backed prefix store), and continuous
+planning's ``AUTO_PLAN_CONTINUOUS`` (switch between the solo paged plan
+and the pooled iteration batcher between request waves,
+``utils.graftwatch``), ``AUTO_PLAN_TRAFFIC`` (the traffic classes its
+plans are certified against) and ``AUTO_PLAN_JOURNAL`` (a bench journal
+whose rows calibrate its byte weights), with the JAX package's guards.
+Every other knob the JAX package accepts refuses at startup when it is
+set to anything but its default, naming the ROADMAP item that will port
+it: a knob ignored in silence would let a deployment believe it runs a
+configuration it does not. Static ``AUTO_PLAN`` is one: the JAX package
+resolves it with a planner that traces JAX programs and gates each
+candidate through its verifier; the port's planner over its own engines
+is ROADMAP Queue 1 item 21.
 """
 
 from __future__ import annotations
@@ -35,21 +43,15 @@ def _is_off(raw: str) -> bool:
     return raw.strip().lower() in ("", "0", "false", "no", "off")
 
 
-def _is_str(*values: str) -> Callable[[str], bool]:
-    return lambda raw: raw.strip() in values
-
-
 # knob -> (the ROADMAP item that ports it, "is this value the default?")
 _MULTI = "ROADMAP Queue 1 item 13 (multi-device decode)"
-_PLAN = "ROADMAP Queue 1 item 15c (planning)"
+_PLAN = ("ROADMAP Queue 1 item 21 (a cost model over the port's own "
+         "engines for the static planner)")
 REFUSED_KNOBS: Dict[str, Tuple[str, Callable[[str], bool]]] = {
     "PP_DECODE": (_MULTI, _is_off),
     "TP_DECODE": (_MULTI, _is_off),
     "EP_DECODE": (_MULTI, _is_off),
     "AUTO_PLAN": (_PLAN, _is_off),
-    "AUTO_PLAN_TRAFFIC": (_PLAN, _is_str("")),
-    "AUTO_PLAN_CONTINUOUS": (_PLAN, _is_off),
-    "AUTO_PLAN_JOURNAL": (_PLAN, _is_str("")),
 }
 
 
@@ -109,6 +111,22 @@ class ServingConfig:
     # pool-backed prefix store (KV_POOL_BLOCKS + PREFIX_CACHE): the
     # registry is the handoff medium.
     fleet_role: str = ""
+    # the traffic classes continuous planning certifies its plans'
+    # forward shapes against, as 'prompt/new[xcount],...' (e.g.
+    # "16/64x8,256/32"); empty: one 16-token prompt decoding 32
+    auto_plan_traffic: str = ""
+    # continuous planning (utils/graftwatch): the solo paged runner and
+    # the pooled iteration batcher, built once over one engine and one
+    # pool, and a switch between them every wave of admissions from the
+    # watcher's traffic estimate. Requires KV_POOL_BLOCKS > 0, MAX_BATCH
+    # > 1 and BATCH_MODE=iter; excludes SPEC_DECODE, PREFIX_CACHE,
+    # PREFILL_CHUNK and KV_POOL_DTYPE. GET /debug/plan serves its state,
+    # /healthz "auto_plan" the live plan.
+    auto_plan_continuous: bool = False
+    # a bench journal whose graftscope_attribution and
+    # ici_byte_weight_calibration rows calibrate the planner's byte
+    # weights at start-up (graftwatch.fit_cost_weights); empty: a-priori
+    auto_plan_journal: str = ""
 
     def __post_init__(self):
         if self.shard_role not in VALID_ROLES:
@@ -209,6 +227,28 @@ class ServingConfig:
                     "pool-backed prefix store (KV_POOL_BLOCKS > 0 and "
                     "PREFIX_CACHE > 0): the content-keyed registry is "
                     "the prefill->decode block-handoff medium")
+        if self.auto_plan_continuous:
+            if (self.kv_pool_blocks <= 0 or self.max_batch <= 1
+                    or self.batch_mode != "iter"):
+                raise ValueError(
+                    "AUTO_PLAN_CONTINUOUS switches between the certified "
+                    "pooled plans (solo paged admission <-> iteration "
+                    "scheduling); it requires KV_POOL_BLOCKS > 0, "
+                    "MAX_BATCH > 1 and BATCH_MODE=iter")
+            if (self.spec_decode > 0 or self.prefix_cache > 0
+                    or self.prefill_chunk > 0 or self.kv_pool_dtype):
+                raise ValueError(
+                    "AUTO_PLAN_CONTINUOUS certifies exactly the "
+                    "solo-paged and pooled-iter program sets; "
+                    "SPEC_DECODE/PREFIX_CACHE/PREFILL_CHUNK/PP|TP|"
+                    "EP_DECODE/KV_POOL_DTYPE own other compile spaces "
+                    "and would let a switch reach uncertified programs")
+        if self.auto_plan_journal and not self.auto_plan_continuous:
+            raise ValueError(
+                "AUTO_PLAN_JOURNAL calibrates the continuous planner's "
+                "byte weights; it needs AUTO_PLAN_CONTINUOUS=1 (a "
+                "silently ignored knob would misreport the serving "
+                "composition)")
         if self.kv_pool_blocks > 0 and self.max_seq % self.kv_block_size:
             raise ValueError(
                 f"MAX_SEQ={self.max_seq} must be a multiple of "
@@ -255,6 +295,18 @@ def _env_float(name: str, default: float) -> float:
         return float(raw)
     except ValueError as e:
         raise ValueError(f"{name}={raw!r} is not a number") from e
+
+
+def _env_bool(name: str) -> bool:
+    """A boolean knob: unknown spellings raise at startup rather than
+    turning the knob off in silence."""
+    raw = os.environ.get(name, "").strip().lower()
+    if raw in ("", "0", "false", "no", "off"):
+        return False
+    if raw in ("1", "true", "yes", "on"):
+        return True
+    raise ValueError(f"{name}={os.environ[name]!r} is not a boolean "
+                     "(use 1/0, true/false, yes/no, on/off)")
 
 
 def refuse_unported_knobs(environ=None) -> None:
@@ -311,4 +363,7 @@ def from_env() -> ServingConfig:
         kv_host_blocks=_env_int("KV_HOST_BLOCKS", 0),
         spec_decode=_env_int("SPEC_DECODE", 0),
         fleet_role=os.environ.get("FLEET_ROLE", ""),
+        auto_plan_traffic=os.environ.get("AUTO_PLAN_TRAFFIC", ""),
+        auto_plan_continuous=_env_bool("AUTO_PLAN_CONTINUOUS"),
+        auto_plan_journal=os.environ.get("AUTO_PLAN_JOURNAL", ""),
     )

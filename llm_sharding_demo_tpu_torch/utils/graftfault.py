@@ -27,14 +27,21 @@ inside each hop attempt, before the wire call, and the fleet router's
 ``fault_inject`` event on the timeline (utils.grafttime), each breaker
 transition a ``breaker`` event beside its ``hop_breaker_open`` gauge.
 
-The plan built from ``GRAFTFAULT*`` environment variables waits for
-ROADMAP Queue 1 item 15c; plans are installed in process.
+A plan is installed in process (``install``, ``use``) or armed from
+the environment, as in the JAX package: ``GRAFTFAULT`` ("" or ``0`` off,
+anything else armed), ``GRAFTFAULT_SEED`` (int, default 0),
+``GRAFTFAULT_RATE`` (float, default 0.1), ``GRAFTFAULT_SITES`` and
+``GRAFTFAULT_KINDS`` (comma-separated filters; empty: all). ``plan()``
+is the active plan: the installed one, else one built once from the
+environment, else None; ``reset()`` drops both. Unarmed, ``inject``
+reads one global and one environment variable and takes no lock.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import random
 import threading
 import time
@@ -190,12 +197,40 @@ class FaultPlan:
             return list(self._log)
 
 
+def enabled() -> bool:
+    """Whether ``GRAFTFAULT`` arms the environment's plan."""
+    return os.environ.get("GRAFTFAULT", "") not in ("", "0")
+
+
+def seed() -> int:
+    try:
+        return int(os.environ.get("GRAFTFAULT_SEED", "0"))
+    except ValueError:
+        return 0
+
+
+def _env_rate() -> float:
+    try:
+        return float(os.environ.get("GRAFTFAULT_RATE", "0.1"))
+    except ValueError:
+        return 0.1
+
+
+def _env_set(name: str) -> Optional[frozenset]:
+    raw = os.environ.get(name, "").strip()
+    if not raw:
+        return None
+    return frozenset(p.strip() for p in raw.split(",") if p.strip())
+
+
 _PLAN_LOCK = threading.Lock()
 _PLAN: Optional[FaultPlan] = None
+_ENV_PLAN: Optional[FaultPlan] = None
 
 
 def install(p: Optional[FaultPlan]) -> None:
-    """Arm (or, with None, disarm) a plan for the whole process."""
+    """Arm (or, with None, disarm) a plan for the whole process; it
+    takes precedence over the environment's."""
     global _PLAN
     with _PLAN_LOCK:
         _PLAN = p
@@ -211,10 +246,39 @@ def use(p: FaultPlan):
         install(None)
 
 
+def reset() -> None:
+    """Drop the installed plan and the one built from the environment
+    (the next ``plan()`` reads the environment again)."""
+    global _PLAN, _ENV_PLAN
+    with _PLAN_LOCK:
+        _PLAN = None
+        _ENV_PLAN = None
+
+
+def plan() -> Optional[FaultPlan]:
+    """The active plan: the installed one, else one built once from
+    the ``GRAFTFAULT*`` variables, else None. Unarmed it takes no lock:
+    ``inject`` runs at every decode segment and admission."""
+    p = _PLAN
+    if p is not None:
+        return p
+    if not enabled():
+        return None
+    global _ENV_PLAN
+    with _PLAN_LOCK:
+        if _PLAN is not None:
+            return _PLAN
+        if _ENV_PLAN is None:
+            _ENV_PLAN = FaultPlan(seed=seed(), rate=_env_rate(),
+                                  sites=_env_set("GRAFTFAULT_SITES"),
+                                  kinds=_env_set("GRAFTFAULT_KINDS"))
+        return _ENV_PLAN
+
+
 def inject(site: str, *kinds: str) -> Optional[str]:
     """The hook: the injected kind, or None (always None with no plan
     armed)."""
-    p = _PLAN
+    p = plan()
     return None if p is None else p.fire(site, kinds)
 
 

@@ -27,9 +27,17 @@ reports the CUDA allocator's ``memory_allocated`` and
 counts registered holdings, the allocator every tensor (activations,
 workspaces, the allocator's rounding).
 
+``reconcile(plan_row)`` holds the ledger against a cost-model plan row
+(a dict with ``param_bytes_per_device``, ``kv_bytes_per_device`` and
+optionally ``hbm_bytes_per_device`` and ``label``): the measured
+``params`` bytes, and the pool's planes (else the contiguous caches),
+against the predicted, as ratios and drifts (``|ratio - 1|``); the trend
+reducer's ``poll(plan_row=)`` feeds the drifts to its watches. The cost
+model predicts f32 bytes, so an int8 engine or a quantized pool drifts
+below its prediction by design.
+
 ``GRAFTMEM=0`` turns recording off (``track`` returns the null handle
-0). The JAX package's ``reconcile(plan_row)`` reads the cost model's
-plan rows, which the port does not have yet (ROADMAP Queue 1 item 15c).
+0).
 """
 
 from __future__ import annotations
@@ -245,6 +253,50 @@ class MemoryLedger:
         with self._lock:
             return dict(self._component_totals)
 
+    def total_bytes(self) -> int:
+        self._drain()
+        with self._lock:
+            return self._total
+
+    def reconcile(self, plan_row) -> dict:
+        """The ledger against a plan row's predicted bytes (module
+        docstring): ``{plan, components: {params, kv}, total, ledger}``,
+        each comparison ``{measured_bytes, predicted_bytes}`` with
+        ``ratio`` and ``drift`` when a prediction is given, and
+        ``max_component_drift`` over the components that have one."""
+        row = (plan_row.to_dict() if hasattr(plan_row, "to_dict")
+               else dict(plan_row))
+        comp = self.component_bytes()
+        measured_pool = (comp.get("pool_codes", 0)
+                         + comp.get("pool_scales", 0))
+
+        def _cmp(measured: int, predicted) -> dict:
+            predicted = int(predicted or 0)
+            out = {"measured_bytes": measured, "predicted_bytes": predicted}
+            if predicted > 0:
+                ratio = measured / predicted
+                out["ratio"] = round(ratio, 6)
+                out["drift"] = round(abs(ratio - 1.0), 6)
+            return out
+
+        components = {
+            "params": _cmp(comp.get("params", 0),
+                           row.get("param_bytes_per_device")),
+            "kv": _cmp(measured_pool or comp.get("engine_cache", 0),
+                       row.get("kv_bytes_per_device")),
+        }
+        out = {
+            "plan": row.get("label"),
+            "components": components,
+            "total": _cmp(self.total_bytes(),
+                          row.get("hbm_bytes_per_device")),
+            "ledger": comp,
+        }
+        drifts = [c["drift"] for c in components.values() if "drift" in c]
+        if drifts:
+            out["max_component_drift"] = max(drifts)
+        return out
+
     def holding_bytes(self, owner: Any, holding: str) -> int:
         """Live bytes of one owner's named holding, summed over its
         entries."""
@@ -351,6 +403,14 @@ def component_bytes() -> Dict[str, int]:
 
 def holding_bytes(owner: Any, holding: str) -> int:
     return STATE.holding_bytes(owner, holding)
+
+
+def total_bytes() -> int:
+    return STATE.total_bytes()
+
+
+def reconcile(plan_row) -> dict:
+    return STATE.reconcile(plan_row)
 
 
 def snapshot() -> dict:

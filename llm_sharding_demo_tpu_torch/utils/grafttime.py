@@ -12,8 +12,10 @@ since the bus epoch:
 - graftfault's injections and breaker transitions (``fault_inject``,
   ``breaker``), the iteration batcher's ``admission``, ``park``,
   ``preempt`` and ``resume``, the pool's ``eviction``, the host tier's
-  ``tier_demote``/``tier_promote``, and the trend reducer's
-  ``trend_alert``.
+  ``tier_demote``/``tier_promote``, the trend reducer's
+  ``trend_alert``, the plan switcher's ``plan_eval``/``plan_switch``
+  (utils.graftwatch) and, with ``GRAFTSCHED`` armed, each traced lock's
+  ``lock_acquire`` and ``lock_contend``.
 
 Events join by ``rid`` (the X-Request-ID; a batched phase carries the
 ``rids`` of all its rows: ``correlate``) and ``replica`` (the serving
@@ -27,9 +29,7 @@ ring of dumps, and a file each under ``$GRAFTTIME_DIR`` when set).
 ``EVENT_KINDS`` and ``KIND_FIELDS`` are the JAX package's vocabulary.
 ``arrival`` comes from the load driver (``loadgen.driver``), once a
 fired request, as in the JAX package, where the router emits none
-either. The kinds whose producers are not ported (``lock_acquire``,
-``lock_contend``, ``plan_eval``, ``plan_switch``) are never emitted
-here. ``replay_view`` is the projection two runs of one seeded schedule
+either. ``replay_view`` is the projection two runs of one seeded schedule
 must agree on: per-rid streams without the wall-clock fields and the
 kinds that observe the schedule itself.
 

@@ -27,13 +27,15 @@ and the evaluation instants.
 ``evaluate`` (``?eval=0`` reads without them); ``/healthz`` serves
 ``health_view``.
 
-The drift watches (``hbm_params_drift``, ``hbm_kv_drift``,
-``cost_weight_drift``) stay declared as the JAX package declares them
-and are fed by nothing yet: their series come from ``graftmem.reconcile``
-against the cost model's plan rows (``poll(plan_row=)``) and from the
-live refit of the cost model's byte weights (``refit``,
-``live_attribution_journal``), which wait with ``SIZING_POLICY`` for
-ROADMAP Queue 1 item 15c.
+The drift watches' series come from ``poll(plan_row=)``, which folds
+``graftmem.reconcile`` of a cost-model plan row (the measured parameter
+and KV bytes against the predicted), and from ``refit``: it fits the
+cost weights (``graftwatch.fit_cost_weights``) over the live graftscope
+rings (``live_attribution_journal``), sets the ``costmodel_byte_weight``
+gauge, observes ``costmodel_weight_drift``, journals the fit
+(``refit_history``) and installs the weights on a plan switcher.
+``SIZING_POLICY`` declares the knobs the switcher sizes between waves
+from ``occupancy_estimate``.
 """
 
 from __future__ import annotations
@@ -81,8 +83,18 @@ WATCH_POLICY = {
     "queue_depth_surge": ("queue_depth", 30_000.0, 16.0, "ticket"),
 }
 
+# {knob: (source series, min scale, max scale)}: between waves the plan
+# switcher scales the batched plan's knob from its base by the series'
+# windowed mean over max_batch, clamped to the scales; neither knob
+# changes a forward shape or an emitted token
+SIZING_POLICY = {
+    "batch_wait_ms": ("queue_depth", 0.5, 4.0),
+    "queue_limit": ("queue_depth", 1.0, 4.0),
+}
+
 SAMPLE_CAPACITY = 1024
 ALERT_CAPACITY = 128
+REFIT_CAPACITY = 16
 DRIFT_ALPHA = 0.3
 
 
@@ -252,6 +264,7 @@ class TrendReducer:
         self._latched: Dict[str, bool] = {}
         self._evals = 0
         self._cursors: Dict[str, object] = {}
+        self._refits: deque = deque(maxlen=REFIT_CAPACITY)
 
     def observe(self, series: str, value: float, weight: float = 1.0,
                 t_ms: Optional[float] = None) -> None:
@@ -263,13 +276,16 @@ class TrendReducer:
         with self._lock:
             _append(self._samples, series, (t, float(value), float(weight)))
 
-    def poll(self, now_ms: Optional[float] = None) -> int:
+    def poll(self, plan_row=None, now_ms: Optional[float] = None) -> int:
         """Fold the registry into samples: for each SLO latency series
         the observations since the last poll and those past the loosest
         target (buckets whose lower edge is at or past it); for the
         deadline series the misses and the requests since the last poll;
-        each watched gauge's largest label set. The first poll only sets
-        the cursors. Returns the samples taken."""
+        each watched gauge's largest label set; with ``plan_row`` (a
+        dict of the cost model's plan terms), the parameter and KV drift
+        of ``graftmem.reconcile``. The first poll only sets the cursors.
+        Returns the samples taken. Every producer is read before the
+        reducer's lock is taken."""
         from .metrics import DEFAULT_BUCKETS, METRIC_CATALOG
         t = grafttime.now_ms() if now_ms is None else float(now_ms)
         watched = {entry[0] for entry in self.policy.values()}
@@ -301,6 +317,15 @@ class TrendReducer:
                         if n == series]
                 if vals:
                     levels[series] = max(vals)
+        drifts: Dict[str, float] = {}
+        if plan_row is not None:
+            from . import graftmem
+            rec = graftmem.reconcile(plan_row)
+            for comp, series in (("params", "graftmem_params_drift"),
+                                 ("kv", "graftmem_kv_drift")):
+                d = rec["components"].get(comp, {}).get("drift")
+                if series in watched and d is not None:
+                    drifts[series] = float(d)
         taken = 0
         with self._lock:
             for series, cur in cursors.items():
@@ -314,7 +339,7 @@ class TrendReducer:
                 _append(self._samples, series,
                         (t, max(d_viol, 0.0), d_total))
                 taken += 1
-            for series, level in levels.items():
+            for series, level in list(levels.items()) + list(drifts.items()):
                 _append(self._samples, series, (t, level, 1.0))
                 taken += 1
         return taken
@@ -384,6 +409,17 @@ class TrendReducer:
                 grafttime.blackbox(f"trend_alert:{alert['watch']}")
         return trips
 
+    def occupancy_estimate(self, series: str = "queue_depth",
+                           window_ms: float = 30_000.0,
+                           now_ms: Optional[float] = None
+                           ) -> Optional[float]:
+        """The windowed mean of an occupancy series (what the plan
+        switcher sizes its knobs from); None for an empty window."""
+        now = grafttime.now_ms() if now_ms is None else float(now_ms)
+        with self._lock:
+            samples = list(self._samples.get(series, ()))
+        return windowed_mean(samples, now, window_ms)
+
     def alerts(self, n: Optional[int] = None,
                strip_time: bool = False) -> List[dict]:
         """The alert journal, oldest first; ``strip_time`` drops
@@ -397,15 +433,25 @@ class TrendReducer:
                     for r in rows]
         return rows
 
+    def refit_history(self) -> List[dict]:
+        with self._lock:
+            return [dict(r) for r in self._refits]
+
+    def note_refit(self, row: dict) -> None:
+        with self._lock:
+            self._refits.append(dict(row))
+
     def describe(self, now_ms: Optional[float] = None) -> dict:
         """The ``/debug/trend`` body: each watch's state, each series'
-        windowed reductions, the alert journal and the policy."""
+        windowed reductions, the alert journal, the refits and the
+        declared policies."""
         now = grafttime.now_ms() if now_ms is None else float(now_ms)
         with self._lock:
             samples = {s: list(ring) for s, ring in self._samples.items()}
             latched = dict(self._latched)
             evals = self._evals
             alerts = list(self._alerts)
+            refits = [dict(r) for r in self._refits]
         watches = {}
         for watch in sorted(self.policy):
             series, window, threshold, severity = self.policy[watch]
@@ -438,12 +484,15 @@ class TrendReducer:
             "watches": watches,
             "series": series_view,
             "alerts": alerts,
-            "refits": [],             # the live refit waits for 15c
+            "refits": refits,
             "policy": {w: {"series": e[0],
                            "window_ms": (list(e[1]) if isinstance(e[1], tuple)
                                          else e[1]),
                            "threshold": e[2], "severity": e[3]}
                        for w, e in sorted(self.policy.items())},
+            "sizing": {k: {"source": v[0], "min_scale": v[1],
+                           "max_scale": v[2]}
+                       for k, v in sorted(SIZING_POLICY.items())},
             "derived_series": dict(DERIVED_SERIES),
         }
 
@@ -460,10 +509,10 @@ class TrendReducer:
         with self._lock:
             return ({s: list(r) for s, r in self._samples.items()},
                     list(self._alerts), dict(self._latched), self._evals,
-                    dict(self._cursors))
+                    dict(self._cursors), list(self._refits))
 
     def restore_state(self, state: tuple) -> None:
-        samples, alerts, latched, evals, cursors = state
+        samples, alerts, latched, evals, cursors, refits = state
         with self._lock:
             self._samples = {s: deque(r, maxlen=SAMPLE_CAPACITY)
                              for s, r in samples.items()}
@@ -471,6 +520,7 @@ class TrendReducer:
             self._latched = dict(latched)
             self._evals = evals
             self._cursors = dict(cursors)
+            self._refits = deque(refits, maxlen=REFIT_CAPACITY)
 
     def clear(self) -> None:
         with self._lock:
@@ -479,9 +529,91 @@ class TrendReducer:
             self._latched = {}
             self._evals = 0
             self._cursors = {}
+            self._refits = deque(maxlen=REFIT_CAPACITY)
 
 
 REDUCER = TrendReducer()
+
+
+# -- the live refit -----------------------------------------------------------
+
+
+def live_attribution_journal(costs=None) -> dict:
+    """A ``graftscope_attribution`` journal from the live graftscope
+    rings: the measured seconds a call over every instrumented scope
+    that ran, against each plan's modeled bytes (``costs``, a ``{label:
+    PlanCost}`` map or dicts of its fields). Without calls or costs it
+    has no workload rows, and a fit over it keeps the a-priori
+    weights."""
+    from . import costmodel, graftscope
+    snap = graftscope.snapshot(n=0)
+    workloads: List[dict] = []
+    dispatch = snap.get("dispatch") or {}
+    if costs:
+        total_secs = 0.0
+        total_calls = 0
+        entry_points: Dict[str, dict] = {}
+        for scope, ring in sorted(dispatch.items()):
+            secs = float(ring.get("seconds_total", 0.0) or 0.0)
+            calls = int(ring.get("calls", 0) or 0)
+            if calls <= 0 or secs <= 0:
+                continue
+            total_secs += secs
+            total_calls += calls
+            entry_points[scope] = {"seconds_total": round(secs, 6),
+                                   "calls": calls}
+        if total_calls > 0:
+            measured = total_secs / total_calls
+            for label, pc in sorted(costs.items()):
+                cost = pc.to_dict() if hasattr(pc, "to_dict") else dict(pc)
+                comm = float(cost.get("comm_bytes", 0) or 0)
+                # the scored total, comm at the a-priori weight (the fit
+                # removes that weighting again)
+                modeled = (float(cost.get("param_bytes", 0))
+                           + float(cost.get("kv_bytes_per_row", 0))
+                           + float(cost.get("paged_overhead", 0))
+                           + costmodel.ICI_BYTE_WEIGHT * comm)
+                if modeled <= 0:
+                    continue
+                workloads.append({
+                    "workload": f"live_{label}",
+                    "measured_decode_seconds_per_token": measured,
+                    "modeled_cost_bytes_per_token": modeled,
+                    "modeled_comm_bytes_per_token": comm,
+                    "entry_points": entry_points,
+                })
+    return {"name": "graftscope_attribution",
+            "source": "grafttrend.live_attribution_journal",
+            "workloads": workloads}
+
+
+def refit(journal=None, switcher=None, registry=None,
+          reducer: Optional[TrendReducer] = None):
+    """Fit the cost weights (``graftwatch.fit_cost_weights``) over
+    ``journal``, by default ``live_attribution_journal`` of the switcher's
+    plan costs; set the ``costmodel_byte_weight`` gauge and its
+    occupancy point, observe ``costmodel_weight_drift`` on ``reducer``
+    (default ``REDUCER``), journal the fit, and install the weights on
+    ``switcher`` (scoring only). Returns the fitted ``CostWeights``."""
+    from . import costmodel, graftscope, graftwatch
+    from .metrics import REGISTRY
+    if journal is None:
+        journal = live_attribution_journal(getattr(switcher, "costs", None))
+    weights = graftwatch.fit_cost_weights(journal)
+    w = weights.ici_byte_weight or costmodel.ICI_BYTE_WEIGHT
+    reg = registry if registry is not None else REGISTRY
+    reg.gauge("costmodel_byte_weight", float(w))
+    graftscope.sample("costmodel_byte_weight", float(w))
+    red = reducer if reducer is not None else REDUCER
+    red.observe("costmodel_weight_drift",
+                abs(float(w) / costmodel.ICI_BYTE_WEIGHT - 1.0))
+    red.note_refit({"ici_byte_weight": float(w),
+                    "rows_used": weights.rows_used,
+                    "source": weights.source})
+    if switcher is not None:
+        switcher.set_weights(weights)
+    return weights
+
 
 
 def dump_state() -> tuple:

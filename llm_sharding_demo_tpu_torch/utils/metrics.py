@@ -104,8 +104,14 @@ METRIC_CATALOG: Dict[str, str] = {
     # the memory ledger (utils/graftmem.py): live registered bytes by
     # component, and "total"
     "hbm_bytes": "gauge",
-    # the trend reducer (utils/grafttrend.py): one a watch trip
+    # the trend reducer (utils/grafttrend.py): one a watch trip; the
+    # interconnect byte weight plan scoring uses (grafttrend.refit)
     "trend_alerts_total": "counter",
+    "costmodel_byte_weight": "gauge",
+    # continuous planning (utils/graftwatch.py): one a live plan switch,
+    # labelled from and to; 1 on the active plan's label, 0 on the others
+    "plan_switches_total": "counter",
+    "auto_plan_active": "gauge",
 }
 
 # block width in which contiguous (non-pooled) KV arenas are reported

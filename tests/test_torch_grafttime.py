@@ -270,7 +270,6 @@ def test_alerts_on_seeded_streams_equal_jax(seed):
         reds[1].alerts(strip_time=True))
     assert reds[0].alerts(strip_time=True), "the stream must trip"
     want = reds[1].describe(now_ms=t)
-    want.pop("sizing")                       # waits for the planner
     assert js(reds[0].describe(now_ms=t)) == js(want)
     assert reds[0].health_view() == reds[1].health_view()
 

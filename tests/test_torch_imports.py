@@ -41,6 +41,58 @@ def test_no_module_imports_jax_or_the_jax_package():
     assert not bad, bad
 
 
+def test_no_module_imports_the_repos_tools_package():
+    """The port keeps its own trimmed copies of what it needs from the
+    repo's ``tools/`` (the cost model's planning terms): no port module
+    and not chip_smoke.py imports ``tools`` (the port's own
+    ``llm_sharding_demo_tpu_torch.tools`` is imported by its full name
+    or relatively)."""
+    bad = [os.path.relpath(p, ROOT) for p in _sources()
+           if "tools" in _imported_roots(p)]
+    assert not bad, bad
+
+
+PLANNING = """
+import sys
+for name in {forbidden!r}:
+    sys.modules[name] = None
+from llm_sharding_demo_tpu_torch.models import gpt2
+from llm_sharding_demo_tpu_torch.serving.app import create_app
+from llm_sharding_demo_tpu_torch.serving.http import TestClient
+from llm_sharding_demo_tpu_torch.serving.tokenizer import ByteTokenizer
+from llm_sharding_demo_tpu_torch.utils import graftsched, graftwatch
+from llm_sharding_demo_tpu_torch.utils.config import ServingConfig
+import torch
+cfg = gpt2.GPT2Config(vocab_size=64, n_positions=32, n_embd=32, n_layer=2,
+                      n_head=2)
+model = (cfg, gpt2.init_params(cfg, torch.Generator().manual_seed(0)))
+app = create_app(ServingConfig(model_id="t", max_seq=32, max_batch=2,
+                               batch_mode="iter", kv_pool_blocks=8,
+                               auto_plan_continuous=True,
+                               auto_plan_traffic="4/3"),
+                 model=model, tokenizer=ByteTokenizer(), device="cpu")
+r = TestClient(app).post("/generate", json={{"prompt": "\x01\x02\x03\x04",
+                                            "max_new_tokens": 3}})
+assert r.status_code == 200, r.json()
+assert app.plan_switcher.certified["solo"]["shape_total"] == 2
+assert graftsched.mode() == "trace"
+print("ok")
+"""
+
+
+def test_continuous_planning_runs_with_jax_and_tools_blocked():
+    """A continuous-planning app certifies its plans and serves, traced
+    by GRAFTSCHED, where neither JAX, the JAX package nor the repo's
+    ``tools`` can be imported."""
+    env = dict(os.environ, GRAFTSCHED="trace")
+    out = subprocess.run(
+        [sys.executable, "-c",
+         PLANNING.format(forbidden=FORBIDDEN + ("tools",))], cwd=ROOT,
+        capture_output=True, text=True, timeout=120, env=env)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_port_imports_with_jax_blocked():
     """Every module imports in a fresh interpreter where jax, jaxlib, the
     JAX package, pydantic and transformers cannot be imported."""
@@ -55,7 +107,8 @@ def test_port_imports_with_jax_blocked():
                  "utils.graftfault", "serving.http", "models.moe",
                  "models.hf_convert", "utils.checkpoint",
                  "tools.convert_hf", "serving.loader", "utils.grafttime",
-                 "utils.grafttrend", "loadgen.profiles"):
+                 "utils.grafttrend", "loadgen.profiles", "utils.graftwatch",
+                 "utils.graftsched", "utils.costmodel"):
         assert f"llm_sharding_demo_tpu_torch.{name}" in modules
     code = "; ".join([
         "import sys",

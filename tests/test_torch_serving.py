@@ -145,30 +145,40 @@ def test_request_validation(weights):
     ("AUTO_PLAN_JOURNAL", "/j"),
 ])
 def test_unported_knobs_refuse_at_startup(monkeypatch, knob, value):
-    """Each knob the port does not serve refuses, naming its ROADMAP item;
-    CHECKPOINT_DIR is served now (checkpoints are ported): it parses into
-    the config instead. So is FLEET_ROLE (the fleet is ported): it parses,
-    and without the pool-backed prefix store it raises the JAX config's
+    """Each knob the port does not serve refuses, naming its ROADMAP item
+    (static AUTO_PLAN: item 21); CHECKPOINT_DIR is served now
+    (checkpoints are ported): it parses into the config instead. So are
+    FLEET_ROLE (the fleet is ported), AUTO_PLAN_CONTINUOUS and
+    AUTO_PLAN_JOURNAL (continuous planning is ported): each parses, and
+    without its companions (the pool-backed prefix store; the pooled
+    iter composition; continuous mode) raises the JAX config's
     validation message, naming no ROADMAP item."""
     monkeypatch.setenv(knob, value)
     if knob == "CHECKPOINT_DIR":
         assert knob not in tconfig.REFUSED_KNOBS
         assert tconfig.from_env().checkpoint_dir == value
         return
-    if knob == "FLEET_ROLE":
+    companions = {"FLEET_ROLE": "pool-backed prefix store",
+                  "AUTO_PLAN_CONTINUOUS": "requires KV_POOL_BLOCKS > 0",
+                  "AUTO_PLAN_JOURNAL": "needs AUTO_PLAN_CONTINUOUS=1"}
+    if knob in companions:
         assert knob not in tconfig.REFUSED_KNOBS
-        monkeypatch.delenv("KV_POOL_BLOCKS", raising=False)
-        monkeypatch.delenv("PREFIX_CACHE", raising=False)
+        for other in ("KV_POOL_BLOCKS", "PREFIX_CACHE", "MAX_BATCH",
+                      "BATCH_MODE", "AUTO_PLAN_CONTINUOUS"):
+            if other != knob:
+                monkeypatch.delenv(other, raising=False)
         with pytest.raises(ValueError) as e:
             tconfig.from_env()
         with pytest.raises(ValueError) as jerr:
             jfrom_env()
         assert str(e.value) == str(jerr.value)
-        assert "pool-backed prefix store" in str(e.value)
+        assert companions[knob] in str(e.value)
         assert "ROADMAP Queue 1 item" not in str(e.value)
         return
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item"):
+    with pytest.raises(ValueError, match="ROADMAP Queue 1 item") as e:
         tconfig.from_env()
+    if knob == "AUTO_PLAN":
+        assert "item 21" in str(e.value)
 
 
 @pytest.mark.parametrize("env", [
