@@ -246,6 +246,29 @@ which must pass or the script exits non-zero:
    contended), and a serial pass on the pooled iter plan with
    ``GRAFTFAULT=1`` (injections by site; its 200 replies against the
    unfaulted run's).
+17. mesh: multi-device decode (``PP_DECODE``, ``TP_DECODE``,
+   ``EP_DECODE``) in rank processes of this script (``--mesh-worker``),
+   seeded weights, the id tokenizer, each app built by ``create_app`` in
+   every rank and served from rank 0 through its client while the other
+   rank follows. First the int8 linear and head against their plain
+   versions at the stage shapes (rows 1 and 8). Then a world of 1 over
+   nccl: a ``TP_DECODE`` bf16 GPT-2 124M app and an ``EP_DECODE`` int8
+   GPT-2-MoE app, and a ``TP_DECODE`` bf16 server started as a user
+   would (``python -m llm_sharding_demo_tpu_torch.serving`` with
+   ``COORDINATOR_ADDRESS``, ``NUM_PROCESSES=1``, ``PROCESS_ID=0``); then
+   two ranks on cuda:0 over gloo: ``PP_DECODE``
+   int8 GPT-2 124M with ``BOUNDARIES=6``, tp=2 fp32 GPT-2 124M (TF32
+   off) and ep=2 int8 MoE. Greedy replies are held to the single-card
+   engine's (int8 pp to ``DecodeEngine(decode_kernel="xla",
+   matmul_kernels=True)``): teacher-forced along their own streams
+   within the fp32 bar, and a stream that parts from the single-card
+   one only at a near tie (its top-2 gap printed); ep int8 within
+   ``decode.int8`` of the single-card int8 engine, and ep=2 streams
+   equal to world 1's. The pp ranks' launches of the int8 linear and
+   head equal what their forwards predict (24 linears a forward a
+   stage, the head on the last); ms/token and each collective's share
+   of the decode (host clock) are printed as readings. Multi-GPU nccl
+   is not exercised: the script runs on one GPU.
 
 The last lines are the card's name and power limit, one JSON object with
 the kernels' numbers (each kernel's launches counted on the path that
@@ -257,7 +280,8 @@ the three remote processes' under ``remote_launches``, the checkpoint
 coordinator's under ``ckpt_launches``, the MoE paths' under
 ``moe_launches``, the observability server's under ``obs_launches``,
 the int8 fleet's runs under ``fleet_launches``, the continuous server's
-runs under ``plan_launches``, the 5 bf16 train steps
+runs under ``plan_launches``, the mesh phase's ranks under
+``mesh_launches``, the 5 bf16 train steps
 for the flash kernels), and
 ``{"ok": true, "device": {...}}``. ``--phases`` runs a subset (the
 default runs all).
@@ -5110,6 +5134,489 @@ def plan_phase(smi: str) -> dict:
     return launches
 
 
+# -- mesh ----------------------------------------------------------------------
+
+MESH_MAX_SEQ = 256
+MESH_PROMPTS = ("The pipeline hands", "a shard of heads!")
+MESH_NEW = 16          # greedy tokens a reply
+MESH_TIMED = 32        # tokens of the timed generate
+MESH_BOUNDARY = 6      # PP_DECODE's BOUNDARIES: two stages of six blocks
+
+
+def mesh_kernel_checks(smi: str) -> None:
+    """The int8 linear at the stage shapes of GPT-2 124M (c_attn, the
+    attention out, c_fc, the MLP out) and the int8 tied head against
+    their plain versions at rows 1 and 8, the pipeline's decode and
+    prefill widths (the kernels phase's bars: 2^-7 of the largest output
+    for the linear, atol 1e-3 + rtol 1e-5 for the head). These launches
+    are not the path's: its counts are taken in the ranks."""
+    import torch
+
+    from llm_sharding_demo_tpu_torch.ops import quant
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    worst = {"quant_linear": 0.0, "quant_head": 0.0}
+    for rows in (1, 8):
+        for din, dout in ((D, 3 * D), (D, D), (D, 4 * D), (4 * D, D)):
+            w = quant.quantize_array(
+                torch.randn(din, dout, generator=g, device="cuda") * 0.02)
+            x = torch.randn(rows, din, generator=g,
+                            device="cuda").to(torch.bfloat16)
+            got = quant.quant_linear(x, w.q, w.scale).float()
+            want = quant.linear_plain(x, w.q, w.scale).float()
+            err = float((got - want).abs().max())
+            check(err <= 2.0 ** -7 * float(want.abs().max()),
+                  f"int8 linear {din}->{dout} at {rows} rows: max |diff| "
+                  f"{err:.3e} past 2^-7 of the largest output")
+            worst["quant_linear"] = max(worst["quant_linear"], err)
+        table = quant.quantize_params(
+            {"wte": torch.randn(V, D, generator=g, device="cuda") * 0.02}
+        )["wte"].q
+        x = torch.randn(rows, D, generator=g, device="cuda").to(torch.bfloat16)
+        got = quant.quant_head(x, table)
+        want = quant.head_plain(x, table)
+        err = float((got - want).abs().max())
+        check(torch.allclose(got, want, atol=1e-3, rtol=1e-5),
+              f"int8 head at {rows} rows: max |diff| {err:.3e}")
+        worst["quant_head"] = max(worst["quant_head"], err)
+    print(f"  [mesh] stage shapes at rows 1 and 8 against the plain "
+          f"versions: int8 linear max |diff| {worst['quant_linear']:.3e}, "
+          f"int8 head {worst['quant_head']:.3e} [{smi}]")
+
+
+def mesh_ranks(part: str, world: int, tok_dir: str, timeout: float = 420.0):
+    """``world`` processes of ``chip_smoke.py --mesh-worker part`` (ranks
+    0..world-1, every one on cuda:0), started at once; returns each
+    rank's record. A rank that fails, or outlasts ``timeout``, fails the
+    phase; every rank is stopped on the way out."""
+    os.makedirs(LOG_DIR, exist_ok=True)
+    addr = f"127.0.0.1:{_free_port()}"
+    procs, outs = [], []
+    with contextlib.ExitStack() as stack:
+        for r in range(world):
+            out = os.path.join(LOG_DIR, f"mesh-{part}-{r}.json")
+            if os.path.exists(out):
+                os.remove(out)
+            log = stack.enter_context(
+                open(os.path.join(LOG_DIR, f"mesh-{part}-{r}.log"), "w"))
+            proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-worker",
+                 part, "--rank", str(r), "--world", str(world), "--addr",
+                 addr, "--out", out, "--tok", tok_dir],
+                cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+            stack.callback(_stop, proc)
+            procs.append(proc)
+            outs.append(out)
+        deadline = time.monotonic() + timeout
+        for r, proc in enumerate(procs):
+            try:
+                code = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                code = None
+            check(code == 0, f"mesh rank {r} of {part!r} exited {code} "
+                             f"(see {LOG_DIR}/mesh-{part}-{r}.log)")
+    records = []
+    for out in outs:
+        with open(out) as f:
+            records.append(json.load(f))
+    return records
+
+
+def mesh_expected(shapes: dict, per_forward: dict) -> dict:
+    """The launches of forwards ``{"BxT": n}`` that each take
+    ``per_forward`` launches where they carry at most 16 rows."""
+    n = sum(c for k, c in shapes.items()
+            if int(k.split("x")[0]) * int(k.split("x")[1]) <= 16)
+    return {k: v * n for k, v in per_forward.items()}
+
+
+def mesh_server(smi: str) -> dict:
+    """``python -m llm_sharding_demo_tpu_torch.serving`` joined to a
+    world of 1 over nccl through the env contract (COORDINATOR_ADDRESS,
+    NUM_PROCESSES, PROCESS_ID) with ``TP_DECODE=1`` bf16 GPT-2 124M:
+    /healthz reports the tp engine on the plain path, two greedy replies
+    are equal to each other and to the plain bf16 engine's in this
+    process (the same seeded weights), and no kernel runs. Returns the
+    server's launch counts."""
+    import torch
+
+    from llm_sharding_demo_tpu_torch.runtime.engine import DecodeEngine
+    from llm_sharding_demo_tpu_torch.serving import loader
+    from llm_sharding_demo_tpu_torch.serving.tokenizer import ByteTokenizer
+    from llm_sharding_demo_tpu_torch.utils.config import ServingConfig
+
+    env = dict(COORDINATOR_ADDRESS=f"127.0.0.1:{_free_port()}",
+               NUM_PROCESSES="1", PROCESS_ID="0", MODEL_ID="gpt2",
+               TP_DECODE="1", INFERENCE_DTYPE="bfloat16",
+               MAX_SEQ=str(MESH_MAX_SEQ))
+    body = {"prompt": MESH_PROMPTS[0], "max_new_tokens": MESH_NEW,
+            "mode": "greedy"}
+    with serving_process("mesh-tp-server", **env) as (base, health):
+        check((health["tp_decode"], health["n_stages"],
+               health["decode_kernel"]) == (True, 1, "xla"),
+              f"TP_DECODE server healthz {health}")
+        r1 = _http(base + "/generate", body)
+        r2 = _http(base + "/generate", body)
+        counts = _http(base + "/healthz")["kernel_launches"]
+    check(r1 == r2, f"TP_DECODE server greedy replies differ: {r1} {r2}")
+    check(all(v == 0 for v in counts.values()),
+          f"TP_DECODE server launched kernels: {counts}")
+    cfg = ServingConfig(model_id="gpt2", inference_dtype="bfloat16",
+                        max_seq=MESH_MAX_SEQ)
+    config, params = loader.resolve_model(cfg, torch.device("cuda"))
+    eng = DecodeEngine(params, config, max_seq=MESH_MAX_SEQ,
+                       dtype="bfloat16", decode_kernel="xla")
+    tok = ByteTokenizer()
+    ref = eng.generate(np.asarray(tok.encode(body["prompt"])), MESH_NEW)
+    check(r1["generated"] == tok.decode([int(t) for t in ref.row_tokens(0)]),
+          "TP_DECODE server greedy reply differs from the plain bf16 engine")
+    print(f"  [mesh] python -m ...serving, TP_DECODE=1 bf16 GPT-2 124M on a "
+          f"world of 1 over nccl (env contract): greedy replies equal to "
+          f"each other and to the plain bf16 engine's, no kernel [{smi}]")
+    del eng, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def mesh_phase(smi: str) -> dict:
+    """Multi-device decode (module docstring, phase 17). Returns each
+    path's launch counts by rank."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    mesh_kernel_checks(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tok_dir = tempfile.mkdtemp(prefix="smoke-mesh-")
+    try:
+        write_id_tokenizer(tok_dir, V)
+        one = mesh_ranks("one", 1, tok_dir)[0]
+        two = mesh_ranks("two", 2, tok_dir)
+    finally:
+        shutil.rmtree(tok_dir, ignore_errors=True)
+    server = mesh_server(smi)
+    print(f"  [mesh] ep int8 streams, 2 ranks against a world of 1: "
+          f"{[a == b for a, b in zip(two[0]['ep']['streams'], one['ep']['streams'])]} "
+          f"equal (the expert products batch 4 experts, not 8) [{smi}]")
+    for what, row in (("tp bf16, world 1 over nccl", one["tp"]),
+                      ("ep int8, world 1 over nccl", one["ep"]),
+                      ("pp int8, 2 ranks over gloo", two[0]["pp"]),
+                      ("tp fp32, 2 ranks over gloo", two[0]["tp"]),
+                      ("ep int8, 2 ranks over gloo", two[0]["ep"])):
+        comm = ", ".join(f"{k} {n} calls {s / row['decode_s']:.1%}"
+                         for k, (n, s) in sorted(row["comm"].items()))
+        print(f"  [mesh] {what}: {row['ms_per_token']:.3f} ms/token "
+              f"(B=1, {MESH_TIMED} tokens, host clock); rank 0's host time "
+              f"in collectives, share of the decode: {comm or 'none'}; "
+              f"greedy streams equal to the single-card engine's: "
+              f"{row['equal']} [{smi}]")
+    for r in (0, 1):
+        rec = two[r]["pp"]
+        print(f"  [mesh] pp int8 rank {r} (blocks {rec['stage']}): "
+              f"quant_linear {rec['launches']['quant_linear']}, quant_head "
+              f"{rec['launches']['quant_head']} over "
+              f"{sum(rec['shapes'].values())} forwards [{smi}]")
+    print(f"  [mesh] {time.perf_counter() - t0:.1f} s wall [{smi}]")
+    return {"tp bf16 world 1": one["tp"]["launches"],
+            "tp bf16 server, world 1": server,
+            "ep int8 world 1": one["ep"]["launches"],
+            **{f"{what} rank {r}": two[r][key]["launches"]
+               for what, key in (("pp int8", "pp"), ("tp fp32", "tp"),
+                                 ("ep int8", "ep")) for r in (0, 1)}}
+
+
+def mesh_serve(app, tok) -> dict:
+    """Rank 0: each prompt's greedy reply through the app's client and
+    its token stream from the app's runner (the same stream: the reply's
+    text must decode from it), then a timed B=1 generate with the
+    collectives' host time, the path's launch counts and its forward
+    shapes; every other rank follows until rank 0 stops it. Returns this
+    rank's record (its launches and shapes; rank 0's with the rest)."""
+    from llm_sharding_demo_tpu_torch.ops import cuda_build
+    from llm_sharding_demo_tpu_torch.parallel import distributed
+    from llm_sharding_demo_tpu_torch.serving.http import TestClient
+
+    runner = app.mesh_runner
+    cuda_build.reset_launch_counts()
+    out = {}
+    if distributed.rank() == 0:
+        client = TestClient(app)
+        out["streams"] = []
+        for p in MESH_PROMPTS:
+            r = client.post("/generate", json={"prompt": p, "mode": "greedy",
+                                               "max_new_tokens": MESH_NEW})
+            check(r.status_code == 200, f"/generate answered "
+                                        f"{r.status_code}: {r.json()}")
+            ids = tok.encode(p)
+            row = runner.generate([ids], MESH_NEW).tokens[0]
+            check(tok.decode([int(t) for t in row]) == r.json()["generated"],
+                  "the reply is not the runner's greedy stream")
+            out["streams"].append([int(t) for t in row[len(ids):]])
+        distributed.reset_comm_stats()
+        res = runner.generate([tok.encode(MESH_PROMPTS[0])], MESH_TIMED)
+        out.update(decode_s=res.decode_seconds, comm=distributed.comm_stats(),
+                   ms_per_token=res.decode_seconds / res.decode_steps * 1e3)
+        runner.stop_followers()
+    else:
+        runner.follow()
+    out["launches"] = cuda_build.launch_counts()
+    out["shapes"] = {f"{b}x{t}": n
+                     for (b, t), n in runner.forward_shapes().items()}
+    # every rank learns rank 0's streams (the teacher-forced checks run
+    # the mesh path on all of them)
+    out["streams"] = distributed.broadcast_object(out.get("streams"), 0)
+    return out
+
+
+def mesh_pp_tf(dec, ids, forced):
+    """The pipelined decoder's teacher-forced logits (every rank calls;
+    the last stage returns them, the others None)."""
+    import torch
+
+    from llm_sharding_demo_tpu_torch.parallel import partition as P
+
+    rows = []
+    with torch.inference_mode():
+        cache = P.make_stage_cache(dec.spec, dec.config, 1, dec._cache_seq,
+                                   dec.dtype, dec.device)
+        for x in [list(ids)] + [[t] for t in forced[:-1]]:
+            logits, cache = dec._forward(
+                torch.tensor([x], device=dec.device), cache, None)
+            if logits is not None:
+                rows.append(logits[0, -1])
+    return torch.stack(rows).float() if rows else None
+
+
+def mesh_dense_tf(eng, ids, forced):
+    """An MoE engine's teacher-forced logits with every forward on the
+    dense dispatch (``routed_mlp=False``, the expert-parallel path's)."""
+    import torch
+
+    from llm_sharding_demo_tpu_torch.models import moe
+
+    def fwd(x, cache):
+        return moe.forward_with_cache(eng.params, eng._ids([x]), eng.config,
+                                      cache, None,
+                                      decode_kernel=eng._model_kernel,
+                                      routed_mlp=False)
+
+    with torch.inference_mode():
+        logits, cache = fwd(list(ids), eng._fresh_cache(1))
+        rows = [logits[0, -1]]
+        for tok in forced[:-1]:
+            logits, cache = fwd([tok], cache)
+            rows.append(logits[0, -1])
+    return torch.stack(rows).float()
+
+
+def mesh_ep_hold(ep, rec: dict, mparams, mcfg, tok, what: str, tf_all):
+    """The ep engine's streams against the single-card int8 engine as it
+    serves (routed decode steps, the same int8 linear and head): every
+    rank runs the ep path's teacher-forced forwards along rank 0's
+    streams, rank 0 recording their routing (``routing_tape``); the
+    single-card engine replays it, so the two paths' logits differ by
+    numerics alone (held to ``decode.int8``), and the choices it makes
+    itself are held to the moe phase's flip bars. Whether the greedy
+    streams are equal is recorded (``rec["equal"]``). Returns the ep
+    path's logits and (rank 0) the single-card engine."""
+    import torch
+
+    from llm_sharding_demo_tpu_torch.parallel import distributed
+    from llm_sharding_demo_tpu_torch.runtime.engine import DecodeEngine
+    from llm_sharding_demo_tpu_torch.utils import graftnum
+
+    tape = []
+    leader = distributed.rank() == 0
+    with routing_tape(tape) if leader else contextlib.nullcontext():
+        tf = tf_all(ep, rec)
+    if not leader:
+        return tf, None
+    single = DecodeEngine(mparams, mcfg, MESH_MAX_SEQ, dtype="int8",
+                          decode_kernel="xla", matmul_kernels=True)
+    with routing_tape(tape, replay=True) as flips:
+        ref = [teacher_forced_logits(single, tok.encode(p), s)
+               for p, s in zip(MESH_PROMPTS, rec["streams"])]
+    rep = graftnum.compare("decode.int8", torch.cat(tf), torch.cat(ref))
+    fr = flip_reading(flips, tape)
+    print(f"    {what}: teacher-forced along its streams against the "
+          f"single-card int8 engine on the ep path's routing, "
+          f"{rep['n_positions']} positions: logit_mse "
+          f"{rep['logit_mse']:.3e}, top-1 {rep['top1_agreement']:.4f}; "
+          f"the engine's own choices: {flip_text(fr)}")
+    check(fr["held"], f"{what}: routing flips past the bars")
+    rec["equal"] = all(
+        s == [int(t) for t in single.generate(
+            [tok.encode(p)], MESH_NEW).tokens[0][len(tok.encode(p)):]]
+        for p, s in zip(MESH_PROMPTS, rec["streams"]))
+    return tf, single
+
+
+def mesh_hold(rec: dict, eng, tok, tf_mesh, what: str, bar) -> None:
+    """Rank 0's streams against the single-card engine ``eng``: each
+    stream's teacher-forced logits on the mesh path (``tf_mesh[i]``,
+    along the stream itself) within ``bar(max |logit|)`` of ``eng``'s,
+    and a stream that parts from ``eng``'s greedy one does so at a near
+    tie (``eng``'s top-2 gap there within twice the bar), as
+    ``hold_row`` holds a batched row. Sets ``rec["equal"]``."""
+    import torch
+
+    equal = []
+    for p, got, mine in zip(MESH_PROMPTS, rec["streams"], tf_mesh):
+        ids = tok.encode(p)
+        want = [int(t) for t in eng.generate([ids], MESH_NEW).tokens[0]
+                [len(ids):]]
+        solo = teacher_forced_logits(eng, ids, got)
+        scale = float(solo.abs().max())
+        err = float((mine - solo).abs().max())
+        print(f"    {what}: teacher-forced along its stream, max |diff| "
+              f"{err:.3e} of max |logit| {scale:.3e} against the "
+              "single-card engine")
+        check(err <= bar(scale), f"{what}: teacher-forced logits past the "
+                                 "bar")
+        equal.append(got == want)
+        if got != want:
+            t = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+            top2 = torch.topk(solo[t], 2).values
+            gap = float(top2[0] - top2[1])
+            print(f"    {what}: parts from the single-card stream at new "
+                  f"token {t}; single-card top-2 gap {gap:.3e}")
+            check(gap <= 2 * bar(scale), f"{what}: parted from the "
+                                         "single-card engine away from a "
+                                         "near tie")
+    rec["equal"] = all(equal)
+
+
+def mesh_worker(args) -> int:
+    """One rank of the mesh phase (``--mesh-worker one|two``): joins the
+    process group (part "one": a world of 1 over nccl; "two": 2 ranks on
+    cuda:0 over gloo), serves the part's apps from rank 0 while the other
+    rank follows, holds each against the single-card engine, and writes
+    its record to ``--out``."""
+    import torch
+
+    from llm_sharding_demo_tpu_torch.models import gpt2, moe
+    from llm_sharding_demo_tpu_torch.parallel import distributed
+    from llm_sharding_demo_tpu_torch.runtime.engine import DecodeEngine
+    from llm_sharding_demo_tpu_torch.serving.app import create_app
+    from llm_sharding_demo_tpu_torch.serving.tokenizer import (
+        TOKENIZER_SUBDIR, BPETokenizer)
+    from llm_sharding_demo_tpu_torch.utils.config import ServingConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.maybe_initialize(args.addr, args.world, args.rank,
+                                 backend="gloo" if args.world > 1 else None)
+    rank = distributed.rank()
+    tok = BPETokenizer.from_dir(os.path.join(args.tok, TOKENIZER_SUBDIR))
+    cfg = gpt2.CONFIGS["gpt2"]
+    params = gpt2.init_params(cfg, torch.Generator(device="cuda")
+                              .manual_seed(0))
+    mcfg = moe.MoEConfig(**MOE_CFG)
+    fp32_bar = lambda scale: 1e-5 + 1e-5 * scale  # noqa: E731
+
+    def app(model, **kw):
+        return create_app(ServingConfig(model_id="gpt2",
+                                        max_seq=MESH_MAX_SEQ, **kw),
+                          model=model, tokenizer=tok)
+
+    def tf_all(runner, rec):
+        """The mesh path's teacher-forced logits along each stream (every
+        rank calls: the forwards hold collectives)."""
+        return [teacher_forced_logits(runner, tok.encode(p), s)
+                for p, s in zip(MESH_PROMPTS, rec["streams"])]
+
+    def expect(rec, per_forward, what):
+        want = mesh_expected(rec["shapes"], per_forward)
+        check(all(rec["launches"][k] == n for k, n in want.items()),
+              f"{what} rank {rank}: launches {rec['launches']} != {want}")
+
+    out = {}
+    if args.mesh_worker == "one":
+        # TP_DECODE=1 bf16 GPT-2 124M: a tp mesh of one rank runs the plain
+        # path, its row-parallel sums over nccl
+        a = app((cfg, params), tp_decode=True, inference_dtype="bfloat16")
+        check(a.mesh_runner._mesh_mode == "tp", "TP_DECODE built no tp "
+                                                "engine")
+        out["tp"] = mesh_serve(a, tok)
+        mesh_hold(out["tp"], DecodeEngine(params, cfg, MESH_MAX_SEQ,
+                                          dtype="bfloat16",
+                                          decode_kernel="xla"),
+                  tok, tf_all(a.mesh_runner, out["tp"]), "tp bf16 world 1",
+                  fp32_bar)
+        del a
+        # EP_DECODE=1 int8 GPT-2-MoE: the dense dispatch, attention and
+        # head on the int8 linear and head. Held to the single-card int8
+        # engine's forwards on the same dispatch (routed_mlp=False), which
+        # its decode steps skip for the routed one: a product of another
+        # shape rounds otherwise and, at random weights, flips near-tied
+        # router choices (the moe phase's flip bars); that distance is
+        # printed as a reading
+        mparams = moe.init_params(mcfg, torch.Generator(device="cuda")
+                                  .manual_seed(0))
+        a = app((mcfg, mparams), ep_decode=True, inference_dtype="int8")
+        out["ep"] = mesh_serve(a, tok)
+        expect(out["ep"], {"quant_linear": 2 * L, "quant_head": 1}, "ep int8")
+        tf, single = mesh_ep_hold(a.mesh_runner, out["ep"], mparams, mcfg,
+                                  tok, "ep int8 world 1", tf_all)
+        for p, s, mine in zip(MESH_PROMPTS, out["ep"]["streams"], tf):
+            dense = mesh_dense_tf(single, tok.encode(p), s)
+            err = float((mine - dense).abs().max())
+            print(f"    ep int8 world 1: teacher-forced along its stream, "
+                  f"max |diff| {err:.3e} against the single-card engine's "
+                  "forwards on the same (dense) dispatch")
+            check(err <= fp32_bar(float(dense.abs().max())),
+                  "ep int8 world 1: logits past the bar of the single-card "
+                  "dense dispatch")
+    else:
+        # PP_DECODE=1 int8 GPT-2 124M, BOUNDARIES=6: six blocks a rank on
+        # the int8 linear, the last stage's head on the int8 head; held to
+        # the single-card int8 engine on the same kernels
+        a = app((cfg, params), pp_decode=True, boundaries=(MESH_BOUNDARY,),
+                inference_dtype="int8")
+        dec = a.mesh_runner
+        out["pp"] = mesh_serve(a, tok)
+        out["pp"]["stage"] = [dec.spec.start, dec.spec.end]
+        expect(out["pp"], {"quant_linear": 4 * MESH_BOUNDARY,
+                           "quant_head": int(dec.spec.is_last)}, "pp int8")
+        tf = [mesh_pp_tf(dec, tok.encode(p), s)
+              for p, s in zip(MESH_PROMPTS, out["pp"]["streams"])]
+        tf = distributed.broadcast_object(
+            [t.cpu() for t in tf] if dec.spec.is_last else None, 1)
+        if rank == 0:
+            mesh_hold(out["pp"], DecodeEngine(
+                params, cfg, MESH_MAX_SEQ, dtype="int8", decode_kernel="xla",
+                matmul_kernels=True), tok, [t.cuda() for t in tf],
+                "pp int8", fp32_bar)
+        del a, dec
+        # tp=2 fp32 GPT-2 124M (TF32 off): six heads a rank, held to the
+        # single-card fp32 engine (a parting only at a near tie)
+        a = app((cfg, params), tp_decode=True)
+        out["tp"] = mesh_serve(a, tok)
+        tf = tf_all(a.mesh_runner, out["tp"])
+        if rank == 0:
+            mesh_hold(out["tp"], DecodeEngine(params, cfg, MESH_MAX_SEQ,
+                                              decode_kernel="xla"),
+                      tok, tf, "tp fp32", fp32_bar)
+        del a
+        # ep=2 int8 MoE: four experts a rank, the router whole; its expert
+        # products batch 4 experts, not 8, and round otherwise than the
+        # single card's (mesh_ep_hold)
+        mparams = moe.init_params(mcfg, torch.Generator(device="cuda")
+                                  .manual_seed(0))
+        a = app((mcfg, mparams), ep_decode=True, inference_dtype="int8")
+        out["ep"] = mesh_serve(a, tok)
+        expect(out["ep"], {"quant_linear": 2 * L, "quant_head": 1}, "ep int8")
+        mesh_ep_hold(a.mesh_runner, out["ep"], mparams, mcfg, tok,
+                     "ep int8 2 ranks", tf_all)
+    with open(args.out, "w") as f:
+        json.dump(out, f)
+    distributed.destroy()
+    return 0
+
+
 # -- main ----------------------------------------------------------------------
 
 def kernel_name(mangled: str) -> str:
@@ -5220,12 +5727,21 @@ def main() -> int:
     parser.add_argument("--phases",
                         default="kernels,flash,engine,server,batch,train,"
                                 "paged,prefix,spec,remote,ckpt,moe,obs,fleet,"
-                                "plan",
+                                "plan,mesh",
                         help="comma-separated subset of kernels,flash,engine,"
                              "server,batch,train,paged,prefix,spec,remote,"
-                             "ckpt,moe,obs,fleet,plan")
+                             "ckpt,moe,obs,fleet,plan,mesh")
+    # one rank of the mesh phase (the phase starts these itself)
+    parser.add_argument("--mesh-worker", choices=("one", "two"),
+                        help=argparse.SUPPRESS)
+    for flag in ("--rank", "--world"):
+        parser.add_argument(flag, type=int, help=argparse.SUPPRESS)
+    for flag in ("--addr", "--out", "--tok"):
+        parser.add_argument(flag, help=argparse.SUPPRESS)
     args = parser.parse_args()
     phases = set(args.phases.split(","))
+    if args.mesh_worker:
+        return mesh_worker(args)
 
     t_start = time.perf_counter()
     import torch
@@ -5359,6 +5875,12 @@ def main() -> int:
               "plans under agentic bursts, the static plans, lock "
               "contention under GRAFTSCHED=trace, a GRAFTFAULT pass")
         plan_launches = plan_phase(smi)
+    mesh_launches = {}
+    if "mesh" in phases:
+        print("[mesh] multi-device decode: TP_DECODE and EP_DECODE on a "
+              "world of 1 over nccl; PP_DECODE int8, tp=2 fp32 and ep=2 "
+              "int8 on two ranks of cuda:0 over gloo")
+        mesh_launches = mesh_phase(smi)
 
     sources = {"decode_attention": "csrc/decode_attention.cu",
                "quant_linear": "csrc/quant.cu",
@@ -5417,6 +5939,8 @@ def main() -> int:
                                for where, c in fleet_launches.items()},
             "plan_launches": {where: c[k.name]
                               for where, c in plan_launches.items()},
+            "mesh_launches": {where: c[k.name]
+                              for where, c in mesh_launches.items()},
             "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
             "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
             "bound_by": r.get("bound_by"),

@@ -29,12 +29,12 @@ from ..ops.decode_attention import decode_attention
 from ..ops.decode_layer import (MAX_BATCH, decode_layers, mega_downgrade,
                                 mega_requested)
 from ..ops.flash_attention import flash_attention, self_attention
-from ..ops.layers import gelu_new, layer_norm, linear
+from ..ops.layers import gelu_new, layer_norm, linear, row_linear
 from ..ops.quant import QuantizedTensor, embed_rows, head_logits, is_quantized
 
 Params = Dict[str, Any]
 
-RING_ITEM = ("ROADMAP Queue 1 item 13 (multi-device: ring attention over "
+RING_ITEM = ("ROADMAP Queue 1 item 14 (multi-device: ring attention over "
              "torch.distributed)")
 
 
@@ -182,7 +182,8 @@ def _block(p: Params, h: torch.Tensor, n_head: int, eps: float,
            cache: Optional[KVCache] = None, layer_idx: int = 0,
            offset: int = 0, k_valid_from: Optional[torch.Tensor] = None,
            decode_kernel: Optional[str] = None, attn_impl: str = "xla",
-           flash_prefill: bool = False, mlp_fn=None) -> torch.Tensor:
+           flash_prefill: bool = False, mlp_fn=None,
+           tp_group=None) -> torch.Tensor:
     """One pre-LN transformer block; with ``cache``, writes this layer's
     K/V at ``offset`` in place and attends over the written prefix.
 
@@ -195,7 +196,12 @@ def _block(p: Params, h: torch.Tensor, n_head: int, eps: float,
     the cache, then runs the flash kernel over the new K/V alone.
     ``mlp_fn(p, m) -> mlp_out`` swaps the dense MLP for another
     feed-forward (``models.moe`` passes its expert MLP), so the attention
-    half exists once for both families."""
+    half exists once for both families.
+
+    ``tp_group`` (tensor-parallel decode): ``p`` holds this rank's
+    Megatron slices and ``n_head`` its local heads; the row-parallel
+    ``c_proj`` products sum over the group before their bias
+    (``ops.layers.row_linear``)."""
     kernels = decode_kernel is not None
     a = layer_norm(h, p["ln_1"]["scale"], p["ln_1"]["bias"], eps)
     qkv = linear(a, p["attn"]["c_attn"]["kernel"], p["attn"]["c_attn"]["bias"],
@@ -217,16 +223,16 @@ def _block(p: Params, h: torch.Tensor, n_head: int, eps: float,
     else:
         attn, _, _ = cached_attention_inplace(q, k, v, cache.k, cache.v,
                                               layer_idx, offset, k_valid_from)
-    attn = linear(merge_heads(attn), p["attn"]["c_proj"]["kernel"],
-                  p["attn"]["c_proj"]["bias"], kernels)
+    attn = row_linear(merge_heads(attn), p["attn"]["c_proj"]["kernel"],
+                      p["attn"]["c_proj"]["bias"], kernels, tp_group)
     h = h + attn
     m = layer_norm(h, p["ln_2"]["scale"], p["ln_2"]["bias"], eps)
     if mlp_fn is not None:
         return h + mlp_fn(p, m)
-    m = linear(gelu_new(linear(m, p["mlp"]["c_fc"]["kernel"],
-                               p["mlp"]["c_fc"]["bias"], kernels)),
-               p["mlp"]["c_proj"]["kernel"], p["mlp"]["c_proj"]["bias"],
-               kernels)
+    m = row_linear(gelu_new(linear(m, p["mlp"]["c_fc"]["kernel"],
+                                   p["mlp"]["c_fc"]["bias"], kernels)),
+                   p["mlp"]["c_proj"]["kernel"], p["mlp"]["c_proj"]["bias"],
+                   kernels, tp_group)
     return h + m
 
 
@@ -255,13 +261,14 @@ def apply_blocks(blocks: Union[Params, List[Params]], h: torch.Tensor,
                  config: GPT2Config, cache: Optional[KVCache] = None,
                  k_valid_from: Optional[torch.Tensor] = None,
                  decode_kernel: Optional[str] = None, remat: bool = False,
-                 flash_prefill: bool = False,
+                 flash_prefill: bool = False, tp_group=None,
                  ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run a stack of blocks: the stacked dict (leading layer axis) or its
     ``unstack_blocks`` list. With ``cache`` (leading axis matching the
     stack) the new K/V land at ``cache.length`` and the returned cache is
     one window longer (same buffers). ``remat`` applies to the no-cache
-    path (training)."""
+    path (training). Under ``tp_group`` the blocks are this rank's slices
+    and ``config`` its ``tp_config``."""
     eps = config.layer_norm_epsilon
     offset = cache.length if cache is not None else 0
     layers = blocks if isinstance(blocks, list) else unstack_blocks(blocks)
@@ -269,7 +276,7 @@ def apply_blocks(blocks: Union[Params, List[Params]], h: torch.Tensor,
     def block(p, h, li):
         return _block(p, h, config.n_head, eps, cache, li, offset,
                       k_valid_from, decode_kernel, config.attention_impl,
-                      flash_prefill)
+                      flash_prefill, tp_group=tp_group)
 
     h = run_layers(block, layers, h, remat and cache is None)
     if cache is None:
@@ -316,11 +323,13 @@ def mega_step(blocks: Params, h: torch.Tensor, config: GPT2Config,
 def run_blocks(params: Params, h: torch.Tensor, config: GPT2Config,
                cache: Optional[KVCache], pad: Optional[torch.Tensor],
                decode_kernel: Optional[str], flash_prefill: bool = False,
+               tp_group=None,
                ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """The block stack of a forward or a stage: one megakernel launch for
     a single cached token on a mega engine, else the per-layer loop.
     ``params`` are plain or from ``unstack_params`` (whose
-    ``stacked_blocks`` the megakernel takes)."""
+    ``stacked_blocks`` the megakernel takes). ``tp_group``: see
+    ``forward_with_cache`` (no kernel mode runs under it)."""
     if cache is not None and mega_requested(decode_kernel, h.shape[1]):
         step = mega_step(params.get("stacked_blocks", params["blocks"]), h,
                          config, cache, pad)
@@ -328,14 +337,14 @@ def run_blocks(params: Params, h: torch.Tensor, config: GPT2Config,
             return step
     return apply_blocks(params["blocks"], h, config, cache, k_valid_from=pad,
                         decode_kernel=mega_downgrade(decode_kernel),
-                        flash_prefill=flash_prefill)
+                        flash_prefill=flash_prefill, tp_group=tp_group)
 
 
 def forward_with_cache(params: Params, input_ids: torch.Tensor,
                        config: GPT2Config, cache: KVCache,
                        pad: Optional[torch.Tensor] = None,
                        decode_kernel: Optional[str] = None,
-                       flash_prefill: bool = False,
+                       flash_prefill: bool = False, tp_group=None,
                        ) -> Tuple[torch.Tensor, KVCache]:
     """Cached forward (prefill when ``cache.length == 0``, a decode step
     otherwise): full-sequence f32 logits and the cache one window longer.
@@ -346,13 +355,38 @@ def forward_with_cache(params: Params, input_ids: torch.Tensor,
     ``decode_kernel="mega"`` runs single-token inputs (decode steps, a
     1-token prompt's prefill) through the whole-stack kernel.
     ``flash_prefill`` (the engine's fresh-cache gate) runs each layer's
-    attention through the flash kernel; a padded batch never does."""
+    attention through the flash kernel; a padded batch never does.
+
+    ``tp_group`` (tensor-parallel decode): ``params["blocks"]`` are this
+    rank's Megatron slices (``parallel.spmd.param_pspecs``), the cache
+    holds its ``n_head / tp`` heads, attention runs over those heads, and
+    the row-parallel products sum over the group; embeddings, norms and
+    the head are whole on every rank, so every rank gets the same
+    logits."""
     offset = cache.length if pad is None else cache.length - pad[:, None]
     h = embed(params, input_ids, offset)
-    h, cache = run_blocks(params, h, config, cache, pad, decode_kernel,
-                          flash_prefill and pad is None)
+    h, cache = run_blocks(params, h, tp_config(config, tp_group), cache, pad,
+                          decode_kernel, flash_prefill and pad is None,
+                          tp_group=tp_group)
     return final_logits(params, h, config.layer_norm_epsilon,
                         kernels=decode_kernel is not None), cache
+
+
+def tp_config(config, tp_group):
+    """The config a tensor-parallel rank runs its blocks with: head
+    counts and widths divided by the group's size (``head_dim`` kept);
+    ``config`` itself without a group."""
+    if tp_group is None:
+        return config
+    import torch.distributed as dist
+    tp = dist.get_world_size(tp_group)
+    if tp == 1:
+        return config
+    kw = {"n_head": config.n_head // tp, "n_embd": config.n_embd // tp}
+    for name in ("n_kv_head", "intermediate_size"):
+        if hasattr(config, name):
+            kw[name] = getattr(config, name) // tp
+    return dataclasses.replace(config, **kw)
 
 
 def make_cache(config: GPT2Config, batch: int, max_seq: int,

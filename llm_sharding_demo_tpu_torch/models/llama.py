@@ -31,10 +31,11 @@ from ..ops.decode_attention import decode_attention
 from ..ops.decode_layer import (MAX_BATCH, decode_layers_llama,
                                 mega_downgrade, mega_requested)
 from ..ops.flash_attention import flash_attention, repeat_kv, self_attention
-from ..ops.layers import linear, rms_norm
+from ..ops.layers import linear, rms_norm, row_linear
 from ..ops.quant import embed_rows, is_quantized
 from ..ops.rope import apply_rope, rope_angles
-from .gpt2 import check_attention_impl, run_layers, unstack_blocks, write_kv
+from .gpt2 import (check_attention_impl, run_layers, tp_config,
+                   unstack_blocks, write_kv)
 
 Params = Dict[str, Any]
 
@@ -127,7 +128,7 @@ def _block(p: Params, h: torch.Tensor, config: LlamaConfig,
            cache: Optional[KVCache] = None, layer_idx: int = 0,
            offset: int = 0, k_valid_from: Optional[torch.Tensor] = None,
            decode_kernel: Optional[str] = None,
-           flash_prefill: bool = False) -> torch.Tensor:
+           flash_prefill: bool = False, tp_group=None) -> torch.Tensor:
     """One pre-norm llama block; with ``cache``, writes this layer's
     rotated K and V at ``offset`` in place and attends over the written
     prefix. ``decode_kernel`` ("layer") routes single-token steps on a
@@ -136,7 +137,10 @@ def _block(p: Params, h: torch.Tensor, config: LlamaConfig,
     alone; ``None`` is the plain path. The no-cache
     attention follows ``config.attention_impl``; ``flash_prefill`` (a
     fresh-cache prefill) writes the cache at kv-head width, then runs the
-    flash kernel over the new K/V repeated to the query heads."""
+    flash kernel over the new K/V repeated to the query heads. Under
+    ``tp_group`` ``p`` holds this rank's Megatron slices and ``config``
+    its local head counts (``gpt2.tp_config``); ``wo`` and ``down`` sum
+    over the group."""
     kernels = decode_kernel is not None
     eps = config.rms_norm_eps
     a = rms_norm(h, p["ln_attn"]["scale"], eps)
@@ -166,12 +170,13 @@ def _block(p: Params, h: torch.Tensor, config: LlamaConfig,
     else:
         out, _, _ = cached_attention_inplace(q, k, v, cache.k, cache.v,
                                              layer_idx, offset, k_valid_from)
-    h = h + linear(merge_heads(out), attn["wo"]["kernel"], None, kernels)
+    h = h + row_linear(merge_heads(out), attn["wo"]["kernel"], None, kernels,
+                       tp_group)
     m = rms_norm(h, p["ln_mlp"]["scale"], eps)
     mlp = p["mlp"]
-    m = linear(F.silu(linear(m, mlp["gate"]["kernel"], None, kernels))
-               * linear(m, mlp["up"]["kernel"], None, kernels),
-               mlp["down"]["kernel"], None, kernels)
+    m = row_linear(F.silu(linear(m, mlp["gate"]["kernel"], None, kernels))
+                   * linear(m, mlp["up"]["kernel"], None, kernels),
+                   mlp["down"]["kernel"], None, kernels, tp_group)
     return h + m
 
 
@@ -180,7 +185,7 @@ def apply_blocks(blocks: Union[Params, List[Params]], h: torch.Tensor,
                  cache: Optional[KVCache] = None,
                  k_valid_from: Optional[torch.Tensor] = None,
                  decode_kernel: Optional[str] = None, remat: bool = False,
-                 flash_prefill: bool = False,
+                 flash_prefill: bool = False, tp_group=None,
                  ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run a stack of llama blocks (the stacked dict or its
     ``unstack_blocks`` list) at the rotary angles ``cos``/``sin``. With
@@ -192,7 +197,7 @@ def apply_blocks(blocks: Union[Params, List[Params]], h: torch.Tensor,
 
     def block(p, h, li):
         return _block(p, h, config, cos, sin, cache, li, offset,
-                      k_valid_from, decode_kernel, flash_prefill)
+                      k_valid_from, decode_kernel, flash_prefill, tp_group)
 
     h = run_layers(block, layers, h, remat and cache is None)
     if cache is None:
@@ -268,10 +273,12 @@ def run_blocks(params: Params, h: torch.Tensor, config: LlamaConfig,
                cos: torch.Tensor, sin: torch.Tensor,
                cache: Optional[KVCache], pad: Optional[torch.Tensor],
                decode_kernel: Optional[str], flash_prefill: bool = False,
+               tp_group=None,
                ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """The block stack of a forward or a stage: one megakernel launch for
     a single cached token on a mega engine, else the per-layer loop.
-    ``params`` are plain or from ``unstack_params``."""
+    ``params`` are plain or from ``unstack_params``; ``tp_group`` as in
+    ``forward_with_cache``."""
     if cache is not None and mega_requested(decode_kernel, h.shape[1]):
         step = mega_step(params.get("stacked_blocks", params["blocks"]), h,
                          config, cache, pad, cos, sin)
@@ -280,24 +287,27 @@ def run_blocks(params: Params, h: torch.Tensor, config: LlamaConfig,
     return apply_blocks(params["blocks"], h, config, cos, sin, cache,
                         k_valid_from=pad,
                         decode_kernel=mega_downgrade(decode_kernel),
-                        flash_prefill=flash_prefill)
+                        flash_prefill=flash_prefill, tp_group=tp_group)
 
 
 def forward_with_cache(params: Params, input_ids: torch.Tensor,
                        config: LlamaConfig, cache: KVCache,
                        pad: Optional[torch.Tensor] = None,
                        decode_kernel: Optional[str] = None,
-                       flash_prefill: bool = False,
+                       flash_prefill: bool = False, tp_group=None,
                        ) -> Tuple[torch.Tensor, KVCache]:
     """Cached forward (prefill when ``cache.length == 0``, a decode step
     otherwise): full-sequence f32 logits and the cache one window longer.
-    Same contract as ``gpt2.forward_with_cache``; the rotary positions
-    shift down by ``pad`` per row."""
+    Same contract as ``gpt2.forward_with_cache`` (``tp_group`` included:
+    the rank attends over its ``n_head / tp`` query heads and
+    ``n_kv_head / tp`` kv heads); the rotary positions shift down by
+    ``pad`` per row."""
     h = embed(params, input_ids)
     cos, sin = angles(config, input_ids.shape[1], cache.length, pad,
                       h.device)
-    h, cache = run_blocks(params, h, config, cos, sin, cache, pad,
-                          decode_kernel, flash_prefill and pad is None)
+    h, cache = run_blocks(params, h, tp_config(config, tp_group), cos, sin,
+                          cache, pad, decode_kernel,
+                          flash_prefill and pad is None, tp_group=tp_group)
     return final_logits(params, h, config,
                         kernels=decode_kernel is not None), cache
 

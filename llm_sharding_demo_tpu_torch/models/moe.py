@@ -15,6 +15,12 @@ single-token step with ``B * k <= E`` takes the routed path, which
 gathers only the chosen experts' kernels; capacity cannot bind there,
 and its outputs are bit-equal to the dense dispatch's.
 
+Under expert parallelism (``ep_group``; ``routed_mlp=False``, the dense
+dispatch) a rank holds ``E / ep`` consecutive experts: the router,
+top-k and capacity run over all ``E`` on every rank (the router is
+whole), each rank sums its own experts' weighted outputs, and the sum
+over the group completes every token.
+
 The expert contractions are batched ``torch.einsum``/``bmm`` products,
 as the JAX package computes them outside any Pallas kernel; int8 experts
 accumulate in f32 and round once, after the scale.
@@ -213,7 +219,7 @@ def _dispatch_slots(sel: torch.Tensor, cap: int):
 
 
 def moe_mlp(moe_params: Params, h: torch.Tensor, config: MoEConfig,
-            token_valid: Optional[torch.Tensor] = None,
+            token_valid: Optional[torch.Tensor] = None, ep_group=None,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k routed expert MLP with the dense dispatch. [B, S, d] ->
     ([B, S, d], aux scalar).
@@ -221,11 +227,23 @@ def moe_mlp(moe_params: Params, h: torch.Tensor, config: MoEConfig,
     ``token_valid`` ([B, S] bool): tokens marked False (left-pad columns)
     neither route nor take capacity; their output rows are zero. Each
     token's output is the sum, in choice order, of its kept choices'
-    weighted expert rows (the routed path's order)."""
+    weighted expert rows (the routed path's order).
+
+    ``ep_group``: ``moe_params["experts"]`` hold this rank's ``E / ep``
+    consecutive experts. Routing, slots and weights are computed over all
+    ``E`` as without the group; the rank dispatches to and combines from
+    its own experts only (another rank's choice weighs 0 here), and the
+    partial outputs sum over the group. A token's at most ``k`` nonzero
+    terms add in the same order as on one device."""
     b, s, d = h.shape
     e, k = config.n_experts, config.expert_top_k
     cap = expert_capacity(config, s)
     experts = moe_params["experts"]
+    e_loc = experts["c_fc"]["bias"].shape[0]
+    e0 = 0
+    if ep_group is not None:
+        import torch.distributed as dist
+        e0 = dist.get_rank(ep_group) * e_loc
     gates = _router(moe_params, h)
     idxs, onehots, w = _topk_gates(gates, e, k, token_valid)
     sel = torch.stack(onehots)                                  # [k,B,S,E]
@@ -233,7 +251,8 @@ def moe_mlp(moe_params: Params, h: torch.Tensor, config: MoEConfig,
     slot_oh = _one_hot(slot, cap, gates.dtype) * keep[..., None]
     # [B, k*S, E, C] un-flattens as (k, s): the merged axis is k-major
     dispatch = slot_oh.reshape(b, k, s, e, cap).sum(dim=1)      # [B,S,E,C]
-    xin = torch.einsum("bsec,bsd->ebcd", dispatch.to(h.dtype), h)
+    local = dispatch[:, :, e0:e0 + e_loc] if e_loc != e else dispatch
+    xin = torch.einsum("bsec,bsd->ebcd", local.to(h.dtype), h)
     h1 = _expert_einsum("ebcd,edf->ebcf", xin, experts["c_fc"]["kernel"])
     h1 = gelu_new(h1 + experts["c_fc"]["bias"][:, None, None, :])
     h2 = _expert_einsum("ebcf,efd->ebcd", h1, experts["c_proj"]["kernel"])
@@ -249,7 +268,14 @@ def moe_mlp(moe_params: Params, h: torch.Tensor, config: MoEConfig,
         c = slot_k[:, i].gather(-1, idx[..., None])[..., 0]
         kept = keep_k[:, i].gather(-1, idx[..., None])[..., 0]
         wi = torch.where(kept, w[i], torch.zeros_like(w[i]))
+        if e_loc != e:
+            mine = (idx >= e0) & (idx < e0 + e_loc)
+            wi = torch.where(mine, wi, torch.zeros_like(wi))
+            idx = torch.clamp(idx - e0, 0, e_loc - 1)
         out = out + wi[..., None].to(h.dtype) * h2[idx, rows, c]
+    if ep_group is not None:
+        from ..parallel.distributed import all_reduce_sum
+        all_reduce_sum(out, ep_group)
     return out, _aux_loss(sel[0], gates, e)
 
 
@@ -258,17 +284,18 @@ def _moe_block(p: Params, h: torch.Tensor, config: MoEConfig,
                offset: Union[int, torch.Tensor] = 0,
                k_valid_from: Optional[torch.Tensor] = None,
                decode_kernel: Optional[str] = None,
+               routed_mlp: bool = True, ep_group=None,
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One pre-LN MoE block (GPT-2's attention half, the expert MLP via
     ``mlp_fn``). Returns ``(h, aux)``. Left-pad columns
-    (``k_valid_from``) are kept out of routing; a single-token step with
-    ``B * k <= E`` takes the routed path."""
+    (``k_valid_from``) are kept out of routing; with ``routed_mlp`` a
+    single-token step with ``B * k <= E`` takes the routed path."""
     token_valid = None
     if k_valid_from is not None:
         s = h.shape[1]
         token_valid = ((offset + torch.arange(s, device=h.device))[None, :]
                        >= k_valid_from[:, None])
-    use_routed = (h.shape[1] == 1
+    use_routed = (routed_mlp and h.shape[1] == 1
                   and h.shape[0] * config.expert_top_k <= config.n_experts)
     aux_cell: List[torch.Tensor] = []
 
@@ -276,7 +303,8 @@ def _moe_block(p: Params, h: torch.Tensor, config: MoEConfig,
         if use_routed:
             out, aux = moe_mlp_routed(block_params["moe"], m, config)
         else:
-            out, aux = moe_mlp(block_params["moe"], m, config, token_valid)
+            out, aux = moe_mlp(block_params["moe"], m, config, token_valid,
+                               ep_group)
         aux_cell.append(aux)
         return out
 
@@ -290,6 +318,7 @@ def apply_blocks(blocks: Union[Params, List[Params]], h: torch.Tensor,
                  config: MoEConfig, cache: Optional[KVCache] = None,
                  k_valid_from: Optional[torch.Tensor] = None,
                  decode_kernel: Optional[str] = None,
+                 routed_mlp: bool = True, ep_group=None,
                  ) -> Tuple[torch.Tensor, torch.Tensor, Optional[KVCache]]:
     """The block stack (stacked dict or its ``unstack_blocks`` list):
     ``(h, summed f32 aux, cache one window longer or None)``."""
@@ -298,7 +327,8 @@ def apply_blocks(blocks: Union[Params, List[Params]], h: torch.Tensor,
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for li, p in enumerate(layers):
         h, layer_aux = _moe_block(p, h, config, cache, li, offset,
-                                  k_valid_from, decode_kernel)
+                                  k_valid_from, decode_kernel, routed_mlp,
+                                  ep_group)
         aux = aux + layer_aux
     if cache is not None:
         cache = KVCache(k=cache.k, v=cache.v, length=offset + h.shape[1])
@@ -321,12 +351,16 @@ def forward_with_cache(params: Params, input_ids: torch.Tensor,
                        pad: Optional[torch.Tensor] = None,
                        decode_kernel: Optional[str] = None,
                        flash_prefill: bool = False,
+                       routed_mlp: bool = True, ep_group=None,
                        ) -> Tuple[torch.Tensor, KVCache]:
     """Cached MoE forward with ``gpt2.forward_with_cache``'s contract (the
     aux loss is dropped). ``decode_kernel`` is "layer", "matmul" or None:
     the family has no whole-stack kernel. A single-token step routes one
     token against a fresh capacity of at least one slot per expert, so
-    decode never drops."""
+    decode never drops. ``routed_mlp=False`` keeps every step on the
+    dense dispatch, which expert-parallel decode (``ep_group``, this
+    rank's experts in ``params``) needs: the routed path would gather
+    experts another rank holds."""
     if flash_prefill:
         raise NotImplementedError(
             "flash prefill covers the dense families; MoEConfig enforces "
@@ -334,7 +368,7 @@ def forward_with_cache(params: Params, input_ids: torch.Tensor,
     offset = cache.length if pad is None else cache.length - pad[:, None]
     h = embed(params, input_ids, offset)
     h, _, cache = apply_blocks(params["blocks"], h, config, cache, pad,
-                               decode_kernel)
+                               decode_kernel, routed_mlp, ep_group)
     return final_logits(params, h, config.layer_norm_epsilon,
                         kernels=decode_kernel is not None), cache
 

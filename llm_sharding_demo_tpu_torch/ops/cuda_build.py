@@ -16,6 +16,7 @@ through.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -106,7 +107,11 @@ class KernelLibrary:
     def load(self):
         with self._lock:
             if self._lib is None:
-                self.finish_build(self.start_build())
+                if not os.path.exists(self.path):
+                    # one process builds, the others wait for its library
+                    # (ranks of one host load the same sources at once)
+                    with _build_lock(self.path):
+                        self.finish_build(self.start_build())
                 lib = ctypes.CDLL(self.path)
                 for name, argtypes in self.functions.items():
                     fn = getattr(lib, name)
@@ -117,6 +122,21 @@ class KernelLibrary:
                 err.restype = ctypes.c_char_p
                 self._lib = lib
             return self._lib
+
+
+@contextlib.contextmanager
+def _build_lock(path: str):
+    """An exclusive ``fcntl`` lock on ``path + ".lock"`` across processes
+    (the ``threading.Lock`` of a library only orders one process's
+    threads)."""
+    import fcntl
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path + ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
 
 
 class Kernel:

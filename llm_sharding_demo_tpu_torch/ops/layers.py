@@ -56,3 +56,16 @@ def linear(x: torch.Tensor, kernel, bias: Optional[torch.Tensor] = None,
     if bias is not None:
         y = y + bias
     return y
+
+
+def row_linear(x: torch.Tensor, kernel, bias: Optional[torch.Tensor],
+               kernels: bool = False, group=None) -> torch.Tensor:
+    """``linear`` with a row-parallel kernel (tensor-parallel decode):
+    ``x`` and ``kernel`` hold this rank's slice of the contraction, the
+    partial products sum over ``group``, and the bias, whole on every
+    rank, is added once after the sum. Without a group it is ``linear``."""
+    if group is None:
+        return linear(x, kernel, bias, kernels)
+    from ..parallel.distributed import all_reduce_sum
+    y = all_reduce_sum(linear(x, kernel, None, kernels), group)
+    return y if bias is None else y + bias

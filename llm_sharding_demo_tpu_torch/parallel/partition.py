@@ -44,6 +44,21 @@ class StageSpec:
         return self.end - self.start
 
 
+def balanced_boundaries(n_layer: int, n_stages: int) -> List[int]:
+    """Split points giving each stage ``n_layer // n_stages`` (+-1)
+    blocks, the earlier stages taking the remainder: 12 layers over 4
+    stages -> [3, 6, 9]."""
+    if not 1 <= n_stages <= n_layer:
+        raise ValueError(
+            f"n_stages={n_stages} must be in [1, n_layer={n_layer}]")
+    base, rem = divmod(n_layer, n_stages)
+    bounds, acc = [], 0
+    for i in range(n_stages - 1):
+        acc += base + (1 if i < rem else 0)
+        bounds.append(acc)
+    return bounds
+
+
 def make_stage_specs(n_layer: int, boundaries: Sequence[int],
                      ) -> List[StageSpec]:
     """Interior boundaries -> validated StageSpecs (strictly increasing, in

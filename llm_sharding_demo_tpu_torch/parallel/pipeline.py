@@ -5,8 +5,9 @@ Counterpart of ``llm_sharding_demo_tpu/parallel/pipeline.py`` and, as
 there, the default fp32 single-stream ``/generate`` runner. It is the
 staged ``DecodeEngine`` on its plain path: it runs no hand-written
 kernel, as the JAX runner runs no Pallas kernel. Every stage lives on
-one device here (placing stages on several cards waits for multi-device
-decode, ROADMAP Queue 1 item 13).
+one device here; ``parallel.ppdecode`` places one stage on each rank of
+a process group (``PP_DECODE``). Ring attention and mesh training, the
+other multi-device paths, wait for ROADMAP Queue 1 item 14.
 """
 
 from __future__ import annotations

@@ -22,12 +22,20 @@ row's stream is its solo stream.
 one cache (the JAX engine's compile-count bound; here it caps the rows a
 prefill forward carries). The alignment pad rides the ragged-batch
 machinery, so tokens are those of the monolithic prefill.
+
+``mesh=`` (a ``DeviceMesh``, ``parallel.spmd.make_mesh``) decodes over
+several ranks, each a process bound to one device: tensor parallelism
+for the dense families over a ``tp`` axis, expert parallelism for MoE
+over an ``ep`` axis. Every rank runs the same forwards on its slices;
+rank 0 leads (its ``generate`` announces each request to the followers,
+which serve it from ``follow``), picks each token and broadcasts it.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import threading
 import time
 from typing import List, Optional, Sequence, Tuple, Union
 
@@ -42,7 +50,8 @@ from ..ops import decode_layer as DL
 from ..ops.decode_attention import BLOCK_S, KERNEL_HEAD_DIM, eligible
 from ..ops.flash_attention import flash_eligible, flash_profitable
 from ..ops.quant import quantize_params
-from ..utils import graftmem, graftscope, tracing
+from ..parallel import distributed
+from ..utils import graftmem, graftscope, graftshard, tracing
 from ..utils.device import DeviceLike, regime_of, resolve_device, torch_dtype
 from ..utils.metrics import REGISTRY, kv_block_gauges
 
@@ -56,6 +65,16 @@ EOS_SEGMENT = 32
 _EOS_CAP_MAX = 256
 
 DECODE_KERNEL_MODES = ("auto", "xla", "layer", "mega")
+
+# Placement contract (utils/graftshard): a mesh engine's weights, split
+# over its axis (the replicated leaves beside them satisfy it too), and a
+# tp engine's KV cache, split over heads
+PLACEMENT_CONTRACT = {
+    "mesh_axes": ("tp", "ep"),
+    "holding:tp_params": "tp",
+    "holding:ep_params": "ep",
+    "holding:tp_cache": "tp",
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -332,6 +351,44 @@ def resolve_decode_kernel(decode_kernel: str, config, max_seq: int,
             rounded)
 
 
+def _place_ep_params(params: Params, config, mesh) -> Params:
+    """Expert-parallel placement (``parallel.spmd.moe_param_pspecs`` on
+    an ``ep`` mesh): this rank's ``E / ep`` experts of every stacked
+    expert leaf ``[L, E, ...]`` (int8 codes and scales together), every
+    other leaf whole. Validates the mesh/family contract."""
+    from ..parallel import spmd
+    if "ep" not in mesh.mesh_dim_names:
+        raise ValueError(f"mesh has no 'ep' axis: {mesh.mesh_dim_names}")
+    ep = spmd.axis_size(mesh, "ep")
+    if config.n_experts % ep:
+        raise ValueError(
+            f"n_experts={config.n_experts} not divisible by ep={ep}")
+    return spmd.shard_params(params, mesh, spmd.moe_param_pspecs(mesh))
+
+
+def _place_tp_params(params: Params, config, mesh) -> Params:
+    """Megatron tensor-parallel placement for dense-family decode (the
+    family's ``parallel.spmd`` layout table): this rank's column slices
+    of q/k/v (its own heads' columns of GPT-2's fused ``c_attn``) and of
+    the MLP's up projections, its row slices of the attention-out and
+    down projections, embeddings and norms whole. The KV cache holds the
+    rank's heads (``DecodeEngine._fresh_cache``)."""
+    from ..parallel import spmd
+    if "tp" not in mesh.mesh_dim_names:
+        raise ValueError(f"mesh has no 'tp' axis: {mesh.mesh_dim_names}")
+    tp = spmd.axis_size(mesh, "tp")
+    kv_heads = getattr(config, "n_kv_head", config.n_head)
+    if config.n_head % tp or kv_heads % tp:
+        raise ValueError(
+            f"tp={tp} must divide n_head={config.n_head} and "
+            f"n_kv_head={kv_heads}: the KV cache and attention shard "
+            "over whole heads")
+    specs = (spmd.llama_param_pspecs(mesh)
+             if isinstance(config, llama.LlamaConfig)
+             else spmd.param_pspecs(mesh))
+    return spmd.shard_params(params, mesh, specs)
+
+
 class DecodeEngine:
     """Single-model decode engine for every ported family (``config`` a
     ``GPT2Config``, ``LlamaConfig`` or ``MoEConfig``;
@@ -369,13 +426,25 @@ class DecodeEngine:
     runs them on every verify window (``runtime.spec_decode``). It does
     nothing for fp32 and bf16 weights, and a kernel mode runs those
     kernels already; ``decode_kernel`` keeps its meaning.
+
+    ``mesh`` (a ``DeviceMesh``; exclusive with ``boundaries``): a dense
+    family decodes tensor-parallel over the mesh's ``tp`` axis
+    (``_place_tp_params``: each rank's heads and MLP slices, a KV cache
+    of its heads, the row-parallel products summed over the axis), MoE
+    expert-parallel over its ``ep`` axis (``_place_ep_params``; the dense
+    dispatch, ``routed_mlp=False``). Under a mesh "auto" resolves to the
+    plain path and an explicit kernel mode raises; int8 (MoE only: int8
+    refuses tp, as in the JAX package) runs its matmuls on the int8
+    linear and head kernels. Every rank builds the engine the same way;
+    rank 0's ``generate`` announces the request to the others, which
+    serve it from ``follow`` until ``stop_followers``.
     """
 
     def __init__(self, params: Params, config, max_seq: int,
                  dtype="float32", boundaries: Optional[Sequence[int]] = None,
                  decode_kernel: str = "auto", device: DeviceLike = None,
                  prefill_chunk: Optional[int] = None,
-                 matmul_kernels: bool = False):
+                 matmul_kernels: bool = False, mesh=None):
         if max_seq > config.n_positions:
             raise ValueError(
                 f"max_seq={max_seq} exceeds n_positions={config.n_positions}")
@@ -401,6 +470,13 @@ class DecodeEngine:
         self.regime = regime_of(dtype)
         self.dtype = torch_dtype(self.regime)
         dev = self.device
+        moe_family = hasattr(config, "n_experts")
+        if self.regime == "int8" and mesh is not None and not moe_family:
+            # refused before any weight work
+            raise NotImplementedError(
+                "int8 does not compose with tp decode: the int8 "
+                "streaming matmuls are unpartitioned Pallas kernels "
+                "GSPMD cannot split; tp decode runs fp32/bf16")
         if self.regime == "int8":
             # quantize straight from the checkpoint dtype (a bf16 pre-cast
             # would round mantissas before rounding to int8 codes)
@@ -412,6 +488,34 @@ class DecodeEngine:
                 else x.to(dev), params)
         self.config = config
         self.max_seq = max_seq
+        self._mesh_mode: Optional[str] = None
+        self._group = None
+        # the config the cache and the blocks run with (a tp rank's heads)
+        self._cache_config = config
+        if mesh is not None:
+            if boundaries is not None:
+                raise ValueError("mesh decode (ep/tp) and stage "
+                                 "partitioning are mutually exclusive")
+            if moe_family:
+                self._mesh_mode = "ep"
+                params = _place_ep_params(params, config, mesh)
+                self._group = mesh.get_group("ep")
+            else:
+                self._mesh_mode = "tp"
+                params = _place_tp_params(params, config, mesh)
+                self._group = mesh.get_group("tp")
+                self._cache_config = gpt2.tp_config(config, self._group)
+            if decode_kernel not in ("auto", "xla"):
+                raise ValueError(
+                    f"decode_kernel={decode_kernel!r} does not compose "
+                    "with a mesh (the Pallas decode kernels are "
+                    "unpartitioned); use 'auto' or 'xla'")
+            decode_kernel = "xla"
+            # the JAX package's int8 matmuls take their kernels under a
+            # mesh too (they pick them by backend and rows alone)
+            matmul_kernels = matmul_kernels or self.regime == "int8"
+        # leader-side: one request's collectives at a time
+        self._mesh_lock = threading.Lock()
         # the per-layer views are built once here, not in every step
         if boundaries is None:
             self.specs = None
@@ -438,8 +542,10 @@ class DecodeEngine:
         # the launch counts a run must show. Unlocked: exact when one
         # thread drives the engine, as a batcher's worker does
         self._forward_shapes: collections.Counter = collections.Counter()
-        # the weights as the forwards read them, in the memory ledger
-        graftmem.track(self, "params", "params",
+        # the weights as the forwards read them, in the memory ledger (a
+        # mesh engine's under the holding its placement contract names)
+        graftmem.track(self, f"{self._mesh_mode}_params" if mesh is not None
+                       else "params", "params",
                        self.params if self.params is not None
                        else self.stage_params)
 
@@ -466,8 +572,16 @@ class DecodeEngine:
                                        self._cache_seq, cfg.head_dim,
                                        self.dtype, dev) for s in self.specs]
         if self.specs is None:
-            return self._model.make_cache(cfg, batch, self._cache_seq,
-                                          self.dtype, dev)
+            cache = self._model.make_cache(self._cache_config, batch,
+                                           self._cache_seq, self.dtype, dev)
+            if self._mesh_mode == "tp":
+                # [L, B, H, S, hd]: this rank's heads of the global cache
+                heads = P.kv_heads(cfg)
+                for t in (cache.k, cache.v):
+                    shape = list(t.shape)
+                    shape[2] = heads
+                    graftshard.place(t, shape, [(2, "tp", t.shape[2])])
+            return cache
         return [P.make_stage_cache(s, cfg, batch, self._cache_seq,
                                    self.dtype, dev) for s in self.specs]
 
@@ -478,10 +592,15 @@ class DecodeEngine:
         does)."""
         self._forward_shapes[tuple(x.shape[:2])] += 1
         if self.specs is None:
+            kw = {}
+            if self._mesh_mode == "tp":
+                kw["tp_group"] = self._group
+            elif self._mesh_mode == "ep":
+                kw.update(routed_mlp=False, ep_group=self._group)
             return self._model.forward_with_cache(
                 self.params, x, self.config, cache, pad,
                 decode_kernel=self._model_kernel,
-                flash_prefill=flash_prefill)
+                flash_prefill=flash_prefill, **kw)
         from ..parallel import partition as P
         new_caches = []
         for sp, spec, c in zip(self.stage_params, self.specs, cache):
@@ -575,9 +694,23 @@ class DecodeEngine:
                           device=self.device)
         for i in range(n):
             logits, cache = self._forward_cached(token[:, None], cache, pad)
-            token = select_token(logits[:, -1], sampling, generator)
+            token = self._select(logits[:, -1], sampling, generator)
             out[:, i] = token
         return out, cache
+
+    def _select(self, logits: torch.Tensor, sampling: SamplingConfig,
+                generator: Generators) -> torch.Tensor:
+        """``select_token``; under a mesh rank 0 picks (with the
+        request's generators, which only it holds) and broadcasts, so the
+        ranks never part."""
+        if self._group is None:
+            return select_token(logits, sampling, generator)
+        if distributed.rank() == 0:
+            token = select_token(logits, sampling, generator)
+        else:
+            token = torch.empty(logits.shape[0], dtype=torch.int64,
+                                device=logits.device)
+        return distributed.broadcast(token, 0, self._group)
 
     # each segment timed into its graftscope ring, as the JAX package
     # times its compiled segment: a step's stream window is the
@@ -614,10 +747,55 @@ class DecodeEngine:
             pad=pad)
         ids, pad, prompt_len, chunk = self._align_chunks(
             ids, pad, prompt_len, reserve=max_new_tokens)
+        if self._group is None:
+            return self._generate_prepared(ids, pad, prompt_len, chunk,
+                                           max_new_tokens, sampling,
+                                           generator, eos_id)
+        with self._mesh_lock:
+            if distributed.world_size() > 1:
+                distributed.announce({
+                    "op": "generate", "ids": ids, "pad": pad,
+                    "prompt_len": prompt_len, "chunk": chunk,
+                    "steps": max_new_tokens, "sampling": sampling,
+                    "eos_id": eos_id})
+            return self._generate_prepared(ids, pad, prompt_len, chunk,
+                                           max_new_tokens, sampling,
+                                           generator, eos_id)
+
+    @torch.inference_mode()
+    def follow(self) -> int:
+        """A follower rank's loop under a mesh: serve each request rank
+        0 announces, with the same calls, until its stop header. Returns
+        the requests served."""
+        served = 0
+        while True:
+            hdr = distributed.await_header()
+            if hdr["op"] == "stop":
+                return served
+            self._generate_prepared(hdr["ids"], hdr["pad"],
+                                    hdr["prompt_len"], hdr["chunk"],
+                                    hdr["steps"], hdr["sampling"], None,
+                                    hdr["eos_id"])
+            served += 1
+
+    def stop_followers(self) -> None:
+        """Rank 0: end the followers' ``follow`` loops."""
+        if self._group is not None and distributed.world_size() > 1:
+            with self._mesh_lock:
+                distributed.announce({"op": "stop"}, wait_s=30.0)
+
+    def _generate_prepared(self, ids: np.ndarray, pad: np.ndarray,
+                           prompt_len: int, chunk: Optional[int],
+                           max_new_tokens: int, sampling: SamplingConfig,
+                           generator: Generators,
+                           eos_id: Optional[int]) -> GenerateResult:
+        """``generate`` past its validation and chunk alignment: what a
+        follower rank runs from rank 0's header."""
+        batch = ids.shape[0]
         pad_t = self._pad(pad)
         t0 = time.perf_counter()
         last, cache = self._prefill_last(ids, pad_t, chunk)
-        token = select_token(last, sampling, generator)
+        token = self._select(last, sampling, generator)
         _sync(self.device)
         t1 = time.perf_counter()
         tracing.record("prefill", t0, t1, batch=batch,
@@ -644,7 +822,9 @@ class DecodeEngine:
         t1 = time.perf_counter()
         batch = ids.shape[0]
         # the cache is this call's for the whole decode
-        mem_h = graftmem.track(self, "cache", "engine_cache", cache)
+        mem_h = graftmem.track(
+            self, "tp_cache" if self._mesh_mode == "tp" else "cache",
+            "engine_cache", cache)
         parts = [token[:, None]]
         segments = 0
         done = None if eos_id is None else (token == eos_id)

@@ -94,6 +94,17 @@ the spec engine, or with a batcher carries the ``SamplingConfig.spec``
 flag into spec-only rounds and batches; with a prefix store the store
 decides per request. ``/healthz`` serves ``spec_decode_stats``.
 
+``PP_DECODE``, ``TP_DECODE`` and ``EP_DECODE`` decode over the ranks of
+a ``torch.distributed`` process group (``parallel.distributed``; the
+JAX app's device count is the group's size here): the pipelined decoder
+(``parallel.ppdecode``, one stage a rank, int8 stages and MAX_BATCH
+composing), the tensor-parallel engine (dense families) and the
+expert-parallel engine (MoE), each ``DecodeEngine(mesh=)``. Every rank
+builds the app; rank 0 serves, and ``app.mesh_runner.follow()`` runs
+the others until rank 0's ``stop_followers``. The guards and their
+messages are the JAX app's (``check_mesh``). ``/healthz`` reports the
+three knobs and, with ``GRAFTSHARD=1``, the placement auditor.
+
 Each request draws from its own generator, seeded by its ``seed``, so a
 seeded request replays whether it ran alone or in a batch; a batched
 request waits at most ``GENERATE_TIMEOUT_S`` and then answers 503.
@@ -149,6 +160,7 @@ from ..models import (is_partitionable, is_stage_partitionable,
                       is_window_independent)
 from ..models.gpt2 import map_params
 from ..ops import cuda_build
+from ..parallel import distributed
 from ..parallel import partition as P_
 from ..parallel.pipeline import PipelineRunner
 from ..runtime.batcher import BatchingEngine
@@ -159,8 +171,8 @@ from ..runtime.kv_pool import GraftsanError, KVBlockPool, PagedKVRunner
 from ..runtime.kv_tier import HostKVTier
 from ..runtime.prefix_cache import PrefixCachingEngine
 from ..runtime.spec_decode import SpecDecodeEngine
-from ..utils import (graftfault, graftmem, graftscope, grafttime,
-                     grafttrend, graftwatch, tracing)
+from ..utils import (graftfault, graftmem, graftscope, graftshard,
+                     grafttime, grafttrend, graftwatch, tracing)
 from ..utils.config import ServingConfig, from_env
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.graftnum import regime_of
@@ -335,7 +347,10 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
             "DISPATCH=remote requires the dense GPT-2 stage-shard "
             f"topology; {type(config).__name__} models serve with "
             "DISPATCH=local")
+    # the process group's ranks stand where the JAX app counts devices
+    world = distributed.world_size()
     check_batching(cfg, config)
+    check_mesh(cfg, config, stageable, world)
     if kv_pool is not None:
         if remote or cfg.shard_role != "coordinator":
             raise ValueError("kv_pool injection applies to the "
@@ -346,6 +361,9 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
                              "the serving composition")
 
     runner = engine = prefix = spec = switcher = None
+    # a mesh engine or the pipelined decoder: rank 0 serves, every other
+    # rank follows it (``app.mesh_runner.follow``)
+    mesh_runner = None
     decode_kernel = None
     decode_stages = len(cfg.boundaries) + 1
     if cfg.shard_role == "coordinator" and not remote:
@@ -361,11 +379,44 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
             decode_stages = 1
         elif not stageable:
             # MoE's expert tree is not stage-partitionable: the whole
-            # model decodes unstaged, in every dtype
+            # model decodes unstaged, in every dtype; EP_DECODE splits the
+            # expert stack over an ep axis of the ranks (validated above)
+            mesh = None
+            if cfg.ep_decode:
+                from ..parallel.spmd import make_mesh
+                distributed.ensure_initialized(dev)
+                ep_size = min(world, config.n_experts)
+                mesh = make_mesh({"ep": ep_size}, list(range(ep_size)))
             engine = DecodeEngine(params, config, max_seq=cfg.max_seq,
                                   dtype=cfg.inference_dtype, device=dev,
-                                  prefill_chunk=pchunk)
+                                  prefill_chunk=pchunk, mesh=mesh)
+            mesh_runner = engine if mesh is not None else None
             decode_stages = 1
+        elif cfg.pp_decode:
+            # one stage a rank, the activation handed from rank to rank
+            # (parallel.ppdecode); int8 stages, uneven BOUNDARIES and
+            # MAX_BATCH > 1 (the batcher wraps below) compose
+            from ..parallel.ppdecode import PipelinedDecoder
+            from ..parallel.spmd import make_mesh
+            distributed.ensure_initialized(dev)
+            n_st = len(cfg.boundaries) + 1
+            engine = PipelinedDecoder(
+                params, config, make_mesh({"pp": n_st}, list(range(n_st))),
+                max_seq=cfg.max_seq, dtype=cfg.inference_dtype,
+                boundaries=list(cfg.boundaries), device=dev)
+            mesh_runner = engine
+        elif cfg.tp_decode:
+            # Megatron slices and a head-sharded KV cache over every
+            # rank (runtime.engine._place_tp_params); composes with
+            # MAX_BATCH (the batcher wraps below) and PREFILL_CHUNK
+            from ..parallel.spmd import make_mesh
+            distributed.ensure_initialized(dev)
+            engine = DecodeEngine(params, config, max_seq=cfg.max_seq,
+                                  dtype=cfg.inference_dtype, device=dev,
+                                  prefill_chunk=pchunk,
+                                  mesh=make_mesh({"tp": world}))
+            mesh_runner = engine
+            decode_stages = 1  # unstaged (tensor axis, not stage axis)
         elif cfg.kv_pool_blocks > 0:
             # paged storage gathers and scatters whole-model cache rows,
             # so the engine runs unstaged, on the plain cache; int8 takes
@@ -463,6 +514,9 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
             "kv_block_size": cfg.kv_block_size,
             "kv_pool_dtype": cfg.kv_pool_dtype,
             "kv_host_blocks": cfg.kv_host_blocks,
+            "pp_decode": cfg.pp_decode,
+            "ep_decode": cfg.ep_decode,
+            "tp_decode": cfg.tp_decode,
             # the fleet role, and the prefix chunk above is the width the
             # router's affinity keys must match
             "fleet_role": cfg.fleet_role,
@@ -511,8 +565,18 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
                 "graftmem byte conservation violated: component sum "
                 f"{mem['components']} disagrees with ledger total "
                 f"{mem['total_bytes']}")
+        # the live placement auditor (GRAFTSHARD=1): its counters, and a
+        # violation that slipped past the raise path answers 500
+        shard_status = graftshard.status()
+        if shard_status["enabled"]:
+            shard_status["audit"] = graftshard.audit()
+            if shard_status["audit"]:
+                raise AssertionError(
+                    "graftshard placement contract violated: "
+                    f"{shard_status['audit']}")
         return {
             "status": "ok",
+            "graftshard": shard_status,
             **_topology(),
             "trend": trend_reducer.health_view(),
             "kernel_launches": cuda_build.launch_counts(),
@@ -1054,6 +1118,9 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
     app.trend_reducer = trend_reducer
     # continuous mode's switcher (its plans, certified shapes, journal)
     app.plan_switcher = switcher
+    # PP/TP/EP_DECODE: the decoder whose follow loop the other ranks run
+    # and whose stop_followers rank 0 calls at shutdown
+    app.mesh_runner = mesh_runner
     return app
 
 
@@ -1136,6 +1203,66 @@ def check_shared_pool(kv_pool: KVBlockPool, engine: DecodeEngine,
             "storage")
 
 
+def check_mesh(cfg: ServingConfig, config, stageable: bool,
+               world: int) -> None:
+    """The JAX app's TP_DECODE and PP_DECODE refusals, word for word,
+    with the process group's ranks where it counts devices; then the
+    port's own: a pipeline or an ep axis spans every rank (a rank
+    outside it would neither serve nor follow)."""
+    local = cfg.shard_role == "coordinator" and cfg.dispatch == "local"
+    if cfg.tp_decode:
+        if not local:
+            raise ValueError("TP_DECODE applies to the coordinator's local "
+                             "decode path only")
+        if hasattr(config, "n_experts"):
+            raise ValueError(
+                "TP_DECODE shards dense-family projections; MoE models "
+                "shard their expert axis via EP_DECODE instead")
+        if (cfg.pp_decode or cfg.ep_decode or cfg.spec_decode > 0
+                or cfg.prefix_cache > 0):
+            raise ValueError(
+                "TP_DECODE composes with MAX_BATCH and PREFILL_CHUNK "
+                "only; PP_DECODE/EP_DECODE/SPEC_DECODE/PREFIX_CACHE own "
+                "other decode programs")
+        if cfg.inference_dtype == "int8":
+            raise ValueError(
+                "TP_DECODE runs fp32/bf16 (the int8 streaming matmuls "
+                "are unpartitioned Pallas kernels GSPMD cannot split)")
+        kv_heads = getattr(config, "n_kv_head", config.n_head)
+        if config.n_head % world or kv_heads % world:
+            raise ValueError(
+                f"TP_DECODE: this pod's {world} devices must divide "
+                f"n_head={config.n_head} and n_kv_head={kv_heads} "
+                "(attention shards over whole heads)")
+    if cfg.pp_decode:
+        if not local:
+            raise ValueError("PP_DECODE applies to the coordinator's local "
+                             "decode path only")
+        if not stageable:
+            raise ValueError(
+                f"PP_DECODE requires a stage-partitionable family; "
+                f"{type(config).__name__} models decode unstaged")
+        if cfg.spec_decode > 0 or cfg.prefix_cache > 0 or cfg.prefill_chunk > 0:
+            raise ValueError(
+                "PP_DECODE composes with MAX_BATCH>1 and "
+                "INFERENCE_DTYPE=int8; SPEC_DECODE, PREFIX_CACHE, and "
+                "PREFILL_CHUNK own the single-device engine's programs")
+        n_stages_cfg = len(cfg.boundaries) + 1
+        if world < n_stages_cfg:
+            raise ValueError(
+                f"PP_DECODE needs >= {n_stages_cfg} devices (one per "
+                f"stage); this pod sees {world}")
+        if world > n_stages_cfg:
+            raise ValueError(
+                f"PP_DECODE runs one stage a rank: BOUNDARIES give "
+                f"{n_stages_cfg} stages, the process group has {world} "
+                "ranks")
+    if cfg.ep_decode and world > config.n_experts:
+        raise ValueError(
+            f"EP_DECODE splits n_experts={config.n_experts} over every "
+            f"rank; the process group has {world} ranks")
+
+
 def check_batching(cfg: ServingConfig, config) -> None:
     """The JAX app's startup refusals that concern the dtype, batching,
     chunked-prefill, prefix-cache, paged-pool and speculation knobs: each
@@ -1154,10 +1281,32 @@ def check_batching(cfg: ServingConfig, config) -> None:
         raise ValueError(
             f"PREFIX_CACHE={cfg.prefix_cache} applies to the "
             "coordinator's local decode path only")
+    if cfg.ep_decode:
+        if not local:
+            raise ValueError("EP_DECODE applies to the coordinator's local "
+                             "decode path only")
+        if not hasattr(config, "n_experts"):
+            raise ValueError(
+                f"EP_DECODE shards MoE expert weights; "
+                f"{type(config).__name__} models have no expert axis")
+        if cfg.pp_decode or cfg.spec_decode > 0 or cfg.prefix_cache > 0:
+            raise ValueError(
+                "EP_DECODE composes with MAX_BATCH only; PP_DECODE, "
+                "SPEC_DECODE, and PREFIX_CACHE own other decode programs "
+                "(and MoE prefills monolithically — no PREFILL_CHUNK)")
+        ep_size = min(distributed.world_size(), config.n_experts)
+        if config.n_experts % ep_size:
+            raise ValueError(
+                f"EP_DECODE: n_experts={config.n_experts} not divisible "
+                f"by the {ep_size}-device ep axis")
     if cfg.kv_pool_blocks > 0:
         if not local:
             raise ValueError("KV_POOL_BLOCKS applies to the coordinator's "
                              "local decode path only")
+        if cfg.pp_decode or cfg.ep_decode or cfg.tp_decode:
+            raise ValueError(
+                "KV_POOL_BLOCKS drives the single-device engine's paged "
+                "storage; PP/EP/TP_DECODE keep contiguous caches")
         if cfg.prefill_chunk > 0:
             raise ValueError(
                 "KV_POOL_BLOCKS prefills monolithically (one block "
@@ -1187,10 +1336,12 @@ def check_batching(cfg: ServingConfig, config) -> None:
         if not local:
             raise ValueError("BATCH_MODE=iter applies to the coordinator's "
                              "local decode path only")
-        if cfg.prefill_chunk > 0:
+        if (cfg.prefill_chunk > 0 or cfg.pp_decode
+                or cfg.ep_decode or cfg.tp_decode):
             raise ValueError(
-                "BATCH_MODE=iter drives the single-device engine's segment "
-                "loop; PREFILL_CHUNK uses BATCH_MODE=admission")
+                "BATCH_MODE=iter drives the single-device engine's "
+                "segment loop; PREFILL_CHUNK/PP/EP/TP_DECODE use "
+                "BATCH_MODE=admission")
         if not is_window_independent(config):
             raise ValueError(
                 "BATCH_MODE=iter requires window-independent routing "

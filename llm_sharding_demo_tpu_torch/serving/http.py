@@ -6,8 +6,11 @@ pydantic): a route table, a threaded ``http.server`` runner, and an
 in-process ``TestClient`` that runs the exact dispatch path.
 
 POST handlers may annotate one parameter with a dataclass; the JSON body
-is validated into it (HTTP 422 with ``{"detail": [...]}`` on failure,
-unknown keys ignored). A handler that declares a ``headers`` parameter
+is validated into it with pydantic v2's lax coercions, as the JAX app's
+``model_validate`` does (numeric strings and integral floats to int,
+numeric strings to float, ``1``/``"yes"``/``"off"``... to bool), and
+answers HTTP 422 with pydantic's ``{"detail": [{"type", "loc", "msg",
+"input"}, ...]}`` on failure; unknown keys are ignored. A handler that declares a ``headers`` parameter
 receives the request headers as a dict with lower-cased names, one that
 declares ``query`` the query string's parameters. Handlers return a
 payload (200), ``(status, payload)`` or ``(status, payload, headers)``:
@@ -20,6 +23,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import math
+import re
 import threading
 import typing
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -33,43 +38,149 @@ class ValidationError(Exception):
         self.errors = errors
 
 
-def _check_type(value, tp, loc: list, errors: List[dict]) -> None:
+# pydantic v2's lax-mode coercions for the field types the request
+# models use (int, float, bool, str, Optional[...], nested List[...]):
+# what the JAX app's ``model_validate`` accepts, converts and refuses,
+# with its error ``type``, ``loc`` (field first), ``msg`` and ``input``
+_INT_STR = re.compile(r"[+-]?[0-9]+(_[0-9]+)*(\.0+)?")
+_FLOAT_STR = re.compile(
+    r"[+-]?(([0-9]+(_[0-9]+)*)?\.?[0-9]+(_[0-9]+)*|[0-9]+(_[0-9]+)*\.)"
+    r"([eE][+-]?[0-9]+)?|[+-]?(inf|infinity|nan)", re.IGNORECASE)
+_BOOL_STR = {"0": False, "off": False, "f": False, "false": False,
+             "n": False, "no": False, "1": True, "on": True, "t": True,
+             "true": True, "y": True, "yes": True}
+# an integral float or an int past the i64 range is out of pydantic's
+# int-from-float conversion and of its bool table
+_I64 = 2 ** 63
+_MSG = {
+    "int_type": "Input should be a valid integer",
+    "int_parsing": ("Input should be a valid integer, unable to parse "
+                    "string as an integer"),
+    "int_from_float": ("Input should be a valid integer, got a number with "
+                       "a fractional part"),
+    "int_parsing_size": ("Unable to parse input string as an integer, "
+                         "exceeded maximum size"),
+    "finite_number": "Input should be a finite number",
+    "float_type": "Input should be a valid number",
+    "float_parsing": ("Input should be a valid number, unable to parse "
+                      "string as a number"),
+    "bool_type": "Input should be a valid boolean",
+    "bool_parsing": ("Input should be a valid boolean, unable to interpret "
+                     "input"),
+    "string_type": "Input should be a valid string",
+    "list_type": "Input should be a valid list",
+}
+
+
+class _Invalid(Exception):
+    def __init__(self, kind: str):
+        super().__init__(kind)
+        self.kind = kind
+
+
+def _as_int(v):
+    if isinstance(v, bool):
+        return int(v)
+    if isinstance(v, int):
+        return v
+    if isinstance(v, float):
+        if not math.isfinite(v):
+            raise _Invalid("finite_number")
+        if v != int(v):
+            raise _Invalid("int_from_float")
+        if abs(v) >= _I64:
+            raise _Invalid("int_parsing_size")
+        return int(v)
+    if isinstance(v, str):
+        t = v.strip()
+        if not t.isascii() or not _INT_STR.fullmatch(t):
+            raise _Invalid("int_parsing")
+        return int(t.replace("_", "").split(".")[0])
+    raise _Invalid("int_type")
+
+
+def _as_float(v):
+    if isinstance(v, (bool, int, float)):
+        return float(v)
+    if isinstance(v, str):
+        t = v.strip()
+        if not t.isascii() or not _FLOAT_STR.fullmatch(t):
+            raise _Invalid("float_parsing")
+        return float(t.replace("_", ""))
+    raise _Invalid("float_type")
+
+
+def _as_bool(v):
+    if isinstance(v, bool):
+        return v
+    if isinstance(v, str):
+        if v.lower() in _BOOL_STR:
+            return _BOOL_STR[v.lower()]
+        raise _Invalid("bool_parsing")
+    if isinstance(v, float):
+        if not math.isfinite(v) or v != int(v) or abs(v) >= _I64:
+            raise _Invalid("bool_type")
+        v = int(v)
+    if isinstance(v, int):
+        if v in (0, 1):
+            return bool(v)
+        raise _Invalid("bool_parsing" if abs(v) < _I64 else "bool_type")
+    raise _Invalid("bool_type")
+
+
+def _as_str(v):
+    if isinstance(v, str):
+        return v
+    raise _Invalid("string_type")
+
+
+_SCALARS = {int: _as_int, float: _as_float, bool: _as_bool, str: _as_str}
+
+
+def _coerce(value, tp, loc: list, errors: List[dict]):
+    """``value`` validated into ``tp`` the way pydantic's lax mode does;
+    a failure appends its error entry (and the returned value is
+    unused)."""
     origin = typing.get_origin(tp)
     if origin is typing.Union:
         args = typing.get_args(tp)
         if value is None and type(None) in args:
-            return
+            return None
         inner = [a for a in args if a is not type(None)]
         if len(inner) == 1:
-            _check_type(value, inner[0], loc, errors)
-            return
-    if origin in (list, List):
+            return _coerce(value, inner[0], loc, errors)
+    if tp is list or origin in (list, List):
         if not isinstance(value, list):
-            errors.append({"loc": loc, "msg": "Input should be a valid list"})
-            return
+            errors.append(_entry("list_type", loc, value))
+            return value
         (item_tp,) = typing.get_args(tp) or (Any,)
-        for i, v in enumerate(value):
-            _check_type(v, item_tp, loc + [i], errors)
-        return
-    ok = {
-        int: lambda v: isinstance(v, int) and not isinstance(v, bool),
-        float: lambda v: (isinstance(v, (int, float))
-                          and not isinstance(v, bool)),
-        str: lambda v: isinstance(v, str),
-        bool: lambda v: isinstance(v, bool),
-        list: lambda v: isinstance(v, list),
-    }.get(tp, lambda v: True)
-    if not ok(value):
-        name = getattr(tp, "__name__", str(tp))
-        errors.append({"loc": loc, "msg": f"Input should be a valid {name}"})
+        return [_coerce(v, item_tp, loc + [i], errors)
+                for i, v in enumerate(value)]
+    conv = _SCALARS.get(tp)
+    if conv is None:
+        return value
+    try:
+        return conv(value)
+    except _Invalid as e:
+        errors.append(_entry(e.kind, loc, value))
+        return value
+
+
+def _entry(kind: str, loc: list, value) -> dict:
+    return {"type": kind, "loc": loc, "msg": _MSG[kind], "input": value}
 
 
 def validate(model, payload):
-    """JSON payload -> an instance of the dataclass ``model``; raises
-    ``ValidationError`` with one entry per bad or missing field."""
+    """JSON payload -> an instance of the dataclass ``model`` with
+    pydantic's lax coercions (numeric strings, integral floats, bools as
+    ints, its bool spellings); raises ``ValidationError`` with one entry
+    per bad or missing field, in field order."""
     if not isinstance(payload, dict):
-        raise ValidationError([{"loc": ["body"],
-                                "msg": "Input should be a valid dictionary"}])
+        raise ValidationError([{
+            "type": "model_type", "loc": [],
+            "msg": ("Input should be a valid dictionary or instance of "
+                    f"{model.__name__}"),
+            "input": payload, "ctx": {"class_name": model.__name__}}])
     hints = typing.get_type_hints(model)
     errors: List[dict] = []
     kwargs = {}
@@ -77,14 +188,11 @@ def validate(model, payload):
         if f.name not in payload:
             if (f.default is dataclasses.MISSING
                     and f.default_factory is dataclasses.MISSING):
-                errors.append({"loc": ["body", f.name],
-                               "msg": "Field required"})
+                errors.append({"type": "missing", "loc": [f.name],
+                               "msg": "Field required", "input": payload})
             continue
-        value = payload[f.name]
-        _check_type(value, hints[f.name], ["body", f.name], errors)
-        if hints[f.name] is float and isinstance(value, int):
-            value = float(value)
-        kwargs[f.name] = value
+        kwargs[f.name] = _coerce(payload[f.name], hints[f.name], [f.name],
+                                 errors)
     if errors:
         raise ValidationError(errors)
     return model(**kwargs)

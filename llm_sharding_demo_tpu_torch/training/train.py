@@ -35,9 +35,9 @@ from ..models import family_module, is_moe
 from ..models.gpt2 import Params
 from ..utils.device import DeviceLike, resolve_device
 
-MESH_ITEM = ("ROADMAP Queue 1 item 13 (multi-device: dp/tp/sp meshes over "
-             "torch.distributed)")
-PIPELINE_ITEM = ("ROADMAP Queue 1 items 13-14 (pipeline-parallel training, "
+MESH_ITEM = ("ROADMAP Queue 1 item 14 (multi-device training: dp/tp/sp "
+             "meshes over torch.distributed)")
+PIPELINE_ITEM = ("ROADMAP Queue 1 item 14 (pipeline-parallel training, "
                  "GPipe and 1F1B, on several cards)")
 
 _DECAYED = ("kernel", "wte", "wpe")

@@ -19,7 +19,12 @@ planning's ``AUTO_PLAN_CONTINUOUS`` (switch between the solo paged plan
 and the pooled iteration batcher between request waves,
 ``utils.graftwatch``), ``AUTO_PLAN_TRAFFIC`` (the traffic classes its
 plans are certified against) and ``AUTO_PLAN_JOURNAL`` (a bench journal
-whose rows calibrate its byte weights), with the JAX package's guards.
+whose rows calibrate its byte weights), and multi-device decode's
+``PP_DECODE`` (one pipeline stage a rank, ``parallel.ppdecode``),
+``TP_DECODE`` (dense families, tensor-parallel) and ``EP_DECODE`` (MoE,
+expert-parallel), with the JAX package's guards; a multi-rank server is
+one process a rank, joined by ``COORDINATOR_ADDRESS``,
+``NUM_PROCESSES`` and ``PROCESS_ID`` (``parallel.distributed``).
 Every other knob the JAX package accepts refuses at startup when it is
 set to anything but its default, naming the ROADMAP item that will port
 it: a knob ignored in silence would let a deployment believe it runs a
@@ -44,13 +49,9 @@ def _is_off(raw: str) -> bool:
 
 
 # knob -> (the ROADMAP item that ports it, "is this value the default?")
-_MULTI = "ROADMAP Queue 1 item 13 (multi-device decode)"
 _PLAN = ("ROADMAP Queue 1 item 21 (a cost model over the port's own "
          "engines for the static planner)")
 REFUSED_KNOBS: Dict[str, Tuple[str, Callable[[str], bool]]] = {
-    "PP_DECODE": (_MULTI, _is_off),
-    "TP_DECODE": (_MULTI, _is_off),
-    "EP_DECODE": (_MULTI, _is_off),
     "AUTO_PLAN": (_PLAN, _is_off),
 }
 
@@ -127,6 +128,18 @@ class ServingConfig:
     # ici_byte_weight_calibration rows calibrate the planner's byte
     # weights at start-up (graftwatch.fit_cost_weights); empty: a-priori
     auto_plan_journal: str = ""
+    # pipelined decode (parallel.ppdecode): one stage a rank of the
+    # process group (len(BOUNDARIES) + 1 ranks), the activation handed
+    # from rank to rank; composes with MAX_BATCH > 1 and int8 stages
+    pp_decode: bool = False
+    # tensor-parallel decode (dense families): Megatron slices of every
+    # block and a head-sharded KV cache over all ranks, the row-parallel
+    # products summed over them; the world must divide n_head and
+    # n_kv_head; fp32/bf16
+    tp_decode: bool = False
+    # expert-parallel decode (MoE): E / world experts a rank, the router
+    # whole, the experts' outputs summed over the ranks
+    ep_decode: bool = False
 
     def __post_init__(self):
         if self.shard_role not in VALID_ROLES:
@@ -236,7 +249,9 @@ class ServingConfig:
                     "scheduling); it requires KV_POOL_BLOCKS > 0, "
                     "MAX_BATCH > 1 and BATCH_MODE=iter")
             if (self.spec_decode > 0 or self.prefix_cache > 0
-                    or self.prefill_chunk > 0 or self.kv_pool_dtype):
+                    or self.prefill_chunk > 0 or self.pp_decode
+                    or self.tp_decode or self.ep_decode
+                    or self.kv_pool_dtype):
                 raise ValueError(
                     "AUTO_PLAN_CONTINUOUS certifies exactly the "
                     "solo-paged and pooled-iter program sets; "
@@ -366,4 +381,7 @@ def from_env() -> ServingConfig:
         auto_plan_traffic=os.environ.get("AUTO_PLAN_TRAFFIC", ""),
         auto_plan_continuous=_env_bool("AUTO_PLAN_CONTINUOUS"),
         auto_plan_journal=os.environ.get("AUTO_PLAN_JOURNAL", ""),
+        pp_decode=_env_bool("PP_DECODE"),
+        tp_decode=_env_bool("TP_DECODE"),
+        ep_decode=_env_bool("EP_DECODE"),
     )

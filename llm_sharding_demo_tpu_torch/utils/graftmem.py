@@ -386,15 +386,25 @@ STATE = MemoryLedger()
 
 
 def track(owner: Any, holding: str, component: str, value: Any) -> int:
-    return STATE.track(owner, holding, component, value)
+    handle = STATE.track(owner, holding, component, value)
+    # the live placement auditor (utils/graftshard, GRAFTSHARD=1) checks
+    # the value here, the one moment it is in hand; unarmed it is one
+    # env check
+    from . import graftshard
+    graftshard.observe_track(owner, holding, component, value, handle)
+    return handle
 
 
 def update(handle: int, value: Any) -> None:
     STATE.update(handle, value)
+    from . import graftshard
+    graftshard.observe_update(handle, value)
 
 
 def release(handle: int) -> None:
     STATE.release(handle)
+    from . import graftshard
+    graftshard.observe_release(handle)
 
 
 def component_bytes() -> Dict[str, int]:

@@ -108,7 +108,9 @@ def test_port_imports_with_jax_blocked():
                  "models.hf_convert", "utils.checkpoint",
                  "tools.convert_hf", "serving.loader", "utils.grafttime",
                  "utils.grafttrend", "loadgen.profiles", "utils.graftwatch",
-                 "utils.graftsched", "utils.costmodel"):
+                 "utils.graftsched", "utils.costmodel",
+                 "parallel.distributed", "parallel.spmd",
+                 "parallel.ppdecode", "utils.graftshard"):
         assert f"llm_sharding_demo_tpu_torch.{name}" in modules
     code = "; ".join([
         "import sys",

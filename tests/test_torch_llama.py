@@ -181,7 +181,7 @@ def test_config_and_family_registry():
     # "pallas" (the flash-attention kernels) is ported; "ring" refuses
     assert llama.LlamaConfig(attention_impl="pallas").attention_impl == \
         "pallas"
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 14"):
         llama.LlamaConfig(attention_impl="ring")
     with pytest.raises(ValueError):
         llama.LlamaConfig(attention_impl="flash")

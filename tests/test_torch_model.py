@@ -60,6 +60,35 @@ MAX_SEQ = 300
 RAGGED = [[5, 9, 2, 77, 30], [42, 3]]
 
 
+def np_moe_params(seed: int, std: float, dims: dict) -> dict:
+    """GPT-2-MoE params at ``dims`` as nested dicts of float32 numpy
+    arrays (the JAX package's layout), with non-trivial LN and bias
+    values."""
+    rng = np.random.default_rng(seed)
+    d, l, v = dims["n_embd"], dims["n_layer"], dims["vocab_size"]
+    e = dims["n_experts"]
+
+    def w(*shape, s=std, mean=0.0):
+        return (mean + s * rng.standard_normal(shape)).astype(np.float32)
+
+    return {
+        "wte": w(v, d), "wpe": w(dims["n_positions"], d),
+        "blocks": {
+            "ln_1": {"scale": w(l, d, s=0.1, mean=1.0), "bias": w(l, d, s=0.02)},
+            "attn": {"c_attn": {"kernel": w(l, d, 3 * d), "bias": w(l, 3 * d, s=0.02)},
+                     "c_proj": {"kernel": w(l, d, d), "bias": w(l, d, s=0.02)}},
+            "ln_2": {"scale": w(l, d, s=0.1, mean=1.0), "bias": w(l, d, s=0.02)},
+            "moe": {"router": {"kernel": w(l, d, e, s=0.3)},
+                    "experts": {
+                        "c_fc": {"kernel": w(l, e, d, 4 * d),
+                                 "bias": w(l, e, 4 * d, s=0.02)},
+                        "c_proj": {"kernel": w(l, e, 4 * d, d),
+                                   "bias": w(l, e, d, s=0.02)}}},
+        },
+        "ln_f": {"scale": w(d, s=0.1, mean=1.0), "bias": w(d, s=0.02)},
+    }
+
+
 def np_gpt2_params(seed: int = 0, std: float = 0.04, dims=None) -> dict:
     """GPT-2 params as nested dicts of float32 numpy arrays (the JAX
     package's layout), with non-trivial LN and bias values."""

@@ -42,6 +42,7 @@ from llm_sharding_demo_tpu_torch.utils import graftnum
 from llm_sharding_demo_tpu_torch.utils.config import ServingConfig
 from test_torch_model import (gc_between_modules,  # noqa: F401
                               gc_only_in_test_bodies)
+from test_torch_model import np_moe_params as model_np_moe_params
 
 # head_dim 64 and 256 positions: the "layer" kernel path applies
 DIMS = dict(vocab_size=256, n_positions=256, n_embd=128, n_layer=2,
@@ -51,32 +52,9 @@ NEAR_TIE = 1e-6
 
 
 def np_moe_params(seed: int = 0, std: float = 0.04, dims=None) -> dict:
-    """MoE params as nested dicts of float32 numpy arrays (the JAX
-    package's layout), with non-trivial LN and bias values."""
-    dims = dims or DIMS
-    rng = np.random.default_rng(seed)
-    d, l, v = dims["n_embd"], dims["n_layer"], dims["vocab_size"]
-    e = dims["n_experts"]
-
-    def w(*shape, s=std, mean=0.0):
-        return (mean + s * rng.standard_normal(shape)).astype(np.float32)
-
-    return {
-        "wte": w(v, d), "wpe": w(dims["n_positions"], d),
-        "blocks": {
-            "ln_1": {"scale": w(l, d, s=0.1, mean=1.0), "bias": w(l, d, s=0.02)},
-            "attn": {"c_attn": {"kernel": w(l, d, 3 * d), "bias": w(l, 3 * d, s=0.02)},
-                     "c_proj": {"kernel": w(l, d, d), "bias": w(l, d, s=0.02)}},
-            "ln_2": {"scale": w(l, d, s=0.1, mean=1.0), "bias": w(l, d, s=0.02)},
-            "moe": {"router": {"kernel": w(l, d, e, s=0.3)},
-                    "experts": {
-                        "c_fc": {"kernel": w(l, e, d, 4 * d),
-                                 "bias": w(l, e, 4 * d, s=0.02)},
-                        "c_proj": {"kernel": w(l, e, 4 * d, d),
-                                   "bias": w(l, e, d, s=0.02)}}},
-        },
-        "ln_f": {"scale": w(d, s=0.1, mean=1.0), "bias": w(d, s=0.02)},
-    }
+    """``test_torch_model.np_moe_params`` at this module's DIMS unless
+    ``dims`` is given."""
+    return model_np_moe_params(seed, std, dims or DIMS)
 
 
 def build(tree, **over):
@@ -506,7 +484,7 @@ def test_moe_train_steps_match_jax():
     for path, value in want.items():
         np.testing.assert_allclose(got[path].numpy(), value, atol=1e-5,
                                    rtol=0, err_msg=str(path))
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 14"):
         train.MoETrainStep(cfg, train.adamw(), mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="MoETrainStep"):
         train.TrainStep(cfg, train.adamw(), device="cpu")

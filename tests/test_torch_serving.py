@@ -6,6 +6,8 @@ byte tokenizer; greedy ``/generate`` JSON, the role guards and the
 port does not serve yet refuse at startup.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -144,7 +146,8 @@ def test_request_validation(weights):
     ("FLEET_ROLE", "decode"), ("CHECKPOINT_DIR", "/ckpt"),
     ("AUTO_PLAN_JOURNAL", "/j"),
 ])
-def test_unported_knobs_refuse_at_startup(monkeypatch, knob, value):
+def test_unported_knobs_refuse_at_startup(weights, monkeypatch, knob,
+                                          value):
     """Each knob the port does not serve refuses, naming its ROADMAP item
     (static AUTO_PLAN: item 21); CHECKPOINT_DIR is served now
     (checkpoints are ported): it parses into the config instead. So are
@@ -152,8 +155,39 @@ def test_unported_knobs_refuse_at_startup(monkeypatch, knob, value):
     AUTO_PLAN_JOURNAL (continuous planning is ported): each parses, and
     without its companions (the pool-backed prefix store; the pooled
     iter composition; continuous mode) raises the JAX config's
-    validation message, naming no ROADMAP item."""
+    validation message, naming no ROADMAP item. PP_DECODE, TP_DECODE and
+    EP_DECODE (multi-device decode is ported) parse, and without their
+    companions (speculation off; fp32/bf16; an MoE model) the app raises
+    the JAX app's guard message; PP_DECODE on a world of one rank raises
+    the JAX guard's device count."""
     monkeypatch.setenv(knob, value)
+    multi = {"PP_DECODE": ({"SPEC_DECODE": "4"}, "own the single-device"),
+             "TP_DECODE": ({"INFERENCE_DTYPE": "int8"}, "fp32/bf16"),
+             "EP_DECODE": ({}, "have no expert axis")}
+    if knob in multi:
+        assert knob not in tconfig.REFUSED_KNOBS
+        assert getattr(tconfig.from_env(), knob.lower()) is True
+        extra, needle = multi[knob]
+        for k, v in extra.items():
+            monkeypatch.setenv(k, v)
+        (jcfg, jp), (tcfg, tp) = weights
+        with pytest.raises(ValueError) as e:
+            create_app(tconfig.from_env(), model=(tcfg, tp),
+                       tokenizer=ByteTokenizer(), device="cpu")
+        with pytest.raises(ValueError) as jerr:
+            jcreate_app(jfrom_env(), model=(jcfg, jp),
+                        tokenizer=JByteTokenizer())
+        assert str(e.value) == str(jerr.value)
+        assert needle in str(e.value)
+        assert "ROADMAP Queue 1 item" not in str(e.value)
+        if knob == "PP_DECODE":
+            monkeypatch.delenv("SPEC_DECODE")
+            with pytest.raises(ValueError) as e:
+                create_app(tconfig.from_env(), model=(tcfg, tp),
+                           tokenizer=ByteTokenizer(), device="cpu")
+            assert str(e.value) == ("PP_DECODE needs >= 2 devices (one per "
+                                    "stage); this pod sees 1")
+        return
     if knob == "CHECKPOINT_DIR":
         assert knob not in tconfig.REFUSED_KNOBS
         assert tconfig.from_env().checkpoint_dir == value
@@ -353,3 +387,74 @@ def test_bpe_tokenizer_round_trips(tmp_path):
     assert tok.encode("hi t") == [4, 5]
     assert tok.decode([4, 5]) == "hi t"
     assert ByteTokenizer().decode(ByteTokenizer().encode("héllo")) == "héllo"
+
+
+# pydantic's lax mode, as the JAX app validates bodies: (route, body)
+LAX_CASES = [
+    ("/generate", {"prompt": "ab", "max_new_tokens": "3", "mode": "greedy"}),
+    ("/generate", {"prompt": "ab", "max_new_tokens": 3.0, "mode": "greedy"}),
+    ("/generate", {"prompt": "ab", "max_new_tokens": True,
+                   "mode": "greedy"}),
+    ("/generate", {"prompt": "ab", "max_new_tokens": " 4 ", "top_k": "4.0",
+                   "mode": "greedy"}),
+    ("/generate", {"prompt": "ab", "max_new_tokens": 2, "mode": "greedy",
+                   "temperature": "0.6", "top_p": "1", "seed": "7"}),
+    ("/generate", {"prompt": "ab", "max_new_tokens": 2, "mode": "greedy",
+                   "stop_at_eos": 1, "eos_token_id": "5"}),
+    ("/generate", {"prompt": "ab", "max_new_tokens": 2, "mode": "greedy",
+                   "stop_at_eos": "true"}),
+    ("/generate", {"prompt": "ab", "max_new_tokens": 2, "mode": "greedy",
+                   "stop_at_eos": "OFF"}),
+    ("/generate", {"prompt": "ab", "max_new_tokens": 2, "mode": "greedy",
+                   "stop_at_eos": "y", "seed": None}),
+    ("/generate", {"prompt": "ab", "max_new_tokens": 20.5}),
+    ("/generate", {"prompt": "ab", "max_new_tokens": "2x"}),
+    ("/generate", {"prompt": "ab", "max_new_tokens": None}),
+    ("/generate", {"prompt": "ab", "max_new_tokens": [2]}),
+    ("/generate", {"prompt": "ab", "temperature": "hot"}),
+    ("/generate", {"prompt": "ab", "stop_at_eos": 2}),
+    ("/generate", {"prompt": "ab", "stop_at_eos": "maybe"}),
+    ("/generate", {"prompt": "ab", "stop_at_eos": 0.5}),
+    ("/generate", {"prompt": 5}),
+    ("/generate", {"max_new_tokens": 3}),
+    ("/generate", {"prompt": 1, "max_new_tokens": "z", "top_p": [],
+                   "seed": 1.5}),
+    ("/generate", [1, 2]),
+    ("/forward", {"input_ids": ["1", 2, True]}),
+    ("/forward", {"input_ids": [1.5, "x"]}),
+    ("/forward", {"input_ids": "1 2"}),
+]
+
+
+@pytest.fixture(scope="module")
+def lax_apps(weights):
+    return {role: clients(weights, role) for role in ("coordinator", "a")}
+
+
+@pytest.mark.parametrize("route,body", LAX_CASES)
+def test_lax_request_validation_matches_jax(lax_apps, route, body):
+    """The port's validator coerces what pydantic's lax mode coerces:
+    the same status as the JAX app, the same parsed values, and each 422
+    ``detail`` entry with pydantic's ``type``, ``loc``, ``msg`` and
+    ``input``."""
+    from llm_sharding_demo_tpu.serving import app as japp_mod
+    from llm_sharding_demo_tpu_torch.serving import http as thttp
+    jc, tc = lax_apps["coordinator" if route == "/generate" else "a"]
+    j, t = jc.post(route, json=body), tc.post(route, json=body)
+    assert t.status_code == j.status_code
+    if j.status_code == 422:
+        keys = ("type", "loc", "msg", "input")
+        assert [{k: d[k] for k in keys} for d in t.json()["detail"]] == [
+            {k: d[k] for k in keys} for d in j.json()["detail"]]
+        return
+    if route == "/forward":
+        np.testing.assert_allclose(t.json()["hidden_states"],
+                                   j.json()["hidden_states"], atol=1e-5)
+    else:
+        assert t.json() == j.json()
+    model, jmodel = {"/generate": (tapp.GenerateReq, japp_mod.GenerateReq),
+                     "/forward": (tapp.InputIDs, japp_mod.InputIDs)}[route]
+    parsed = dataclasses.asdict(thttp.validate(model, body))
+    assert parsed == jmodel.model_validate(body).model_dump()
+    assert all(type(v) is type(w) for v, w in zip(
+        parsed.values(), jmodel.model_validate(body).model_dump().values()))

@@ -188,7 +188,7 @@ def test_init_copies_and_step_updates_in_place():
 def test_refusals():
     jcfg, cfg = _configs("gpt2", "xla")
     opt = train.adamw()
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 14"):
         train.TrainStep(cfg, opt, mesh=object(), device="cpu")
     # the MoE step is ported: it runs (test_torch_moe holds it to the JAX
     # step) and refuses a mesh as TrainStep does
@@ -199,9 +199,9 @@ def test_refusals():
                                         .manual_seed(0)))
     _, ms, loss = mstep(mp, ms, _ids())
     assert ms["count"] == 1 and bool(torch.isfinite(loss))
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 14"):
         train.MoETrainStep(mcfg, opt, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="items 13-14"):
+    with pytest.raises(NotImplementedError, match="item 14"):
         train.GPipeTrainStep(cfg, opt, mesh=None, schedule="1f1b")
     with pytest.raises(TypeError, match="unknown model config type"):
         train.TrainStep(jcfg, opt, device="cpu")  # another package's config
