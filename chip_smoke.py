@@ -5617,6 +5617,348 @@ def mesh_worker(args) -> int:
     return 0
 
 
+# -- phase 18: mesh training ----------------------------------------------------
+
+TM_STEPS = 3
+TM_MICRO = 4            # pipeline microbatches: 4 of one row each
+TM_BOUNDARY = 6         # pp=2: two stages of six llama-124m blocks
+# each pipeline step's bf16 loss against the single-card bf16 step's,
+# relative (written into PERF.md before the first card run)
+TM_BF16_BAR = 1e-2
+TM_F32_LAYERS = 4       # the f32 meshes: full width, this depth
+TM_F32_SEQ = 512
+TM_F32_STEPS = 2
+
+
+def trainmesh_kernel_checks(smi: str) -> None:
+    """The flash kernels against their plain versions at the pipeline's
+    microbatch shape (bf16 [1, 12, 2048, 64]; ``graftnum.FLASH_POLICY``).
+    These launches are not the path's: its counts are taken in the
+    ranks."""
+    import torch
+
+    from llm_sharding_demo_tpu_torch.ops import flash_attention as FA
+    from llm_sharding_demo_tpu_torch.utils import graftnum
+
+    g = torch.Generator(device="cuda").manual_seed(22)
+    q, k, v, do = (torch.randn(1, H, FLASH_SEQ, HD, generator=g,
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    out, lse = FA.flash_forward(q, k, v)
+    delta = FA.flash_delta(out, do)
+    got = dict(out=out, lse=lse, dq=FA.flash_bwd_dq(q, k, v, do, lse, delta))
+    got["dk"], got["dv"] = FA.flash_bwd_dkv(q, k, v, do, lse, delta)
+    want = dict(zip(("out", "lse"), FA._forward_plain(q, k, v)))
+    want["dq"] = FA._bwd_dq_plain(q, k, v, do, lse, delta)
+    want["dk"], want["dv"] = FA._bwd_dkv_plain(q, k, v, do, lse, delta)
+    line = []
+    for name in got:
+        try:
+            rep = graftnum.compare_flash(name, got[name], want[name], "bfloat16")
+        except graftnum.GraftnumError as e:
+            raise SmokeError(f"trainmesh flash {name}: {e} ({e.report})")
+        line.append(f"{name} {rep['max_rel_err']:.2e}")
+    print(f"  [trainmesh] flash kernels at the microbatch shape bf16 B=1 "
+          f"H={H} S={FLASH_SEQ}, max error of the largest value: "
+          + ", ".join(line) + f" [{smi}]")
+
+
+def trainmesh_phase(smi: str) -> dict:
+    """Mesh training (module docstring, phase 18). Returns the flash
+    kernels' launches by run and rank."""
+    t0 = time.perf_counter()
+    trainmesh_kernel_checks(smi)
+    one = mesh_ranks("train-one", 1, "")[0]
+    two = mesh_ranks("train-two", 2, "")
+    want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    singles = one["single"]
+    spread = max(abs(a - b) for a, b in zip(singles[0]["losses"],
+                                            singles[1]["losses"]))
+    mesh = one["mesh"]
+    ref = singles[0]["losses"]
+    if spread == 0.0:
+        check(mesh["losses"] == ref,
+              f"trainmesh world 1: losses {mesh['losses']} not bit-equal to "
+              f"the single-card step's {ref}")
+    else:
+        gap = max(abs(a - b) for a, b in zip(mesh["losses"], ref))
+        check(gap <= spread, f"trainmesh world 1: losses {mesh['losses']} "
+                             f"past the single-card run-to-run spread "
+                             f"{spread} of {ref}")
+    for what, run in (("single card", singles[0]), ("single card again",
+                                                    singles[1]),
+                      ("world 1 over nccl", mesh)):
+        for i, got in enumerate(run["launches"]):
+            check({k: got[k] for k in want} == want,
+                  f"trainmesh {what} step {i}: launches {got}, expected "
+                  f"{want}")
+        print(f"  [trainmesh] llama-124m bf16 B=4 S={FLASH_SEQ} pallas remat, "
+              f"{what}: losses {run['losses']}, step ms "
+              f"{[round(t, 1) for t in run['ms']]}, peak "
+              f"{run['peak_gib']:.2f} GiB, launches a step "
+              f"{run['launches'][-1]} [{smi}]")
+    print(f"  [trainmesh] world 1: losses "
+          f"{'bit-equal to' if mesh['losses'] == ref else 'within the spread of'}"
+          f" the single-card step's (its run-to-run spread {spread}) [{smi}]")
+    per_rank = {"flash_fwd": 2 * TM_BOUNDARY * TM_MICRO,
+                "flash_bwd_dq": TM_BOUNDARY * TM_MICRO,
+                "flash_bwd_dkv": TM_BOUNDARY * TM_MICRO}
+    for sched in ("gpipe", "1f1b"):
+        for r, rec in enumerate(two):
+            run = rec[sched]
+            for i, got in enumerate(run["launches"]):
+                check({k: got[k] for k in per_rank} == per_rank,
+                      f"trainmesh {sched} pp=2 rank {r} step {i}: launches "
+                      f"{got}, expected {per_rank}")
+            comm = ", ".join(f"{k} {n} calls {sec / run['total_s']:.1%}"
+                             for k, (n, sec) in sorted(run["comm"].items()))
+            print(f"  [trainmesh] {sched} pp=2 over gloo on cuda:0, rank {r} "
+                  f"(blocks {run['stage']}), llama-124m bf16 B=4 "
+                  f"S={FLASH_SEQ} M={TM_MICRO} remat: step ms "
+                  f"{[round(t, 1) for t in run['ms']]}, host time in "
+                  f"collectives {comm}, peak {run['peak_gib']:.2f} GiB, "
+                  f"stash high-water {run['stash']}, launches a step "
+                  f"{run['launches'][-1]} [{smi}]")
+        losses = two[0][sched]["losses"]
+        check(all(rec[sched]["losses"] == losses for rec in two),
+              f"trainmesh {sched}: ranks disagree on the loss")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+        check(rel <= TM_BF16_BAR,
+              f"trainmesh {sched} pp=2: losses {losses} past {TM_BF16_BAR} "
+              f"relative of the single card's {ref} ({rel:.2e})")
+        print(f"  [trainmesh] {sched} pp=2 losses {losses} beside the single "
+              f"card's {ref}: {rel:.2e} relative (bar {TM_BF16_BAR}) [{smi}]")
+    for name, row in two[0]["f32"].items():
+        print(f"  [trainmesh] f32 {name}: losses {row['losses']} beside the "
+              f"single card's {row['ref_losses']} (worst "
+              f"{row['loss_rel']:.2e} relative, bar 1e-5); first-step "
+              f"gradients worst {row['grad_rel']:.2e} of their norms (bar "
+              f"1e-4) over {row['leaves']} leaves; step ms "
+              f"{[round(t, 1) for t in row['ms']]} [{smi}]")
+    print(f"  [trainmesh] {time.perf_counter() - t0:.1f} s wall [{smi}]")
+    out = {"world 1 nccl, 3 bf16 steps": _sum_counts(mesh["launches"])}
+    for sched in ("gpipe", "1f1b"):
+        for r, rec in enumerate(two):
+            out[f"{sched} pp=2 rank {r}, 3 bf16 steps"] = _sum_counts(
+                rec[sched]["launches"])
+    return out
+
+
+def _sum_counts(steps: list) -> dict:
+    total: dict = {}
+    for counts in steps:
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def trainmesh_llama(device_seed: int = 5):
+    """llama-124m's config with the flash kernels, its seeded f32
+    parameters on the card, their bf16 copy and the training ids
+    ([4, 2049]: S = 2048 reaches the flash kernels)."""
+    import dataclasses
+
+    import torch
+
+    from llm_sharding_demo_tpu_torch.models import gpt2, llama
+
+    base = llama.CONFIGS["llama-124m"]
+    cfg = dataclasses.replace(base, attention_impl="pallas")
+    params = llama.init_params(
+        base, torch.Generator(device="cuda").manual_seed(device_seed))
+    bf = gpt2.map_params(lambda x: x.to(torch.bfloat16), params)
+    ids = np.random.default_rng(11).integers(0, base.vocab_size,
+                                             (FLASH_BH[0], FLASH_SEQ + 1))
+    return cfg, bf, ids
+
+
+def trainmesh_run(step, params, ids, steps: int = TM_STEPS) -> dict:
+    """``steps`` steps of ``step`` from ``params``: losses, host ms a
+    step (the loss read syncs), kernel launches a step, peak memory, the
+    collectives' host time."""
+    import torch
+
+    from llm_sharding_demo_tpu_torch.ops import cuda_build
+    from llm_sharding_demo_tpu_torch.parallel import distributed
+
+    p, state = step.init(params)
+    batch = step.shard_batch(ids)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    distributed.reset_comm_stats()
+    rec = {"losses": [], "ms": [], "launches": []}
+    t_all = time.perf_counter()
+    for _ in range(steps):
+        cuda_build.reset_launch_counts()
+        t0 = time.perf_counter()
+        p, state, loss = step(p, state, batch)
+        rec["losses"].append(float(loss))
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["launches"].append(cuda_build.launch_counts())
+    rec["total_s"] = time.perf_counter() - t_all
+    rec["comm"] = distributed.comm_stats()
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del p, state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def trainmesh_one() -> dict:
+    """A world of 1 over nccl: the single-card ``LlamaTrainStep`` twice
+    (its run-to-run spread) and the same step on a dp1 x tp1 mesh."""
+    from llm_sharding_demo_tpu_torch.parallel import spmd
+    from llm_sharding_demo_tpu_torch.training import train
+
+    cfg, bf, ids = trainmesh_llama()
+    single = [trainmesh_run(train.LlamaTrainStep(
+        cfg, train.adamw(1e-3), remat=True), bf, ids) for _ in range(2)]
+    mesh = trainmesh_run(train.LlamaTrainStep(
+        cfg, train.adamw(1e-3), mesh=spmd.make_mesh({"dp": 1, "tp": 1}),
+        remat=True), bf, ids)
+    return {"single": single, "mesh": mesh}
+
+
+def trainmesh_f32(rank: int) -> dict:
+    """Two ranks, f32 at full width and ``TM_F32_LAYERS`` layers, TF32
+    off: tp=2, dp=2 and sp=2 ring for GPT-2 and llama, ep=2 for
+    GPT-2-MoE, interleaved 1F1B (v=2) for llama, each held to the
+    single-card f32 step on the same weights (every rank computes that
+    reference): losses of ``TM_F32_STEPS`` steps within 1e-5 relative,
+    first-step gradients (unsharded; a pipeline rank's own chunks)
+    within 1e-4 of their norms."""
+    import dataclasses
+
+    import torch
+
+    from llm_sharding_demo_tpu_torch.models import gpt2, llama, moe
+    from llm_sharding_demo_tpu_torch.parallel import partition as P_, spmd
+    from llm_sharding_demo_tpu_torch.training import train
+
+    cfgs = {"gpt2": dataclasses.replace(gpt2.CONFIGS["gpt2"],
+                                        n_layer=TM_F32_LAYERS),
+            "llama": dataclasses.replace(llama.CONFIGS["llama-124m"],
+                                         n_layer=TM_F32_LAYERS),
+            "moe": moe.MoEConfig(**dict(MOE_CFG, n_layer=TM_F32_LAYERS))}
+    mods = {"gpt2": gpt2, "llama": llama, "moe": moe}
+    ids = np.random.default_rng(13).integers(0, LV, (4, TM_F32_SEQ + 1))
+    opt = train.adamw(1e-3)
+
+    def steps_of(family, cfg, mesh=None):
+        if family == "moe":
+            return train.MoETrainStep(cfg, opt, mesh=mesh)
+        if family == "llama":
+            return train.LlamaTrainStep(cfg, opt, mesh=mesh)
+        return train.TrainStep(cfg, opt, mesh=mesh)
+
+    cases = [(f"{fam} {what}", fam, shape, impl)
+             for fam in ("gpt2", "llama")
+             for what, shape, impl in (("tp=2", {"tp": 2}, "xla"),
+                                       ("dp=2", {"dp": 2}, "xla"),
+                                       ("sp=2 ring", {"sp": 2}, "ring"))]
+    cases += [("moe ep=2", "moe", {"ep": 2}, "xla"),
+              ("llama interleaved 1f1b v=2 pp=2", "llama", {"pp": 2},
+               "xla")]
+    out = {}
+    for name, fam, shape, impl in cases:
+        base = cfgs[fam]
+        params = mods[fam].init_params(
+            base, torch.Generator(device="cuda").manual_seed(7))
+        ref = steps_of(fam, base)
+        rp, rs = ref.init(params)
+        rloss, rgrads = ref.loss_and_grads(rp, ids)
+        rgrads = dict(zip([p for p, _ in train._flatten(rp)], rgrads))
+        ref_losses = []
+        for _ in range(TM_F32_STEPS):
+            rp, rs, loss = ref(rp, rs, ids)
+            ref_losses.append(float(loss))
+        del rp, rs
+        cfg = dataclasses.replace(base, attention_impl=impl)
+        mesh = spmd.make_mesh(shape)
+        if "pp" in shape:
+            step = train.GPipeTrainStep(cfg, opt, mesh, n_microbatches=4,
+                                        schedule="1f1b", virtual_stages=2)
+            table = step._table
+            mine = P_.virtual_chunks(train._unflatten(
+                (k[1:], v) for k, v in rgrads.items() if k[0] == "blocks"),
+                2, 2, rank)
+            want = {("blocks",) + k: v for k, v in train._flatten(mine)}
+            want.update({k: v for k, v in rgrads.items()
+                         if k[0] != "blocks"})
+        else:
+            step = steps_of(fam, cfg, mesh)
+            table = step._specs
+            want = rgrads
+        p, s = step.init(params)
+        loss, grads = step.loss_and_grads(p, ids)
+        full = spmd.unshard_params(
+            train._unflatten(zip([q for q, _ in train._flatten(p)], grads)),
+            mesh, table)
+        worst = 0.0
+        for path, g in train._flatten(full):
+            w = want[path]
+            worst = max(worst, float((g - w).norm()
+                                     / w.norm().clamp_min(1e-30)))
+        losses, ms = [], []
+        for _ in range(TM_F32_STEPS):
+            t0 = time.perf_counter()
+            p, s, loss = step(p, s, ids)
+            losses.append(float(loss))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+        check(rel <= 1e-5, f"trainmesh f32 {name} rank {rank}: losses "
+                           f"{losses} vs {ref_losses} ({rel:.2e} relative)")
+        check(worst <= 1e-4, f"trainmesh f32 {name} rank {rank}: a gradient "
+                             f"differs by {worst:.2e} of its norm")
+        out[name] = {"losses": losses, "ref_losses": ref_losses,
+                     "loss_rel": rel, "grad_rel": worst,
+                     "leaves": len(want), "ms": ms}
+        del p, s, params, grads, full, rgrads, want, step, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def trainmesh_two(rank: int) -> dict:
+    """Two gloo ranks on cuda:0: GPipe and 1F1B on pp=2 at llama-124m
+    width (bf16, remat, ``TM_MICRO`` microbatches), then the f32 meshes
+    (``trainmesh_f32``)."""
+    from llm_sharding_demo_tpu_torch.parallel import spmd
+    from llm_sharding_demo_tpu_torch.training import train
+
+    cfg, bf, ids = trainmesh_llama()
+    mesh = spmd.make_mesh({"pp": 2})
+    out = {}
+    for sched in ("gpipe", "1f1b"):
+        step = train.GPipeTrainStep(cfg, train.adamw(1e-3), mesh,
+                                    n_microbatches=TM_MICRO, remat=True,
+                                    boundaries=[TM_BOUNDARY], schedule=sched)
+        out[sched] = trainmesh_run(step, bf, ids)
+        out[sched]["stage"] = [step.spec.start, step.spec.end]
+        out[sched]["stash"] = step.stash_high_water
+    del bf
+    out["f32"] = trainmesh_f32(rank)
+    return out
+
+
+def trainmesh_worker(args) -> int:
+    """One rank of the trainmesh phase (``--mesh-worker train-one``: a
+    world of 1 over nccl; ``train-two``: 2 ranks on cuda:0 over gloo);
+    writes its record to ``--out``."""
+    import torch
+
+    from llm_sharding_demo_tpu_torch.parallel import distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.maybe_initialize(args.addr, args.world, args.rank,
+                                 backend="gloo" if args.world > 1 else None)
+    out = (trainmesh_one() if args.mesh_worker == "train-one"
+           else trainmesh_two(distributed.rank()))
+    with open(args.out, "w") as f:
+        json.dump(out, f)
+    distributed.destroy()
+    return 0
+
+
 # -- main ----------------------------------------------------------------------
 
 def kernel_name(mangled: str) -> str:
@@ -5727,12 +6069,13 @@ def main() -> int:
     parser.add_argument("--phases",
                         default="kernels,flash,engine,server,batch,train,"
                                 "paged,prefix,spec,remote,ckpt,moe,obs,fleet,"
-                                "plan,mesh",
+                                "plan,mesh,trainmesh",
                         help="comma-separated subset of kernels,flash,engine,"
                              "server,batch,train,paged,prefix,spec,remote,"
-                             "ckpt,moe,obs,fleet,plan,mesh")
-    # one rank of the mesh phase (the phase starts these itself)
-    parser.add_argument("--mesh-worker", choices=("one", "two"),
+                             "ckpt,moe,obs,fleet,plan,mesh,trainmesh")
+    # one rank of the mesh or trainmesh phase (the phase starts these)
+    parser.add_argument("--mesh-worker",
+                        choices=("one", "two", "train-one", "train-two"),
                         help=argparse.SUPPRESS)
     for flag in ("--rank", "--world"):
         parser.add_argument(flag, type=int, help=argparse.SUPPRESS)
@@ -5740,6 +6083,8 @@ def main() -> int:
         parser.add_argument(flag, help=argparse.SUPPRESS)
     args = parser.parse_args()
     phases = set(args.phases.split(","))
+    if args.mesh_worker in ("train-one", "train-two"):
+        return trainmesh_worker(args)
     if args.mesh_worker:
         return mesh_worker(args)
 
@@ -5881,6 +6226,13 @@ def main() -> int:
               "world of 1 over nccl; PP_DECODE int8, tp=2 fp32 and ep=2 "
               "int8 on two ranks of cuda:0 over gloo")
         mesh_launches = mesh_phase(smi)
+    trainmesh_launches = {}
+    if "trainmesh" in phases:
+        print("[trainmesh] mesh training: llama-124m on a world of 1 over "
+              "nccl against the single-card step; GPipe and 1F1B on pp=2 "
+              "at llama-124m width over gloo on cuda:0; f32 tp, dp, sp "
+              "ring, ep and interleaved 1F1B at full width, 4 layers")
+        trainmesh_launches = trainmesh_phase(smi)
 
     sources = {"decode_attention": "csrc/decode_attention.cu",
                "quant_linear": "csrc/quant.cu",
@@ -5941,6 +6293,9 @@ def main() -> int:
                               for where, c in plan_launches.items()},
             "mesh_launches": {where: c[k.name]
                               for where, c in mesh_launches.items()},
+            "trainmesh_launches": {where: c.get(k.name, 0)
+                                   for where, c in
+                                   trainmesh_launches.items()},
             "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
             "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
             "bound_by": r.get("bound_by"),

@@ -9,7 +9,15 @@ package's ``lax.scan``). Cached forwards write the KV cache in place.
 ``GPT2Config.attention_impl`` selects the no-cache forward's attention:
 "xla" is the plain path, "pallas" the flash-attention kernels
 (``ops.flash_attention``) from ``FLASH_MIN_SEQ`` positions on, as in the
-JAX package; "ring" (sequence-parallel, several cards) refuses.
+JAX package; "ring" the sequence-parallel ring over a mesh's ``sp`` axis
+(``ops.ring_attention``), which needs ``forward(..., mesh=)``.
+
+On a mesh (``forward(..., mesh=)``, mesh training) each rank runs its
+shard: its ``dp`` rows, its ``sp`` chunk of positions embedded at their
+global positions, its ``tp`` heads and MLP columns (Megatron's
+``copy_to`` at every column-parallel input, ``reduce_from`` after every
+row-parallel product, ``parallel.distributed``), so every replicated
+leaf's gradient is whole and equal on the tp ranks.
 """
 
 from __future__ import annotations
@@ -31,20 +39,16 @@ from ..ops.decode_layer import (MAX_BATCH, decode_layers, mega_downgrade,
 from ..ops.flash_attention import flash_attention, self_attention
 from ..ops.layers import gelu_new, layer_norm, linear, row_linear
 from ..ops.quant import QuantizedTensor, embed_rows, head_logits, is_quantized
+from ..ops.ring_attention import mesh_attention
+from ..parallel.distributed import copy_to
 
 Params = Dict[str, Any]
 
-RING_ITEM = ("ROADMAP Queue 1 item 14 (multi-device: ring attention over "
-             "torch.distributed)")
-
 
 def check_attention_impl(impl: str) -> None:
-    """Accept "xla" and "pallas"; "ring" refuses, naming its ROADMAP item;
-    anything else is a ValueError (both families' configs call this)."""
-    if impl == "ring":
-        raise NotImplementedError(
-            f"attention_impl='ring' is not ported; it waits for {RING_ITEM}")
-    if impl not in ("xla", "pallas"):
+    """Accept "xla", "pallas" and "ring"; anything else is a ValueError
+    (both families' configs call this)."""
+    if impl not in ("xla", "pallas", "ring"):
         raise ValueError(f"attention_impl={impl!r} not xla|pallas|ring")
 
 
@@ -59,7 +63,8 @@ class GPT2Config:
     n_head: int = 12
     layer_norm_epsilon: float = 1e-5
     # "xla": the plain attention; "pallas": the flash-attention kernels
-    # where flash_profitable holds (the no-cache forward, i.e. training)
+    # where flash_profitable holds (the no-cache forward, i.e. training);
+    # "ring": ring attention over a mesh's sp axis
     attention_impl: str = "xla"
 
     @property
@@ -183,7 +188,7 @@ def _block(p: Params, h: torch.Tensor, n_head: int, eps: float,
            offset: int = 0, k_valid_from: Optional[torch.Tensor] = None,
            decode_kernel: Optional[str] = None, attn_impl: str = "xla",
            flash_prefill: bool = False, mlp_fn=None,
-           tp_group=None) -> torch.Tensor:
+           tp_group=None, mesh=None) -> torch.Tensor:
     """One pre-LN transformer block; with ``cache``, writes this layer's
     K/V at ``offset`` in place and attends over the written prefix.
 
@@ -198,17 +203,31 @@ def _block(p: Params, h: torch.Tensor, n_head: int, eps: float,
     feed-forward (``models.moe`` passes its expert MLP), so the attention
     half exists once for both families.
 
-    ``tp_group`` (tensor-parallel decode): ``p`` holds this rank's
-    Megatron slices and ``n_head`` its local heads; the row-parallel
-    ``c_proj`` products sum over the group before their bias
-    (``ops.layers.row_linear``)."""
+    ``tp_group`` (tensor parallelism): ``p`` holds this rank's Megatron
+    slices and ``n_head`` its local heads; the column-parallel inputs
+    pass ``copy_to`` and the row-parallel ``c_proj`` products sum over
+    the group before their bias (``ops.layers.row_linear``). ``mesh``
+    (no-cache path): attention over the mesh's ``sp`` axis
+    (``ops.ring_attention.mesh_attention``); ``attn_impl == "ring"``
+    needs it."""
     kernels = decode_kernel is not None
     a = layer_norm(h, p["ln_1"]["scale"], p["ln_1"]["bias"], eps)
-    qkv = linear(a, p["attn"]["c_attn"]["kernel"], p["attn"]["c_attn"]["bias"],
-                 kernels)
+    qkv = linear(copy_to(a, tp_group), p["attn"]["c_attn"]["kernel"],
+                 p["attn"]["c_attn"]["bias"], kernels)
     q, k, v = (split_heads(x, n_head) for x in qkv.chunk(3, dim=-1))
     if cache is None:
-        attn = self_attention(q, k, v, attn_impl, offset, k_valid_from)
+        if attn_impl == "ring":
+            if mesh is None:
+                raise ValueError(
+                    "attention_impl='ring' needs a mesh with an 'sp' axis: "
+                    "pass forward(..., mesh=mesh) (or TrainStep(mesh=...))")
+            if k_valid_from is not None:
+                raise NotImplementedError(
+                    "ring attention does not support ragged (left-padded) "
+                    "batches")
+        attn = (self_attention(q, k, v, attn_impl, offset, k_valid_from)
+                if mesh is None else
+                mesh_attention(q, k, v, attn_impl, mesh, k_valid_from))
     elif flash_prefill:
         write_kv(cache, k, v, layer_idx, offset)
         attn = flash_attention(q, k, v)
@@ -229,7 +248,8 @@ def _block(p: Params, h: torch.Tensor, n_head: int, eps: float,
     m = layer_norm(h, p["ln_2"]["scale"], p["ln_2"]["bias"], eps)
     if mlp_fn is not None:
         return h + mlp_fn(p, m)
-    m = row_linear(gelu_new(linear(m, p["mlp"]["c_fc"]["kernel"],
+    m = row_linear(gelu_new(linear(copy_to(m, tp_group),
+                                   p["mlp"]["c_fc"]["kernel"],
                                    p["mlp"]["c_fc"]["bias"], kernels)),
                    p["mlp"]["c_proj"]["kernel"], p["mlp"]["c_proj"]["bias"],
                    kernels, tp_group)
@@ -261,14 +281,14 @@ def apply_blocks(blocks: Union[Params, List[Params]], h: torch.Tensor,
                  config: GPT2Config, cache: Optional[KVCache] = None,
                  k_valid_from: Optional[torch.Tensor] = None,
                  decode_kernel: Optional[str] = None, remat: bool = False,
-                 flash_prefill: bool = False, tp_group=None,
+                 flash_prefill: bool = False, tp_group=None, mesh=None,
                  ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run a stack of blocks: the stacked dict (leading layer axis) or its
     ``unstack_blocks`` list. With ``cache`` (leading axis matching the
     stack) the new K/V land at ``cache.length`` and the returned cache is
     one window longer (same buffers). ``remat`` applies to the no-cache
     path (training). Under ``tp_group`` the blocks are this rank's slices
-    and ``config`` its ``tp_config``."""
+    and ``config`` its ``tp_config``; ``mesh`` as in ``_block``."""
     eps = config.layer_norm_epsilon
     offset = cache.length if cache is not None else 0
     layers = blocks if isinstance(blocks, list) else unstack_blocks(blocks)
@@ -276,7 +296,7 @@ def apply_blocks(blocks: Union[Params, List[Params]], h: torch.Tensor,
     def block(p, h, li):
         return _block(p, h, config.n_head, eps, cache, li, offset,
                       k_valid_from, decode_kernel, config.attention_impl,
-                      flash_prefill, tp_group=tp_group)
+                      flash_prefill, tp_group=tp_group, mesh=mesh)
 
     h = run_layers(block, layers, h, remat and cache is None)
     if cache is None:
@@ -296,11 +316,37 @@ def final_logits(params: Params, h: torch.Tensor, eps: float,
 
 
 def forward(params: Params, input_ids: torch.Tensor,
-            config: GPT2Config, remat: bool = False) -> torch.Tensor:
+            config: GPT2Config, remat: bool = False,
+            mesh=None) -> torch.Tensor:
     """Full no-cache forward: [B, S] -> [B, S, vocab] f32 logits.
-    ``remat`` recomputes each block in the backward pass (training)."""
+    ``remat`` recomputes each block in the backward pass (training).
+
+    ``mesh`` (every rank of it calls): ``params`` are this rank's slices
+    under the family's layout table (``parallel.spmd``) and ``input_ids``
+    the global batch; the rank runs its shard (``mesh_forward``) and the
+    logits of the whole batch are gathered onto every rank, as the JAX
+    call returns them. ``attention_impl="ring"`` needs the mesh."""
+    if mesh is not None:
+        from ..parallel import spmd
+        return spmd.gather_batch(mesh_forward(
+            params, spmd.local_batch(input_ids, mesh), config, mesh, remat),
+            mesh)
     h = embed(params, input_ids, 0)
     h, _ = apply_blocks(params["blocks"], h, config, remat=remat)
+    return final_logits(params, h, config.layer_norm_epsilon)
+
+
+def mesh_forward(params: Params, input_ids: torch.Tensor, config: GPT2Config,
+                 mesh, remat: bool = False) -> torch.Tensor:
+    """This rank's logits on a mesh: ``input_ids`` is its shard
+    (``spmd.local_batch``: its dp rows, its sp chunk), embedded at the
+    chunk's global positions; the blocks run over its tp slices and
+    attend across the sp axis."""
+    from ..parallel import spmd
+    tp = spmd.group(mesh, "tp")
+    h = embed(params, input_ids, spmd.seq_offset(mesh, input_ids.shape[1]))
+    h, _ = apply_blocks(params["blocks"], h, tp_config(config, tp),
+                        remat=remat, tp_group=tp, mesh=mesh)
     return final_logits(params, h, config.layer_norm_epsilon)
 
 

@@ -13,7 +13,9 @@ out]`` kernels, no biases, an untied ``lm_head``. Against GPT-2:
 - the MLP is ``down(silu(gate(x)) * up(x))``.
 
 The block stack is a Python loop over the layer axis; cached forwards
-write the KV cache in place.
+write the KV cache in place. On a mesh (``forward(..., mesh=)``, mesh
+training) a rank runs its shard as in ``models.gpt2``; its ``sp`` chunk
+takes the RoPE angles of its global positions.
 """
 
 from __future__ import annotations
@@ -33,7 +35,9 @@ from ..ops.decode_layer import (MAX_BATCH, decode_layers_llama,
 from ..ops.flash_attention import flash_attention, repeat_kv, self_attention
 from ..ops.layers import linear, rms_norm, row_linear
 from ..ops.quant import embed_rows, is_quantized
+from ..ops.ring_attention import mesh_attention
 from ..ops.rope import apply_rope, rope_angles
+from ..parallel.distributed import copy_to
 from .gpt2 import (check_attention_impl, run_layers, tp_config,
                    unstack_blocks, write_kv)
 
@@ -54,8 +58,8 @@ class LlamaConfig:
     intermediate_size: int = 2048
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
-    # "xla" or "pallas" (the flash kernels where flash_profitable holds);
-    # "ring" refuses (gpt2.check_attention_impl)
+    # "xla", "pallas" (the flash kernels where flash_profitable holds) or
+    # "ring" (ring attention over a mesh's sp axis)
     attention_impl: str = "xla"
 
     @property
@@ -128,7 +132,8 @@ def _block(p: Params, h: torch.Tensor, config: LlamaConfig,
            cache: Optional[KVCache] = None, layer_idx: int = 0,
            offset: int = 0, k_valid_from: Optional[torch.Tensor] = None,
            decode_kernel: Optional[str] = None,
-           flash_prefill: bool = False, tp_group=None) -> torch.Tensor:
+           flash_prefill: bool = False, tp_group=None,
+           mesh=None) -> torch.Tensor:
     """One pre-norm llama block; with ``cache``, writes this layer's
     rotated K and V at ``offset`` in place and attends over the written
     prefix. ``decode_kernel`` ("layer") routes single-token steps on a
@@ -139,11 +144,13 @@ def _block(p: Params, h: torch.Tensor, config: LlamaConfig,
     fresh-cache prefill) writes the cache at kv-head width, then runs the
     flash kernel over the new K/V repeated to the query heads. Under
     ``tp_group`` ``p`` holds this rank's Megatron slices and ``config``
-    its local head counts (``gpt2.tp_config``); ``wo`` and ``down`` sum
-    over the group."""
+    its local head counts (``gpt2.tp_config``); the column-parallel
+    inputs pass ``copy_to``, and ``wo`` and ``down`` sum over the group.
+    ``mesh`` (no-cache path): attention over its ``sp`` axis, the ring's
+    K/V repeated to the query heads first."""
     kernels = decode_kernel is not None
     eps = config.rms_norm_eps
-    a = rms_norm(h, p["ln_attn"]["scale"], eps)
+    a = copy_to(rms_norm(h, p["ln_attn"]["scale"], eps), tp_group)
     attn = p["attn"]
     q = split_heads(linear(a, attn["wq"]["kernel"], None, kernels),
                     config.n_head)
@@ -154,8 +161,17 @@ def _block(p: Params, h: torch.Tensor, config: LlamaConfig,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if cache is None:
-        out = self_attention(q, k, v, config.attention_impl, offset,
-                             k_valid_from)
+        impl = config.attention_impl
+        if impl == "ring":
+            if mesh is None:
+                raise ValueError("attention_impl='ring' needs a mesh with "
+                                 "an 'sp' axis: pass forward(..., mesh=mesh)")
+            if k_valid_from is not None:
+                raise NotImplementedError(
+                    "ring attention does not support ragged batches")
+        out = (self_attention(q, k, v, impl, offset, k_valid_from)
+               if mesh is None else
+               mesh_attention(q, k, v, impl, mesh, k_valid_from))
     elif flash_prefill:
         write_kv(cache, k, v, layer_idx, offset)
         out = flash_attention(q, *repeat_kv(k, v, config.n_head))
@@ -172,7 +188,7 @@ def _block(p: Params, h: torch.Tensor, config: LlamaConfig,
                                              layer_idx, offset, k_valid_from)
     h = h + row_linear(merge_heads(out), attn["wo"]["kernel"], None, kernels,
                        tp_group)
-    m = rms_norm(h, p["ln_mlp"]["scale"], eps)
+    m = copy_to(rms_norm(h, p["ln_mlp"]["scale"], eps), tp_group)
     mlp = p["mlp"]
     m = row_linear(F.silu(linear(m, mlp["gate"]["kernel"], None, kernels))
                    * linear(m, mlp["up"]["kernel"], None, kernels),
@@ -185,19 +201,21 @@ def apply_blocks(blocks: Union[Params, List[Params]], h: torch.Tensor,
                  cache: Optional[KVCache] = None,
                  k_valid_from: Optional[torch.Tensor] = None,
                  decode_kernel: Optional[str] = None, remat: bool = False,
-                 flash_prefill: bool = False, tp_group=None,
+                 flash_prefill: bool = False, tp_group=None, mesh=None,
                  ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run a stack of llama blocks (the stacked dict or its
     ``unstack_blocks`` list) at the rotary angles ``cos``/``sin``. With
     ``cache`` the new K/V land at ``cache.length`` and the returned cache
     is one window longer (same buffers). ``remat`` (no-cache path)
-    recomputes each block in the backward pass."""
+    recomputes each block in the backward pass; ``tp_group`` and
+    ``mesh`` as in ``_block``."""
     offset = cache.length if cache is not None else 0
     layers = blocks if isinstance(blocks, list) else unstack_blocks(blocks)
 
     def block(p, h, li):
         return _block(p, h, config, cos, sin, cache, li, offset,
-                      k_valid_from, decode_kernel, flash_prefill, tp_group)
+                      k_valid_from, decode_kernel, flash_prefill, tp_group,
+                      mesh)
 
     h = run_layers(block, layers, h, remat and cache is None)
     if cache is None:
@@ -238,12 +256,35 @@ def final_logits(params: Params, h: torch.Tensor, config: LlamaConfig,
 
 
 def forward(params: Params, input_ids: torch.Tensor,
-            config: LlamaConfig, remat: bool = False) -> torch.Tensor:
+            config: LlamaConfig, remat: bool = False,
+            mesh=None) -> torch.Tensor:
     """Full no-cache forward: [B, S] -> [B, S, vocab] f32 logits.
-    ``remat`` recomputes each block in the backward pass (training)."""
+    ``remat`` recomputes each block in the backward pass (training).
+    ``mesh``: as ``gpt2.forward``'s (this rank's slices, the global
+    batch, the whole batch's logits gathered onto every rank)."""
+    if mesh is not None:
+        from ..parallel import spmd
+        return spmd.gather_batch(mesh_forward(
+            params, spmd.local_batch(input_ids, mesh), config, mesh, remat),
+            mesh)
     h = embed(params, input_ids)
     cos, sin = angles(config, input_ids.shape[1], 0, None, h.device)
     h, _ = apply_blocks(params["blocks"], h, config, cos, sin, remat=remat)
+    return final_logits(params, h, config)
+
+
+def mesh_forward(params: Params, input_ids: torch.Tensor,
+                 config: LlamaConfig, mesh, remat: bool = False,
+                 ) -> torch.Tensor:
+    """This rank's logits on a mesh (``gpt2.mesh_forward``): its shard of
+    the batch, RoPE at the sp chunk's global positions."""
+    from ..parallel import spmd
+    tp = spmd.group(mesh, "tp")
+    h = embed(params, input_ids)
+    s = input_ids.shape[1]
+    cos, sin = angles(config, s, spmd.seq_offset(mesh, s), None, h.device)
+    h, _ = apply_blocks(params["blocks"], h, tp_config(config, tp), cos, sin,
+                        remat=remat, tp_group=tp, mesh=mesh)
     return final_logits(params, h, config)
 
 

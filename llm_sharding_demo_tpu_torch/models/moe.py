@@ -19,7 +19,11 @@ Under expert parallelism (``ep_group``; ``routed_mlp=False``, the dense
 dispatch) a rank holds ``E / ep`` consecutive experts: the router,
 top-k and capacity run over all ``E`` on every rank (the router is
 whole), each rank sums its own experts' weighted outputs, and the sum
-over the group completes every token.
+over the group completes every token. In training the experts' input and
+the combine weights pass ``distributed.copy_to``, so the router's, the
+attention's and the embeddings' gradients are whole on every rank, and
+the load-balance loss reads its token and gate fractions averaged over
+the ``dp`` group before their product (its global value).
 
 The expert contractions are batched ``torch.einsum``/``bmm`` products,
 as the JAX package computes them outside any Pallas kernel; int8 experts
@@ -176,9 +180,19 @@ def _router(moe_params: Params, h: torch.Tensor) -> torch.Tensor:
     return torch.softmax(gate_logits.float(), dim=-1)
 
 
-def _aux_loss(top1: torch.Tensor, gates: torch.Tensor, e: int):
-    """Switch-style load balance over the top-1 assignment."""
-    return torch.sum(top1.mean(dim=(0, 1)) * gates.mean(dim=(0, 1))) * e
+def _aux_loss(top1: torch.Tensor, gates: torch.Tensor, e: int,
+              dp_group=None):
+    """Switch-style load balance over the top-1 assignment. Under
+    ``dp_group`` the two fractions are means over the whole batch (the
+    ranks' equal shards averaged) before their product."""
+    frac_tokens, frac_gates = top1.mean(dim=(0, 1)), gates.mean(dim=(0, 1))
+    if dp_group is not None:
+        from ..parallel.distributed import all_reduce
+        import torch.distributed as dist
+        n = dist.get_world_size(dp_group)
+        frac_tokens = all_reduce(frac_tokens.detach(), dp_group) / n
+        frac_gates = all_reduce(frac_gates, dp_group) / n
+    return torch.sum(frac_tokens * frac_gates) * e
 
 
 def moe_mlp_routed(moe_params: Params, h: torch.Tensor, config: MoEConfig,
@@ -220,7 +234,7 @@ def _dispatch_slots(sel: torch.Tensor, cap: int):
 
 def moe_mlp(moe_params: Params, h: torch.Tensor, config: MoEConfig,
             token_valid: Optional[torch.Tensor] = None, ep_group=None,
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            dp_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k routed expert MLP with the dense dispatch. [B, S, d] ->
     ([B, S, d], aux scalar).
 
@@ -234,7 +248,13 @@ def moe_mlp(moe_params: Params, h: torch.Tensor, config: MoEConfig,
     ``E`` as without the group; the rank dispatches to and combines from
     its own experts only (another rank's choice weighs 0 here), and the
     partial outputs sum over the group. A token's at most ``k`` nonzero
-    terms add in the same order as on one device."""
+    terms add in the same order as on one device. The experts' input and
+    the combine weights pass ``copy_to`` (their gradients summed over
+    the group: each rank's holds only its own experts' share); the router
+    and the aux loss read ``h`` and the gates whole.
+
+    ``dp_group``: the aux loss's fractions averaged over it
+    (``_aux_loss``)."""
     b, s, d = h.shape
     e, k = config.n_experts, config.expert_top_k
     cap = expert_capacity(config, s)
@@ -244,8 +264,11 @@ def moe_mlp(moe_params: Params, h: torch.Tensor, config: MoEConfig,
     if ep_group is not None:
         import torch.distributed as dist
         e0 = dist.get_rank(ep_group) * e_loc
+    from ..parallel.distributed import copy_to, reduce_from
     gates = _router(moe_params, h)
     idxs, onehots, w = _topk_gates(gates, e, k, token_valid)
+    aux = _aux_loss(onehots[0], gates, e, dp_group)
+    h, w = copy_to(h, ep_group), copy_to(w, ep_group)
     sel = torch.stack(onehots)                                  # [k,B,S,E]
     slot, keep = _dispatch_slots(sel, cap)
     slot_oh = _one_hot(slot, cap, gates.dtype) * keep[..., None]
@@ -273,10 +296,7 @@ def moe_mlp(moe_params: Params, h: torch.Tensor, config: MoEConfig,
             wi = torch.where(mine, wi, torch.zeros_like(wi))
             idx = torch.clamp(idx - e0, 0, e_loc - 1)
         out = out + wi[..., None].to(h.dtype) * h2[idx, rows, c]
-    if ep_group is not None:
-        from ..parallel.distributed import all_reduce_sum
-        all_reduce_sum(out, ep_group)
-    return out, _aux_loss(sel[0], gates, e)
+    return reduce_from(out, ep_group), aux
 
 
 def _moe_block(p: Params, h: torch.Tensor, config: MoEConfig,
@@ -284,7 +304,7 @@ def _moe_block(p: Params, h: torch.Tensor, config: MoEConfig,
                offset: Union[int, torch.Tensor] = 0,
                k_valid_from: Optional[torch.Tensor] = None,
                decode_kernel: Optional[str] = None,
-               routed_mlp: bool = True, ep_group=None,
+               routed_mlp: bool = True, ep_group=None, dp_group=None,
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One pre-LN MoE block (GPT-2's attention half, the expert MLP via
     ``mlp_fn``). Returns ``(h, aux)``. Left-pad columns
@@ -304,7 +324,7 @@ def _moe_block(p: Params, h: torch.Tensor, config: MoEConfig,
             out, aux = moe_mlp_routed(block_params["moe"], m, config)
         else:
             out, aux = moe_mlp(block_params["moe"], m, config, token_valid,
-                               ep_group)
+                               ep_group, dp_group)
         aux_cell.append(aux)
         return out
 
@@ -318,7 +338,7 @@ def apply_blocks(blocks: Union[Params, List[Params]], h: torch.Tensor,
                  config: MoEConfig, cache: Optional[KVCache] = None,
                  k_valid_from: Optional[torch.Tensor] = None,
                  decode_kernel: Optional[str] = None,
-                 routed_mlp: bool = True, ep_group=None,
+                 routed_mlp: bool = True, ep_group=None, dp_group=None,
                  ) -> Tuple[torch.Tensor, torch.Tensor, Optional[KVCache]]:
     """The block stack (stacked dict or its ``unstack_blocks`` list):
     ``(h, summed f32 aux, cache one window longer or None)``."""
@@ -328,7 +348,7 @@ def apply_blocks(blocks: Union[Params, List[Params]], h: torch.Tensor,
     for li, p in enumerate(layers):
         h, layer_aux = _moe_block(p, h, config, cache, li, offset,
                                   k_valid_from, decode_kernel, routed_mlp,
-                                  ep_group)
+                                  ep_group, dp_group)
         aux = aux + layer_aux
     if cache is not None:
         cache = KVCache(k=cache.k, v=cache.v, length=offset + h.shape[1])
@@ -336,13 +356,53 @@ def apply_blocks(blocks: Union[Params, List[Params]], h: torch.Tensor,
 
 
 def forward(params: Params, input_ids: torch.Tensor, config: MoEConfig,
-            remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+            remat: bool = False, mesh=None,
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[B, S] -> ([B, S, vocab] f32 logits, summed router aux loss).
-    ``remat`` is refused: the JAX MoE forward has no per-block remat."""
+    ``remat`` is refused: the JAX MoE forward has no per-block remat.
+    ``mesh`` (dp and ep axes): ``params`` are this rank's slices
+    (``spmd.moe_param_pspecs``), ``input_ids`` the global batch; the
+    logits of the whole batch are gathered onto every rank, the aux loss
+    is the global one."""
     if remat:
         raise NotImplementedError("the MoE forward has no remat")
+    if mesh is not None:
+        from ..parallel import spmd
+        logits, aux = mesh_forward(params, spmd.local_batch(input_ids, mesh),
+                                   config, mesh)
+        return spmd.gather_batch(logits, mesh), aux
     h = embed(params, input_ids, 0)
     h, aux, _ = apply_blocks(params["blocks"], h, config)
+    return final_logits(params, h, config.layer_norm_epsilon), aux
+
+
+def check_mesh(mesh) -> None:
+    """MoE trains on a mesh over ``dp`` and ``ep``: a ``tp``, ``sp`` or
+    ``pp`` axis of more than one rank refuses."""
+    from ..parallel.spmd import axis_size
+    extra = [a for a in mesh.mesh_dim_names
+             if a not in ("dp", "ep") and axis_size(mesh, a) > 1]
+    if extra:
+        raise NotImplementedError(
+            f"MoE mesh training runs over dp and ep; a {'/'.join(extra)} "
+            f"axis is not ported ({MOE_MESH_ITEM})")
+
+
+MOE_MESH_ITEM = "ROADMAP Queue 1 item 24 (GPT-2-MoE training on tp/sp meshes)"
+
+
+def mesh_forward(params: Params, input_ids: torch.Tensor, config: MoEConfig,
+                 mesh) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This rank's logits and the global aux loss on a dp x ep mesh:
+    ``input_ids`` is its dp rows, its experts are ``E / ep`` of them (the
+    dense dispatch, summed over ``ep``), the aux loss's fractions are
+    averaged over ``dp``."""
+    from ..parallel import spmd
+    check_mesh(mesh)
+    h = embed(params, input_ids, 0)
+    h, aux, _ = apply_blocks(params["blocks"], h, config,
+                             routed_mlp=False, ep_group=spmd.group(mesh, "ep"),
+                             dp_group=spmd.group(mesh, "dp"))
     return final_logits(params, h, config.layer_norm_epsilon), aux
 
 

@@ -60,12 +60,14 @@ def linear(x: torch.Tensor, kernel, bias: Optional[torch.Tensor] = None,
 
 def row_linear(x: torch.Tensor, kernel, bias: Optional[torch.Tensor],
                kernels: bool = False, group=None) -> torch.Tensor:
-    """``linear`` with a row-parallel kernel (tensor-parallel decode):
-    ``x`` and ``kernel`` hold this rank's slice of the contraction, the
-    partial products sum over ``group``, and the bias, whole on every
-    rank, is added once after the sum. Without a group it is ``linear``."""
+    """``linear`` with a row-parallel kernel (tensor parallelism): ``x``
+    and ``kernel`` hold this rank's slice of the contraction, the partial
+    products sum over ``group`` (``distributed.reduce_from``: in place
+    off the autograd graph, the identity backward in training), and the
+    bias, whole on every rank, is added once after the sum. Without a
+    group it is ``linear``."""
     if group is None:
         return linear(x, kernel, bias, kernels)
-    from ..parallel.distributed import all_reduce_sum
-    y = all_reduce_sum(linear(x, kernel, None, kernels), group)
+    from ..parallel.distributed import reduce_from
+    y = reduce_from(linear(x, kernel, None, kernels), group)
     return y if bias is None else y + bias

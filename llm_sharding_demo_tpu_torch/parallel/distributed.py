@@ -26,6 +26,17 @@ call:
   follower ranks, through the process group's store. A follower polls
   with a short timeout, so an idle server never sits inside a collective
   that would time out between requests.
+- ``all_gather``, ``exchange`` (posted sends and receives, the pipeline
+  ticks' transfers) and ``ring_shift``: the collectives of mesh training.
+- Differentiable collectives for training, ``torch.autograd.Function``s
+  over the helpers above (so a CUDA tensor on a gloo group still goes
+  through host memory): Megatron's pair ``copy_to`` (identity forward,
+  sum backward) and ``reduce_from`` (sum forward, identity backward);
+  ``all_reduce`` (sum both ways); ``gather`` (the pieces laid end to
+  end, the backward keeping this rank's piece of the summed gradient);
+  ``shift`` (rank i to i+1, the backward i+1 to i: the transpose of
+  ``lax.ppermute``). Each is the identity without a group or on a group
+  of one rank.
 """
 
 from __future__ import annotations
@@ -57,7 +68,7 @@ _READ_KEY = "graft/read/{}"
 _STORE_TIMEOUT = getattr(dist, "DistStoreError", RuntimeError)
 
 _state: Dict[str, Any] = {"initialized": False, "device": None,
-                          "announced": 0, "received": 0}
+                          "announced": 0, "received": 0, "groups": {}}
 # calls and host-clock seconds spent in each collective helper (a call on
 # CUDA tensors through a gloo host buffer waits for the device work that
 # produced them)
@@ -181,7 +192,25 @@ def destroy() -> None:
     """Leave the process group (tests, and a server's shutdown)."""
     if dist.is_initialized():
         dist.destroy_process_group()
-    _state.update(initialized=False, device=None, announced=0, received=0)
+    _state.update(initialized=False, device=None, announced=0, received=0,
+                  groups={})
+
+
+def subgroup(rows: Sequence[Sequence[int]]):
+    """This rank's group among ``rows`` (disjoint lists of global ranks
+    covering the world), made once per distinct ``rows``: every rank must
+    ask for the same rows in the same order (``new_group`` is a
+    collective of the whole world)."""
+    key = tuple(tuple(r) for r in rows)
+    cache = _state["groups"]
+    if key not in cache:
+        me, mine = rank(), None
+        for row in key:
+            g = dist.new_group(list(row))
+            if me in row:
+                mine = g
+        cache[key] = mine
+    return cache[key]
 
 
 def global_mesh(axes: Dict[str, int]):
@@ -284,6 +313,191 @@ def broadcast_object(obj: Any, src: int, group=None) -> Any:
     root = dist.get_global_rank(group, src) if group else src
     dist.broadcast_object_list(box, root, group=group)
     return box[0]
+
+
+@_timed
+def all_gather(t: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """The group's ``t`` laid end to end along ``dim``, in group-rank
+    order (every rank's ``t`` has the same shape)."""
+    n = dist.get_world_size(group)
+    buf = t.contiguous()
+    host = _through_host(buf, group)
+    if host:
+        buf = buf.cpu()
+    parts = [torch.empty_like(buf) for _ in range(n)]
+    dist.all_gather(parts, buf, group=group)
+    out = torch.cat(parts, dim=dim)
+    return out.to(t.device) if host else out
+
+
+@_timed
+def exchange(sends: Sequence[Tuple[torch.Tensor, int, int]],
+             recvs: Sequence[Tuple[Sequence[int], int, int]],
+             dtype: torch.dtype, dev: torch.device, group=None,
+             ) -> List[torch.Tensor]:
+    """Posted point-to-point transfers, waited for together: ``sends``
+    are ``(tensor, dst, tag)``, ``recvs`` ``(shape, src, tag)`` (group
+    ranks); returns the received tensors in ``recvs`` order. Two
+    neighbours may send to each other in one call (a pair of blocking
+    sends would deadlock). Every rank posts in the same global order (the
+    caller's), which nccl needs; gloo matches by tag."""
+    host = dev.type == "cuda" and dist.get_backend(group) == "gloo"
+    peer = ((lambda r: dist.get_global_rank(group, r)) if group is not None
+            else (lambda r: r))
+    ops, outs, bufs = [], [], []
+    for t, dst, tag in sends:
+        buf = t.contiguous()
+        buf = buf.cpu() if host else buf
+        bufs.append(buf)
+        ops.append(dist.P2POp(dist.isend, buf, peer(dst), group, tag))
+    for shape, src, tag in recvs:
+        out = torch.empty(tuple(shape), dtype=dtype,
+                          device="cpu" if host else dev)
+        outs.append(out)
+        ops.append(dist.P2POp(dist.irecv, out, peer(src), group, tag))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return [o.to(dev) for o in outs] if host else outs
+
+
+def ring_shift(t: torch.Tensor, group, step: int = 1) -> torch.Tensor:
+    """Group rank i sends ``t`` to rank ``i + step`` (mod the group's
+    size) and returns what rank ``i - step`` sent it."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return t
+    me = dist.get_rank(group)
+    return exchange([(t, (me + step) % n, 0)],
+                    [(t.shape, (me - step) % n, 0)], t.dtype, t.device,
+                    group)[0]
+
+
+# -- differentiable collectives (mesh training) -------------------------------
+
+
+def _trivial(group) -> bool:
+    return group is None or dist.get_world_size(group) == 1
+
+
+def _tracked(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _summed(t: torch.Tensor, group) -> torch.Tensor:
+    """A contiguous copy of ``t`` summed over ``group``."""
+    return all_reduce_sum(t.clone(memory_format=torch.contiguous_format),
+                          group)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _summed(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _summed(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.group), None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group, ctx.size = dim, group, x.shape[dim]
+        return all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = dist.get_rank(ctx.group)
+        g = _summed(g, ctx.group)
+        return g.narrow(ctx.dim, r * ctx.size, ctx.size).contiguous(), \
+            None, None
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return ring_shift(x, group, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ring_shift(g, ctx.group, -1), None
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity forward, gradient summed over ``group`` backward: the
+    input of a column-parallel product (Megatron's f), so that what
+    feeds it gets the gradient of every rank's columns."""
+    if _trivial(group) or not _tracked(x):
+        return x
+    return _CopyTo.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
+    """Summed over ``group`` forward, identity backward: the output of a
+    row-parallel product (Megatron's g). Off the autograd graph (decode)
+    the sum is in place."""
+    if group is None:
+        return x
+    if not _tracked(x):
+        return all_reduce_sum(x, group)
+    if dist.get_world_size(group) == 1:
+        return x
+    return _ReduceFrom.apply(x, group)
+
+
+def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """Summed over ``group`` both ways: every rank holds the sum, and
+    every rank's loss reads it."""
+    if _trivial(group):
+        return x
+    if not _tracked(x):
+        return _summed(x, group)
+    return _AllReduce.apply(x, group)
+
+
+def gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The group's pieces of ``x`` laid end to end along ``dim``; the
+    backward keeps this rank's piece of the gradient summed over the
+    group."""
+    if _trivial(group):
+        return x
+    if not _tracked(x):
+        return all_gather(x, dim, group)
+    return _Gather.apply(x, dim, group)
+
+
+def shift(x: torch.Tensor, group) -> torch.Tensor:
+    """Group rank i's ``x`` to rank i+1 (the last to the first); the
+    backward sends each gradient back one rank."""
+    if _trivial(group):
+        return x
+    if not _tracked(x):
+        return ring_shift(x, group, 1)
+    return _Shift.apply(x, group)
 
 
 # -- the leader's request headers ---------------------------------------------

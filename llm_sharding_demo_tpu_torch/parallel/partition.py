@@ -5,6 +5,15 @@ are contiguous block ranges, validated disjoint and exhaustive before any
 stage exists; stage parameters are slices of the stacked blocks (views,
 no copies); the first stage carries the embeddings, the last the final
 norm and the head (GPT-2's tied ``wte_out``, llama's ``lm_head``).
+
+The JAX package's pipeline training stacks the blocks stage-major
+(``[S, per, ...]``, zero-padded to the largest stage with a
+``stage_valid_mask`` where stages are uneven, or ``[S, v, per_chunk,
+...]`` for interleaved 1F1B); each rank of the port holds only its own
+stage's blocks. ``stack_stage_params``, ``stack_stage_params_padded``,
+``stack_virtual_chunks`` and their inverses carry weights and gradients
+between the two layouts (``[L, ...]`` <-> stacked), ``stage_blocks`` and
+``virtual_chunks`` cut a rank's blocks from ``[L, ...]``.
 """
 
 from __future__ import annotations
@@ -187,3 +196,116 @@ def kv_heads(config: Config) -> int:
     """The KV cache's head count: ``n_kv_head`` where the family has
     one, else ``n_head``."""
     return getattr(config, "n_kv_head", config.n_head)
+
+
+# -- the JAX package's stage-major layouts ------------------------------------
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _zip(fn, *trees):
+    if isinstance(trees[0], dict):
+        return {k: _zip(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def stack_stage_params(params: Params, specs: Sequence[StageSpec]) -> Params:
+    """``params["blocks"]`` ``[L, ...]`` -> ``[S, per, ...]`` for equal
+    stages (the JAX package's ``stack_stage_params``)."""
+    sizes = {s.n_blocks for s in specs}
+    if len(sizes) != 1:
+        raise ValueError(
+            f"stage-major stacking needs equal stage sizes, got "
+            f"{[s.n_blocks for s in specs]}")
+    per = sizes.pop()
+    return _map(lambda x: x.reshape((len(specs), per) + tuple(x.shape[1:])),
+                params["blocks"])
+
+
+def unstack_stage_params(stacked: Params) -> Params:
+    """``[S, per, ...]`` -> ``[L, ...]``."""
+    return _map(lambda x: x.reshape((x.shape[0] * x.shape[1],)
+                                    + tuple(x.shape[2:])), stacked)
+
+
+def stage_valid_mask(specs: Sequence[StageSpec]) -> torch.Tensor:
+    """``[S, per_max]`` bool: True where a stacked row is a real layer,
+    False where it is padding."""
+    per_max = max(s.n_blocks for s in specs)
+    return torch.tensor([[i < s.n_blocks for i in range(per_max)]
+                         for s in specs])
+
+
+def stack_stage_params_padded(params: Params, specs: Sequence[StageSpec],
+                              ) -> Tuple[Params, torch.Tensor]:
+    """``[L, ...]`` -> ``([S, per_max, ...], stage_valid_mask)``: each
+    stage's blocks, zero-padded to the largest stage's count."""
+    per_max = max(s.n_blocks for s in specs)
+
+    def pad_stack(x):
+        out = x.new_zeros((len(specs), per_max) + tuple(x.shape[1:]))
+        for s in specs:
+            out[s.index, :s.n_blocks] = x[s.start:s.end]
+        return out
+
+    return _map(pad_stack, params["blocks"]), stage_valid_mask(specs)
+
+
+def unstack_stage_params_padded(stacked: Params,
+                                specs: Sequence[StageSpec]) -> Params:
+    """``[S, per_max, ...]`` -> ``[L, ...]``, padding rows dropped."""
+    return _map(lambda x: torch.cat([x[s.index, :s.n_blocks]
+                                     for s in specs]), stacked)
+
+
+def stack_virtual_chunks(params: Params, n_stages: int,
+                         n_virtual: int) -> Params:
+    """``[L, ...]`` -> ``[S, v, per_chunk, ...]``: virtual chunk ``g = j *
+    S + d`` at ``[d, j]``, so stage d owns every S-th chunk (the Megatron
+    interleaved assignment). ``L`` must divide by ``S * v``."""
+    def reshape(x):
+        total = n_stages * n_virtual
+        if x.shape[0] % total:
+            raise ValueError(
+                f"interleaved stacking needs n_layer divisible by "
+                f"pp * virtual_stages = {total}, got {x.shape[0]}")
+        per = x.shape[0] // total
+        return x.reshape((n_virtual, n_stages, per) + tuple(x.shape[1:])
+                         ).transpose(0, 1)
+
+    return _map(reshape, params["blocks"])
+
+
+def unstack_virtual_chunks(stacked: Params) -> Params:
+    """``[S, v, per_chunk, ...]`` -> ``[L, ...]``."""
+    return _map(lambda x: x.transpose(0, 1).reshape(
+        (-1,) + tuple(x.shape[3:])), stacked)
+
+
+def stage_blocks(blocks: Params, spec: StageSpec) -> Params:
+    """Stage ``spec``'s blocks of a ``[L, ...]`` tree (contiguous
+    copies)."""
+    return _map(lambda x: x[spec.start:spec.end].contiguous(), blocks)
+
+
+def virtual_chunks(blocks: Params, n_stages: int, n_virtual: int,
+                   stage: int) -> Params:
+    """Stage ``stage``'s ``[v, per_chunk, ...]`` chunks of a ``[L, ...]``
+    tree (contiguous copies)."""
+    return _map(lambda x: x[stage].contiguous(),
+                stack_virtual_chunks({"blocks": blocks}, n_stages,
+                                     n_virtual))
+
+
+def blocks_from_stages(stages: Sequence[Params],
+                       n_virtual: int = 1) -> Params:
+    """Every stage's blocks (``stage_blocks``, or ``virtual_chunks`` when
+    ``n_virtual > 1``), in stage order -> the ``[L, ...]`` tree."""
+    if n_virtual > 1:
+        return unstack_virtual_chunks(
+            _zip(lambda *xs: torch.stack(xs), *stages))
+    return _zip(lambda *xs: torch.cat(xs), *stages)

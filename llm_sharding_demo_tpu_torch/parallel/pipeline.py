@@ -6,8 +6,8 @@ there, the default fp32 single-stream ``/generate`` runner. It is the
 staged ``DecodeEngine`` on its plain path: it runs no hand-written
 kernel, as the JAX runner runs no Pallas kernel. Every stage lives on
 one device here; ``parallel.ppdecode`` places one stage on each rank of
-a process group (``PP_DECODE``). Ring attention and mesh training, the
-other multi-device paths, wait for ROADMAP Queue 1 item 14.
+a process group (``PP_DECODE``), and ``parallel.gpipe`` and
+``parallel.pipeline_1f1b`` train one.
 """
 
 from __future__ import annotations

@@ -25,7 +25,17 @@ Axes:
 - ``ep`` — expert parallel: the stacked expert leaves ``[L, E, ...]``
   split on their E axis; the router whole (every token needs every
   expert's logit).
-- ``dp`` — data parallel (``distributed.shard_host_batch``).
+- ``dp`` — data parallel (``distributed.shard_host_batch``; training:
+  ``local_batch``): the batch's rows split over the axis.
+- ``sp`` — sequence parallel (training): the sequence split into
+  contiguous chunks over the axis; attention gathers it
+  (``ops.ring_attention.mesh_attention``), or rotates K/V around the
+  axis (``attention_impl="ring"``).
+- ``pp`` — the pipeline axis of ``parallel.gpipe`` and
+  ``parallel.pipeline_1f1b`` (stage blocks), not of the tables here.
+
+``unshard_params`` is ``shard_params`` run backwards (a collective):
+every leaf gathered to its full layout on every rank.
 """
 
 from __future__ import annotations
@@ -72,11 +82,89 @@ def make_mesh(shape: Dict[str, int], devices: Optional[Sequence[int]] = None):
 
 
 def axis_size(mesh, axis: str) -> int:
+    """The axis's rank count; 1 where the mesh lacks it."""
+    if mesh is None or axis not in mesh.mesh_dim_names:
+        return 1
     return mesh.size(mesh.mesh_dim_names.index(axis))
 
 
 def axis_rank(mesh, axis: str) -> int:
+    """This rank's place on the axis; 0 where the mesh lacks it."""
+    if mesh is None or axis not in mesh.mesh_dim_names:
+        return 0
     return mesh.get_local_rank(axis)
+
+
+def group(mesh, axis: str):
+    """The process group of ``axis`` through this rank, or None where the
+    mesh lacks the axis or it has one rank (nothing to communicate)."""
+    if axis_size(mesh, axis) == 1:
+        return None
+    return mesh.get_group(axis)
+
+
+def axis_group(mesh, axes: Sequence[str]):
+    """The group of the ranks that share this rank's place on every axis
+    but ``axes`` (the data-parallel group of ``("dp", "sp")``, say), or
+    None where those axes hold one rank. A collective of the world the
+    first time a mesh asks for it: every rank must ask in the same
+    order."""
+    names = mesh.mesh_dim_names
+    keep = [names.index(a) for a in names if a in axes]
+    n = 1
+    for i in keep:
+        n *= mesh.size(i)
+    if n == 1:
+        return None
+    if len(keep) == 1:
+        return mesh.get_group(names[keep[0]])
+    other = [i for i in range(len(names)) if i not in keep]
+    rows = mesh.mesh.permute(*other, *keep).reshape(-1, n).tolist()
+    return distributed.subgroup(rows)
+
+
+def batch_pspec(mesh) -> Tuple:
+    """The spec of a ``[B, S]`` token batch: rows over ``dp``, positions
+    over ``sp`` (each where the mesh has it)."""
+    names = mesh.mesh_dim_names
+    return ("dp" if "dp" in names else None,
+            "sp" if "sp" in names else None)
+
+
+def replicated(mesh) -> Tuple:
+    """The spec of a leaf whole on every rank (the JAX package's
+    ``P()``): no dim split, whatever its rank (``shard_leaf`` takes it
+    for any tensor)."""
+    return ()
+
+
+def local_batch(ids: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's part of a global ``[B, S]`` batch under
+    ``batch_pspec``: its rows over ``dp``, its chunk of positions over
+    ``sp``."""
+    for dim, axis in enumerate(batch_pspec(mesh)):
+        if axis is None:
+            continue
+        n, size = axis_size(mesh, axis), ids.shape[dim]
+        if size % n:
+            what = "batch" if dim == 0 else "seq"
+            raise ValueError(f"{what} {size} not divisible by {axis}={n}")
+        ids = ids.narrow(dim, axis_rank(mesh, axis) * (size // n), size // n)
+    return ids
+
+
+def seq_offset(mesh, chunk: int) -> int:
+    """The global position of this rank's first position: its ``sp``
+    place times the chunk length."""
+    return axis_rank(mesh, "sp") * chunk
+
+
+def gather_batch(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``local_batch`` run backwards over a ``[B, S, ...]`` tensor: the
+    ``sp`` chunks, then the ``dp`` rows, gathered onto every rank
+    (differentiable, ``distributed.gather``)."""
+    x = distributed.gather(x, 1, group(mesh, "sp"))
+    return distributed.gather(x, 0, group(mesh, "dp"))
 
 
 def param_pspecs(mesh) -> Params:
@@ -168,7 +256,10 @@ def slice_dim(t: torch.Tensor, dim: int, entry, mesh) -> torch.Tensor:
 
 def shard_leaf(t: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
     """This rank's slice of one tensor: ``t`` itself where no dim is
-    split, else a contiguous copy (no view keeps the whole alive)."""
+    split, else a contiguous copy (no view keeps the whole alive). An
+    empty spec (``replicated``) keeps any tensor whole."""
+    if len(spec) == 0:
+        return t
     if len(spec) != t.dim():
         raise ValueError(f"spec {tuple(spec)} has {len(spec)} entries for "
                          f"a {t.dim()}-d tensor of shape {tuple(t.shape)}")
@@ -203,6 +294,50 @@ def shard_params(params: Params, mesh, specs: Optional[Params] = None,
             return QuantizedTensor(leaf(tree.q, spec),
                                    leaf(tree.scale, scale_spec), tree.rows)
         return leaf(tree, spec)
+
+    return walk(params, specs)
+
+
+def shard_moe_params(params: Params, mesh) -> Params:
+    """This rank's slices of a GPT-2-MoE tree (``moe_param_pspecs``)."""
+    return shard_params(params, mesh, moe_param_pspecs(mesh))
+
+
+def unshard_leaf(t: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
+    """The full tensor of which ``t`` is this rank's slice (every rank
+    calls: a sum over each split axis of the slices placed in zeros).
+    Inverts ``shard_leaf`` exactly, ``Fused`` dims included."""
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        fused = isinstance(entry, Fused)
+        axis = entry.axis if fused else entry
+        n, r = axis_size(mesh, axis), axis_rank(mesh, axis)
+        parts = entry.parts if fused else 1
+        step = t.shape[dim] // parts
+        shape = list(t.shape)
+        shape[dim] *= n
+        full = t.new_zeros(shape)
+        for p in range(parts):
+            full.narrow(dim, (p * n + r) * step, step).copy_(
+                t.narrow(dim, p * step, step))
+        t = distributed.all_reduce_sum(full, group(mesh, axis)) \
+            if n > 1 else full
+    return t
+
+
+def unshard_params(params: Params, mesh, specs: Optional[Params] = None,
+                   ) -> Params:
+    """Every leaf of this rank's tree gathered back to the full layout
+    (``shard_params`` run backwards; a collective: every rank calls, in
+    the same order)."""
+    if specs is None:
+        specs = param_pspecs(mesh)
+
+    def walk(tree, spec):
+        if isinstance(tree, dict):
+            return {k: walk(v, spec[k]) for k, v in tree.items()}
+        return unshard_leaf(tree, spec, mesh)
 
     return walk(params, specs)
 

@@ -110,7 +110,9 @@ def test_port_imports_with_jax_blocked():
                  "utils.grafttrend", "loadgen.profiles", "utils.graftwatch",
                  "utils.graftsched", "utils.costmodel",
                  "parallel.distributed", "parallel.spmd",
-                 "parallel.ppdecode", "utils.graftshard"):
+                 "parallel.ppdecode", "utils.graftshard",
+                 "ops.ring_attention", "parallel.gpipe",
+                 "parallel.pipeline_1f1b"):
         assert f"llm_sharding_demo_tpu_torch.{name}" in modules
     code = "; ".join([
         "import sys",

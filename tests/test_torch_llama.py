@@ -178,11 +178,11 @@ def test_config_and_family_registry():
         12, 768, 12, 4, 64, 2048, 32000, 4096)
     assert family_module(cfg) is llama
     assert is_stage_partitionable(cfg) and not is_partitionable(cfg)
-    # "pallas" (the flash-attention kernels) is ported; "ring" refuses
+    # "pallas" (the flash-attention kernels) and "ring" (ring attention
+    # over a mesh's sp axis) are ported
     assert llama.LlamaConfig(attention_impl="pallas").attention_impl == \
         "pallas"
-    with pytest.raises(NotImplementedError, match="item 14"):
-        llama.LlamaConfig(attention_impl="ring")
+    assert llama.LlamaConfig(attention_impl="ring").attention_impl == "ring"
     with pytest.raises(ValueError):
         llama.LlamaConfig(attention_impl="flash")
     with pytest.raises(ValueError, match="multiple"):

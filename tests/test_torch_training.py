@@ -18,6 +18,8 @@ each side. At 1e-2 that noise reaches 3e-5 after three steps; at 1e-3 it
 stays near 3e-6.
 """
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,6 +34,7 @@ from llm_sharding_demo_tpu.training import train as jtrain
 from llm_sharding_demo_tpu_torch.models import gpt2, llama
 from llm_sharding_demo_tpu_torch.models.convert import params_from_numpy
 from llm_sharding_demo_tpu_torch.ops import flash_attention as fa
+from llm_sharding_demo_tpu_torch.parallel import distributed, spmd
 from llm_sharding_demo_tpu_torch.training import train
 
 ATOL = 2e-5
@@ -185,24 +188,82 @@ def test_init_copies_and_step_updates_in_place():
     assert loss.shape == () and not params["wte"].requires_grad
 
 
+@contextlib.contextmanager
+def world_of_one():
+    """A one-rank process group in this process (an in-memory store, no
+    peer), left when the block ends."""
+    distributed.ensure_initialized("cpu")
+    try:
+        yield
+    finally:
+        distributed.destroy()
+
+
+def _steps_agree(a, b, params, what, exact=True):
+    """``b`` against ``a`` from the same parameters: the loss and every
+    gradient (by path), then one step's parameters; bit for bit where
+    ``exact``, else within the 1F1B-against-GPipe bar (rtol 2e-4, atol
+    1e-6: a pipeline sums its microbatches' means in another order)."""
+    pa, sa = a.init(params)
+    pb, sb = b.init(params)
+    la, ga = a.loss_and_grads(pa, _ids())
+    lb, gb = b.loss_and_grads(pb, _ids())
+    grads = dict(zip([p for p, _ in train._flatten(pb)], gb))
+    tol = dict(rtol=0, atol=0) if exact else dict(rtol=2e-4, atol=1e-6)
+    torch.testing.assert_close(lb, la, **tol, msg=what)
+    for (path, _), g in zip(train._flatten(pa), ga):
+        torch.testing.assert_close(grads[path], g, **tol,
+                                   msg=f"{what} {path}")
+    if exact:
+        pa, sa, la = a(pa, sa, _ids())
+        pb, sb, lb = b(pb, sb, _ids())
+        assert float(la) == float(lb), what
+        got = dict(train._flatten(pb))
+        for path, x in train._flatten(pa):
+            assert torch.equal(got[path], x), f"{what} {path}"
+
+
 def test_refusals():
     jcfg, cfg = _configs("gpt2", "xla")
     opt = train.adamw()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        train.TrainStep(cfg, opt, mesh=object(), device="cpu")
-    # the MoE step is ported: it runs (test_torch_moe holds it to the JAX
-    # step) and refuses a mesh as TrainStep does
-    from llm_sharding_demo_tpu_torch.models import moe
-    mcfg = moe.MoEConfig(**DIMS["gpt2"], n_experts=4)
-    mstep = train.MoETrainStep(mcfg, opt, device="cpu")
-    mp, ms = mstep.init(moe.init_params(mcfg, torch.Generator()
-                                        .manual_seed(0)))
-    _, ms, loss = mstep(mp, ms, _ids())
-    assert ms["count"] == 1 and bool(torch.isfinite(loss))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        train.MoETrainStep(mcfg, opt, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        train.GPipeTrainStep(cfg, opt, mesh=None, schedule="1f1b")
+    params = params_from_numpy(_np_params("gpt2", jcfg), device="cpu")
+    with world_of_one():
+        # mesh training is ported: a world of one rank trains as one
+        # device does (the meshes of several ranks are
+        # tests/test_torch_mesh_training.py)
+        _steps_agree(train.TrainStep(cfg, opt, device="cpu"),
+                     train.TrainStep(cfg, opt, device="cpu",
+                                     mesh=spmd.make_mesh({"dp": 1, "tp": 1})),
+                     params, "TrainStep(mesh=)")
+        # the MoE step runs (test_torch_moe holds it to the JAX step), on
+        # a mesh too (a tp or sp axis of several ranks refuses:
+        # tests/test_torch_mesh_training.py)
+        from llm_sharding_demo_tpu_torch.models import moe
+        mcfg = moe.MoEConfig(**DIMS["gpt2"], n_experts=4)
+        mstep = train.MoETrainStep(mcfg, opt, device="cpu")
+        mp, ms = mstep.init(moe.init_params(mcfg, torch.Generator()
+                                            .manual_seed(0)))
+        _, ms, loss = mstep(mp, ms, _ids())
+        assert ms["count"] == 1 and bool(torch.isfinite(loss))
+        mstep = train.MoETrainStep(mcfg, opt, device="cpu",
+                                   mesh=spmd.make_mesh({"dp": 1, "ep": 1}))
+        assert bool(torch.isfinite(mstep.loss_and_grads(
+            mstep.init(mp)[0], _ids())[0]))
+        # the 1F1B pipeline step runs (one stage here; several:
+        # tests/test_torch_1f1b.py), and a mesh without a pp axis refuses
+        # with the JAX package's message
+        _steps_agree(train.TrainStep(cfg, opt, device="cpu"),
+                     train.GPipeTrainStep(cfg, opt, spmd.make_mesh({"pp": 1}),
+                                          n_microbatches=2, schedule="1f1b",
+                                          device="cpu"),
+                     params, "GPipeTrainStep(schedule='1f1b')", exact=False)
+        with pytest.raises(ValueError) as err:
+            train.GPipeTrainStep(cfg, opt, spmd.make_mesh({"dp": 1}),
+                                 device="cpu")
+    with pytest.raises(ValueError) as jerr:
+        jtrain.GPipeTrainStep(jcfg, jtrain.adamw(), jax.sharding.Mesh(
+            np.asarray(jax.devices()[:1]), ("dp",)))
+    assert str(err.value) == str(jerr.value)
     with pytest.raises(TypeError, match="unknown model config type"):
         train.TrainStep(jcfg, opt, device="cpu")  # another package's config
     with pytest.raises(ValueError, match="total_steps"):

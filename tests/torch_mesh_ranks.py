@@ -58,10 +58,21 @@ def _rank_main(rank: int, world: int, addr: str, cmd_q, res_q) -> None:
             break
         name, kwargs = cmd
         try:
-            res_q.put((rank, "ok", globals()[name](**kwargs)))
+            res_q.put((rank, "ok", _case(name)(**kwargs)))
         except Exception:  # noqa: BLE001 — reported to the test process
             res_q.put((rank, "err", traceback.format_exc()))
     distributed.destroy()
+
+
+def _case(name: str):
+    """A case by name: a function of this module, or ``module:function``
+    of another test helper module (whose children import only torch, numpy
+    and the port, as this one's)."""
+    if ":" not in name:
+        return globals()[name]
+    import importlib
+    module, fn = name.split(":")
+    return getattr(importlib.import_module(module), fn)
 
 
 class RankGroup:
@@ -112,8 +123,16 @@ class RankGroup:
         return [out[r] for r in range(self.world)]
 
     def run(self, name: str, timeout_s: float = 60.0, **kwargs) -> List[Any]:
-        """Run case ``name`` on every rank; returns the ranks' results in
-        rank order, or raises with every failing rank's traceback."""
+        """Run case ``name`` (``_case``) on every rank; returns the ranks'
+        results in rank order, or raises with every failing rank's
+        traceback."""
+        self.submit(name, **kwargs)
+        return self.results(timeout_s)
+
+    def submit(self, name: str, **kwargs) -> None:
+        """Start case ``name`` on every rank and return at once (the test
+        process can compute its reference meanwhile); ``results`` waits
+        for it."""
         for attempt in range(3):
             if self._procs:
                 break
@@ -125,6 +144,9 @@ class RankGroup:
                     raise
         for q in self._cmd:
             q.put((name, kwargs))
+
+    def results(self, timeout_s: float = 60.0) -> List[Any]:
+        """The submitted case's results in rank order (see ``run``)."""
         return self._collect("ok", timeout_s)
 
     def close(self) -> None:
