@@ -54,8 +54,8 @@ which must pass or the script exits non-zero:
    in-process engine on the same weights), /healthz reports cuda and the
    whole-stack kernel, launched once per stage per decode step;
 6. batch: in process, GPT-2 124M fp32 on the plain path (TF32 off):
-   the admission batcher and the iteration-level batcher, 24 ragged
-   greedy and then 24 seeded sampled requests from threads (the iter
+   the admission batcher and the iteration-level batcher, 16 ragged
+   greedy and then 16 seeded sampled requests from threads (the iter
    batcher's in four groups 0.03 s apart over 8-step segments, so that
    rows join a live batch and widen it: at least one join and one grow
    each), each row byte-equal to the engine's solo run (a row that is
@@ -118,7 +118,7 @@ which must pass or the script exits non-zero:
    512-token entry's demote and promote beside a pinned ``copy_`` of
    the same bytes; the tiered fp32 GPT-2 iter server (MAX_BATCH=4
    KV_POOL_BLOCKS=256 PREFIX_CACHE=8 KV_HOST_BLOCKS=256, six 512-token
-   system prompts cycled three times) replying as the same server
+   system prompts cycled twice) replying as the same server
    without the store and the tier, conserved after every wave, with
    demotions and promotions; an int8 GPT-2 admission server with
    PREFIX_CACHE=8 MAX_BATCH=8 whose warm wave equals its cold wave, with
@@ -141,7 +141,7 @@ which must pass or the script exits non-zero:
 11. remote: ``DISPATCH=remote``, the reference's three-role topology:
    shard a and shard b (GPT-2 124M at full width, ``SPLIT_AT=1``, on the
    card) and a coordinator relaying ``/forward`` -> ``/forward_b`` to
-   them once a token, which holds no engine. 16-token greedy and seeded
+   them once a token, which holds no engine. 8-token greedy and seeded
    sampled requests, each twice and each pair equal: the greedy stream
    equal, token for token, to the shards' functions run in this process
    and to the local fp32 path (or parted from it at a near tie), the
@@ -245,7 +245,21 @@ which must pass or the script exits non-zero:
    ``GRAFTSCHED=trace`` (per lock: wait seconds, acquisitions,
    contended), and a serial pass on the pooled iter plan with
    ``GRAFTFAULT=1`` (injections by site; its 200 replies against the
-   unfaulted run's).
+   unfaulted run's). Then static ``AUTO_PLAN=1`` servers at GPT-2 124M
+   int8 (in process, the id tokenizer): the default traffic (must choose
+   ``single/admission/mb1``), ``MAX_BATCH=8 AUTO_PLAN_TRAFFIC=8/8x8``
+   (an ``mb8`` row) and ``KV_POOL_BLOCKS=256 MAX_BATCH=8`` with the
+   agentic classes, each choosing what ``costmodel.plan_for_serving``
+   predicts on the host for the same inputs within the card's memory;
+   each prints its resolved knobs and ``/healthz`` ``auto_plan``
+   (``hbm_bytes_per_device`` against the card's total memory), answers
+   a few greedy requests byte-equal to a server with the same knobs set
+   by hand, with launches equal to what its forwards predict. Two ranks
+   on cuda:0 over gloo (``--mesh-worker autoplan``), bf16 GPT-2 124M
+   with ``AUTO_PLAN=1``: both resolve the host planner's row for a
+   world of 2 and serve two greedy requests; the bytes the collectives
+   put on the wire a decoded token (counted in the rank worker, both
+   ranks) beside the plan's ``comm_bytes_per_token``.
 17. mesh: multi-device decode (``PP_DECODE``, ``TP_DECODE``,
    ``EP_DECODE``) in rank processes of this script (``--mesh-worker``),
    seeded weights, the id tokenizer, each app built by ``create_app`` in
@@ -1584,7 +1598,7 @@ def server_phase(model_id: str, npos: int) -> dict:
 
 BATCH_WAVES = (1, 8, 32)
 WAVE_TOKENS = 64
-N_ROWS = 24             # the in-process fp32 batchers' ragged requests
+N_ROWS = 16             # the in-process fp32 batchers' ragged requests
 CHUNK = 16              # PREFILL_CHUNK of the chunked checks and server
 
 
@@ -2525,6 +2539,7 @@ PREFIX_CHUNK = 64        # the store's chunk on every prefix check
 PREFIX_NEW = 24          # new tokens of the in-process prefix streams
 TIER_BLOCKS = 256        # the tiered server's KV_POOL_BLOCKS and KV_HOST_BLOCKS
 TIER_PROMPT = 512        # its system prompts' length (bytes = tokens)
+TIER_WAVES = 12          # its waves: six system prompts cycled twice
 
 
 def prefix_models(family: str, regime: str):
@@ -2827,14 +2842,14 @@ def tier_server(smi: str) -> None:
     host tier (MAX_BATCH=4 BATCH_MODE=iter MAX_SEQ=1024 KV_BLOCK_SIZE=16
     KV_POOL_BLOCKS=256 PREFIX_CACHE=8 KV_HOST_BLOCKS=256) beside the same
     server without the store and the tier. Six 512-token system prompts
-    cycled three times, a wave of four requests on one prompt: the lead
+    cycled twice, a wave of four requests on one prompt: the lead
     (a 48-byte suffix, 96 new tokens) seeds a batch, the other three
     (16-40-byte suffixes, 32 new tokens) arrive 0.1 s later and join it
     through the store. Replies equal the other server's; after every wave
     the tier is conserved and the pool holds only the registry's blocks;
     demotions and promotions > 0."""
     systems, suffixes = tier_prompts(31)
-    waves = [(w % 6) for w in range(18)]
+    waves = [(w % 6) for w in range(TIER_WAVES)]
     knobs = dict(MODEL_ID="gpt2", INFERENCE_DTYPE="float32",
                  MAX_SEQ=str(NPOS), MAX_BATCH="4", BATCH_MODE="iter",
                  BATCH_WAIT_MS="5", KV_BLOCK_SIZE=str(PAGED_BS),
@@ -2881,7 +2896,7 @@ def tier_server(smi: str) -> None:
                 check(h["batch_stats"]["joins"] > 0 and st["hits"] > 0,
                       f"no store-backed join: {h['batch_stats']} {st}")
                 per = tier["promote_ms_total"] / max(tier["promotions"], 1)
-                print(f"  tiered fp32 iter server, 18 waves of 4 on six "
+                print(f"  tiered fp32 iter server, {TIER_WAVES} waves of 4 on six "
                       f"{TIER_PROMPT}-token system prompts: prefix "
                       f"{st}; tier {tier} (promote {per:.3f} ms an entry, "
                       f"wall clock); pool {ps['blocks_in_use']} blocks in "
@@ -3369,7 +3384,7 @@ def spec_phase(smi: str) -> dict:
 # -- phase 11: remote dispatch ----------------------------------------------
 
 REMOTE_PROMPT = "Hi"   # short: shard B answers the logits of every position
-REMOTE_NEW = 16
+REMOTE_NEW = 8
 
 
 def _post(url: str, body: dict, headers=None, timeout: float = 300.0):
@@ -5130,8 +5145,302 @@ def plan_phase(smi: str) -> dict:
     del client, recorder, c4, r4, made
     gc.collect()
     torch.cuda.empty_cache()
+
+    # (d) static AUTO_PLAN: three single-card servers, then two ranks
+    launches.update(autoplan_runs(smi, model, tok))
+    autoplan_ranks(smi)
     print(f"  [plan] {time.perf_counter() - t_phase:.1f} s wall [{smi}]")
     return launches
+
+
+AUTOPLAN_NEW = 16        # greedy tokens a reply of the single-card runs
+AUTOPLAN_PROMPTS = tuple(f"Plan {i}: " + "abcdefg"[:i] for i in range(8))
+# the single-card runs: (what, knobs beside MODEL_ID=gpt2 int8 MAX_SEQ=1024,
+# what the chosen label must satisfy beside the host planner's prediction)
+AUTOPLAN_RUNS = (
+    ("default traffic", {}, lambda lb: lb == "single/admission/mb1"),
+    ("MAX_BATCH=8 AUTO_PLAN_TRAFFIC=8/8x8",
+     {"MAX_BATCH": "8", "AUTO_PLAN_TRAFFIC": "8/8x8"},
+     lambda lb: lb.endswith("/mb8")),
+    ("KV_POOL_BLOCKS=256 MAX_BATCH=8, the agentic classes",
+     {"MAX_BATCH": "8", "KV_POOL_BLOCKS": "256", "KV_BLOCK_SIZE": "16"},
+     lambda lb: True),
+)
+AUTOPLAN_RANK_NEW = (8, 24)   # the two-rank run's two greedy budgets
+AUTOPLAN_RANK_PROMPT = "Two ranks plan"
+
+
+def autoplan_runs(smi: str, model, tok) -> dict:
+    """Static AUTO_PLAN on one card (module docstring, phase 16): each
+    run's chosen row against the host planner's, its replies against the
+    hand-set server's, its launches against its forwards. Returns each
+    run's launch counts."""
+    import torch
+
+    from llm_sharding_demo_tpu_torch.ops import cuda_build
+    from llm_sharding_demo_tpu_torch.serving.app import create_app
+    from llm_sharding_demo_tpu_torch.serving.http import TestClient
+    from llm_sharding_demo_tpu_torch.tools import plan_drive
+    from llm_sharding_demo_tpu_torch.utils import costmodel
+    from llm_sharding_demo_tpu_torch.utils.config import from_env
+    from llm_sharding_demo_tpu_torch.utils.metrics import MetricsRegistry
+    from llm_sharding_demo_tpu_torch.utils.tracing import FlightRecorder
+
+    cfg = model[0]
+    total = torch.cuda.get_device_properties(0).total_memory
+    launches = {}
+    for what, knobs, must in AUTOPLAN_RUNS:
+        t0 = time.perf_counter()
+        env = {**{k: None for k in plan_drive.PLAN_ENV}, "MODEL_ID": "gpt2",
+               "INFERENCE_DTYPE": "int8", "MAX_SEQ": str(NPOS),
+               "BATCH_WAIT_MS": "300", "AUTO_PLAN_TRAFFIC": None, **knobs}
+        if "KV_POOL_BLOCKS" in knobs:
+            env["AUTO_PLAN_TRAFFIC"] = plan_drive.plan_traffic()
+
+        def serve(**more):
+            with plan_drive.environ({**env, **more}):
+                c = from_env()
+            return TestClient(create_app(
+                c, model=model, tokenizer=tok, device="cuda",
+                registry=MetricsRegistry(),
+                recorder=FlightRecorder(capacity=64)))
+
+        with plan_drive.environ(env):
+            base = from_env()
+        traffic = (costmodel.parse_traffic(base.auto_plan_traffic)
+                   if base.auto_plan_traffic else None)
+        want = costmodel.plan_for_serving(
+            cfg, 1, base.max_seq, traffic=traffic,
+            max_batch_cap=base.max_batch, kv_pool_blocks=base.kv_pool_blocks,
+            kv_block_size=base.kv_block_size, hbm_gb=total / (1 << 30))
+        client = serve(AUTO_PLAN="1")
+        h = client.get("/healthz").json()
+        row = h["auto_plan"]
+        check(row["chosen"] == want["chosen"]["label"] and must(row["chosen"]),
+              f"AUTO_PLAN {what}: chose {row['chosen']}, the host planner "
+              f"{want['chosen']['label']}")
+        check(row["hbm_bytes_per_device"] <= total,
+              f"AUTO_PLAN {what}: {row['hbm_bytes_per_device']} bytes over "
+              f"the card's {total}")
+        resolved = {k: h[k] for k in ("batch_mode", "max_batch",
+                                      "kv_pool_blocks", "kv_block_size",
+                                      "pp_decode", "tp_decode", "ep_decode",
+                                      "n_stages", "decode_kernel")}
+        n = h["max_batch"]
+        prompts = AUTOPLAN_PROMPTS[:max(n, 2)]
+
+        def replies(c):
+            def post(i):
+                r = c.post("/generate", json={
+                    "prompt": prompts[i], "max_new_tokens": AUTOPLAN_NEW,
+                    "mode": "greedy"})
+                check(r.status_code == 200, f"AUTO_PLAN {what}: {r.json()}")
+                return r.json()["generated"]
+            if n == 1:
+                return [post(i) for i in range(len(prompts))]
+            # a fixed arrival order inside one BATCH_WAIT_MS window: both
+            # servers batch the same rows in the same order
+            return _threads(post, len(prompts),
+                            [0.02 * i for i in range(len(prompts))])
+
+        shapes0 = h["forward_shapes"]
+        cuda_build.reset_launch_counts()
+        got = replies(client)
+        counts = cuda_build.launch_counts()
+        shapes = client.get("/healthz").json()["forward_shapes"]
+        delta = shapes_delta(shapes, shapes0)
+        if h["kv_pool_blocks"]:
+            predicted = plan_drive.expected_launches(
+                {tuple(int(x) for x in k.split("x")): c
+                 for k, c in delta.items()}, L)
+        else:
+            predicted = expected_launches(delta, False, h["n_stages"])
+        check(counts == predicted,
+              f"AUTO_PLAN {what}: launches {counts}, predicted {predicted} "
+              f"from the forwards {delta}")
+        check(counts["quant_head"] > 0,
+              f"AUTO_PLAN {what}: the int8 head never ran: {counts}")
+        del client
+        hand = serve(MAX_BATCH=str(h["max_batch"]),
+                     BATCH_MODE=h["batch_mode"],
+                     KV_POOL_BLOCKS=str(h["kv_pool_blocks"]),
+                     KV_BLOCK_SIZE=str(h["kv_block_size"]))
+        check("auto_plan" not in hand.get("/healthz").json(),
+              "the hand-set server planned")
+        ref = replies(hand)
+        check(got == ref, f"AUTO_PLAN {what}: replies differ from the "
+                          f"hand-set server's: {got} vs {ref}")
+        print(f"  AUTO_PLAN=1, {what}: chose {row['chosen']} (the host "
+              f"planner's; {row['candidates']} candidates, "
+              f"{row['rejected']} rejected, cost {row['cost_per_token']} "
+              f"a token); resolved {resolved}; /healthz auto_plan {row}; "
+              f"hbm_bytes_per_device {row['hbm_bytes_per_device']} of the "
+              f"card's {total} ({row['hbm_bytes_per_device'] / total:.2%})"
+              f"; {len(got)} greedy replies of {AUTOPLAN_NEW} tokens "
+              f"byte-equal to the hand-set server's; forwards {delta}; "
+              f"launches {counts} = the forwards' prediction; "
+              f"{time.perf_counter() - t0:.1f} s [{smi}]")
+        launches[f"AUTO_PLAN {what}"] = counts
+        del hand
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def autoplan_ranks(smi: str) -> None:
+    """Two ranks on cuda:0 over gloo, bf16 GPT-2 124M, ``AUTO_PLAN=1``:
+    both ranks' rows equal the host planner's for a world of 2; the
+    collectives' bytes a decoded token beside the plan's."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from llm_sharding_demo_tpu_torch.models import gpt2
+    from llm_sharding_demo_tpu_torch.utils import costmodel
+
+    t0 = time.perf_counter()
+    total = torch.cuda.get_device_properties(0).total_memory
+    want = costmodel.plan_for_serving(gpt2.CONFIGS["gpt2"], 2, MESH_MAX_SEQ,
+                                      hbm_gb=total / (1 << 30))["chosen"]
+    tok_dir = tempfile.mkdtemp(prefix="smoke-autoplan-")
+    try:
+        recs = mesh_ranks("autoplan", 2, tok_dir, timeout=300.0)
+    finally:
+        shutil.rmtree(tok_dir, ignore_errors=True)
+    labels = [r["auto_plan"]["chosen"] for r in recs]
+    check(labels == [want["label"]] * 2,
+          f"AUTO_PLAN, 2 ranks: chose {labels}, the host planner "
+          f"{want['label']}")
+    check(recs[0]["auto_plan"] == recs[1]["auto_plan"],
+          f"AUTO_PLAN, 2 ranks: rows differ {recs[0]['auto_plan']} vs "
+          f"{recs[1]['auto_plan']}")
+    replies = recs[0]["replies"]
+    check(len(replies) == 2 and replies[1].startswith(replies[0]),
+          f"AUTO_PLAN, 2 ranks: greedy replies {replies}")
+    # the bytes of the longer request less the shorter one's, both ranks:
+    # what the extra decoded tokens moved
+    moved = collections.Counter()
+    for r in recs:
+        m = r["marks"]
+        check(len(m) == 4, f"AUTO_PLAN, 2 ranks: rank {r['rank']} saw "
+                           f"{len(m) - 1} request boundaries, not 3")
+        for k in set(m[1]) | set(m[2]) | set(m[0]):
+            moved[k] += ((m[2].get(k, 0) - m[1].get(k, 0))
+                         - (m[1].get(k, 0) - m[0].get(k, 0)))
+    tokens = AUTOPLAN_RANK_NEW[1] - AUTOPLAN_RANK_NEW[0]
+    per_token = sum(moved.values()) / tokens
+    planned = want["comm_bytes_per_token"]
+    print(f"  AUTO_PLAN=1, bf16 GPT-2 124M on 2 ranks over gloo: both "
+          f"ranks chose {labels[0]} (the host planner's for a world of 2; "
+          f"/healthz auto_plan {recs[0]['health']['auto_plan']}); greedy "
+          f"replies of {AUTOPLAN_RANK_NEW} tokens; the collectives put "
+          f"{per_token:.1f} bytes a decoded token on the wire (both ranks; "
+          f"by call: { {k: v / tokens for k, v in sorted(moved.items())} })"
+          f" against the plan's comm_bytes_per_token {planned} (measured / "
+          f"planned {per_token / planned:.4f}); launches by rank "
+          f"{[r['launches'] for r in recs]}; "
+          f"{time.perf_counter() - t0:.1f} s [{smi}]")
+
+
+def autoplan_worker(args) -> int:
+    """One rank of the plan phase's two-rank run (``--mesh-worker
+    autoplan``): joins 2 ranks on cuda:0 over gloo, builds the bf16
+    ``AUTO_PLAN=1`` app, counts the bytes its collectives send (a
+    wrapper on each ``torch.distributed`` call: a send its tensor, a
+    broadcast its tensor to each other rank, an all-reduce 2 (n - 1) / n
+    of it, an all-gather its tensor to each other rank), marks them at
+    each request's header, serves two greedy requests from rank 0 while
+    the other rank follows, and writes its record to ``--out``."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from llm_sharding_demo_tpu_torch.models import gpt2
+    from llm_sharding_demo_tpu_torch.ops import cuda_build
+    from llm_sharding_demo_tpu_torch.parallel import distributed
+    from llm_sharding_demo_tpu_torch.serving.app import create_app
+    from llm_sharding_demo_tpu_torch.serving.http import TestClient
+    from llm_sharding_demo_tpu_torch.tools.plan_drive import IdTokenizer
+    from llm_sharding_demo_tpu_torch.utils.config import ServingConfig
+
+    distributed.maybe_initialize(args.addr, args.world, args.rank,
+                                 backend="gloo")
+    rank = distributed.rank()
+    sent = collections.Counter()
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    def others(group):
+        return dist.get_world_size(group) - 1
+
+    sizes = {
+        "send": lambda t, *a, **k: nbytes(t),
+        "isend": lambda t, *a, **k: nbytes(t),
+        "broadcast": lambda t, src, *a, group=None, **k: (
+            nbytes(t) * others(group) if dist.get_rank() == src else 0),
+        "all_reduce": lambda t, *a, group=None, **k: (
+            2 * nbytes(t) * others(group) // dist.get_world_size(group)),
+        "all_gather": lambda parts, t, *a, group=None, **k: (
+            nbytes(t) * others(group)),
+        "broadcast_object_list": lambda objs, src=0, *a, group=None, **k: (
+            len(pickle.dumps(objs)) * others(group)
+            if dist.get_rank() == src else 0),
+    }
+
+    def counting(name, fn):
+        def wrapper(*a, **k):
+            sent[name] += sizes[name](*a, **k)
+            return fn(*a, **k)
+        return wrapper
+
+    for name in sizes:
+        setattr(dist, name, counting(name, getattr(dist, name)))
+    marks = []
+    announce, await_header = distributed.announce, distributed.await_header
+
+    def marked_announce(*a, **k):
+        marks.append(dict(sent))
+        return announce(*a, **k)
+
+    def marked_await(*a, **k):
+        hdr = await_header(*a, **k)
+        marks.append(dict(sent))
+        return hdr
+
+    distributed.announce, distributed.await_header = (marked_announce,
+                                                      marked_await)
+    cfg = gpt2.CONFIGS["gpt2"]
+    params = gpt2.init_params(cfg, torch.Generator(device="cuda")
+                              .manual_seed(0))
+    app = create_app(ServingConfig(model_id="gpt2", max_seq=MESH_MAX_SEQ,
+                                   auto_plan=True,
+                                   inference_dtype="bfloat16"),
+                     model=(cfg, params), tokenizer=IdTokenizer())
+    out = {"rank": rank, "auto_plan": app.auto_plan}
+    runner = app.mesh_runner
+    if rank != 0:
+        out["served"] = runner.follow() if runner is not None else None
+    else:
+        client = TestClient(app)
+        out["health"] = client.get("/healthz").json()
+        out["replies"] = []
+        for n in AUTOPLAN_RANK_NEW:
+            r = client.post("/generate", json={
+                "prompt": AUTOPLAN_RANK_PROMPT, "max_new_tokens": n,
+                "mode": "greedy"})
+            check(r.status_code == 200, f"AUTO_PLAN, 2 ranks: {r.json()}")
+            out["replies"].append(r.json()["generated"])
+        if runner is not None:
+            runner.stop_followers()
+    out["marks"] = marks + [dict(sent)]
+    out["launches"] = cuda_build.launch_counts()
+    with open(args.out, "w") as f:
+        json.dump(out, f)
+    distributed.destroy()
+    return 0
 
 
 # -- mesh ----------------------------------------------------------------------
@@ -5139,7 +5448,7 @@ def plan_phase(smi: str) -> dict:
 MESH_MAX_SEQ = 256
 MESH_PROMPTS = ("The pipeline hands", "a shard of heads!")
 MESH_NEW = 16          # greedy tokens a reply
-MESH_TIMED = 32        # tokens of the timed generate
+MESH_TIMED = 16        # tokens of the timed generate
 MESH_BOUNDARY = 6      # PP_DECODE's BOUNDARIES: two stages of six blocks
 
 
@@ -6075,7 +6384,8 @@ def main() -> int:
                              "ckpt,moe,obs,fleet,plan,mesh,trainmesh")
     # one rank of the mesh or trainmesh phase (the phase starts these)
     parser.add_argument("--mesh-worker",
-                        choices=("one", "two", "train-one", "train-two"),
+                        choices=("one", "two", "train-one", "train-two",
+                                 "autoplan"),
                         help=argparse.SUPPRESS)
     for flag in ("--rank", "--world"):
         parser.add_argument(flag, type=int, help=argparse.SUPPRESS)
@@ -6085,6 +6395,8 @@ def main() -> int:
     phases = set(args.phases.split(","))
     if args.mesh_worker in ("train-one", "train-two"):
         return trainmesh_worker(args)
+    if args.mesh_worker == "autoplan":
+        return autoplan_worker(args)
     if args.mesh_worker:
         return mesh_worker(args)
 
@@ -6218,7 +6530,8 @@ def main() -> int:
         print("[plan] continuous planning: an int8 AUTO_PLAN_CONTINUOUS "
               "server switching between the solo paged and pooled iter "
               "plans under agentic bursts, the static plans, lock "
-              "contention under GRAFTSCHED=trace, a GRAFTFAULT pass")
+              "contention under GRAFTSCHED=trace, a GRAFTFAULT pass; "
+              "static AUTO_PLAN=1 servers on one card and on two ranks")
         plan_launches = plan_phase(smi)
     mesh_launches = {}
     if "mesh" in phases:

@@ -16,8 +16,9 @@ Counterpart of the core of ``llm_sharding_demo_tpu/serving/app.py``
   stream windows, and occupancy series), ``/debug/memory`` (the memory
   ledger beside the CUDA allocator), ``/debug/timeline`` (grafttime's
   event stream), ``/debug/trend`` (grafttrend's watches) and
-  ``/debug/plan`` (continuous planning's state; ``mode: "off"`` without
-  it).
+  ``/debug/plan`` (continuous planning's state; without it ``mode:
+  "startup"`` and the static plan's row under ``AUTO_PLAN=1``, else
+  ``mode: "off"``).
 
 Role guards answer HTTP 200 with ``{"error": ...}`` as the reference does.
 Runner choice: ``INFERENCE_DTYPE=int8`` or ``bfloat16``, ``MAX_BATCH >
@@ -68,6 +69,15 @@ admitted to; its trace carries the plan's label. ``/healthz`` serves
 the live ``auto_plan`` block and the batched plan's ``iter_batch_stats``,
 ``/debug/plan`` the switcher's state, ``app.plan_switcher`` the
 switcher.
+
+``AUTO_PLAN=1`` resolves the decode topology, batching and KV knobs at
+startup (``resolve_auto_plan``): ``utils.costmodel.plan_for_serving``
+ranks the candidates over the process group's ranks (unsharded, then
+tp, ep and pp over all of them) against ``AUTO_PLAN_TRAFFIC``, within
+the device's own memory, and the chosen row's knobs replace the
+configured ones before every guard below runs. ``/healthz``
+``auto_plan`` reports the row (merged under the live block with
+``AUTO_PLAN_CONTINUOUS``).
 
 ``FLEET_ROLE`` makes the app a fleet replica (``fleet/topology.py``):
 ``/healthz`` reports the role, the replica label of its timeline events
@@ -330,6 +340,18 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
         config, params, stage_only = loader.resolve_for_role(cfg, dev)
     tokenizer = tokenizer or get_tokenizer(cfg.model_id,
                                            checkpoint_dir=cfg.checkpoint_dir)
+    # the process group's ranks stand where the JAX app counts devices
+    world = distributed.world_size()
+
+    # AUTO_PLAN (utils.costmodel): the decode topology, batching and KV
+    # knobs resolved at startup by the static planner over the loaded
+    # config and the ranks; every candidate passed the planner's gates,
+    # and the guards below still run on the resolved values. A pure
+    # function of the config and the world size: every rank resolves
+    # the same plan. Logged, and reported under /healthz "auto_plan"
+    auto_plan_info = None
+    if cfg.auto_plan:
+        cfg, auto_plan_info = resolve_auto_plan(cfg, config, world, dev)
 
     n_layer = config.n_layer
     for b in cfg.boundaries:
@@ -347,8 +369,6 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
             "DISPATCH=remote requires the dense GPT-2 stage-shard "
             f"topology; {type(config).__name__} models serve with "
             "DISPATCH=local")
-    # the process group's ranks stand where the JAX app counts devices
-    world = distributed.world_size()
     check_batching(cfg, config)
     check_mesh(cfg, config, stageable, world)
     if kv_pool is not None:
@@ -522,9 +542,13 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
             "fleet_role": cfg.fleet_role,
             "device": str(dev),
             "decode_kernel": decode_kernel,
-            # continuous planning: the live plan, not the start-up one
-            **({"auto_plan": switcher.health_view()}
-               if switcher is not None else {}),
+            # continuous planning: the live plan merged over any start-up
+            # row; else how the knobs above were resolved (AUTO_PLAN=1)
+            **({"auto_plan": {**(auto_plan_info or {}),
+                              **switcher.health_view()}}
+               if switcher is not None else
+               {"auto_plan": auto_plan_info}
+               if auto_plan_info is not None else {}),
         }
 
     def _pool_stats() -> dict:
@@ -635,10 +659,13 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
 
     @app.get("/debug/plan")
     def debug_plan(query: dict):
-        # without continuous mode the payload still answers, mode "off"
-        # (static AUTO_PLAN refuses at startup in the port)
+        # without continuous mode the payload still answers: mode
+        # "startup" with the static plan's row (AUTO_PLAN=1), else "off"
         if switcher is None:
-            return {"serving": _topology(), "mode": "off", "auto_plan": None}
+            return {"serving": _topology(),
+                    "mode": "startup" if auto_plan_info is not None
+                    else "off",
+                    "auto_plan": auto_plan_info}
         try:
             n = int(query.get("n", "16"))
         except ValueError:
@@ -1118,10 +1145,61 @@ def create_app(cfg: Optional[ServingConfig] = None, model=None,
     app.trend_reducer = trend_reducer
     # continuous mode's switcher (its plans, certified shapes, journal)
     app.plan_switcher = switcher
+    # the static planner's row (AUTO_PLAN=1), None without it
+    app.auto_plan = auto_plan_info
     # PP/TP/EP_DECODE: the decoder whose follow loop the other ranks run
     # and whose stop_followers rank 0 calls at shutdown
     app.mesh_runner = mesh_runner
     return app
+
+
+def resolve_auto_plan(cfg: ServingConfig, config, world: int,
+                      device) -> Tuple[ServingConfig, dict]:
+    """``(cfg with the planner's chosen knobs, the /healthz auto_plan
+    row)``: ``costmodel.plan_for_serving`` over ``world`` ranks, the
+    traffic ``AUTO_PLAN_TRAFFIC``, ``MAX_BATCH`` the widest candidate and
+    ``KV_POOL_BLOCKS`` the paged ones' pool, the budget the device's own
+    memory. The JAX app's refusals and messages."""
+    if not (cfg.shard_role == "coordinator" and cfg.dispatch == "local"):
+        raise ValueError("AUTO_PLAN applies to the coordinator's local "
+                         "decode path only")
+    from ..utils import costmodel
+    traffic = (costmodel.parse_traffic(cfg.auto_plan_traffic)
+               if cfg.auto_plan_traffic else None)
+    payload = costmodel.plan_for_serving(
+        config, world, max_seq=cfg.max_seq, traffic=traffic,
+        max_batch_cap=max(cfg.max_batch, 1),
+        kv_pool_blocks=cfg.kv_pool_blocks, kv_block_size=cfg.kv_block_size,
+        device=device)
+    chosen = payload["chosen"]
+    if chosen is None:
+        raise ValueError(
+            "AUTO_PLAN: no candidate serving config survived the "
+            "planner's gates for this model/mesh/traffic")
+    c = chosen["config"]
+    cfg = dataclasses.replace(
+        cfg, batch_mode=c["batch_mode"], max_batch=c["max_batch"],
+        kv_pool_blocks=c["kv_pool_blocks"],
+        kv_block_size=c["kv_block_size"],
+        pp_decode=c["topology"] == "pp", tp_decode=c["topology"] == "tp",
+        ep_decode=c["topology"] == "ep",
+        boundaries=(tuple(c["boundaries"]) if c["topology"] == "pp"
+                    else cfg.boundaries))
+    info = {
+        "chosen": chosen["label"],
+        "mesh": chosen.get("mesh", {}),
+        "cost_per_token": chosen["cost_per_token"],
+        "comm_bytes_per_token": chosen["comm_bytes_per_token"],
+        "hbm_bytes_per_device": chosen["hbm_bytes_per_device"],
+        "shapes_exact": chosen["shapes_exact"],
+        "candidates": len(payload["plan"]),
+        "rejected": payload["rejected"],
+    }
+    log.info('{"event": "auto_plan", "chosen": "%s", '
+             '"cost_per_token": %s, "candidates": %d, "rejected": %d}',
+             chosen["label"], chosen["cost_per_token"],
+             len(payload["plan"]), payload["rejected"])
+    return cfg, info
 
 
 def check_continuous_pool(kv_pool: KVBlockPool, engine: DecodeEngine

@@ -18,20 +18,22 @@ replica's role: ``prefill`` serves ``/prefill``, ``decode`` serves
 planning's ``AUTO_PLAN_CONTINUOUS`` (switch between the solo paged plan
 and the pooled iteration batcher between request waves,
 ``utils.graftwatch``), ``AUTO_PLAN_TRAFFIC`` (the traffic classes its
-plans are certified against) and ``AUTO_PLAN_JOURNAL`` (a bench journal
-whose rows calibrate its byte weights), and multi-device decode's
-``PP_DECODE`` (one pipeline stage a rank, ``parallel.ppdecode``),
-``TP_DECODE`` (dense families, tensor-parallel) and ``EP_DECODE`` (MoE,
-expert-parallel), with the JAX package's guards; a multi-rank server is
-one process a rank, joined by ``COORDINATOR_ADDRESS``,
-``NUM_PROCESSES`` and ``PROCESS_ID`` (``parallel.distributed``).
-Every other knob the JAX package accepts refuses at startup when it is
-set to anything but its default, naming the ROADMAP item that will port
-it: a knob ignored in silence would let a deployment believe it runs a
-configuration it does not. Static ``AUTO_PLAN`` is one: the JAX package
-resolves it with a planner that traces JAX programs and gates each
-candidate through its verifier; the port's planner over its own engines
-is ROADMAP Queue 1 item 21.
+plans are certified against, and the static planner's traffic mix) and
+``AUTO_PLAN_JOURNAL`` (a bench journal whose rows calibrate its byte
+weights), the static planner's ``AUTO_PLAN`` (the decode topology,
+batching and KV knobs resolved at startup by ``utils.costmodel``'s
+planner over the port's own engines and the process group's ranks),
+and multi-device decode's ``PP_DECODE`` (one pipeline stage a rank,
+``parallel.ppdecode``), ``TP_DECODE`` (dense families, tensor-parallel)
+and ``EP_DECODE`` (MoE, expert-parallel), with the JAX package's guards;
+a multi-rank server is one process a rank, joined by
+``COORDINATOR_ADDRESS``, ``NUM_PROCESSES`` and ``PROCESS_ID``
+(``parallel.distributed``). A knob of the JAX package that the port
+does not serve would be listed in ``REFUSED_KNOBS`` and refuse at
+startup when set to anything but its default, naming the ROADMAP item
+that ports it (a knob ignored in silence would let a deployment believe
+it runs a configuration it does not); every knob is served now, and the
+table is empty.
 """
 
 from __future__ import annotations
@@ -44,16 +46,8 @@ VALID_ROLES = ("coordinator", "a", "b")
 VALID_DTYPES = ("float32", "bfloat16", "int8")
 
 
-def _is_off(raw: str) -> bool:
-    return raw.strip().lower() in ("", "0", "false", "no", "off")
-
-
 # knob -> (the ROADMAP item that ports it, "is this value the default?")
-_PLAN = ("ROADMAP Queue 1 item 21 (a cost model over the port's own "
-         "engines for the static planner)")
-REFUSED_KNOBS: Dict[str, Tuple[str, Callable[[str], bool]]] = {
-    "AUTO_PLAN": (_PLAN, _is_off),
-}
+REFUSED_KNOBS: Dict[str, Tuple[str, Callable[[str], bool]]] = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,9 +106,18 @@ class ServingConfig:
     # pool-backed prefix store (KV_POOL_BLOCKS + PREFIX_CACHE): the
     # registry is the handoff medium.
     fleet_role: str = ""
+    # the static planner (utils.costmodel.plan_for_serving): resolve the
+    # decode topology, batching and KV knobs at startup from the cost
+    # model over the loaded config and the process group's ranks; the
+    # chosen row overrides BATCH_MODE / MAX_BATCH / PP|TP|EP_DECODE /
+    # BOUNDARIES / KV_POOL_BLOCKS / KV_BLOCK_SIZE (MAX_BATCH caps the
+    # candidates' width, KV_POOL_BLOCKS sizes the paged ones), and
+    # /healthz "auto_plan" reports it. Coordinator + local dispatch only
+    auto_plan: bool = False
     # the traffic classes continuous planning certifies its plans'
-    # forward shapes against, as 'prompt/new[xcount],...' (e.g.
-    # "16/64x8,256/32"); empty: one 16-token prompt decoding 32
+    # forward shapes against, and the static planner scores against, as
+    # 'prompt/new[xcount],...' (e.g. "16/64x8,256/32"); empty: one
+    # 16-token prompt decoding 32
     auto_plan_traffic: str = ""
     # continuous planning (utils/graftwatch): the solo paged runner and
     # the pooled iteration batcher, built once over one engine and one
@@ -378,6 +381,7 @@ def from_env() -> ServingConfig:
         kv_host_blocks=_env_int("KV_HOST_BLOCKS", 0),
         spec_decode=_env_int("SPEC_DECODE", 0),
         fleet_role=os.environ.get("FLEET_ROLE", ""),
+        auto_plan=_env_bool("AUTO_PLAN"),
         auto_plan_traffic=os.environ.get("AUTO_PLAN_TRAFFIC", ""),
         auto_plan_continuous=_env_bool("AUTO_PLAN_CONTINUOUS"),
         auto_plan_journal=os.environ.get("AUTO_PLAN_JOURNAL", ""),

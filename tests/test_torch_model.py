@@ -29,6 +29,15 @@ from llm_sharding_demo_tpu_torch.runtime.engine import (DecodeEngine,
                                                         SamplingConfig)
 from llm_sharding_demo_tpu_torch.utils import graftnum
 
+# One intra-op thread a process. The suite runs six workers, with
+# spawned gloo ranks beside them, on a few cores, and every worker
+# imports this module when it collects, so this holds for each port test
+# it runs. torch's intra-op pool waits for threads the oversubscribed
+# cores do not schedule: test_torch_spec_decode's sampling-law test,
+# 4.3 s alone, took 54 s beside twelve busy processes with the default
+# pool of eight threads and 4.3 s with one.
+torch.set_num_threads(1)
+
 # The JAX package's memory ledger retires a holding from a weakref
 # finalizer that samples graftscope under its lock, and the per-test
 # metrics isolation in tests/conftest.py holds that same lock while it

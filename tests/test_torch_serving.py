@@ -148,9 +148,10 @@ def test_request_validation(weights):
 ])
 def test_unported_knobs_refuse_at_startup(weights, monkeypatch, knob,
                                           value):
-    """Each knob the port does not serve refuses, naming its ROADMAP item
-    (static AUTO_PLAN: item 21); CHECKPOINT_DIR is served now
-    (checkpoints are ported): it parses into the config instead. So are
+    """No knob refuses now: each parses. AUTO_PLAN (the static planner
+    is ported) parses into the config as the JAX config parses it;
+    CHECKPOINT_DIR is served (checkpoints are ported): it parses into
+    the config instead. So are
     FLEET_ROLE (the fleet is ported), AUTO_PLAN_CONTINUOUS and
     AUTO_PLAN_JOURNAL (continuous planning is ported): each parses, and
     without its companions (the pool-backed prefix store; the pooled
@@ -209,10 +210,8 @@ def test_unported_knobs_refuse_at_startup(weights, monkeypatch, knob,
         assert companions[knob] in str(e.value)
         assert "ROADMAP Queue 1 item" not in str(e.value)
         return
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item") as e:
-        tconfig.from_env()
-    if knob == "AUTO_PLAN":
-        assert "item 21" in str(e.value)
+    assert knob == "AUTO_PLAN" and knob not in tconfig.REFUSED_KNOBS
+    assert tconfig.from_env().auto_plan is jfrom_env().auto_plan is True
 
 
 @pytest.mark.parametrize("env", [

@@ -415,7 +415,8 @@ def serve(family: str, cfg_kw: dict, np_params, serving: dict,
           bodies: List[dict], env: Optional[dict] = None) -> dict:
     """``create_app`` on every rank; rank 0 posts ``bodies`` through the
     in-process client and reads /healthz, then stops the followers, which
-    serve from their ``follow`` loops meanwhile."""
+    serve from their ``follow`` loops meanwhile. Every rank returns the
+    app's static plan row (``auto_plan``, None without AUTO_PLAN)."""
     from llm_sharding_demo_tpu_torch.parallel import distributed
     from llm_sharding_demo_tpu_torch.serving.app import create_app
     from llm_sharding_demo_tpu_torch.serving.http import TestClient
@@ -433,13 +434,15 @@ def serve(family: str, cfg_kw: dict, np_params, serving: dict,
         mesh = app.mesh_runner
         if distributed.rank() != 0:
             # a single-device app: rank 0 serves it alone
-            return {"served": mesh.follow() if mesh is not None else None}
+            return {"served": mesh.follow() if mesh is not None else None,
+                    "auto_plan": app.auto_plan}
         client = TestClient(app)
         replies = [client.post("/generate", json=b).json() for b in bodies]
         health = client.get("/healthz").json()
         if mesh is not None:
             mesh.stop_followers()
-        return {"replies": replies, "health": health}
+        return {"replies": replies, "health": health,
+                "auto_plan": app.auto_plan}
     finally:
         for k, v in saved.items():
             if v is None:
