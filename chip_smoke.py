@@ -4,7 +4,11 @@
 Run from the repository root: ``python3 chip_smoke.py``. Phases, each of
 which must pass or the script exits non-zero:
 
-1. probe: the card's name, capability and power limit;
+1. probe: a child process under a hard timeout
+   (``utils.backend_probe``) must find a CUDA device before this
+   process touches CUDA (no card, a hang or a failed child is a
+   failure, never a skip); then the card's name, capability and power
+   limit;
 2. build: every CUDA kernel of ``llm_sharding_demo_tpu_torch/csrc``,
    one nvcc per source, all started together, with each kernel's
    registers, spills and shared memory; the SASS (``cuobjdump -sass``)
@@ -283,6 +287,17 @@ which must pass or the script exits non-zero:
    stage, the head on the last); ms/token and each collective's share
    of the decode (host clock) are printed as readings. Multi-GPU nccl
    is not exercised: the script runs on one GPU.
+18. trainmesh: mesh training in rank processes of this script
+   (``--mesh-worker train-one|train-two``). The flash kernels at the
+   pipeline's microbatch shape against their plain versions; a world
+   of 1 over nccl (llama-124m bf16, flash, remat) against two
+   single-card runs; GPipe and 1F1B on pp=2 over gloo on cuda:0, their
+   losses within ``TM_BF16_BAR`` and exact flash launches; then f32 at
+   full width and ``TM_F32_LAYERS`` layers (``trainmesh_f32``): GPT-2
+   and llama on tp=2, dp=2 and sp=2 ring, GPT-2-MoE on ep=2, tp=2 and
+   sp=2 (the experts' choices dropped equal to the single card's, more
+   than 0 on sp), llama interleaved 1F1B, each within 1e-5 of the
+   single-card step's losses and 1e-4 of its gradients' norms.
 
 The last lines are the card's name and power limit, one JSON object with
 the kernels' numbers (each kernel's launches counted on the path that
@@ -334,6 +349,10 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 # to 4096 positions)
 L, H, HD, D, V, NPOS = 12, 12, 64, 768, 50257, 1024
 HKV, INTER, LV, LNPOS = 4, 2048, 32000, 4096
+
+
+# the CUDA probe's child process must answer within this
+PROBE_TIMEOUT_S = 180.0
 
 
 class SmokeError(Exception):
@@ -6044,6 +6063,33 @@ def trainmesh_phase(smi: str) -> dict:
               f"gradients worst {row['grad_rel']:.2e} of their norms (bar "
               f"1e-4) over {row['leaves']} leaves; step ms "
               f"{[round(t, 1) for t in row['ms']]} [{smi}]")
+    for name in ("moe tp=2", "moe sp=2"):
+        rows = [rec["f32"][name] for rec in two]
+        # the sp ranks route their own chunks; the tp ranks the same
+        # tokens
+        dropped = (sum(r["dropped"] for r in rows) if "sp" in name
+                   else rows[0]["dropped"])
+        want = rows[0]["ref_dropped"]
+        check(dropped == want, f"trainmesh f32 {name}: the ranks dropped "
+                               f"{dropped} expert choices, the single card "
+                               f"{want}")
+        if "sp" in name:
+            check(dropped > 0, f"trainmesh f32 {name}: no expert choice "
+                               "dropped, the slot exchange is untested")
+        comm = "; ".join(
+            f"rank {i} " + ", ".join(
+                f"{k} {n} calls {sec / r['total_s']:.1%}"
+                for k, (n, sec) in sorted(r["comm"].items()))
+            for i, r in enumerate(rows))
+        print(f"  [trainmesh] f32 {name} at capacity_factor "
+              f"{rows[0]['capacity_factor']}"
+              + (f" ({rows[0]['note']})" if rows[0]["note"] else "")
+              + f": expert choices dropped in the first forward {dropped} "
+              f"(by rank {[r['dropped'] for r in rows]}; the single card "
+              f"{want}); step ms by rank "
+              f"{[[round(t, 1) for t in r['ms']] for r in rows]}; peak "
+              f"GiB by rank {[round(r['peak_gib'], 2) for r in rows]}; "
+              f"host time in collectives {comm} [{smi}]")
     print(f"  [trainmesh] {time.perf_counter() - t0:.1f} s wall [{smi}]")
     out = {"world 1 nccl, 3 bf16 steps": _sum_counts(mesh["launches"])}
     for sched in ("gpipe", "1f1b"):
@@ -6129,18 +6175,23 @@ def trainmesh_one() -> dict:
 
 def trainmesh_f32(rank: int) -> dict:
     """Two ranks, f32 at full width and ``TM_F32_LAYERS`` layers, TF32
-    off: tp=2, dp=2 and sp=2 ring for GPT-2 and llama, ep=2 for
-    GPT-2-MoE, interleaved 1F1B (v=2) for llama, each held to the
-    single-card f32 step on the same weights (every rank computes that
-    reference): losses of ``TM_F32_STEPS`` steps within 1e-5 relative,
-    first-step gradients (unsharded; a pipeline rank's own chunks)
-    within 1e-4 of their norms."""
+    off: tp=2, dp=2 and sp=2 ring for GPT-2 and llama, ep=2, tp=2 and
+    sp=2 for GPT-2-MoE, interleaved 1F1B (v=2) for llama, each held to
+    the single-card f32 step on the same weights (every rank computes
+    that reference): losses of ``TM_F32_STEPS`` steps within 1e-5
+    relative, first-step gradients (unsharded; a pipeline rank's own
+    chunks) within 1e-4 of their norms. Each case also records the
+    expert choices dropped in the first forward (this rank's tokens, and
+    the single card's), the rank's peak memory and its collectives'
+    host time over the steps. The MoE sp case runs at a capacity factor
+    that drops choices (1.25, else 1.0)."""
     import dataclasses
 
     import torch
 
     from llm_sharding_demo_tpu_torch.models import gpt2, llama, moe
-    from llm_sharding_demo_tpu_torch.parallel import partition as P_, spmd
+    from llm_sharding_demo_tpu_torch.parallel import (distributed,
+                                                      partition as P_, spmd)
     from llm_sharding_demo_tpu_torch.training import train
 
     cfgs = {"gpt2": dataclasses.replace(gpt2.CONFIGS["gpt2"],
@@ -6165,6 +6216,8 @@ def trainmesh_f32(rank: int) -> dict:
                                        ("dp=2", {"dp": 2}, "xla"),
                                        ("sp=2 ring", {"sp": 2}, "ring"))]
     cases += [("moe ep=2", "moe", {"ep": 2}, "xla"),
+              ("moe tp=2", "moe", {"tp": 2}, "xla"),
+              ("moe sp=2", "moe", {"sp": 2}, "xla"),
               ("llama interleaved 1f1b v=2 pp=2", "llama", {"pp": 2},
                "xla")]
     out = {}
@@ -6172,9 +6225,17 @@ def trainmesh_f32(rank: int) -> dict:
         base = cfgs[fam]
         params = mods[fam].init_params(
             base, torch.Generator(device="cuda").manual_seed(7))
+        note = ""
+        if name == "moe sp=2" and not dropped_choices(params, ids, base):
+            # the sp case must drop choices, or the ranks' slot exchange
+            # goes untested
+            base = dataclasses.replace(base, capacity_factor=1.0)
+            note = "capacity_factor 1.0 (1.25 drops no choice here)"
         ref = steps_of(fam, base)
         rp, rs = ref.init(params)
-        rloss, rgrads = ref.loss_and_grads(rp, ids)
+        with moe.counting_drops() as drops:
+            rloss, rgrads = ref.loss_and_grads(rp, ids)
+        ref_dropped = int(sum(int(n) for n in drops))
         rgrads = dict(zip([p for p, _ in train._flatten(rp)], rgrads))
         ref_losses = []
         for _ in range(TM_F32_STEPS):
@@ -6198,7 +6259,9 @@ def trainmesh_f32(rank: int) -> dict:
             table = step._specs
             want = rgrads
         p, s = step.init(params)
-        loss, grads = step.loss_and_grads(p, ids)
+        with moe.counting_drops() as drops:
+            loss, grads = step.loss_and_grads(p, ids)
+        dropped = int(sum(int(n) for n in drops))
         full = spmd.unshard_params(
             train._unflatten(zip([q for q, _ in train._flatten(p)], grads)),
             mesh, table)
@@ -6208,11 +6271,16 @@ def trainmesh_f32(rank: int) -> dict:
             worst = max(worst, float((g - w).norm()
                                      / w.norm().clamp_min(1e-30)))
         losses, ms = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        distributed.reset_comm_stats()
+        t_all = time.perf_counter()
         for _ in range(TM_F32_STEPS):
             t0 = time.perf_counter()
             p, s, loss = step(p, s, ids)
             losses.append(float(loss))
             ms.append((time.perf_counter() - t0) * 1e3)
+        total_s = time.perf_counter() - t_all
         rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
         check(rel <= 1e-5, f"trainmesh f32 {name} rank {rank}: losses "
                            f"{losses} vs {ref_losses} ({rel:.2e} relative)")
@@ -6220,10 +6288,28 @@ def trainmesh_f32(rank: int) -> dict:
                              f"differs by {worst:.2e} of its norm")
         out[name] = {"losses": losses, "ref_losses": ref_losses,
                      "loss_rel": rel, "grad_rel": worst,
-                     "leaves": len(want), "ms": ms}
+                     "leaves": len(want), "ms": ms,
+                     "dropped": dropped, "ref_dropped": ref_dropped,
+                     "capacity_factor": getattr(base, "capacity_factor",
+                                                None), "note": note,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                     "comm": distributed.comm_stats(), "total_s": total_s}
         del p, s, params, grads, full, rgrads, want, step, ref
         torch.cuda.empty_cache()
     return out
+
+
+def dropped_choices(params, ids, config) -> int:
+    """The expert choices capacity drops in the single-card MoE forward
+    of the training inputs ``ids[:, :-1]``."""
+    import torch
+
+    from llm_sharding_demo_tpu_torch.models import moe
+
+    with torch.no_grad(), moe.counting_drops() as drops:
+        moe.forward(params, torch.as_tensor(ids[:, :-1], device="cuda"),
+                    config)
+    return int(sum(int(n) for n in drops))
 
 
 def trainmesh_two(rank: int) -> dict:
@@ -6401,11 +6487,16 @@ def main() -> int:
         return mesh_worker(args)
 
     t_start = time.perf_counter()
-    import torch
-    if not torch.cuda.is_available():
-        print("FAIL: torch.cuda.is_available() is false; this smoke test "
-              "needs a CUDA GPU", file=sys.stderr)
+    # a child process finds the card (or fails with a reason, bounded)
+    # before this process touches CUDA
+    from llm_sharding_demo_tpu_torch.utils.backend_probe import (
+        probe_default_backend)
+    platform, found = probe_default_backend(PROBE_TIMEOUT_S)
+    if platform is None:
+        print(f"FAIL: {found}; this smoke test needs a CUDA GPU",
+              file=sys.stderr)
         return 1
+    import torch
     from llm_sharding_demo_tpu_torch.ops import cuda_build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6413,7 +6504,9 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
     print(f"[probe] {name} capability {torch.cuda.get_device_capability(0)} "
-          f"torch {torch.__version__} cuda {torch.version.cuda}; {smi}")
+          f"torch {torch.__version__} cuda {torch.version.cuda}; {smi}; "
+          f"the probe's child found {platform} {found!r} in "
+          f"{time.perf_counter() - t_start:.1f} s")
 
     t0 = time.perf_counter()
     libs = cuda_build.build_all()
@@ -6544,7 +6637,8 @@ def main() -> int:
         print("[trainmesh] mesh training: llama-124m on a world of 1 over "
               "nccl against the single-card step; GPipe and 1F1B on pp=2 "
               "at llama-124m width over gloo on cuda:0; f32 tp, dp, sp "
-              "ring, ep and interleaved 1F1B at full width, 4 layers")
+              "ring, MoE ep, tp and sp, and interleaved 1F1B at full "
+              "width, 4 layers")
         trainmesh_launches = trainmesh_phase(smi)
 
     sources = {"decode_attention": "csrc/decode_attention.cu",

@@ -23,7 +23,18 @@ over the group completes every token. In training the experts' input and
 the combine weights pass ``distributed.copy_to``, so the router's, the
 attention's and the embeddings' gradients are whole on every rank, and
 the load-balance loss reads its token and gate fractions averaged over
-the ``dp`` group before their product (its global value).
+the data group (dp x sp) before their product (its global value).
+
+On a training mesh (``mesh_forward``) the attention half runs over the
+``tp`` heads and the ``sp`` sequence as in dense GPT-2. Under ``tp``
+each expert's FFN hidden dim is split (Megatron within the expert): the
+``c_proj`` partial products sum over tp before their whole bias. Under
+``sp`` a rank routes its own chunk of the sequence against the
+capacity of the whole sequence: the ranks all-gather their per-(row,
+choice, expert) selection counts, which place each local choice in the
+k-major order of the whole sequence (``_dispatch_slots``); a kept
+choice's expert row depends on its own token alone, so the rank
+dispatches only its own tokens, to slots of its own.
 
 The expert contractions are batched ``torch.einsum``/``bmm`` products,
 as the JAX package computes them outside any Pallas kernel; int8 experts
@@ -32,6 +43,7 @@ accumulate in f32 and round once, after the scale.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import List, Optional, Tuple, Union
 
@@ -181,17 +193,18 @@ def _router(moe_params: Params, h: torch.Tensor) -> torch.Tensor:
 
 
 def _aux_loss(top1: torch.Tensor, gates: torch.Tensor, e: int,
-              dp_group=None):
+              data_group=None):
     """Switch-style load balance over the top-1 assignment. Under
-    ``dp_group`` the two fractions are means over the whole batch (the
-    ranks' equal shards averaged) before their product."""
+    ``data_group`` (the ranks holding the batch's equal shards: dp x sp)
+    the two fractions are means over the whole batch before their
+    product."""
     frac_tokens, frac_gates = top1.mean(dim=(0, 1)), gates.mean(dim=(0, 1))
-    if dp_group is not None:
+    if data_group is not None:
         from ..parallel.distributed import all_reduce
         import torch.distributed as dist
-        n = dist.get_world_size(dp_group)
-        frac_tokens = all_reduce(frac_tokens.detach(), dp_group) / n
-        frac_gates = all_reduce(frac_gates, dp_group) / n
+        n = dist.get_world_size(data_group)
+        frac_tokens = all_reduce(frac_tokens.detach(), data_group) / n
+        frac_gates = all_reduce(frac_gates, data_group) / n
     return torch.sum(frac_tokens * frac_gates) * e
 
 
@@ -220,21 +233,72 @@ def moe_mlp_routed(moe_params: Params, h: torch.Tensor, config: MoEConfig,
     return out.reshape(b, s, d), _aux_loss(onehots[0], gates, e)
 
 
-def _dispatch_slots(sel: torch.Tensor, cap: int):
+_DROP_COUNTS: List[List[torch.Tensor]] = []
+
+
+@contextlib.contextmanager
+def counting_drops():
+    """Within the block, every dense dispatch appends the number of this
+    rank's expert choices that capacity dropped (a 0-d tensor, no host
+    sync) to the yielded list. On a mesh the ranks of one data shard
+    (its tp and ep ranks) count the same choices."""
+    box: List[torch.Tensor] = []
+    _DROP_COUNTS.append(box)
+    try:
+        yield box
+    finally:
+        _DROP_COUNTS.remove(box)
+
+
+def _earlier_choices(sel: torch.Tensor, sp_group) -> torch.Tensor:
+    """``[B, k*S, E]``: what the whole sequence's k-major order puts
+    before each of this rank's k-major flattened choices, of the same
+    (row, expert), beyond the rank's own earlier choices (which its local
+    cumsum counts): the other ranks' choices of earlier choice indices,
+    and the earlier ranks' choices of its own index. One all-gather of
+    the ``[k, B, E]`` selection counts (no gradient)."""
+    import torch.distributed as dist
+    from ..parallel.distributed import all_gather
+    k, b, s, e = sel.shape
+    r = dist.get_rank(sp_group)
+    counts = all_gather(sel.sum(dim=2)[None], 0, sp_group)    # [n,k,B,E]
+    others = counts.sum(dim=0) - counts[r]                      # [k,B,E]
+    before = (torch.cumsum(others, dim=0) - others
+              + counts[:r].sum(dim=0))
+    return before.permute(1, 0, 2)[:, :, None, :].expand(
+        b, k, s, e).reshape(b, k * s, e)
+
+
+def _dispatch_slots(sel: torch.Tensor, cap: int, sp_group=None):
     """``[k, B, S, E]`` one-hot choices -> ``(slot, keep)``, each ``[B,
     k*S, E]`` over the k-major flattened choices: the cumsum along them
     hands out distinct slots per (row, expert); a choice past ``cap`` is
-    not kept."""
+    not kept.
+
+    ``sp_group``: ``sel`` holds this rank's chunk of the sequence. A
+    choice's place in the whole sequence's order (``_earlier_choices``
+    plus the local cumsum) decides whether it is kept; the kept local
+    choices then take local slots in order, each below
+    ``min(cap, S)``."""
     k, b, s, e = sel.shape
     sel_flat = sel.permute(1, 0, 2, 3).reshape(b, k * s, e)
     pos = torch.cumsum(sel_flat, dim=1) - 1.0
+    if sp_group is not None:
+        pos = pos + _earlier_choices(sel, sp_group)
     keep = (pos < cap) & (sel_flat > 0)
+    if sp_group is not None:
+        pos = torch.cumsum(keep.to(pos.dtype), dim=1) - 1.0
+    if _DROP_COUNTS:
+        dropped = (sel_flat > 0).sum() - keep.sum()
+        for box in _DROP_COUNTS:
+            box.append(dropped)
     return torch.where(keep, pos, torch.zeros_like(pos)).long(), keep
 
 
 def moe_mlp(moe_params: Params, h: torch.Tensor, config: MoEConfig,
             token_valid: Optional[torch.Tensor] = None, ep_group=None,
-            dp_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+            data_group=None, tp_group=None, sp_group=None,
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k routed expert MLP with the dense dispatch. [B, S, d] ->
     ([B, S, d], aux scalar).
 
@@ -253,32 +317,47 @@ def moe_mlp(moe_params: Params, h: torch.Tensor, config: MoEConfig,
     the group: each rank's holds only its own experts' share); the router
     and the aux loss read ``h`` and the gates whole.
 
-    ``dp_group``: the aux loss's fractions averaged over it
+    ``tp_group``: the experts' FFN hidden dim is this rank's slice
+    (``c_fc`` columns and bias, ``c_proj`` rows). The experts' input
+    passes ``copy_to`` over tp too, and the ``c_proj`` products sum over
+    tp before their bias, which is whole and so added once.
+
+    ``sp_group``: ``h`` is this rank's chunk of the sequence; capacity is
+    the whole sequence's and the slots follow its order
+    (``_dispatch_slots``).
+
+    ``data_group``: the aux loss's fractions averaged over it
     (``_aux_loss``)."""
+    from ..parallel.distributed import copy_to, reduce_from
     b, s, d = h.shape
     e, k = config.n_experts, config.expert_top_k
-    cap = expert_capacity(config, s)
+    if sp_group is not None:
+        import torch.distributed as dist
+        cap = expert_capacity(config, s * dist.get_world_size(sp_group))
+        slots = min(cap, s)
+    else:
+        cap = slots = expert_capacity(config, s)
     experts = moe_params["experts"]
     e_loc = experts["c_fc"]["bias"].shape[0]
     e0 = 0
     if ep_group is not None:
         import torch.distributed as dist
         e0 = dist.get_rank(ep_group) * e_loc
-    from ..parallel.distributed import copy_to, reduce_from
     gates = _router(moe_params, h)
     idxs, onehots, w = _topk_gates(gates, e, k, token_valid)
-    aux = _aux_loss(onehots[0], gates, e, dp_group)
-    h, w = copy_to(h, ep_group), copy_to(w, ep_group)
+    aux = _aux_loss(onehots[0], gates, e, data_group)
+    h, w = copy_to(copy_to(h, ep_group), tp_group), copy_to(w, ep_group)
     sel = torch.stack(onehots)                                  # [k,B,S,E]
-    slot, keep = _dispatch_slots(sel, cap)
-    slot_oh = _one_hot(slot, cap, gates.dtype) * keep[..., None]
+    slot, keep = _dispatch_slots(sel, cap, sp_group)
+    slot_oh = _one_hot(slot, slots, gates.dtype) * keep[..., None]
     # [B, k*S, E, C] un-flattens as (k, s): the merged axis is k-major
-    dispatch = slot_oh.reshape(b, k, s, e, cap).sum(dim=1)      # [B,S,E,C]
+    dispatch = slot_oh.reshape(b, k, s, e, slots).sum(dim=1)    # [B,S,E,C]
     local = dispatch[:, :, e0:e0 + e_loc] if e_loc != e else dispatch
     xin = torch.einsum("bsec,bsd->ebcd", local.to(h.dtype), h)
     h1 = _expert_einsum("ebcd,edf->ebcf", xin, experts["c_fc"]["kernel"])
     h1 = gelu_new(h1 + experts["c_fc"]["bias"][:, None, None, :])
-    h2 = _expert_einsum("ebcf,efd->ebcd", h1, experts["c_proj"]["kernel"])
+    h2 = reduce_from(_expert_einsum("ebcf,efd->ebcd", h1,
+                                    experts["c_proj"]["kernel"]), tp_group)
     h2 = h2 + experts["c_proj"]["bias"][:, None, None, :]       # [E,B,C,d]
     # combine: each choice's expert row at its slot, weighted, dropped
     # choices weighted 0
@@ -304,12 +383,15 @@ def _moe_block(p: Params, h: torch.Tensor, config: MoEConfig,
                offset: Union[int, torch.Tensor] = 0,
                k_valid_from: Optional[torch.Tensor] = None,
                decode_kernel: Optional[str] = None,
-               routed_mlp: bool = True, ep_group=None, dp_group=None,
+               routed_mlp: bool = True, ep_group=None, mesh=None,
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One pre-LN MoE block (GPT-2's attention half, the expert MLP via
     ``mlp_fn``). Returns ``(h, aux)``. Left-pad columns
     (``k_valid_from``) are kept out of routing; with ``routed_mlp`` a
-    single-token step with ``B * k <= E`` takes the routed path."""
+    single-token step with ``B * k <= E`` takes the routed path.
+    ``mesh`` (training): ``p`` is this rank's slices, attention runs over
+    its tp heads and across the sp axis, and the expert MLP over its tp
+    slices, its sp chunk and the data group (``moe_mlp``)."""
     token_valid = None
     if k_valid_from is not None:
         s = h.shape[1]
@@ -317,6 +399,13 @@ def _moe_block(p: Params, h: torch.Tensor, config: MoEConfig,
                        >= k_valid_from[:, None])
     use_routed = (routed_mlp and h.shape[1] == 1
                   and h.shape[0] * config.expert_top_k <= config.n_experts)
+    groups = {}
+    tp_group = None
+    if mesh is not None:
+        from ..parallel import spmd
+        tp_group = spmd.group(mesh, "tp")
+        groups = dict(tp_group=tp_group, sp_group=spmd.group(mesh, "sp"),
+                      data_group=spmd.axis_group(mesh, ("dp", "sp")))
     aux_cell: List[torch.Tensor] = []
 
     def mlp_fn(block_params: Params, m: torch.Tensor) -> torch.Tensor:
@@ -324,13 +413,14 @@ def _moe_block(p: Params, h: torch.Tensor, config: MoEConfig,
             out, aux = moe_mlp_routed(block_params["moe"], m, config)
         else:
             out, aux = moe_mlp(block_params["moe"], m, config, token_valid,
-                               ep_group, dp_group)
+                               ep_group, **groups)
         aux_cell.append(aux)
         return out
 
-    h = gpt2._block(p, h, config.n_head, config.layer_norm_epsilon, cache,
+    n_head = gpt2.tp_config(config, tp_group).n_head
+    h = gpt2._block(p, h, n_head, config.layer_norm_epsilon, cache,
                     layer_idx, offset, k_valid_from, decode_kernel,
-                    mlp_fn=mlp_fn)
+                    mlp_fn=mlp_fn, tp_group=tp_group, mesh=mesh)
     return h, aux_cell[0]
 
 
@@ -338,7 +428,7 @@ def apply_blocks(blocks: Union[Params, List[Params]], h: torch.Tensor,
                  config: MoEConfig, cache: Optional[KVCache] = None,
                  k_valid_from: Optional[torch.Tensor] = None,
                  decode_kernel: Optional[str] = None,
-                 routed_mlp: bool = True, ep_group=None, dp_group=None,
+                 routed_mlp: bool = True, ep_group=None, mesh=None,
                  ) -> Tuple[torch.Tensor, torch.Tensor, Optional[KVCache]]:
     """The block stack (stacked dict or its ``unstack_blocks`` list):
     ``(h, summed f32 aux, cache one window longer or None)``."""
@@ -348,7 +438,7 @@ def apply_blocks(blocks: Union[Params, List[Params]], h: torch.Tensor,
     for li, p in enumerate(layers):
         h, layer_aux = _moe_block(p, h, config, cache, li, offset,
                                   k_valid_from, decode_kernel, routed_mlp,
-                                  ep_group, dp_group)
+                                  ep_group, mesh)
         aux = aux + layer_aux
     if cache is not None:
         cache = KVCache(k=cache.k, v=cache.v, length=offset + h.shape[1])
@@ -360,7 +450,7 @@ def forward(params: Params, input_ids: torch.Tensor, config: MoEConfig,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[B, S] -> ([B, S, vocab] f32 logits, summed router aux loss).
     ``remat`` is refused: the JAX MoE forward has no per-block remat.
-    ``mesh`` (dp and ep axes): ``params`` are this rank's slices
+    ``mesh``: ``params`` are this rank's slices
     (``spmd.moe_param_pspecs``), ``input_ids`` the global batch; the
     logits of the whole batch are gathered onto every rank, the aux loss
     is the global one."""
@@ -376,33 +466,20 @@ def forward(params: Params, input_ids: torch.Tensor, config: MoEConfig,
     return final_logits(params, h, config.layer_norm_epsilon), aux
 
 
-def check_mesh(mesh) -> None:
-    """MoE trains on a mesh over ``dp`` and ``ep``: a ``tp``, ``sp`` or
-    ``pp`` axis of more than one rank refuses."""
-    from ..parallel.spmd import axis_size
-    extra = [a for a in mesh.mesh_dim_names
-             if a not in ("dp", "ep") and axis_size(mesh, a) > 1]
-    if extra:
-        raise NotImplementedError(
-            f"MoE mesh training runs over dp and ep; a {'/'.join(extra)} "
-            f"axis is not ported ({MOE_MESH_ITEM})")
-
-
-MOE_MESH_ITEM = "ROADMAP Queue 1 item 24 (GPT-2-MoE training on tp/sp meshes)"
-
-
 def mesh_forward(params: Params, input_ids: torch.Tensor, config: MoEConfig,
                  mesh) -> Tuple[torch.Tensor, torch.Tensor]:
-    """This rank's logits and the global aux loss on a dp x ep mesh:
-    ``input_ids`` is its dp rows, its experts are ``E / ep`` of them (the
-    dense dispatch, summed over ``ep``), the aux loss's fractions are
-    averaged over ``dp``."""
+    """This rank's logits and the global aux loss on a mesh of any of
+    dp, tp, sp, ep and pp: ``input_ids`` is its shard (its dp rows, its
+    sp chunk, embedded at the chunk's global positions), its experts are
+    ``E / ep`` of them (the dense dispatch, summed over ``ep``) at its tp
+    slices, the aux loss's fractions are averaged over dp x sp. A ``pp``
+    axis, which no layout table or batch spec names, replicates the
+    whole computation, as in the JAX package."""
     from ..parallel import spmd
-    check_mesh(mesh)
-    h = embed(params, input_ids, 0)
+    h = embed(params, input_ids, spmd.seq_offset(mesh, input_ids.shape[1]))
     h, aux, _ = apply_blocks(params["blocks"], h, config,
                              routed_mlp=False, ep_group=spmd.group(mesh, "ep"),
-                             dp_group=spmd.group(mesh, "dp"))
+                             mesh=mesh)
     return final_logits(params, h, config.layer_norm_epsilon), aux
 
 

@@ -32,7 +32,12 @@ its share and the collectives are explicit:
 - ``tp``: Megatron's pair inside every block (``models.gpt2``), so the
   replicated leaves' gradients are whole and equal on the tp ranks;
 - ``ep`` (``MoETrainStep``): each rank's experts, the dense dispatch
-  summed over ``ep``; the aux loss global over ``dp``;
+  summed over ``ep``, each expert's FFN split over ``tp`` where the mesh
+  has one; routing global over ``sp`` (capacity is the whole
+  sequence's); the aux loss global over dp x sp;
+- ``pp`` outside ``GPipeTrainStep`` (an MoE mesh): no layout table or
+  batch spec names it, so every pp rank computes the same step, as the
+  JAX package's replicated computation does;
 - the global-norm clip sums the squares of a split leaf over the ranks
   that split it, and counts a replicated leaf once.
 
@@ -110,8 +115,9 @@ def lm_loss(params: Params, ids: torch.Tensor, config,
 def moe_lm_loss(params: Params, ids: torch.Tensor, config,
                 aux_weight: float = 0.01, mesh=None) -> torch.Tensor:
     """Next-token CE plus ``aux_weight`` times the router load-balance
-    loss (``models.moe.forward``). ``mesh`` (dp and ep): the CE of this
-    rank's rows plus the global aux loss."""
+    loss (``models.moe.forward``). ``mesh``: the CE of this rank's
+    tokens (its dp rows and sp chunk of inputs and labels) plus the
+    global aux loss."""
     from ..models import moe
     if mesh is None:
         logits, aux = moe.forward(params, ids[:, :-1], config)
@@ -302,6 +308,21 @@ def _split_axes(params_specs: Params, extra=lambda path: ()):
             for path, spec in _flatten(params_specs)}
 
 
+def check_tp_heads(config, mesh) -> None:
+    """The port splits attention over ``tp`` by whole heads: tp must
+    divide ``n_head`` (and llama's ``n_kv_head``). The JAX package's
+    GSPMD tiles an uneven split; this port refuses it."""
+    from ..parallel import spmd
+    tp = spmd.axis_size(mesh, "tp")
+    heads = {name: getattr(config, name) for name in ("n_head", "n_kv_head")
+             if hasattr(config, name)}
+    if any(n % tp for n in heads.values()):
+        raise ValueError(
+            f"tp={tp} must divide "
+            + " and ".join(f"{k}={v}" for k, v in heads.items())
+            + ": attention shards over whole heads")
+
+
 @dataclasses.dataclass
 class TrainStep:
     """A train step bound to ``(config, optimizer)``, on one device or on
@@ -333,9 +354,7 @@ class TrainStep:
             self.device = resolve_device(self.device)
             return
         from ..parallel import distributed
-        if is_moe(self.config):
-            from ..models import moe
-            moe.check_mesh(self.mesh)
+        check_tp_heads(self.config, self.mesh)
         self.device = distributed.rank_device(
             distributed.rank(), distributed.world_size(), self.device)
         self._specs = _pspec_fn(self.config)(self.mesh)
@@ -399,8 +418,9 @@ def MoETrainStep(config, optimizer: AdamW, mesh: Any = None,
                  aux_weight: float = 0.01,
                  device: DeviceLike = "cuda") -> TrainStep:
     """GPT-2-MoE's train step: a ``TrainStep`` with ``moe_lm_loss`` bound.
-    ``mesh``: experts over ``ep``, the batch over ``dp``
-    (``models.moe.check_mesh``)."""
+    ``mesh``: experts over ``ep`` and their FFN over ``tp``, attention's
+    heads over ``tp``, the batch over ``dp`` and ``sp``, a ``pp`` axis
+    replicated (``models.moe.mesh_forward``)."""
     return TrainStep(config, optimizer, mesh=mesh, device=device,
                      loss_fn=lambda p, ids: moe_lm_loss(p, ids, config,
                                                         aux_weight, mesh))

@@ -112,7 +112,8 @@ def test_port_imports_with_jax_blocked():
                  "parallel.distributed", "parallel.spmd",
                  "parallel.ppdecode", "utils.graftshard",
                  "ops.ring_attention", "parallel.gpipe",
-                 "parallel.pipeline_1f1b"):
+                 "parallel.pipeline_1f1b", "utils.subproc",
+                 "utils.backend_probe"):
         assert f"llm_sharding_demo_tpu_torch.{name}" in modules
     code = "; ".join([
         "import sys",

@@ -27,7 +27,7 @@ from llm_sharding_demo_tpu.models import llama as jllama
 from llm_sharding_demo_tpu.models import moe as jmoe
 from llm_sharding_demo_tpu.parallel import spmd as jspmd
 from llm_sharding_demo_tpu.training import train as jtrain
-from llm_sharding_demo_tpu_torch.models import moe
+from llm_sharding_demo_tpu_torch.models import gpt2, moe
 from llm_sharding_demo_tpu_torch.training import train
 from test_torch_llama import np_llama_params
 from test_torch_model import (gc_between_modules,  # noqa: F401
@@ -212,7 +212,7 @@ def test_unshard_params_inverts_shard_params(ranks, weights, family,
 
 
 class _Mesh:
-    """Axis names and sizes, all ``check_mesh`` reads."""
+    """Axis names and sizes, all a step's mesh checks read."""
 
     def __init__(self, **axes):
         self.mesh_dim_names = tuple(axes)
@@ -222,9 +222,19 @@ class _Mesh:
         return self._sizes[i]
 
 
-def test_moe_mesh_axes_refuse_beyond_dp_and_ep():
-    cfg = moe.MoEConfig(**DIMS["moe"])
-    for axes in (dict(dp=2, tp=2), dict(ep=2, sp=2)):
-        with pytest.raises(NotImplementedError, match="item 24"):
-            train.MoETrainStep(cfg, train.adamw(), mesh=_Mesh(**axes),
-                               device="cpu")
+def test_moe_tp_beyond_the_heads_refuses_like_dense():
+    """tp splits attention by whole heads: tp=4 at n_head=2 refuses for
+    GPT-2-MoE with the dense step's message (the JAX package's GSPMD
+    tiles the uneven split instead)."""
+    mesh = _Mesh(tp=4)
+    msgs = []
+    for family, make in (("gpt2", train.TrainStep),
+                         ("moe", train.MoETrainStep)):
+        cfg = (moe.MoEConfig if family == "moe" else gpt2.GPT2Config)(
+            **DIMS[family])
+        with pytest.raises(ValueError) as e:
+            make(cfg, train.adamw(), mesh=mesh, device="cpu")
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
+    assert msgs[0] == ("tp=4 must divide n_head=2: attention shards over "
+                       "whole heads")

@@ -485,7 +485,8 @@ def test_moe_train_steps_match_jax():
         np.testing.assert_allclose(got[path].numpy(), value, atol=1e-5,
                                    rtol=0, err_msg=str(path))
     # MoE does not stage: GPipe refuses it with the JAX package's message
-    # (its mesh training, dp x ep, is tests/test_torch_mesh_training.py)
+    # (its mesh training is in tests/test_torch_moe_mesh*.py and
+    # tests/test_torch_mesh_training.py)
     with pytest.raises(NotImplementedError) as jerr:
         jtrain.GPipeTrainStep(jcfg, jtrain.adamw(), mesh=None)
     with pytest.raises(NotImplementedError) as err:

@@ -126,12 +126,16 @@ def forward(family: str, cfg_kw: dict, np_params, ids, shape: dict):
 
 def train(family: str, cfg_kw: dict, np_params, ids, shape: dict,
           steps: int = 1, adamw_kw: Optional[dict] = None,
-          aux_weight: float = 0.01) -> dict:
+          aux_weight: float = 0.01, whole=()) -> dict:
     """The mesh step (``TrainStep``, ``LlamaTrainStep`` or
     ``MoETrainStep`` by family): its first loss, gradients (unsharded)
     and global norm, each rank's own gradient of the first norm scale (a
-    replicated leaf), the losses of ``steps`` steps and the parameters
-    after the first (unsharded; rank 0 returns the trees)."""
+    replicated leaf) and of each path in ``whole`` (``"whole"``), the
+    losses of ``steps`` steps and the parameters after the first
+    (unsharded; rank 0 returns the trees), and the expert choices that
+    capacity dropped in the first step's forward, of this rank's tokens
+    (``"dropped"``, 0 for a dense family)."""
+    from llm_sharding_demo_tpu_torch.models import moe
     from llm_sharding_demo_tpu_torch.parallel import distributed, spmd
     from llm_sharding_demo_tpu_torch.training import train as T
     config, params = _model(family, cfg_kw, np_params)
@@ -145,12 +149,17 @@ def train(family: str, cfg_kw: dict, np_params, ids, shape: dict,
     else:
         step = T.TrainStep(config, opt, mesh=mesh, device="cpu")
     p, s = step.init(params)
-    loss, grads = step.loss_and_grads(p, ids)
+    with moe.counting_drops() as drops:
+        loss, grads = step.loss_and_grads(p, ids)
     gtree = _tree(p, grads)
     ln = "ln_attn" if family == "llama" else "ln_1"
+    by_path = dict(T._flatten(gtree))
     out = {"coords": _coords(mesh), "loss0": float(loss),
            "norm": float(step.mesh_norm(p, grads)),
-           "ln_grad": gtree["blocks"][ln]["scale"].numpy().copy()}
+           "ln_grad": gtree["blocks"][ln]["scale"].numpy().copy(),
+           "whole": {tuple(path): by_path[tuple(path)].numpy().copy()
+                     for path in whole},
+           "dropped": int(sum(int(n) for n in drops))}
     full_grads = _np(spmd.unshard_params(gtree, mesh, step._specs))
     losses = []
     for i in range(steps):
